@@ -1,0 +1,122 @@
+"""The port's extraction slice on the CPU: the fused forward (plain versions of
+the kernels) against the JAX fused forward (kernel_version 7, interpret mode)
+and against flax `apply`; build_model + extract_embeddings on a ragged loader;
+extract_video_feature; and the package's independence from JAX."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.test_torch_vit import ATOL, RTOL, jax_params, port_model, tiny_inputs, tiny_vision
+from tvts_torch.eval.embed import extract_embeddings, make_embed_fns
+from tvts_torch.eval.feature_extraction import extract_video_feature
+from tvts_torch.ops.fused_forward import space_time_vit_fused_forward
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.mark.parametrize("pool", ["openai", "openclip"])
+def test_fused_forward_cls_only_matches_jax_fused_and_apply(pool):
+    from tvts_tpu.models.configs import VisionConfig as JaxVisionConfig
+    from tvts_tpu.ops.fused_forward import space_time_vit_fused_forward as jax_fused
+
+    kw = tiny_vision(pool)
+    module, params = jax_params(kw, seed=2)
+    video, keep = tiny_inputs(4)
+    want_apply, _ = module.apply({"params": params}, jnp.asarray(video), jnp.asarray(keep))
+    want_fused, _ = jax_fused(params, JaxVisionConfig(**kw), jnp.asarray(video),
+                              jnp.asarray(keep), dtype=jnp.float32, kernel_version=7,
+                              space_fpp=2, need_tokens=False, interpret=True)
+    with torch.no_grad():
+        got, tokens = space_time_vit_fused_forward(
+            port_model(kw, params), torch.from_numpy(video), torch.from_numpy(keep),
+            need_tokens=False)
+    assert tokens is None
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_fused), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_apply), atol=ATOL, rtol=RTOL)
+
+
+def test_fused_forward_tokens_match_apply():
+    kw = tiny_vision("openai")
+    module, params = jax_params(kw, seed=5)
+    video, keep = tiny_inputs(6)
+    want_p, want_t = module.apply({"params": params}, jnp.asarray(video), jnp.asarray(keep))
+    with torch.no_grad():
+        got_p, got_t = space_time_vit_fused_forward(
+            port_model(kw, params), torch.from_numpy(video), torch.from_numpy(keep))
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got_t.numpy(), np.asarray(want_t), atol=ATOL, rtol=RTOL)
+
+
+class _Loader:
+    def __init__(self, video, keep, batch_size):
+        self.video, self.keep, self.batch_size = video, keep, batch_size
+
+    def __iter__(self):
+        for i in range(0, len(self.video), self.batch_size):
+            yield {"video": self.video[i:i + self.batch_size],
+                   "keep_ind": self.keep[i:i + self.batch_size],
+                   "label": np.arange(i, min(i + self.batch_size, len(self.video))),
+                   "meta": [f"clip{j}" for j in range(i, min(i + self.batch_size,
+                                                              len(self.video)))]}
+
+
+@pytest.mark.parametrize("use_fused", [False, True])
+def test_build_model_extract_embeddings_ragged_loader(monkeypatch, use_fused):
+    from tvts_torch.models import configs
+    from tvts_torch.models.factory import build_model
+
+    cfg0 = configs.TVTSv2Config(name="tiny", vision=configs.VisionConfig(**tiny_vision()),
+                                text=configs.TextConfig(), sort=configs.SortConfig())
+    monkeypatch.setitem(configs.MODEL_REGISTRY, "tiny", lambda: cfg0)
+    cfg, model = build_model("tiny", seed=1)
+    with torch.no_grad():  # noise on every leaf: the time attention is zero at init
+        rng = np.random.default_rng(7)
+        for p in model.parameters():
+            p.add_(torch.from_numpy(0.02 * rng.standard_normal(p.shape).astype(np.float32)))
+    video, _ = tiny_inputs(8, batch=7)
+    keep = np.tile(np.arange(4, dtype=np.int32), (7, 1))
+    out = extract_embeddings(model, _Loader(video, keep, batch_size=3), use_fused=use_fused,
+                             kernel_version=7, space_fpp=3)
+    assert out["video"].shape == (7, cfg.vision.output_dim)
+    np.testing.assert_array_equal(out["labels"], np.arange(7))
+    assert out["metas"] == [f"clip{j}" for j in range(7)]
+    with torch.no_grad():
+        want, _ = model(torch.from_numpy(video), torch.from_numpy(keep))
+    np.testing.assert_allclose(out["video"], want.numpy(), atol=ATOL, rtol=RTOL)
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        extract_embeddings(model, _Loader(video, keep, 3), with_text=True)
+    with pytest.raises(TypeError):
+        make_embed_fns(model, use_fused=True, not_a_knob=1)
+
+
+def test_extract_video_feature_full_keep_set():
+    kw = tiny_vision("openai")
+    module, params = jax_params(kw, seed=9)
+    video, _ = tiny_inputs(10, batch=1)
+    want, _ = module.apply({"params": params}, jnp.asarray(video),
+                           jnp.arange(4, dtype=jnp.int32)[None])
+    got = extract_video_feature(port_model(kw, params), video, use_fused=True)
+    assert got.shape == (1, 48) and got.dtype == np.float32
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=RTOL)
+
+
+def test_tvts_torch_imports_no_jax():
+    """Every tvts_torch module imports without pulling in jax or tvts_tpu (a
+    subprocess: this test process already holds jax through conftest)."""
+    code = (
+        "import importlib, pkgutil, sys, tvts_torch\n"
+        "for m in pkgutil.walk_packages(tvts_torch.__path__, 'tvts_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'flax', 'tvts_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len([n for n in sys.modules if n.startswith('tvts_torch')]))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 14  # every module of the package was imported

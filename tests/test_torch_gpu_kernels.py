@@ -1,0 +1,102 @@
+"""The four Hopper sub-path kernels against their plain PyTorch versions, on the
+card in bf16, with chip_smoke.py's seeded inputs and band. Marked `gpu`: they
+skip where no CUDA device is present.
+
+Run on an H100 (tests/conftest.py imports jax, which the port does not need):
+    python -m pytest -m gpu --noconftest -p no:cacheprovider tests/test_torch_gpu_kernels.py -q
+
+Tolerance: max|diff| <= 0.05 * max(1, mean|ref| / 0.8), the band the Pallas
+kernels hold against XLA in bf16 (max|diff| 0.031-0.047 at mean|out| ~0.8).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import band_check, kernel_calls, seeded_inputs
+from tvts_torch.ops import block_kernels as bk
+
+pytestmark = pytest.mark.gpu
+
+# (B, T, N, D, H, act): B/16 extraction, B/32's N=49, H/14's width and head dim 80
+SHAPES = [(2, 12, 196, 768, 12, "quick_gelu"), (1, 12, 49, 768, 12, "quick_gelu"),
+          (1, 4, 256, 1280, 16, "gelu")]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("name", [fn.__name__ for fn in bk.KERNELS])
+def test_kernel_matches_plain(cuda, shape, name):
+    B, T, N, D, H, act = shape
+    kernel, plain = kernel_calls(bk, seeded_inputs(B, T, N, D, 0, cuda), T, H, act)[name]
+    before = getattr(bk, name).launches
+    got = kernel()
+    assert getattr(bk, name).launches == before + 1
+    torch.cuda.synchronize()
+    want = plain()
+    assert got.shape == want.shape
+    diff, ref, tol = band_check(got, want)
+    assert diff <= tol, (diff, ref)
+
+
+def test_mlp_kernel_other_activation(cuda):
+    B, T, N, D, H, _ = SHAPES[0]
+    kernel, plain = kernel_calls(bk, seeded_inputs(B, T, N, D, 1, cuda), T, H,
+                                 "gelu")["fused_mlp_block"]
+    diff, ref, tol = band_check(kernel(), plain())
+    assert diff <= tol, (diff, ref)
+
+
+def test_cls_only_kernel_is_row_zero_of_space_kernel(cuda):
+    B, T, N, D, H, act = SHAPES[0]
+    calls = kernel_calls(bk, seeded_inputs(B, T, N, D, 2, cuda), T, H, act)
+    full = calls["fused_space_block"][0]()
+    cls = calls["fused_space_cls_only"][0]()
+    diff, ref, tol = band_check(cls, full[:, :1])
+    assert diff <= tol, (diff, ref)
+
+
+def test_kernels_raise_on_what_they_do_not_take(cuda):
+    T = 4
+    a = seeded_inputs(1, T, 16, 256, 3, cuda)
+    w = (a["ln_w"], a["ln_b"], a["wqkv"], a["bqkv"], a["wproj"], a["bproj"])
+    with pytest.raises(ValueError, match="head dim"):
+        bk.fused_time_block(a["x"], *w, num_frames=T, num_heads=8)  # head dim 32
+    with pytest.raises(TypeError):
+        bk.fused_time_block(a["x"].float(), *w, num_frames=T, num_heads=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        strided = a["x"].transpose(1, 2).contiguous().transpose(1, 2)  # same shape
+        bk.fused_time_block(strided, *w, num_frames=T, num_heads=4)
+
+
+def test_fused_forward_matches_eager_on_card(cuda):
+    from tvts_torch.models.configs import VisionConfig
+    from tvts_torch.models.factory import cast_tower_
+    from tvts_torch.models.space_time_vit import SpaceTimeViT
+    from tvts_torch.ops.fused_forward import space_time_vit_fused_forward
+
+    cfg = VisionConfig(input_resolution=64, patch_size=16, width=128, layers=2, heads=2,
+                       output_dim=64, num_frames=4, mask_ratio=0.0)
+    model = SpaceTimeViT(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(6)
+    with torch.no_grad():  # noise on every leaf: the time attention is zero at init
+        for p in model.parameters():
+            p.add_(torch.from_numpy(0.02 * rng.standard_normal(p.shape).astype(np.float32)))
+    model = cast_tower_(model, torch.bfloat16).to(cuda)
+    video = torch.tensor(rng.standard_normal((3, 4, 3, 64, 64)), dtype=torch.float32,
+                         device=cuda)
+    with torch.no_grad():
+        want, _ = model(video)
+        got, tokens = space_time_vit_fused_forward(model, video, need_tokens=False)
+        full, _ = space_time_vit_fused_forward(model, video)
+    assert tokens is None
+    for out in (got, full):
+        cos = torch.nn.functional.cosine_similarity(out.float(), want.float(), dim=-1)
+        assert cos.min().item() >= 0.999, cos

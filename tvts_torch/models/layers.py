@@ -1,0 +1,131 @@
+"""Shared building blocks (counterpart of tvts_tpu/models/layers.py).
+
+Numerics contracts, as in the JAX package:
+- `LayerNormF32` computes LayerNorm in float32 and casts back to the input
+  dtype; its parameters stay float32 whatever the tower's dtype.
+- `quick_gelu` is x * sigmoid(1.702 x); "gelu" is the exact erf form.
+- `VarAttention` is the qkv/proj pair around divided space-time attention;
+  `zero_init=True` is the time-attention init (qkv zeros, proj weight ones).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tvts_torch.ops.attention import divided_space_time_attention, merge_heads, split_heads
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    if name == "quick_gelu":
+        return quick_gelu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="none")
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """Flax's default kernel init: truncated normal with variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978  # truncation correction
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
+class LayerNormF32(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def reset_parameters(self) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm_f32(x, self.weight, self.bias, self.eps)
+
+
+def layer_norm_f32(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps) * weight.float() + bias.float()
+    return y.to(x.dtype)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """x @ weight.T + bias in x's dtype (weight in the nn.Linear [out, in] layout)."""
+    return F.linear(x, weight.to(x.dtype), bias.to(x.dtype))
+
+
+def mlp(x: torch.Tensor, wfc: torch.Tensor, bfc: torch.Tensor, wproj: torch.Tensor,
+        bproj: torch.Tensor, act: str) -> torch.Tensor:
+    return linear(get_activation(act)(linear(x, wfc, bfc)), wproj, bproj)
+
+
+def var_attention(x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor,
+                  wproj: torch.Tensor, bproj: torch.Tensor, num_frames: int,
+                  patches_per_frame: int, mode: str, num_heads: int) -> torch.Tensor:
+    """proj(divided attention(qkv(x))) on x [B, S, D]."""
+    d = x.shape[-1] // num_heads
+    q, k, v = linear(x, wqkv, bqkv).chunk(3, dim=-1)
+    q = split_heads(q * d ** -0.5, num_heads)
+    k = split_heads(k, num_heads)
+    v = split_heads(v, num_heads)
+    out = divided_space_time_attention(q, k, v, num_frames, patches_per_frame, mode)
+    return linear(merge_heads(out), wproj, bproj)
+
+
+class Mlp(nn.Module):
+    """c_fc -> act -> c_proj (CLIP block MLP, hidden = width * mlp_ratio)."""
+
+    def __init__(self, dim: int, hidden_dim: int, act: str = "quick_gelu"):
+        super().__init__()
+        self.act = act
+        self.c_fc = nn.Linear(dim, hidden_dim)
+        self.c_proj = nn.Linear(hidden_dim, dim)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for layer in (self.c_fc, self.c_proj):
+            lecun_normal_(layer.weight, layer.in_features, generator)
+            nn.init.zeros_(layer.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return mlp(x, self.c_fc.weight, self.c_fc.bias, self.c_proj.weight,
+                   self.c_proj.bias, self.act)
+
+
+class VarAttention(nn.Module):
+    """Divided space/time attention with the CLS row global (ops/attention.py)."""
+
+    def __init__(self, dim: int, num_heads: int, zero_init: bool = False):
+        super().__init__()
+        self.num_heads = num_heads
+        self.zero_init = zero_init
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        if self.zero_init:
+            nn.init.zeros_(self.qkv.weight)
+            nn.init.ones_(self.proj.weight)
+        else:
+            lecun_normal_(self.qkv.weight, self.qkv.in_features, generator)
+            lecun_normal_(self.proj.weight, self.proj.in_features, generator)
+        nn.init.zeros_(self.qkv.bias)
+        nn.init.zeros_(self.proj.bias)
+
+    def forward(self, x: torch.Tensor, num_frames: int, patches_per_frame: int,
+                mode: str) -> torch.Tensor:
+        return var_attention(x, self.qkv.weight, self.qkv.bias, self.proj.weight,
+                             self.proj.bias, num_frames, patches_per_frame, mode,
+                             self.num_heads)
