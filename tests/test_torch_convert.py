@@ -1,12 +1,14 @@
 """Weights carried from the JAX package into tvts_torch: `state_dict_from_jax`
 equals `export_state_dict(params, ddp_prefix=False)` key for key and value for
-value, the port's tower loads it strictly, and a reference `.pth` loads
-through `build_model`."""
+value, the port's tower loads it strictly, and a reference `.pth` of a full
+TVTSv2 tree loads through `build_model` (strictly: a video-only one is
+refused)."""
 
 import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_text import jax_tvts, tiny_text
 from tests.test_torch_vit import jax_params, port_model, tiny_vision
 from tvts_torch.models import configs
 from tvts_torch.models.factory import build_model
@@ -41,7 +43,8 @@ def test_port_tower_loads_strictly_with_reference_names():
 
 def _tiny_registry(monkeypatch, pool="openai"):
     cfg = configs.TVTSv2Config(name="tiny", vision=configs.VisionConfig(**tiny_vision(pool)),
-                               text=configs.TextConfig(), sort=configs.SortConfig())
+                               text=configs.TextConfig(**tiny_text()),
+                               sort=configs.SortConfig(embed_dim=48, num_heads=4))
     monkeypatch.setitem(configs.MODEL_REGISTRY, "tiny", lambda: cfg)
 
 
@@ -49,15 +52,21 @@ def test_build_model_loads_reference_pth(monkeypatch, tmp_path):
     from tvts_tpu.utils.torch_convert import save_reference_checkpoint
 
     _tiny_registry(monkeypatch)
-    _, params = jax_params(tiny_vision())
+    _, params, _ = jax_tvts()
     path = str(tmp_path / "tiny.pth")
-    save_reference_checkpoint({"video_model": params}, path, arch="tiny")
+    save_reference_checkpoint(params, path, arch="tiny")
     sd = load_reference_state_dict(path)  # `module.` stripped
-    assert set(sd) == {f"video_model.{k}" for k in state_dict_from_jax(params)}
+    want = state_dict_from_jax(params)
+    assert set(sd) == set(want)
     cfg, model = build_model("tiny", load_checkpoint=path)
     assert cfg.vision.mask_ratio == 0.0 and not model.training
-    for key, value in state_dict_from_jax(params).items():
-        np.testing.assert_array_equal(model.state_dict()[key].numpy(), value, err_msg=key)
+    for key, value in want.items():
+        if not key.startswith("pred_model."):  # the sort head waits for slice 3
+            np.testing.assert_array_equal(model.state_dict()[key].numpy(), value, err_msg=key)
+    video_only = str(tmp_path / "video_only.pth")
+    save_reference_checkpoint({"video_model": params["video_model"]}, video_only, arch="tiny")
+    with pytest.raises(RuntimeError, match="text_token_embedding"):
+        build_model("tiny", load_checkpoint=video_only)
 
 
 def test_build_model_seeded_init_and_dtype(monkeypatch):
@@ -67,9 +76,14 @@ def test_build_model_seeded_init_and_dtype(monkeypatch):
     _, c = build_model("tiny", seed=4, dtype=torch.bfloat16)
     for (name, pa), pb in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(pa, pb), name
-    assert not torch.equal(a.proj, c.proj.float())
-    blk = c.transformer.resblocks[0]
+    assert not torch.equal(a.video_model.proj, c.video_model.proj.float())
+    assert not torch.equal(a.text_projection, c.text_projection.float())
+    blk = c.video_model.transformer.resblocks[0]
     # the reference time-attention init, and f32 LayerNorms inside a bf16 tower
     assert not blk.timeattn.qkv.weight.any() and bool((blk.timeattn.proj.weight == 1).all())
     assert blk.attn.qkv.weight.dtype == torch.bfloat16
-    assert blk.ln_3.weight.dtype == c.ln_pre.weight.dtype == torch.float32
+    assert blk.ln_3.weight.dtype == c.video_model.ln_pre.weight.dtype == torch.float32
+    text_blk = c.text_model.resblocks[0]
+    assert text_blk.attn.in_proj_weight.dtype == c.text_token_embedding.weight.dtype \
+        == torch.bfloat16
+    assert text_blk.ln_1.weight.dtype == c.text_ln_final.weight.dtype == torch.float32

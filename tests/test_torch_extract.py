@@ -1,7 +1,8 @@
 """The port's extraction slice on the CPU: the fused forward (plain versions of
 the kernels) against the JAX fused forward (kernel_version 7, interpret mode)
 and against flax `apply`; build_model + extract_embeddings on a ragged loader;
-extract_video_feature; and the package's independence from JAX."""
+extract_video_feature; and the package's independence from JAX, `regex` and
+`pandas`."""
 
 import subprocess
 import sys
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_text import jax_tvts, port_tvts, tiny_text
 from tests.test_torch_vit import ATOL, RTOL, jax_params, port_model, tiny_inputs, tiny_vision
 from tvts_torch.eval.embed import extract_embeddings, make_embed_fns
 from tvts_torch.eval.feature_extraction import extract_video_feature
@@ -72,7 +74,8 @@ def test_build_model_extract_embeddings_ragged_loader(monkeypatch, use_fused):
     from tvts_torch.models.factory import build_model
 
     cfg0 = configs.TVTSv2Config(name="tiny", vision=configs.VisionConfig(**tiny_vision()),
-                                text=configs.TextConfig(), sort=configs.SortConfig())
+                                text=configs.TextConfig(**tiny_text()),
+                                sort=configs.SortConfig(embed_dim=48, num_heads=4))
     monkeypatch.setitem(configs.MODEL_REGISTRY, "tiny", lambda: cfg0)
     cfg, model = build_model("tiny", seed=1)
     with torch.no_grad():  # noise on every leaf: the time attention is zero at init
@@ -87,36 +90,37 @@ def test_build_model_extract_embeddings_ragged_loader(monkeypatch, use_fused):
     np.testing.assert_array_equal(out["labels"], np.arange(7))
     assert out["metas"] == [f"clip{j}" for j in range(7)]
     with torch.no_grad():
-        want, _ = model(torch.from_numpy(video), torch.from_numpy(keep))
+        want, _ = model.compute_video(torch.from_numpy(video), torch.from_numpy(keep))
     np.testing.assert_allclose(out["video"], want.numpy(), atol=ATOL, rtol=RTOL)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        extract_embeddings(model, _Loader(video, keep, 3), with_text=True)
+    assert "text" not in out  # the batches carry no captions
     with pytest.raises(TypeError):
         make_embed_fns(model, use_fused=True, not_a_knob=1)
 
 
 def test_extract_video_feature_full_keep_set():
-    kw = tiny_vision("openai")
-    module, params = jax_params(kw, seed=9)
+    model, params, _ = jax_tvts()
     video, _ = tiny_inputs(10, batch=1)
-    want, _ = module.apply({"params": params}, jnp.asarray(video),
-                           jnp.arange(4, dtype=jnp.int32)[None])
-    got = extract_video_feature(port_model(kw, params), video, use_fused=True)
+    want, _ = model.apply({"params": params}, jnp.asarray(video),
+                          jnp.arange(4, dtype=jnp.int32)[None],
+                          method=lambda m, v, k: m.compute_video(v, k))
+    got = extract_video_feature(port_tvts(params), video, use_fused=True)
     assert got.shape == (1, 48) and got.dtype == np.float32
     np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=RTOL)
 
 
 def test_tvts_torch_imports_no_jax():
-    """Every tvts_torch module imports without pulling in jax or tvts_tpu (a
-    subprocess: this test process already holds jax through conftest)."""
+    """Every tvts_torch module imports without pulling in jax, flax, tvts_tpu,
+    regex or pandas, none of which the card's machine has (a subprocess: this
+    test process already holds jax through conftest)."""
     code = (
         "import importlib, pkgutil, sys, tvts_torch\n"
         "for m in pkgutil.walk_packages(tvts_torch.__path__, 'tvts_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'flax', 'tvts_tpu'))\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] "
+        "       in ('jax', 'flax', 'tvts_tpu', 'regex', 'pandas'))\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('tvts_torch')]))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 14  # every module of the package was imported
+    assert int(proc.stdout.strip()) >= 26  # every module of the package was imported

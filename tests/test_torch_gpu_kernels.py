@@ -1,6 +1,7 @@
-"""The four Hopper sub-path kernels against their plain PyTorch versions, on the
-card in bf16, with chip_smoke.py's seeded inputs and band. Marked `gpu`: they
-skip where no CUDA device is present.
+"""The Hopper kernels (H1-H4 sub-paths of the video tower, H7 text attention)
+against their plain PyTorch versions, on the card in bf16, with chip_smoke.py's
+seeded inputs and band. Marked `gpu`: they skip where no CUDA device is
+present.
 
 Run on an H100 (tests/conftest.py imports jax, which the port does not need):
     python -m pytest -m gpu --noconftest -p no:cacheprovider tests/test_torch_gpu_kernels.py -q
@@ -13,8 +14,16 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import band_check, kernel_calls, seeded_inputs
+from chip_smoke import (
+    TEXT_SHAPES,
+    band_check,
+    kernel_calls,
+    seeded_inputs,
+    text_calls,
+    text_inputs,
+)
 from tvts_torch.ops import block_kernels as bk
+from tvts_torch.ops import text_attention as ta
 
 pytestmark = pytest.mark.gpu
 
@@ -100,3 +109,53 @@ def test_fused_forward_matches_eager_on_card(cuda):
     for out in (got, full):
         cos = torch.nn.functional.cosine_similarity(out.float(), want.float(), dim=-1)
         assert cos.min().item() >= 0.999, cos
+
+
+@pytest.mark.parametrize("label", list(TEXT_SHAPES))
+def test_text_kernel_matches_plain(cuda, label):
+    B, S, D, H, causal, eps = TEXT_SHAPES[label]
+    kernel, plain = text_calls(ta, text_inputs(B, S, D, 0, cuda), H, causal, eps)
+    before = ta.fused_text_attention_block.launches
+    got = kernel()
+    assert ta.fused_text_attention_block.launches == before + 1
+    torch.cuda.synchronize()
+    want = plain()
+    assert got.shape == want.shape
+    diff, ref, tol = band_check(got, want)
+    assert diff <= tol, (diff, ref)
+
+
+def test_text_kernel_is_causal_and_takes_head_dim_64_only(cuda):
+    B, S, D, H, _, eps = TEXT_SHAPES["B/16 text"]
+    a = text_inputs(B, S, D, 1, cuda)
+    out = text_calls(ta, a, H, True, eps)[0]()
+    a["x"][:, 40:] = 0  # rows after 39 must not reach rows up to 39
+    cut = text_calls(ta, a, H, True, eps)[0]()
+    assert torch.equal(out[:, :40], cut[:, :40])
+    w = (a["ln_w"], a["ln_b"], a["wqkv"], a["bqkv"], a["wproj"], a["bproj"])
+    with pytest.raises(ValueError, match="head dim 64"):
+        ta.fused_text_attention_block(a["x"], *w, num_heads=4)  # head dim 128
+    with pytest.raises(TypeError):
+        ta.fused_text_attention_block(a["x"].float(), *w, num_heads=H)
+
+
+def test_text_fused_forward_matches_eager_on_card(cuda):
+    from tvts_torch.models.configs import TextConfig
+    from tvts_torch.models.factory import cast_tower_
+    from tvts_torch.models.text import TextTransformer
+    from tvts_torch.ops.text_attention import text_transformer_fused_forward
+
+    model = TextTransformer(TextConfig(width=128, layers=3, heads=2, output_dim=64))
+    model.reset_text_parameters(torch.Generator().manual_seed(0))
+    model = cast_tower_(model, torch.bfloat16).to(cuda)
+    rng = np.random.default_rng(7)
+    ids = np.zeros((5, 77), np.int64)
+    for row, n in enumerate((3, 10, 40, 76, 77)):
+        ids[row, :n] = rng.integers(1, 49000, n)
+        ids[row, n - 1] = 49407  # EOT, the largest id
+    ids = torch.from_numpy(ids).to(cuda)
+    with torch.no_grad():
+        want = model.compute_text(ids)
+        got = text_transformer_fused_forward(model, ids)
+    cos = torch.nn.functional.cosine_similarity(got.float(), want.float(), dim=-1)
+    assert cos.min().item() >= 0.999, cos

@@ -1,5 +1,7 @@
-"""PyTorch + CUDA port of tvts_tpu (TVTSv2 video tower, B/16 feature extraction).
+"""PyTorch + CUDA port of tvts_tpu (TVTSv2 towers: feature extraction and
+zero-shot retrieval, recognition and SSV2 multiple choice).
 
 Module names mirror `tvts_tpu`, so each file's counterpart is found by path.
-The package imports torch and numpy only, never JAX or `tvts_tpu`.
+The package imports torch, numpy and scipy only, never JAX, `tvts_tpu`,
+`regex` or `pandas`.
 """

@@ -4,6 +4,7 @@
 // synchronise, and returns cudaGetLastError() after its launches.
 #include "attention.cuh"
 #include "ln_gemm.cuh"
+#include "text_attention.cuh"
 
 using tvts::bf16;
 using tvts::i64;
@@ -110,6 +111,17 @@ int tvts_cls_attention(const void* q, i64 q_bstride, const void* k, const void* 
   else
     tvts::cls_combine_kernel<80><<<dim3(H, B), 80, 0, s>>>((const float*)partial, nC, H,
                                                           (bf16*)out, out_bstride);
+  return (int)cudaGetLastError();
+}
+
+// Self-attention of out [B, S, H*dh] from qkv [B, S, 3*H*dh] (H7 core), causal
+// or not; q is scaled by `scale` (and rounded to bf16) before the products.
+int tvts_text_core(const void* qkv, void* out, int B, int S, int H, int dh, float scale,
+                   int causal, void* stream) {
+  if (dh != 64 || S < 1) return (int)cudaErrorInvalidValue;
+  dim3 grid((S + tvts::TX_BQ - 1) / tvts::TX_BQ, H, B);
+  tvts::text_core_kernel<64><<<grid, 128, 0, (cudaStream_t)stream>>>(
+      (const bf16*)qkv, (bf16*)out, S, H, scale, causal);
   return (int)cudaGetLastError();
 }
 

@@ -14,8 +14,9 @@ from tvts_torch.eval.embed import make_embed_fns
 
 
 def extract_video_feature(model, clip, use_fused: bool = False) -> np.ndarray:
-    """[1, out] float32 embedding of one clip, full keep set arange(N)."""
-    cfg = model.cfg
+    """[1, out] float32 embedding of one clip through a TVTSv2's video tower,
+    full keep set arange(N)."""
+    cfg = model.cfg.vision
     device = next(model.parameters()).device
     clip = torch.as_tensor(clip, dtype=torch.float32, device=device)
     keep = torch.arange(cfg.patches_per_frame, device=device)[None]

@@ -6,6 +6,9 @@ Numerics contracts, as in the JAX package:
 - `quick_gelu` is x * sigmoid(1.702 x); "gelu" is the exact erf form.
 - `VarAttention` is the qkv/proj pair around divided space-time attention;
   `zero_init=True` is the time-attention init (qkv zeros, proj weight ones).
+- `SelfAttention` is plain multi-head attention (text tower), optionally
+  causal: masked logits are filled with finfo(float32).min and the softmax
+  runs in float32.
 """
 
 from __future__ import annotations
@@ -17,7 +20,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tvts_torch.ops.attention import divided_space_time_attention, merge_heads, split_heads
+from tvts_torch.ops.attention import (
+    divided_space_time_attention,
+    full_attention,
+    merge_heads,
+    split_heads,
+)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -129,3 +137,52 @@ class VarAttention(nn.Module):
         return var_attention(x, self.qkv.weight, self.qkv.bias, self.proj.weight,
                              self.proj.bias, num_frames, patches_per_frame, mode,
                              self.num_heads)
+
+
+def self_attention(x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor,
+                   wproj: torch.Tensor, bproj: torch.Tensor, num_heads: int,
+                   causal: bool = False, q_tail: int | None = None) -> torch.Tensor:
+    """proj(softmax(q k^T / sqrt(d)) v) on x [B, S, D]. q_tail=k computes the
+    outputs of the last k query rows only (k/v still span every row)."""
+    d = x.shape[-1] // num_heads
+    q, k, v = linear(x, wqkv, bqkv).chunk(3, dim=-1)
+    if q_tail is not None:
+        if causal:
+            raise ValueError("q_tail is for full (non-causal) attention")
+        q = q[:, -q_tail:]
+    q = split_heads(q * d ** -0.5, num_heads)
+    k = split_heads(k, num_heads)
+    v = split_heads(v, num_heads)
+    if causal:
+        S = x.shape[1]
+        keep = torch.ones(S, S, dtype=torch.bool, device=x.device).tril()
+        logits = (q @ k.transpose(-1, -2)).float().masked_fill(
+            ~keep, torch.finfo(torch.float32).min)
+        out = torch.softmax(logits, dim=-1).to(x.dtype) @ v
+    else:
+        out = full_attention(q, k, v)
+    return linear(merge_heads(out), wproj, bproj)
+
+
+class SelfAttention(nn.Module):
+    """Multi-head self-attention under the reference (nn.MultiheadAttention)
+    names: fused in_proj_weight [3D, D] / in_proj_bias, then out_proj."""
+
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * dim))
+        self.out_proj = nn.Linear(dim, dim)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        lecun_normal_(self.in_proj_weight, self.in_proj_weight.shape[1], generator)
+        lecun_normal_(self.out_proj.weight, self.out_proj.in_features, generator)
+        nn.init.zeros_(self.in_proj_bias)
+        nn.init.zeros_(self.out_proj.bias)
+
+    def forward(self, x: torch.Tensor, causal: bool = False,
+                q_tail: int | None = None) -> torch.Tensor:
+        return self_attention(x, self.in_proj_weight, self.in_proj_bias,
+                              self.out_proj.weight, self.out_proj.bias, self.num_heads,
+                              causal, q_tail)

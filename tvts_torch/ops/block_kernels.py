@@ -1,6 +1,7 @@
 """The four sub-path kernels of the B/16 extraction tower, hand-written in CUDA
 C++ for Hopper (sources in tvts_torch/csrc/), each beside its plain PyTorch
-version.
+version; and the build and load of the one kernel library, which also carries
+the text-attention kernel of ops/text_attention.py.
 
 Layout: tokens [B, S, D] with S = 1 + T*N, CLS first, frame-major patches
 (the JAX kernels' d-major xT is ``x[:, 1:].reshape(B, T, N, D).swapaxes(-1,
@@ -109,8 +110,9 @@ def library() -> ctypes.CDLL:
     lib.tvts_time_core.argtypes = [p, p, i, i, i, i, i, f, p]
     lib.tvts_space_core.argtypes = [p, p, i, i, i, i, i, f, p]
     lib.tvts_cls_attention.argtypes = [p, i64, p, p, i64, i64, i, p, i64, p, i, i, i, f, p]
+    lib.tvts_text_core.argtypes = [p, p, i, i, i, i, f, i, p]
     for fn in (lib.tvts_ln_gemm, lib.tvts_time_core, lib.tvts_space_core,
-               lib.tvts_cls_attention):
+               lib.tvts_cls_attention, lib.tvts_text_core):
         fn.restype = i
     return lib
 
@@ -125,12 +127,14 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def _ln_gemm(lib, x, rows, lda, ln, w, b, out, act="none", res=None, ldres=0):
-    """out = act(LN?(x rows at stride lda) @ w.T + b) (+ res), on the card."""
+def _ln_gemm(lib, x, rows, lda, ln, w, b, out, act="none", res=None, ldres=0,
+             eps=LN_EPS):
+    """out = act(LN?(x rows at stride lda) @ w.T + b) (+ res), on the card;
+    `eps` is the LayerNorm's (1e-5 in the towers, 1e-6 in the sort head)."""
     stats = torch.empty(rows, 2, dtype=torch.float32, device=x.device) if ln else None
     ln_w, ln_b = ln if ln else (None, None)
     _check(lib, lib.tvts_ln_gemm(
-        _ptr(x), lda, _ptr(ln_w), _ptr(ln_b), LN_EPS, _ptr(stats), _ptr(w), _ptr(b),
+        _ptr(x), lda, _ptr(ln_w), _ptr(ln_b), eps, _ptr(stats), _ptr(w), _ptr(b),
         _ptr(res), ldres, _ptr(out), out.shape[-1], rows, w.shape[0], w.shape[1],
         ACTS[act], torch.cuda.current_stream(x.device).cuda_stream))
 

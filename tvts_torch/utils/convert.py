@@ -1,13 +1,18 @@
 """Weights carried across from the JAX package, and reference `.pth` reading.
 
 `state_dict_from_jax` turns the JAX package's nested parameter tree (numpy
-leaves) into a state dict under the reference names, the same names and
+leaves) into a state dict under the reference names: the same names and
 values `tvts_tpu.utils.torch_convert.export_state_dict(params,
-ddp_prefix=False)` writes for the video tower:
+ddp_prefix=False)` writes for a full TVTSv2 tree (or a bare video tower):
 - 2-D kernels are transposed ([in, out] -> [out, in]);
 - the patchify conv kernel [kh, kw, in, out] -> [out, in, kh, kw];
-- LayerNorm `scale` -> `weight`;
-- `blocks_{i}` -> `transformer.resblocks.{i}`.
+- LayerNorm `scale` and embedding `embedding` -> `weight`;
+- direct parameters (`text_projection`, `proj`, the embeddings) keep their
+  layout: `text_projection` and `proj` stay [in, out];
+- the renames of `_RENAMES`: the text tower to its top-level reference names
+  with nn.MultiheadAttention's in_proj/out_proj, the sort head's blocks and
+  fc1/fc2, and `blocks_{i}` -> `transformer.resblocks.{i}` for the video
+  tower.
 numpy only: no JAX and no `tvts_tpu` import.
 """
 
@@ -19,7 +24,21 @@ from typing import Mapping
 import numpy as np
 import torch
 
-_BLOCKS = re.compile(r"(^|\.)blocks_(\d+)\.")
+# applied in order to each dotted name
+_RENAMES = tuple((re.compile(p), r) for p, r in (
+    (r"^text_model\.token_embedding\.weight$", "text_token_embedding.weight"),
+    (r"^text_model\.positional_embedding$", "text_positional_embedding"),
+    (r"^text_model\.ln_final\.", "text_ln_final."),
+    (r"^text_model\.text_projection$", "text_projection"),
+    (r"^text_model\.blocks_(\d+)\.", r"text_model.resblocks.\1."),
+    (r"^(text_model\..*)\.attn\.qkv\.weight$", r"\1.attn.in_proj_weight"),
+    (r"^(text_model\..*)\.attn\.qkv\.bias$", r"\1.attn.in_proj_bias"),
+    (r"^(text_model\..*)\.attn\.proj\.", r"\1.attn.out_proj."),
+    (r"^pred_model\.blocks_(\d+)\.", r"pred_model.blocks.\1."),
+    (r"^(pred_model\..*)\.mlp\.c_fc\.", r"\1.mlp.fc1."),
+    (r"^(pred_model\..*)\.mlp\.c_proj\.", r"\1.mlp.fc2."),
+    (r"(^|\.)blocks_(\d+)\.", r"\1transformer.resblocks.\2."),  # video tower
+))
 
 
 def _flatten(tree: Mapping, prefix: tuple[str, ...] = ()):
@@ -31,7 +50,7 @@ def _flatten(tree: Mapping, prefix: tuple[str, ...] = ()):
 
 
 def state_dict_from_jax(params: Mapping) -> dict[str, np.ndarray]:
-    """JAX video-tower parameter tree (optionally under `video_model`) ->
+    """JAX parameter tree (a full TVTSv2 tree, or the video tower's own) ->
     reference-named state dict of float32 numpy arrays."""
     out: dict[str, np.ndarray] = {}
     for path, arr in _flatten(params):
@@ -45,11 +64,13 @@ def state_dict_from_jax(params: Mapping) -> dict[str, np.ndarray]:
             else:
                 raise ValueError(f"unhandled kernel shape {arr.shape} at {path}")
             name = ".".join(path[:-1]) + ".weight"
-        elif leaf == "scale":
+        elif leaf in ("scale", "embedding"):
             name = ".".join(path[:-1]) + ".weight"
-        else:  # bias and the direct parameters keep their names
+        else:  # bias and the direct parameters keep their names and layout
             name = ".".join(path)
-        out[_BLOCKS.sub(r"\1transformer.resblocks.\2.", name)] = np.ascontiguousarray(arr)
+        for pattern, repl in _RENAMES:
+            name = pattern.sub(repl, name)
+        out[name] = np.ascontiguousarray(arr)
     return out
 
 
