@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main paths -- TVTSv2 B/16 video feature
-extraction and zero-shot eval (retrieval, prompt recognition, SSV2 multiple
-choice) through the hand-written Hopper kernels -- on one CUDA card.
+extraction, zero-shot eval (retrieval, prompt recognition, SSV2 multiple
+choice) and the B/16 pretraining step (forward, backward, AdamW) through the
+hand-written Hopper kernels -- on one CUDA card.
 
     python3 chip_smoke.py
 
-Phases (each prints its own lines; any failure raises and exits non-zero):
+Phases (each prints its own lines; any failure raises and exits non-zero; they
+run in the order 1-5, 7, 6):
 1. refuse to run without CUDA; print the card's name and power limit;
 2. build the kernels from tvts_torch/csrc with nvcc (sm_90a); print the build
    seconds and the -Xptxas -v register / shared-memory lines;
@@ -13,7 +15,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    on the card: H1-H4 at the B/16 shape (B=2), at N=49 (B/32) and at D=1280,
    H=16 (head dim 80); H7 (text attention) at the B/16 text shape (B=8, S=77,
    D=512, causal), the H/14 text shape (B=4, S=77, D=1024, H=16) and the sort
-   head shape (B=2, S=1181, D=512, non-causal, LN eps 1e-6);
+   head shape (B=2, S=1181, D=512, non-causal, LN eps 1e-6); the backwards of
+   H6 (time) and H5 (space) at the B/16 train shape (B=2, N=98) and at D=1280,
+   H=16 (N=76), and of H7 at the text shape (causal, frozen and not) and the
+   sort shape, each gradient tensor within 0.06 * max|ref| of the plain
+   backward;
 4. extraction main path: build_model("TVTSv2_B_16") with seeded weights (noise
    on every leaf of both towers), extract_embeddings over 3 batches of 8
    synthetic clips (the last ragged) through the kernels; launch counts
@@ -25,10 +31,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    forward; per-caption text cosine against the eager tower in bf16 and f32;
    t2v / v2t metrics of the kernel and eager paths and the max |diff| of
    their similarity matrices;
+7. train main path: build_model("TVTSv2_B_16", eval_mode=False) with f32
+   masters, bf16 compute and seeded noise on every leaf, the optimizer of
+   tools/train_bench.py (blocks 0-8 of the text tower frozen), a B=8 batch of
+   synthetic clips, 32 clip-major captions, random keep sets and labels; at
+   step 0 the kernel path against the eager path (|dloss| < 2e-2, worst
+   relative gradient error < 0.12 over tensors with max|g| > 1e-2 * global,
+   the gate of tools/train_grad_check.py); three optimizer steps on the
+   kernels with finite losses, frozen blocks unchanged bit for bit, every
+   trainable tensor moved, and per step 12 H6 and 12 H5 forwards and
+   backwards, 12 H7 forwards (11 text, 1 sort) and 12 H7 backwards (9 frozen);
+   H1-H4 not called;
 6. times with CUDA events after warm-up: clips/s at B=64 and captions/s at
-   B=256 (kernels, eager), each kernel against its plain version.
-The line before the last is {"kernels": [...]}; the last is
-{"ok": true, "device": {...}}.
+   B=256 (kernels, eager), each kernel against its plain version; the train
+   step at B=20 (ms, clips/s, peak memory; kernels, eager), each backward
+   kernel against its plain backward at the B=20 shapes, and the device-time
+   breakdown of one kernel-path train step from torch.profiler.
+The line before the last is {"kernels": [...]}, each with its bound (the
+larger of its bytes over 3.35 TB/s and its flops over 989 TFLOP/s, from the
+shapes timed); the last is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -51,8 +72,20 @@ REPLACES = {
     "fused_mlp_block": "tvts_tpu/ops/pallas_block_attention.py:2604",
     "fused_space_cls_only": "tvts_tpu/ops/pallas_block_attention.py:3339",
     "fused_text_attention_block": "tvts_tpu/ops/pallas_text_attention.py:102",
+    "time_subpath_backward": "tvts_tpu/ops/pallas_block_backward.py:736",
+    "space_subpath_backward": "tvts_tpu/ops/pallas_block_backward.py:3106",
+    "text_subpath_backward": "tvts_tpu/ops/pallas_text_attention.py:264",
 }
 SOURCE = "tvts_torch/csrc/block_kernels.cu"
+PEAK_FLOPS, HBM_BYTES_S = 989e12, 3.35e12  # H100 SXM: dense bf16, HBM3
+# the TPU's measured real-shape gradient band (5.8e-2, PERF.md before the port)
+GRAD_BAND = 0.06
+# H5 / H6 backward parity shapes: (B, T, N, D, H)
+BWD_SHAPES = {"B/16 train": (2, 12, 98, 768, 12), "D=1280 H=16": (1, 12, 76, 1280, 16)}
+# H7 backward parity shapes: (B, S, D, H, causal, LN eps, frozen)
+TEXT_BWD_SHAPES = {"text": (8, 77, 512, 8, True, 1e-5, False),
+                   "text frozen": (8, 77, 512, 8, True, 1e-5, True),
+                   "sort head": (2, 1181, 512, 8, False, 1e-6, False)}
 # H7 parity shapes: (B, S, D, H, causal, LN eps)
 TEXT_SHAPES = {"B/16 text": (8, 77, 512, 8, True, 1e-5),
                "H/14 text": (4, 77, 1024, 16, True, 1e-5),
@@ -119,6 +152,104 @@ def text_calls(ta, a, H, causal, eps):
             lambda: ta.text_attention_block_plain(a["x"], *w, H, causal, eps))
 
 
+def backward_calls(bb, a, g, T, H):
+    """name -> (kernel backward, plain backward) of H6 and H5 on the inputs
+    `a` and the output gradient g: tuples of gradients in argument order."""
+    w = (a["ln_w"], a["ln_b"], a["wqkv"], a["bqkv"], a["wproj"], a["bproj"])
+    return {
+        "time_subpath_backward": (
+            lambda: bb.vjp(lambda *t: bb.time_subpath(*t, T, H), g, (a["x"], *w)),
+            lambda: bb.time_subpath_backward_plain(g, a["x"], *w, T, H)),
+        "space_subpath_backward": (
+            lambda: bb.vjp(lambda *t: bb.space_subpath(*t, T, H), g, (a["x"], a["base"], *w)),
+            lambda: bb.space_subpath_backward_plain(g, a["x"], a["base"], *w, T, H)),
+    }
+
+
+def text_backward_calls(bb, ta, a, g, H, causal, eps, frozen):
+    """(kernel backward, plain backward) of H7; with `frozen` dx only."""
+    w = (a["ln_w"], a["ln_b"], a["wqkv"], a["bqkv"], a["wproj"], a["bproj"])
+    wrt = (0,) if frozen else None
+    return (lambda: bb.vjp(lambda *t: ta.text_subpath(*t, num_heads=H, causal=causal, eps=eps,
+                                                      frozen=frozen), g, (a["x"], *w), wrt),
+            lambda: ta.text_subpath_backward_plain(g, a["x"], *w, H, causal, eps, frozen))
+
+
+GRAD_NAMES = {"time_subpath_backward": ("dx", "dln_w", "dln_b", "dwqkv", "dbqkv", "dwproj",
+                                        "dbproj"),
+              "space_subpath_backward": ("dx", "dbase", "dln_w", "dln_b", "dwqkv", "dbqkv",
+                                         "dwproj", "dbproj")}
+GRAD_NAMES["text_subpath_backward"] = GRAD_NAMES["time_subpath_backward"]
+
+
+def grad_band_check(tag: str, names, got, want) -> float:
+    """Each gradient tensor within GRAD_BAND * max|ref|; prints each; returns
+    the largest max|diff|."""
+    worst = 0.0
+    for name, a, b in zip(names, got, want):
+        if a.shape != b.shape or not torch.isfinite(a.float()).all():
+            raise AssertionError(f"{tag} {name}: shape {tuple(a.shape)} or non-finite")
+        diff = (a.float() - b.float()).abs().max().item()
+        ref = b.float().abs().max().item()
+        print(f"[3] {tag} {name:7s} max|diff| {diff:.3e} max|ref| {ref:.3e} "
+              f"ratio {diff / ref:.4f} (<= {GRAD_BAND})")
+        if diff > GRAD_BAND * ref:
+            raise AssertionError(f"{tag} {name}: max|diff| {diff} > {GRAD_BAND} * {ref}")
+        worst = max(worst, diff)
+    return worst
+
+
+def attention_work(kind: str, B: int, T: int, N: int, D: int, H: int, backward: bool):
+    """(flops, bytes) of a video attention sub-path at [B, 1 + T*N, D]: the
+    qkv and proj products, the core over its (query, key) pairs (the CLS row
+    over every token), each input read once and each output written once."""
+    S = 1 + T * N
+    M = B * S
+    keys = T + 1 if kind == "time" else N + 1
+    pairs = B * (T * N * keys + S)
+    weights = 2 * 4 * D * D
+    if backward:  # g, x, qkv, attn, lse in; dx, dW out
+        return 16 * M * D * D + 10 * D * pairs, 2 * M * D * 7 + 4 * B * H * S + 2 * weights
+    extra = 2 * M * D if kind == "space" else 0  # base
+    return 8 * M * D * D + 4 * D * pairs, 4 * M * D + extra + weights
+
+
+def text_work(B: int, S: int, D: int, H: int, causal: bool, backward: bool,
+              frozen: bool = False):
+    """(flops, bytes) of the H7 sub-path (forward or backward) at [B, S, D]."""
+    M = B * S
+    pairs = B * (S * (S + 1) // 2 if causal else S * S)
+    weights = 2 * 4 * D * D
+    if backward:
+        gemm = 8 if frozen else 16
+        return (gemm * M * D * D + 10 * D * pairs,
+                2 * M * D * 7 + 4 * B * H * S + (1 if frozen else 2) * weights)
+    return 8 * M * D * D + 4 * D * pairs, 4 * M * D + weights
+
+
+def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take: max(bytes / HBM rate, flops / peak)."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def train_batch(cfg, B: int, seed: int, device) -> dict:
+    """Synthetic B/16 pretraining batch: normalised clips, n_trans * B
+    clip-major tokenized captions, a random keep set of n_keep patches per
+    clip, labels tile(arange(n_trans))."""
+    from tvts_torch.text.tokenizer import tokenize_openclip
+
+    rng = np.random.default_rng(seed)
+    v, n = cfg.vision, cfg.num_clips
+    video = rng.standard_normal((B, v.num_frames, 3, v.input_resolution, v.input_resolution))
+    keep = np.stack([rng.permutation(v.patches_per_frame)[:v.n_keep] for _ in range(B)])
+    ids = tokenize_openclip(synthetic_captions(n * B, seed))
+    return {"video": torch.tensor(video, dtype=torch.float32, device=device),
+            "text_ids": torch.from_numpy(ids).to(device),
+            "keep_ind": torch.from_numpy(keep.astype(np.int64)).to(device),
+            "labels": torch.from_numpy(np.tile(np.arange(n), (B, 1))).to(device)}
+
+
 def text_inputs(B, S, D, seed, device):
     """seeded_inputs for a token sequence of length S (no frame structure)."""
     return seeded_inputs(B, 1, S - 1, D, seed, device)
@@ -183,14 +314,217 @@ def cos_rows(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return np.sum(a * b, -1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
 
 
-def launch_counts(bk, ta) -> dict[str, int]:
-    return {**bk.launch_counts(), "fused_text_attention_block":
-            ta.fused_text_attention_block.launches}
+def counted(bk, bb, ta) -> list:
+    """Every kernel wrapper that counts its launches."""
+    return [*bk.KERNELS, ta.fused_text_attention_block, *bb.KERNELS, ta.text_subpath_backward]
 
 
-def reset_launch_counts(bk, ta) -> None:
-    bk.reset_launch_counts()
-    ta.fused_text_attention_block.launches = 0
+def launch_counts(bk, bb, ta) -> dict[str, int]:
+    counts = {fn.__name__: fn.launches for fn in counted(bk, bb, ta)}
+    counts["text_subpath_backward (frozen)"] = ta.text_subpath_backward.frozen_launches
+    return counts
+
+
+def reset_launch_counts(bk, bb, ta) -> None:
+    for fn in counted(bk, bb, ta):
+        fn.launches = 0
+    ta.text_subpath_backward.frozen_launches = 0
+
+
+def grads_of(model, loss_fn, batch) -> tuple[float, dict]:
+    """(loss, name -> f32 gradient) of the trainable parameters."""
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    loss, _ = loss_fn(model, batch)
+    grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+    return loss.item(), {n: (torch.zeros_like(p) if g is None else g).float()
+                         for (n, _), g in zip(named, grads)}
+
+
+def train_phase(dev, bk, bb, ta) -> dict:
+    """Phase 7 (module notes). Returns what phase 6 times."""
+    from functools import partial
+
+    from tvts_torch.models.factory import build_model
+    from tvts_torch.ops.fused_forward import train_apply
+    from tvts_torch.ops.kernel_config import resolve_kernel_config, train_apply_kwargs
+    from tvts_torch.train.optim import OptimizerConfig, freeze_mask, make_optimizer
+    from tvts_torch.train.step import make_loss_fn, make_train_step
+
+    cfg, model = build_model("TVTSv2_B_16", eval_mode=False, device=dev, seed=0,
+                             compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(11)
+    with torch.no_grad():  # seeded noise on every leaf, the sort head's included
+        for p in model.parameters():
+            p.add_(torch.from_numpy(0.02 * rng.standard_normal(p.shape).astype(np.float32))
+                   .to(dev))
+    v = cfg.vision
+    # the optimizer of tools/train_bench.py
+    ocfg = OptimizerConfig(schedule=(6, 8), steps_per_epoch=1000, text_layers=cfg.text.layers,
+                           text_tune_layers=3)
+    kcfg = resolve_kernel_config(cfg.name, {"preset": "best"})
+    kernel_apply = partial(train_apply, **train_apply_kwargs(kcfg, ocfg))
+    optimizer = make_optimizer(model, ocfg)
+    frozen = [n for n, f in freeze_mask(model, ocfg).items() if f]
+    print(f"[7] {cfg.name} train: mask {v.mask_ratio}, n_keep {v.n_keep}, "
+          f"S = {1 + v.num_frames * v.n_keep}; {sum(p.numel() for p in model.parameters())} "
+          f"f32 master parameters, bf16 compute; {len(frozen)} frozen tensors "
+          f"(text blocks 0-{ocfg.text_tune_from - 1}); kernel config {kcfg}")
+    batch = train_batch(cfg, 8, seed=12, device=dev)
+
+    # step-0 gate: kernel path against the eager path
+    loss_k, gk = grads_of(model, make_loss_fn(apply_fn=kernel_apply), batch)
+    loss_e, ge = grads_of(model, make_loss_fn(), batch)
+    gscale = max(g.abs().max().item() for g in ge.values())
+    rows = []
+    for name, e in ge.items():
+        amax = e.abs().max().item()
+        err = (gk[name] - e).abs().max().item()
+        rows.append((err / (amax + 1e-6), err, amax, name))
+    sig = sorted((r for r in rows if r[2] > 1e-2 * gscale), reverse=True)
+    print(f"[7] step-0 loss kernels {loss_k:.6f} eager {loss_e:.6f} |diff| "
+          f"{abs(loss_k - loss_e):.3e} (< 2e-2); global max|g| {gscale:.3e}; top 5 by "
+          f"relative error among {len(sig)} significant tensors (max|g| > 1e-2 * global):")
+    for rel, err, amax, name in sig[:5]:
+        print(f"[7]   rel {rel:.3e} abs {err:.3e} max|g| {amax:.3e} {name}")
+    if abs(loss_k - loss_e) >= 2e-2 or (sig and sig[0][0] >= 0.12):
+        raise AssertionError("train step 0: kernel path disagrees with the eager path")
+    del gk, ge
+
+    # three optimizer steps on the kernels
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    step = make_train_step(model, optimizer, ocfg, apply_fn=kernel_apply)
+    n_steps = 3
+    reset_launch_counts(bk, bb, ta)
+    for i in range(n_steps):
+        aux = {k: v.item() for k, v in step(batch).items()}
+        print(f"[7] step {i}: " + ", ".join(f"{k} {v:.6f}" for k, v in aux.items()))
+        if not all(np.isfinite(list(aux.values()))):
+            raise AssertionError(f"train step {i}: non-finite {aux}")
+    torch.cuda.synchronize()
+    launches = launch_counts(bk, bb, ta)
+    print(f"[7] launches over {n_steps} steps: {launches}")
+    want = dict.fromkeys(launches, 0)
+    want.update({name: 12 * n_steps for name in (
+        "time_subpath", "time_subpath_backward", "space_subpath", "space_subpath_backward",
+        "fused_text_attention_block", "text_subpath_backward")})
+    want["text_subpath_backward (frozen)"] = 9 * n_steps
+    if launches != want:
+        raise AssertionError(f"train launches {launches}, expected {want}")
+    moved, changed = [], []
+    for n, p in model.named_parameters():
+        same = torch.equal(p.detach(), before[n])
+        (changed if n in frozen and not same else moved if n not in frozen and same
+         else []).append(n)
+    if changed or moved:
+        raise AssertionError(f"frozen tensors changed {changed}; trainable unmoved {moved}")
+    print(f"[7] {len(frozen)} frozen tensors unchanged bit for bit; all "
+          f"{len(before) - len(frozen)} trainable tensors moved")
+    return dict(cfg=cfg, model=model, optimizer=optimizer, ocfg=ocfg,
+                kernel_apply=kernel_apply, launches=launches)
+
+
+def train_times(dev, card, bk, bb, ta, train: dict, times: dict) -> None:
+    """Phase 6, train part: the step at B=20, each backward against its plain
+    backward at the B=20 shapes, the profiler breakdown of one step."""
+    from tvts_torch.train.step import make_train_step
+
+    cfg, model = train["cfg"], train["model"]
+    v, B = cfg.vision, 20
+    batch = train_batch(cfg, B, seed=13, device=dev)
+    for path, apply_fn in (("kernels", train["kernel_apply"]), ("eager", None)):
+        step = make_train_step(model, train["optimizer"], train["ocfg"], apply_fn=apply_fn)
+        step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        iters = 3
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / iters * 1e3
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"[6] B/16 train step B={B} {path:7s}: {ms:.2f} ms/step, {B / ms * 1e3:.2f} "
+              f"clips/s, peak memory {mem:.2f} GiB [{card}]")
+
+    step = make_train_step(model, train["optimizer"], train["ocfg"],
+                           apply_fn=train["kernel_apply"])
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    host = {e.key for e in events if e.device_type == torch.autograd.DeviceType.CPU}
+    # device rows that are kernels (a host range such as the optimizer's step
+    # also shows on the device timeline, over its kernels)
+    rows = [(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0),
+             e.key, e.count) for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in host]
+    busy = sum(r[0] for r in rows) / 1e3
+    print(f"[6] profiled kernel-path step B={B}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
+          f"(idle share {max(0.0, 1 - busy / wall):.3f}) [{card}]")
+    groups = {}
+    for us, key, count in rows:
+        group = ("hand-written (tvts::)" if "tvts::" in key
+                 else "optimizer (multi_tensor_apply)" if "multi_tensor_apply" in key
+                 else "library GEMM (cuBLAS / CUTLASS)"
+                 if any(k in key for k in ("nvjet", "gemm", "cutlass", "sm90_xmma"))
+                 else "other PyTorch kernels (elementwise, reductions, copies, conv)")
+        groups[group] = groups.get(group, 0.0) + us / 1e3
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"[6]   {ms:9.3f} ms ({ms / busy:.3f}) {group}")
+    print("[6]   top device time by kernel:")
+    for us, key, count in sorted(rows, reverse=True)[:24]:
+        print(f"[6]   {us / 1e3:9.3f} ms {count:5d}x {key[:100]}")
+
+    S = 1 + v.num_frames * v.n_keep
+    T, N, D, H = v.num_frames, v.n_keep, v.width, v.heads
+    a = seeded_inputs(1, 1, 1, D, seed=14, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    for k in ("x", "base"):
+        a[k] = torch.randn(B, S, D, generator=gen, device=dev, dtype=torch.bfloat16)
+    g = torch.randn(B, S, D, generator=gen, device=dev, dtype=torch.bfloat16)
+    w = (a["ln_w"], a["ln_b"], a["wqkv"], a["bqkv"], a["wproj"], a["bproj"])
+    for name, core, kind in (("time_subpath_backward", "tvts_time_core", "time"),
+                             ("space_subpath_backward", "tvts_space_core", "space")):
+        res = a["x"] if kind == "time" else a["base"]
+        _, *saves = bk._attention_sub_path(core, a["x"], res, *w, T, H, save=True)
+        fn = getattr(bb, name)
+        k_ms = cuda_ms(lambda: fn(g, a["x"], saves, a["ln_w"], a["ln_b"], a["wqkv"],
+                                  a["wproj"], T, H), iters=5)
+        plain = bb.time_subpath_backward_plain if kind == "time" \
+            else bb.space_subpath_backward_plain
+        extra = (a["base"],) if kind == "space" else ()
+        p_ms = cuda_ms(lambda: plain(g, a["x"], *extra, *w, T, H), iters=3)
+        times[name] = (k_ms, p_ms, bound_ms(*attention_work(kind, B, T, N, D, H, True)))
+        print(f"[6] {name:22s} B={B} S={S}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
+              f"(forward + backward), bound {times[name][2][0]:.3f} ms "
+              f"({times[name][2][1]}) [{card}]")
+        del saves
+    tc = cfg.text
+    for label, (TB, TS, TD, TH, causal, eps, frozen) in (
+            ("text", (80, 77, tc.width, tc.heads, True, 1e-5, False)),
+            ("text frozen", (80, 77, tc.width, tc.heads, True, 1e-5, True)),
+            ("sort head", (B, S + cfg.num_clips, cfg.sort.embed_dim, cfg.sort.num_heads,
+                           False, 1e-6, False))):
+        t = text_inputs(TB, TS, TD, seed=16, device=dev)
+        tg = text_inputs(TB, TS, TD, seed=17, device=dev)["x"]
+        tw = (t["ln_w"], t["ln_b"], t["wqkv"], t["bqkv"], t["wproj"], t["bproj"])
+        _, *saves = ta._text_sub_path(t["x"], *tw, TH, causal, eps, save=True)
+        k_ms = cuda_ms(lambda: ta.text_subpath_backward(tg, t["x"], saves, t["ln_w"], t["ln_b"],
+                                                        t["wqkv"], t["wproj"], TH, causal,
+                                                        frozen), iters=5)
+        p_ms = cuda_ms(lambda: ta.text_subpath_backward_plain(tg, t["x"], *tw, TH, causal, eps,
+                                                              frozen), iters=3)
+        bnd = bound_ms(*text_work(TB, TS, TD, TH, causal, True, frozen))
+        if label == "text":
+            times["text_subpath_backward"] = (k_ms, p_ms, bnd)
+        print(f"[6] text_subpath_backward {label} B={TB} S={TS} D={TD}: kernel {k_ms:.3f} ms, "
+              f"plain {p_ms:.3f} ms (forward + backward), bound {bnd[0]:.3f} ms ({bnd[1]}) "
+              f"[{card}]")
 
 
 def main() -> int:
@@ -209,6 +543,7 @@ def main() -> int:
     from tvts_torch.eval.zero_ret import run_retrieval
     from tvts_torch.eval.zero_ssv2_mc import run_ssv2_mc
     from tvts_torch.models.factory import build_model
+    from tvts_torch.ops import block_backward as bb
     from tvts_torch.ops import block_kernels as bk
     from tvts_torch.ops import text_attention as ta
     from tvts_torch.text.tokenizer import tokenize_openclip
@@ -265,6 +600,32 @@ def main() -> int:
             raise AssertionError(f"fused_text_attention_block {label}: max|diff| {diff} > {tol}")
         if label == "B/16 text":
             max_err["fused_text_attention_block"] = diff
+    for label, (B, T, N, D, H) in BWD_SHAPES.items():
+        a = seeded_inputs(B, T, N, D, seed=7, device=dev)
+        g = seeded_inputs(B, T, N, D, seed=8, device=dev)["x"]
+        for name, (kernel, plain) in backward_calls(bb, a, g, T, H).items():
+            before = getattr(bb, name).launches
+            got = kernel()
+            torch.cuda.synchronize()
+            if getattr(bb, name).launches != before + 1:
+                raise AssertionError(f"{name} did not count its launch")
+            worst = grad_band_check(f"{name} {label}", GRAD_NAMES[name], got, plain())
+            if label == "B/16 train":
+                max_err[name] = worst
+        del a, g
+    for label, (B, S, D, H, causal, eps, frozen) in TEXT_BWD_SHAPES.items():
+        a = text_inputs(B, S, D, seed=9, device=dev)
+        g = text_inputs(B, S, D, seed=10, device=dev)["x"]
+        kernel, plain = text_backward_calls(bb, ta, a, g, H, causal, eps, frozen)
+        before = ta.text_subpath_backward.launches
+        got = kernel()
+        torch.cuda.synchronize()
+        if ta.text_subpath_backward.launches != before + 1:
+            raise AssertionError("text_subpath_backward did not count its launch")
+        worst = grad_band_check(f"text_subpath_backward {label}",
+                                GRAD_NAMES["text_subpath_backward"], got, plain())
+        if label == "text":
+            max_err["text_subpath_backward"] = worst
 
     # ---- phase 4: main path -------------------------------------------------
     cfg, model = build_model("TVTSv2_B_16", dtype=torch.bfloat16, device=dev, seed=0)
@@ -288,16 +649,16 @@ def main() -> int:
     clips = np.random.default_rng(2).standard_normal(
         (21, v.num_frames, 3, v.input_resolution, v.input_resolution)).astype(np.float32)
     loader = SyntheticLoader(clips, v.patches_per_frame, batch_size=8)
-    reset_launch_counts(bk, ta)
+    reset_launch_counts(bk, bb, ta)
     fused = extract_embeddings(model, loader, use_fused=True)["video"]
-    launches = launch_counts(bk, ta)
+    launches = launch_counts(bk, bb, ta)
     per_forward = dict(zip(bk.launch_counts(), (12, 11, 11, 1)))
     n_forwards = 3
     print(f"[4] launches over {n_forwards} forwards: {launches}")
-    for name, n in per_forward.items():
-        if launches[name] != n * n_forwards:
-            raise AssertionError(f"{name}: {launches[name]} launches, "
-                                 f"expected {n} per forward")
+    want = dict.fromkeys(launches, 0)
+    want.update({name: n * n_forwards for name, n in per_forward.items()})
+    if launches != want:
+        raise AssertionError(f"extraction launches {launches}, expected {want}")
     eager = extract_embeddings(model, loader, use_fused=False)["video"]
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
@@ -333,16 +694,17 @@ def main() -> int:
     rec_loader = SyntheticLoader(clips, v.patches_per_frame, 8, labels=labels)
     mc_loader = SyntheticLoader(clips, v.patches_per_frame, 8, options=options,
                                 labels=mc_labels)
-    reset_launch_counts(bk, ta)
+    reset_launch_counts(bk, bb, ta)
     ret, sims = run_retrieval(model, ret_loader, use_fused=True)
     rec = run_recognition(model, rec_loader, classnames, use_fused=True)
     mc = run_ssv2_mc(model, mc_loader, use_fused=True)
-    zs_launches = launch_counts(bk, ta)
+    zs_launches = launch_counts(bk, bb, ta)
     text_forwards = n_forwards + len(classnames) + len(clips)
     video_forwards = 3 * n_forwards
     print(f"[5] launches over {text_forwards} text and {video_forwards} video forwards: "
           f"{zs_launches}")
-    want = {name: n * video_forwards for name, n in per_forward.items()}
+    want = dict.fromkeys(zs_launches, 0)
+    want.update({name: n * video_forwards for name, n in per_forward.items()})
     want["fused_text_attention_block"] = (tc.layers - 1) * text_forwards
     if zs_launches != want:
         raise AssertionError(f"zero-shot launches {zs_launches}, expected {want}")
@@ -384,6 +746,11 @@ def main() -> int:
         raise AssertionError("text kernel path disagrees with the eager tower")
     del model32
 
+    # ---- phase 7: train main path -------------------------------------------
+    train = train_phase(dev, bk, bb, ta)
+    launches.update({name: train["launches"][name] for name in (
+        "time_subpath_backward", "space_subpath_backward", "text_subpath_backward")})
+
     # ---- phase 6: times -----------------------------------------------------
     B = 64
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -410,9 +777,19 @@ def main() -> int:
                                                   v.act).items():
             k_ms = cuda_ms(kernel, iters=10)
             p_ms = cuda_ms(plain, iters=10)
-            times[name] = (k_ms, p_ms)
-            print(f"[6] {name:22s} B={B}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
-                  f"[{card}]")
+            if name == "fused_mlp_block":
+                work = (16 * a["x"].numel() * v.width, 4 * a["x"].numel() + 16 * v.width ** 2)
+            elif name == "fused_space_cls_only":
+                M, D = a["x"].shape[0] * S, v.width
+                work = (4 * M * D * D + 4 * B * D * D + 4 * D * M,
+                        2 * M * D + 4 * B * D + 8 * D * D)
+            else:
+                work = attention_work("time" if name == "fused_time_block" else "space", B,
+                                      v.num_frames, v.patches_per_frame, v.width, v.heads,
+                                      backward=False)
+            times[name] = (k_ms, p_ms, bound_ms(*work))
+            print(f"[6] {name:22s} B={B}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+                  f"{times[name][2][0]:.3f} ms ({times[name][2][1]}) [{card}]")
 
     TB = 256
     ids = torch.from_numpy(tokenize_openclip(
@@ -434,16 +811,23 @@ def main() -> int:
                                        causal, eps)
             k_ms = cuda_ms(kernel, iters=10)
             p_ms = cuda_ms(plain, iters=10)
+            bnd = bound_ms(*text_work(B, S, D, H, causal, backward=False))
             if label == "text":
-                times["fused_text_attention_block"] = (k_ms, p_ms)
+                times["fused_text_attention_block"] = (k_ms, p_ms, bnd)
             print(f"[6] fused_text_attention_block {label} B={B} S={S} D={D}: kernel "
-                  f"{k_ms:.3f} ms, plain {p_ms:.3f} ms [{card}]")
+                  f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}) "
+                  f"[{card}]")
+    del model
+    train_times(dev, card, bk, bb, ta, train, times)
 
     print(card)
+    # library_ms: no single PyTorch call computes a whole sub-path (LayerNorm,
+    # qkv product, divided or causal attention, proj product and residual)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": max_err[name],
-         "ms": times[name][0], "plain_ms": times[name][1]} for name in REPLACES]}))
+         "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": times[name][2][0],
+         "bound_by": times[name][2][1], "library_ms": None} for name in REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,8 @@
 """Weights carried from the JAX package into tvts_torch: `state_dict_from_jax`
 equals `export_state_dict(params, ddp_prefix=False)` key for key and value for
 value, the port's tower loads it strictly, and a reference `.pth` of a full
-TVTSv2 tree loads through `build_model` (strictly: a video-only one is
-refused)."""
+TVTSv2 tree loads through `build_model` (strictly, the sort head included: a
+video-only one is refused), which builds on the card unless asked for the CPU."""
 
 import numpy as np
 import pytest
@@ -58,22 +58,22 @@ def test_build_model_loads_reference_pth(monkeypatch, tmp_path):
     sd = load_reference_state_dict(path)  # `module.` stripped
     want = state_dict_from_jax(params)
     assert set(sd) == set(want)
-    cfg, model = build_model("tiny", load_checkpoint=path)
+    cfg, model = build_model("tiny", load_checkpoint=path, device="cpu")
     assert cfg.vision.mask_ratio == 0.0 and not model.training
-    for key, value in want.items():
-        if not key.startswith("pred_model."):  # the sort head waits for slice 3
-            np.testing.assert_array_equal(model.state_dict()[key].numpy(), value, err_msg=key)
+    assert set(model.state_dict()) == set(want)
+    for key, value in want.items():  # the sort head too
+        np.testing.assert_array_equal(model.state_dict()[key].numpy(), value, err_msg=key)
     video_only = str(tmp_path / "video_only.pth")
     save_reference_checkpoint({"video_model": params["video_model"]}, video_only, arch="tiny")
     with pytest.raises(RuntimeError, match="text_token_embedding"):
-        build_model("tiny", load_checkpoint=video_only)
+        build_model("tiny", load_checkpoint=video_only, device="cpu")
 
 
 def test_build_model_seeded_init_and_dtype(monkeypatch):
     _tiny_registry(monkeypatch)
-    _, a = build_model("tiny", seed=3)
-    _, b = build_model("tiny", seed=3)
-    _, c = build_model("tiny", seed=4, dtype=torch.bfloat16)
+    _, a = build_model("tiny", seed=3, device="cpu")
+    _, b = build_model("tiny", seed=3, device="cpu")
+    _, c = build_model("tiny", seed=4, dtype=torch.bfloat16, device="cpu")
     for (name, pa), pb in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(pa, pb), name
     assert not torch.equal(a.video_model.proj, c.video_model.proj.float())
@@ -87,3 +87,17 @@ def test_build_model_seeded_init_and_dtype(monkeypatch):
     assert text_blk.attn.in_proj_weight.dtype == c.text_token_embedding.weight.dtype \
         == torch.bfloat16
     assert text_blk.ln_1.weight.dtype == c.text_ln_final.weight.dtype == torch.float32
+
+
+def test_build_model_defaults_to_the_card(monkeypatch):
+    """The port's entry point runs on the card unless the caller asks for the
+    CPU: without a CUDA device the default raises instead of falling back."""
+    import inspect
+
+    _tiny_registry(monkeypatch)
+    assert inspect.signature(build_model).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model("tiny")
+    cfg, model = build_model("tiny", eval_mode=False, device="cpu")
+    assert cfg.vision.mask_ratio == 0.5 and model.training  # the masked training config

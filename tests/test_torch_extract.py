@@ -77,7 +77,7 @@ def test_build_model_extract_embeddings_ragged_loader(monkeypatch, use_fused):
                                 text=configs.TextConfig(**tiny_text()),
                                 sort=configs.SortConfig(embed_dim=48, num_heads=4))
     monkeypatch.setitem(configs.MODEL_REGISTRY, "tiny", lambda: cfg0)
-    cfg, model = build_model("tiny", seed=1)
+    cfg, model = build_model("tiny", seed=1, device="cpu")
     with torch.no_grad():  # noise on every leaf: the time attention is zero at init
         rng = np.random.default_rng(7)
         for p in model.parameters():
@@ -109,18 +109,22 @@ def test_extract_video_feature_full_keep_set():
 
 
 def test_tvts_torch_imports_no_jax():
-    """Every tvts_torch module imports without pulling in jax, flax, tvts_tpu,
-    regex or pandas, none of which the card's machine has (a subprocess: this
-    test process already holds jax through conftest)."""
+    """Every tvts_torch module, and chip_smoke.py, imports without pulling in
+    jax, flax, tvts_tpu, regex or pandas, none of which the card's machine has
+    (a subprocess: this test process already holds jax through conftest)."""
     code = (
-        "import importlib, pkgutil, sys, tvts_torch\n"
+        "import importlib, pkgutil, sys, tvts_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(tvts_torch.__path__, 'tvts_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] "
         "       in ('jax', 'flax', 'tvts_tpu', 'regex', 'pandas'))\n"
         "assert not bad, bad\n"
-        "print(len([n for n in sys.modules if n.startswith('tvts_torch')]))\n")
+        "print(' '.join(n for n in sys.modules if n.startswith('tvts_torch')))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 26  # every module of the package was imported
+    imported = set(proc.stdout.split())
+    assert len(imported) >= 33  # every module of the package was imported
+    assert {"tvts_torch.train.optim", "tvts_torch.train.step", "tvts_torch.ops.losses",
+            "tvts_torch.ops.kernel_config", "tvts_torch.ops.block_backward",
+            "tvts_torch.models.sort"} <= imported

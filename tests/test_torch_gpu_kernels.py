@@ -1,13 +1,16 @@
-"""The Hopper kernels (H1-H4 sub-paths of the video tower, H7 text attention)
-against their plain PyTorch versions, on the card in bf16, with chip_smoke.py's
-seeded inputs and band. Marked `gpu`: they skip where no CUDA device is
-present.
+"""The Hopper kernels (H1-H4 sub-paths of the video tower, H7 text attention,
+and the H5 / H6 / H7 training backwards) against their plain PyTorch versions,
+on the card in bf16, with chip_smoke.py's seeded inputs and bands; and a small
+train step, kernel path against eager. Marked `gpu`: they skip where no CUDA
+device is present.
 
 Run on an H100 (tests/conftest.py imports jax, which the port does not need):
     python -m pytest -m gpu --noconftest -p no:cacheprovider tests/test_torch_gpu_kernels.py -q
 
 Tolerance: max|diff| <= 0.05 * max(1, mean|ref| / 0.8), the band the Pallas
-kernels hold against XLA in bf16 (max|diff| 0.031-0.047 at mean|out| ~0.8).
+kernels hold against XLA in bf16 (max|diff| 0.031-0.047 at mean|out| ~0.8);
+each gradient tensor within 0.06 * max|ref| (the TPU's real-shape gradient
+band, 5.8e-2).
 """
 
 import numpy as np
@@ -15,13 +18,20 @@ import pytest
 import torch
 
 from chip_smoke import (
+    BWD_SHAPES,
+    GRAD_NAMES,
+    TEXT_BWD_SHAPES,
     TEXT_SHAPES,
+    backward_calls,
     band_check,
+    grad_band_check,
     kernel_calls,
     seeded_inputs,
+    text_backward_calls,
     text_calls,
     text_inputs,
 )
+from tvts_torch.ops import block_backward as bb
 from tvts_torch.ops import block_kernels as bk
 from tvts_torch.ops import text_attention as ta
 
@@ -159,3 +169,73 @@ def test_text_fused_forward_matches_eager_on_card(cuda):
         got = text_transformer_fused_forward(model, ids)
     cos = torch.nn.functional.cosine_similarity(got.float(), want.float(), dim=-1)
     assert cos.min().item() >= 0.999, cos
+
+
+@pytest.mark.parametrize("label", list(BWD_SHAPES))
+@pytest.mark.parametrize("name", ["time_subpath_backward", "space_subpath_backward"])
+def test_backward_kernel_matches_plain(cuda, label, name):
+    B, T, N, D, H = BWD_SHAPES[label]
+    a = seeded_inputs(B, T, N, D, 7, cuda)
+    g = seeded_inputs(B, T, N, D, 8, cuda)["x"]
+    kernel, plain = backward_calls(bb, a, g, T, H)[name]
+    before = getattr(bb, name).launches
+    got = kernel()
+    assert getattr(bb, name).launches == before + 1
+    grad_band_check(name, GRAD_NAMES[name], got, plain())
+
+
+@pytest.mark.parametrize("label", list(TEXT_BWD_SHAPES))
+def test_text_backward_kernel_matches_plain(cuda, label):
+    B, S, D, H, causal, eps, frozen = TEXT_BWD_SHAPES[label]
+    a = text_inputs(B, S, D, 9, cuda)
+    g = text_inputs(B, S, D, 10, cuda)["x"]
+    kernel, plain = text_backward_calls(bb, ta, a, g, H, causal, eps, frozen)
+    before = ta.text_subpath_backward.frozen_launches
+    got = kernel()
+    assert ta.text_subpath_backward.frozen_launches == before + frozen
+    assert len(got) == (1 if frozen else 7)
+    grad_band_check(label, GRAD_NAMES["text_subpath_backward"], got, plain())
+
+
+def test_small_train_step_kernels_match_eager_on_card(cuda):
+    """A 2-block model at head dim 64 (f32 masters, bf16 compute): the loss
+    and gradients of train_apply against the eager forward, within the step-0
+    gate of chip_smoke.py (|dloss| < 2e-2, relative error < 0.12 on the
+    significant tensors)."""
+    from tvts_torch.models.configs import SortConfig, TextConfig, TVTSv2Config, VisionConfig
+    from tvts_torch.models.tvts_v2 import TVTSv2
+    from tvts_torch.ops.fused_forward import train_apply
+    from tvts_torch.train.step import make_loss_fn
+
+    cfg = TVTSv2Config(name="small", vision=VisionConfig(input_resolution=64, width=128,
+                                                         layers=2, heads=2, output_dim=128,
+                                                         num_frames=4, mask_ratio=0.5),
+                       text=TextConfig(width=128, layers=3, heads=2, output_dim=128),
+                       sort=SortConfig(embed_dim=128, num_heads=2))
+    model = TVTSv2(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(18)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.from_numpy(0.02 * rng.standard_normal(p.shape).astype(np.float32)))
+    model = model.to(cuda)
+    model.set_compute_dtype(torch.bfloat16)
+    B = 3
+    ids = np.zeros((cfg.num_clips * B, 77), np.int64)
+    ids[:, :20] = rng.integers(1, 49000, (cfg.num_clips * B, 20))
+    ids[:, 20] = 49407
+    batch = {"video": torch.tensor(rng.standard_normal((B, 4, 3, 64, 64)), dtype=torch.float32,
+                                   device=cuda),
+             "text_ids": torch.from_numpy(ids).to(cuda),
+             "keep_ind": torch.stack([torch.randperm(16)[:8] for _ in range(B)]).to(cuda),
+             "labels": torch.arange(cfg.num_clips).repeat(B, 1).to(cuda)}
+    params = list(model.parameters())
+    lk, _ = make_loss_fn(apply_fn=lambda m, b: train_apply(m, b, text_tune_from=1))(model, batch)
+    gk = torch.autograd.grad(lk, params, allow_unused=True)
+    le, _ = make_loss_fn()(model, batch)
+    ge = torch.autograd.grad(le, params, allow_unused=True)
+    assert abs(lk.item() - le.item()) < 2e-2
+    gscale = max(g.abs().max().item() for g in ge)
+    for p, a, b in zip(params, gk, ge):
+        if b.abs().max().item() > 1e-2 * gscale and a is not None:
+            assert (a - b).abs().max().item() / b.abs().max().item() < 0.12

@@ -7,7 +7,6 @@ Tolerance atol 3e-5 / rtol 1e-4 in float32 (summation order only); every
 parameter carries seeded noise."""
 
 import functools
-import logging
 
 import jax
 import jax.numpy as jnp
@@ -93,12 +92,11 @@ def port_config(act: str = "quick_gelu", eval_mode: bool = False) -> configs.TVT
 
 
 def port_tvts(params, act: str = "quick_gelu"):
-    """The port's TVTSv2 holding a JAX full tree's weights (sort head left out)."""
+    """The port's TVTSv2 holding a JAX full tree's weights, the sort head's too."""
     from tvts_torch.models.tvts_v2 import TVTSv2
 
     model = TVTSv2(port_config(act))
-    sd = {k: torch.from_numpy(v) for k, v in state_dict_from_jax(params).items()
-          if not k.startswith("pred_model.")}
+    sd = {k: torch.from_numpy(v) for k, v in state_dict_from_jax(params).items()}
     model.load_state_dict(sd, strict=True)
     return model.eval()
 
@@ -249,19 +247,30 @@ def test_state_dict_from_jax_full_tree_equals_export():
 
 
 def test_tvts_v2_holds_the_reference_layout_without_the_sort_head():
+    """The towers hold the reference layout without the sort head's keys, the
+    sort head (`pred_model.*`) holds exactly its own, and the training forward
+    returns the three outputs."""
     from tvts_tpu.utils.torch_convert import export_state_dict
 
-    _, params, _ = jax_tvts()
+    from tests.test_torch_vit import tiny_inputs
+
+    _, params, cfg = jax_tvts()
     model = port_tvts(params)
     reference = set(export_state_dict(params, ddp_prefix=False))
     sort_head = {k for k in reference if k.startswith("pred_model.")}
-    assert sort_head  # left out until slice 3, by name
-    assert set(model.state_dict()) == reference - sort_head
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        model(torch.zeros(1))
+    towers = {k for k in model.state_dict() if not k.startswith("pred_model.")}
+    assert towers == reference - sort_head
+    assert set(model.state_dict()) - towers == sort_head
+    video, keep = tiny_inputs(3)
+    ids = np.concatenate([tiny_ids(4 + c, batch=2) for c in range(cfg.num_clips)])
+    with torch.no_grad():
+        text_emb, video_emb, order = model(torch.from_numpy(video), torch.from_numpy(ids),
+                                           torch.from_numpy(keep))
+    assert text_emb.shape == video_emb.shape == (2, 48)
+    assert order.shape == (2, cfg.num_clips, cfg.sort.num_classes)
 
 
-def test_build_model_loads_full_reference_pth(monkeypatch, tmp_path, caplog):
+def test_build_model_loads_full_reference_pth(monkeypatch, tmp_path):
     from tvts_tpu.utils.torch_convert import save_reference_checkpoint
 
     from tvts_torch.models.factory import build_model
@@ -270,15 +279,12 @@ def test_build_model_loads_full_reference_pth(monkeypatch, tmp_path, caplog):
     _, params, _ = jax_tvts()
     path = str(tmp_path / "tiny.pth")
     save_reference_checkpoint(params, path, arch="tiny")
-    with caplog.at_level(logging.INFO, logger="tvts_torch.models.factory"):
-        cfg, model = build_model("tiny", load_checkpoint=path, dtype=torch.bfloat16)
-    n_sort = sum(k.startswith("pred_model.") for k in state_dict_from_jax(params))
-    assert f"dropped {n_sort} pred_model.* keys" in caplog.text
+    cfg, model = build_model("tiny", load_checkpoint=path, dtype=torch.bfloat16, device="cpu")
     assert cfg.vision.mask_ratio == 0.0 and not model.training
     assert model.text_model.resblocks[0].ln_1.weight.dtype == torch.float32
-    for key, value in state_dict_from_jax(params).items():
-        if not key.startswith("pred_model."):
-            want = torch.from_numpy(value)
-            got = model.state_dict()[key]
-            torch.testing.assert_close(got.float(), want.to(got.dtype).float(), rtol=0, atol=0,
-                                       msg=key)
+    assert model.pred_model.norm.weight.dtype == torch.float32
+    for key, value in state_dict_from_jax(params).items():  # the sort head loads strictly
+        want = torch.from_numpy(value)
+        got = model.state_dict()[key]
+        torch.testing.assert_close(got.float(), want.to(got.dtype).float(), rtol=0, atol=0,
+                                   msg=key)

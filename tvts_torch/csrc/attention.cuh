@@ -1,7 +1,10 @@
 // Attention cores of the divided space-time block, on the [B, S, 3D] qkv rows
 // that ln_gemm writes (S = 1 + T*N, CLS first, frame-major patches; q is not
 // pre-scaled, the cores scale the logits). All softmaxes are exact and
-// max-shifted in f32.
+// max-shifted in f32. Training saves: with a non-null `lse` [B, H, S] f32 each
+// core also writes the natural-log log-sum-exp of the scaled logits of every
+// row it computes (row 0, the CLS row, from cls_combine_kernel), which the
+// backward kernels (attention_bwd.cuh) use to recompute the probabilities.
 #pragma once
 
 #include <math.h>
@@ -20,8 +23,8 @@ constexpr int TIME_WARPS = 4;
 
 template <int DH>
 __global__ void __launch_bounds__(TIME_WARPS * 32)
-    time_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int T, int N,
-                     int H, float scale) {
+    time_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+                     float* __restrict__ lse, int T, int N, int H, float scale) {
   extern __shared__ float tsm[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n = blockIdx.x, b = blockIdx.y;
@@ -80,6 +83,7 @@ __global__ void __launch_bounds__(TIME_WARPS * 32)
       const float inv = 1.f / l;
 #pragma unroll
       for (int i = 0; i < DH; ++i) sq[lane * QS + i] = acc[i] * inv;
+      if (lse) lse[((i64)b * H + h) * S + 1 + lane * N + n] = m + __logf(l);
     }
     __syncwarp();
     for (int t = 0; t < T; ++t) {
@@ -107,8 +111,8 @@ constexpr int SP_BK = 64;
 
 template <int DH>
 __global__ void __launch_bounds__(128)
-    space_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int T, int N,
-                      int H, float scale_log2) {
+    space_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+                      float* __restrict__ lse, int T, int N, int H, float scale_log2) {
   constexpr int LD = DH + 8;
   __shared__ __align__(16) bf16 sQ[SP_BQ][LD];
   __shared__ __align__(16) bf16 sK[SP_BK][LD];
@@ -235,6 +239,9 @@ __global__ void __launch_bounds__(128)
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int qi = q0 + warp * 16 + g + r * 8;
+    if (lse && t4 == 0 && qi < N)  // m is in log2 units: lse = (m + log2 l) ln 2
+      lse[((i64)b * H + h) * S + frame_row0 + qi] = (m[r] + __log2f(l[r])) * 0.6931471805599453f;
     l[r] = 1.f / l[r];
   }
 #pragma unroll
@@ -320,7 +327,8 @@ __global__ void __launch_bounds__(CLS_CHUNK)
 
 template <int DH>
 __global__ void cls_combine_kernel(const float* __restrict__ partial, int nC, int H,
-                                   bf16* __restrict__ out, i64 out_bstride) {
+                                   bf16* __restrict__ out, i64 out_bstride,
+                                   float* __restrict__ lse, int lse_S) {
   const int h = blockIdx.x, b = blockIdx.y, i = threadIdx.x;
   const float* p = partial + ((i64)b * H + h) * nC * (DH + 2);
   float mx = -INFINITY;
@@ -332,6 +340,7 @@ __global__ void cls_combine_kernel(const float* __restrict__ partial, int nC, in
     acc += w * p[c * (DH + 2) + 2 + i];
   }
   out[(i64)b * out_bstride + h * DH + i] = __float2bfloat16(acc / lsum);
+  if (lse && i == 0) lse[((i64)b * H + h) * lse_S] = mx + __logf(lsum);
 }
 
 }  // namespace tvts

@@ -1,0 +1,485 @@
+// Attention-core backward kernels of the training sub-paths: H5 (space), H6
+// (time) and H7 (text / sort head). Inputs are the forward's saves: the qkv
+// rows [B, S, 3D] (q not pre-scaled), the pre-projection attention output O
+// [B, S, D], the natural-log lse [B, H, S] of every row's scaled logits, and
+// dO = dL/dO [B, S, D] from the proj backward. Output: dqkv [B, S, 3D] bf16.
+//
+// Every core uses the delta identity of flash attention: with
+// P = exp(scale q.k - lse), dP = dO.v and delta = rowsum(dO * O),
+// dS = P * (dP - delta), dq = scale * dS k, dk = scale * dS^T q, dv = P^T dO.
+// P is recomputed from the saved lse, so saved and recomputed probabilities
+// (the TPU's pallas_v10 and pallas_v10r, or pallas_tps and pallas) are one
+// schedule here.
+//
+// The CLS token is global: its query attends over every token (lse row 0),
+// and its key/value join every group's softmax. Both backwards work on
+// "groups" of tokens that include the CLS token as element 0: the space group
+// of frame t is [CLS, the N patches of t], the time group of location n is
+// [CLS, location n in each of the T frames]. Then every patch query and key
+// of a group is complete within it (a patch key is seen by its group's patch
+// queries and by the CLS query), and the CLS token's own dq, dk, dv are sums
+// over groups: each group writes an f32 partial [B, G, H, 3, DH] and
+// cls_grad_combine_kernel adds them in a fixed order (no atomics; the result
+// does not vary run to run). The CLS query's logit on the CLS key belongs to
+// group 0 only.
+//
+// Replaces the attention-core part of tvts_tpu/ops/pallas_block_backward.py::
+// fused_time_attention_block_v2_bwd (:736, kernel :501; the TPU carries the
+// CLS row's dq, dk, dv in scratch across its sequential grid),
+// fused_space_attention_block_v10_bwd (:3106, kernel :2722) and
+// pallas_text_attention.py::fused_text_attention_block_bwd (:264, kernel
+// :134; whole [S, S] probabilities per head in VMEM). Bound on the H100: the
+// time and space cores move bytes (qkv, dO and dqkv rows, ~10.7 KB a token at
+// D = 768: 0.075 ms at B=20 against ~0.02 ms of their tensor-core work); the
+// text core at the sort head's S = 1181 is bound by its 10 * D * S^2 flops per
+// sequence. This first version recomputes QK^T and dO V^T in both flash
+// kernels and runs the time core on SIMT lanes (13 of 32 busy at T = 12).
+#pragma once
+
+#include <math.h>
+
+#include "common.cuh"
+
+namespace tvts {
+
+constexpr float LOG2E_F = 1.4426950408889634f;
+
+// delta[b, h, s] = sum_d dO[b, s, h*DH + d] * O[b, s, h*DH + d]
+template <int DH>
+__global__ void attn_delta_kernel(const bf16* __restrict__ dO, const bf16* __restrict__ O,
+                                  int B, int S, int H, float* __restrict__ delta) {
+  const i64 idx = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (i64)B * S * H) return;
+  const int h = idx % H;
+  const i64 row = idx / H;
+  const bf16* a = dO + row * H * DH + h * DH;
+  const bf16* o = O + row * H * DH + h * DH;
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < DH; i += 8) {
+    uint4 ua = *reinterpret_cast<const uint4*>(a + i);
+    uint4 uo = *reinterpret_cast<const uint4*>(o + i);
+    const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&ua);
+    const __nv_bfloat162* ho = reinterpret_cast<const __nv_bfloat162*>(&uo);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 fa = __bfloat1622float2(ha[e]), fo = __bfloat1622float2(ho[e]);
+      acc += fa.x * fo.x + fa.y * fo.y;
+    }
+  }
+  const int b = row / S, s = row % S;
+  delta[((i64)b * H + h) * S + s] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// Flash backward on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+// accumulate), for plain self-attention (SPACE = false: one group per
+// sequence, element e = token e, causal or not) and for the space core
+// (SPACE = true: one group per (b, t), element 0 the CLS token, element
+// e >= 1 patch e - 1 of frame t). Two kernels, as in flash-attention 2:
+// - flash_bwd_dq_kernel: a block owns 64 query elements (4 warps x 16) and
+//   walks the 64-key tiles: dq = scale * sum dS k;
+// - flash_bwd_dkv_kernel: a block owns 64 key elements and walks the query
+//   tiles: dk = scale * sum dS^T q, dv = sum P^T dO.
+// Each writes every output element once, so neither needs atomics. Ragged
+// tiles load zeros and are masked to P = 0; with `causal` the tiles past the
+// diagonal are skipped and the diagonal tile masked.
+// ---------------------------------------------------------------------------
+constexpr int FB_BQ = 64;
+constexpr int FB_BK = 64;
+
+struct FlashBwdArgs {
+  const bf16* qkv;
+  const bf16* dO;
+  const float* lse;
+  const float* delta;
+  bf16* dqkv;
+  float* cls_partial;  // SPACE: [B, T, H, 3, DH] f32
+  int T, N, S, H;
+  float scale;
+  int causal;
+};
+
+template <bool SPACE>
+__device__ __forceinline__ int group_token(int e, int t, int N) {
+  if (SPACE) return e == 0 ? 0 : 1 + t * N + e - 1;
+  return e;
+}
+
+// load rows [e0, e0 + 64) of a group's column block `col` (q: 0, k: D, v: 2D
+// in qkv; 0 in dO) into a [64][DH + 8] tile; rows past L are zeros
+template <int DH, bool SPACE>
+__device__ __forceinline__ void load_group_tile(bf16 (*dst)[DH + 8], const bf16* base,
+                                                i64 row_stride, int col, int e0, int L, int t,
+                                                int N, int tid) {
+  constexpr int VPR = DH / 8;
+  for (int i = tid; i < 64 * VPR; i += 128) {
+    const int r = i / VPR, c = (i % VPR) * 8;
+    uint4 u = make_uint4(0, 0, 0, 0);
+    if (e0 + r < L)
+      u = *reinterpret_cast<const uint4*>(base + (i64)group_token<SPACE>(e0 + r, t, N) *
+                                                     row_stride + col + c);
+    *reinterpret_cast<uint4*>(&dst[r][c]) = u;
+  }
+}
+
+// acc[16 x 64] (+)= A[16 x DH] B[64 x DH]^T, A rows warp*16.. of sA, B from sB
+template <int DH>
+__device__ __forceinline__ void mma_abt(float (&acc)[8][4], bf16 (*sA)[DH + 8],
+                                        bf16 (*sB)[DH + 8], int warp, int lane) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    uint32_t af[4];
+    ldmatrix_x4(af, &sA[warp * 16 + (lane & 15)][kk * 16 + (lane >> 4) * 8]);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t bfr[4];
+      const int j = lane >> 3;
+      ldmatrix_x4(bfr, &sB[np * 16 + (lane & 7) + (j >> 1) * 8][kk * 16 + (j & 1) * 8]);
+      mma_bf16_16816(acc[2 * np], af, bfr[0], bfr[1]);
+      mma_bf16_16816(acc[2 * np + 1], af, bfr[2], bfr[3]);
+    }
+  }
+}
+
+// out[16 x DH] += P[16 x 64] (accumulator layout, rounded to bf16) @ sV[64 x DH]
+template <int DH>
+__device__ __forceinline__ void mma_pv(float (&out)[DH / 8][4], const float (&p)[8][4],
+                                       bf16 (*sV)[DH + 8], int lane) {
+#pragma unroll
+  for (int kt = 0; kt < 4; ++kt) {
+    uint32_t pa[4];
+    pa[0] = pack_bf16x2(p[2 * kt][0], p[2 * kt][1]);
+    pa[1] = pack_bf16x2(p[2 * kt][2], p[2 * kt][3]);
+    pa[2] = pack_bf16x2(p[2 * kt + 1][0], p[2 * kt + 1][1]);
+    pa[3] = pack_bf16x2(p[2 * kt + 1][2], p[2 * kt + 1][3]);
+#pragma unroll
+    for (int dp = 0; dp < DH / 16; ++dp) {
+      uint32_t vf[4];
+      ldmatrix_x4_trans(vf, &sV[kt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8]
+                               [dp * 16 + ((lane >> 4) & 1) * 8]);
+      mma_bf16_16816(out[2 * dp], pa, vf[0], vf[1]);
+      mma_bf16_16816(out[2 * dp + 1], pa, vf[2], vf[3]);
+    }
+  }
+}
+
+template <int DH, bool SPACE>
+__global__ void __launch_bounds__(128) flash_bwd_dq_kernel(const FlashBwdArgs a) {
+  __shared__ __align__(16) bf16 sQ[FB_BQ][DH + 8];
+  __shared__ __align__(16) bf16 sdO[FB_BQ][DH + 8];
+  __shared__ __align__(16) bf16 sK[FB_BK][DH + 8];
+  __shared__ __align__(16) bf16 sV[FB_BK][DH + 8];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = blockIdx.x * FB_BQ, h = blockIdx.y;
+  const int b = SPACE ? blockIdx.z / a.T : blockIdx.z, t = SPACE ? blockIdx.z % a.T : 0;
+  const int L = SPACE ? a.N + 1 : a.S;
+  const int D = a.H * DH;
+  const bf16* qkv = a.qkv + (i64)b * a.S * 3 * D;
+  const bf16* dO = a.dO + (i64)b * a.S * D;
+  const float* lse = a.lse + ((i64)b * a.H + h) * a.S;
+  const float* delta = a.delta + ((i64)b * a.H + h) * a.S;
+  const float scale_log2 = a.scale * LOG2E_F;
+
+  load_group_tile<DH, SPACE>(sQ, qkv, 3 * D, h * DH, q0, L, t, a.N, tid);
+  load_group_tile<DH, SPACE>(sdO, dO, D, h * DH, q0, L, t, a.N, tid);
+  float lse2[2], dl[2];
+  int qe[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qe[r] = q0 + warp * 16 + g + r * 8;
+    const bool ok = qe[r] < L;
+    const int tok = ok ? group_token<SPACE>(qe[r], t, a.N) : 0;
+    lse2[r] = ok ? lse[tok] * LOG2E_F : INFINITY;
+    dl[r] = ok ? delta[tok] : 0.f;
+  }
+
+  float dq[DH / 8][4];
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
+  const int k_end = a.causal ? min(L, q0 + FB_BQ) : L;
+
+  for (int k0 = 0; k0 < k_end; k0 += FB_BK) {
+    __syncthreads();  // previous tile fully consumed (and sQ / sdO written)
+    load_group_tile<DH, SPACE>(sK, qkv, 3 * D, D + h * DH, k0, L, t, a.N, tid);
+    load_group_tile<DH, SPACE>(sV, qkv, 3 * D, 2 * D + h * DH, k0, L, t, a.N, tid);
+    __syncthreads();
+    float s[8][4], dp[8][4];
+    mma_abt<DH>(s, sQ, sK, warp, lane);
+    mma_abt<DH>(dp, sdO, sV, warp, lane);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int key = k0 + nt * 8 + t4 * 2 + (c & 1), r = c >> 1;
+        const bool masked = key >= L || (a.causal && key > qe[r]) ||
+                            (SPACE && t != 0 && key == 0 && qe[r] == 0);
+        const float p = masked ? 0.f : exp2f(s[nt][c] * scale_log2 - lse2[r]);
+        s[nt][c] = p * (dp[nt][c] - dl[r]);  // dS
+      }
+    mma_pv<DH>(dq, s, sK, lane);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qe[r] >= L) continue;
+    if (SPACE && qe[r] == 0) {
+      float* dst = a.cls_partial + ((((i64)b * a.T + t) * a.H + h) * 3 + 0) * DH;
+#pragma unroll
+      for (int i = 0; i < DH / 8; ++i)
+        *reinterpret_cast<float2*>(dst + i * 8 + t4 * 2) =
+            make_float2(dq[i][2 * r] * a.scale, dq[i][2 * r + 1] * a.scale);
+      continue;
+    }
+    bf16* dst = a.dqkv + ((i64)b * a.S + group_token<SPACE>(qe[r], t, a.N)) * 3 * D + h * DH;
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(dst + i * 8 + t4 * 2) =
+          __floats2bfloat162_rn(dq[i][2 * r] * a.scale, dq[i][2 * r + 1] * a.scale);
+  }
+}
+
+template <int DH, bool SPACE>
+__global__ void __launch_bounds__(128) flash_bwd_dkv_kernel(const FlashBwdArgs a) {
+  __shared__ __align__(16) bf16 sK[FB_BK][DH + 8];
+  __shared__ __align__(16) bf16 sV[FB_BK][DH + 8];
+  __shared__ __align__(16) bf16 sQ[FB_BQ][DH + 8];
+  __shared__ __align__(16) bf16 sdO[FB_BQ][DH + 8];
+  __shared__ float s_lse2[FB_BQ], s_delta[FB_BQ];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int k0 = blockIdx.x * FB_BK, h = blockIdx.y;
+  const int b = SPACE ? blockIdx.z / a.T : blockIdx.z, t = SPACE ? blockIdx.z % a.T : 0;
+  const int L = SPACE ? a.N + 1 : a.S;
+  const int D = a.H * DH;
+  const bf16* qkv = a.qkv + (i64)b * a.S * 3 * D;
+  const bf16* dO = a.dO + (i64)b * a.S * D;
+  const float* lse = a.lse + ((i64)b * a.H + h) * a.S;
+  const float* delta = a.delta + ((i64)b * a.H + h) * a.S;
+  const float scale_log2 = a.scale * LOG2E_F;
+
+  load_group_tile<DH, SPACE>(sK, qkv, 3 * D, D + h * DH, k0, L, t, a.N, tid);
+  load_group_tile<DH, SPACE>(sV, qkv, 3 * D, 2 * D + h * DH, k0, L, t, a.N, tid);
+  int ke[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) ke[r] = k0 + warp * 16 + g + r * 8;
+
+  float dk[DH / 8][4], dv[DH / 8][4];
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk[i][c] = dv[i][c] = 0.f;
+
+  for (int q0 = a.causal ? k0 : 0; q0 < L; q0 += FB_BQ) {
+    __syncthreads();  // previous tile fully consumed (and sK / sV written)
+    load_group_tile<DH, SPACE>(sQ, qkv, 3 * D, h * DH, q0, L, t, a.N, tid);
+    load_group_tile<DH, SPACE>(sdO, dO, D, h * DH, q0, L, t, a.N, tid);
+    if (tid < FB_BQ) {
+      const int e = q0 + tid;
+      const int tok = e < L ? group_token<SPACE>(e, t, a.N) : 0;
+      s_lse2[tid] = e < L ? lse[tok] * LOG2E_F : INFINITY;
+      s_delta[tid] = e < L ? delta[tok] : 0.f;
+    }
+    __syncthreads();
+    // transposed tiles: rows are this warp's 16 keys, columns 64 queries
+    float p[8][4], ds[8][4];
+    mma_abt<DH>(p, sK, sQ, warp, lane);
+    mma_abt<DH>(ds, sV, sdO, warp, lane);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int ql = nt * 8 + t4 * 2 + (c & 1), query = q0 + ql, key = ke[c >> 1];
+        const bool masked = query >= L || key >= L || (a.causal && key > query) ||
+                            (SPACE && t != 0 && key == 0 && query == 0);
+        const float pv = masked ? 0.f : exp2f(p[nt][c] * scale_log2 - s_lse2[ql]);
+        p[nt][c] = pv;
+        ds[nt][c] = pv * (ds[nt][c] - s_delta[ql]);
+      }
+    mma_pv<DH>(dv, p, sdO, lane);
+    mma_pv<DH>(dk, ds, sQ, lane);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (ke[r] >= L) continue;
+    if (SPACE && ke[r] == 0) {
+      float* dst = a.cls_partial + (((i64)b * a.T + t) * a.H + h) * 3 * DH;
+#pragma unroll
+      for (int i = 0; i < DH / 8; ++i) {
+        *reinterpret_cast<float2*>(dst + DH + i * 8 + t4 * 2) =
+            make_float2(dk[i][2 * r] * a.scale, dk[i][2 * r + 1] * a.scale);
+        *reinterpret_cast<float2*>(dst + 2 * DH + i * 8 + t4 * 2) =
+            make_float2(dv[i][2 * r], dv[i][2 * r + 1]);
+      }
+      continue;
+    }
+    bf16* dst = a.dqkv + ((i64)b * a.S + group_token<SPACE>(ke[r], t, a.N)) * 3 * D + h * DH;
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i) {
+      *reinterpret_cast<__nv_bfloat162*>(dst + D + i * 8 + t4 * 2) =
+          __floats2bfloat162_rn(dk[i][2 * r] * a.scale, dk[i][2 * r + 1] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dst + 2 * D + i * 8 + t4 * 2) =
+          __floats2bfloat162_rn(dv[i][2 * r], dv[i][2 * r + 1]);
+    }
+  }
+}
+
+// the two kernels of one flash backward, B sequences (SPACE: B * T groups)
+template <int DH, bool SPACE>
+inline cudaError_t launch_flash_bwd(const FlashBwdArgs& a, int B, cudaStream_t s) {
+  const int L = SPACE ? a.N + 1 : a.S;
+  const unsigned z = SPACE ? B * a.T : B;
+  flash_bwd_dq_kernel<DH, SPACE><<<dim3((L + FB_BQ - 1) / FB_BQ, a.H, z), 128, 0, s>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_kernel<DH, SPACE><<<dim3((L + FB_BK - 1) / FB_BK, a.H, z), 128, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Time core backward. The time group of location n is [CLS, (0, n), (1, n),
+// .., (T-1, n)]: T + 1 <= 33 elements, too small for the tensor cores. As in
+// the forward one warp owns a (b, n, h) group; the rows go to shared memory
+// in f32, then (1) lane i computes row i of P and dS and dq_i, (2) lane j
+// computes dk_j and dv_j from column j of P and dS. 16 head dims at a time,
+// so the accumulators stay in registers.
+// ---------------------------------------------------------------------------
+constexpr int TB_WARPS = 4;
+
+inline size_t time_bwd_smem(int T, int DH) {
+  const int G = T + 1;
+  return sizeof(float) * TB_WARPS * (4 * G * (DH + 1) + 2 * G * (G + 1));
+}
+
+template <int DH>
+__global__ void __launch_bounds__(TB_WARPS * 32)
+    time_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dqkv, float* __restrict__ cls_partial, int T, int N,
+                    int H, float scale) {
+  extern __shared__ float tbs[];
+  constexpr int LD = DH + 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = blockIdx.x, b = blockIdx.y;
+  const int G = T + 1, D = H * DH, S = 1 + T * N;
+  float* sq = tbs + warp * (4 * G * LD + 2 * G * (G + 1));
+  float* sk = sq + G * LD;
+  float* sv = sk + G * LD;
+  float* sdo = sv + G * LD;
+  float* sp = sdo + G * LD;  // [G][G + 1]
+  float* sds = sp + G * (G + 1);
+  const bf16* qb = qkv + (i64)b * S * 3 * D;
+  const bf16* ob = dO + (i64)b * S * D;
+
+  for (int h = warp; h < H; h += TB_WARPS) {
+    for (int r = 0; r < 4 * G; ++r) {
+      const int e = r % G, which = r / G;  // 0 q, 1 k, 2 v, 3 dO
+      const i64 tok = e == 0 ? 0 : 1 + (i64)(e - 1) * N + n;
+      const bf16* src = which == 3 ? ob + tok * D + h * DH : qb + tok * 3 * D + which * D + h * DH;
+      float* dst = sq + which * G * LD + e * LD;
+      for (int i = lane; i < DH; i += 32) dst[i] = __bfloat162float(src[i]);
+    }
+    __syncwarp();
+    const float* lse_bh = lse + ((i64)b * H + h) * S;
+    const float* delta_bh = delta + ((i64)b * H + h) * S;
+
+    // (1) lane i: row i of P and dS, then dq_i
+    if (lane < G) {
+      const int i = lane;
+      const i64 tok = i == 0 ? 0 : 1 + (i64)(i - 1) * N + n;
+      const float l_i = lse_bh[tok], d_i = delta_bh[tok];
+      for (int j = 0; j < G; ++j) {
+        float qk = 0.f, dv = 0.f;
+#pragma unroll 16
+        for (int d = 0; d < DH; ++d) {
+          qk += sq[i * LD + d] * sk[j * LD + d];
+          dv += sdo[i * LD + d] * sv[j * LD + d];
+        }
+        const bool masked = i == 0 && j == 0 && n != 0;  // CLS-CLS belongs to group 0
+        const float p = masked ? 0.f : __expf(qk * scale - l_i);
+        sp[i * (G + 1) + j] = p;
+        sds[i * (G + 1) + j] = p * (dv - d_i);
+      }
+      for (int d0 = 0; d0 < DH; d0 += 16) {
+        float acc[16];
+#pragma unroll
+        for (int d = 0; d < 16; ++d) acc[d] = 0.f;
+        for (int j = 0; j < G; ++j) {
+          const float w = sds[i * (G + 1) + j];
+#pragma unroll
+          for (int d = 0; d < 16; ++d) acc[d] += w * sk[j * LD + d0 + d];
+        }
+        if (i == 0) {
+          float* dst = cls_partial + ((((i64)b * N + n) * H + h) * 3 + 0) * DH + d0;
+#pragma unroll
+          for (int d = 0; d < 16; ++d) dst[d] = acc[d] * scale;
+        } else {
+          bf16* dst = dqkv + tok * 3 * D + (i64)b * S * 3 * D + h * DH + d0;
+#pragma unroll
+          for (int d = 0; d < 16; d += 2)
+            *reinterpret_cast<__nv_bfloat162*>(dst + d) =
+                __floats2bfloat162_rn(acc[d] * scale, acc[d + 1] * scale);
+        }
+      }
+    }
+    __syncwarp();
+    // (2) lane j: dk_j = scale * sum_i dS_ij q_i, dv_j = sum_i P_ij dO_i
+    if (lane < G) {
+      const int j = lane;
+      const i64 tok = j == 0 ? 0 : 1 + (i64)(j - 1) * N + n;
+      for (int d0 = 0; d0 < DH; d0 += 16) {
+        float ak[16], av[16];
+#pragma unroll
+        for (int d = 0; d < 16; ++d) ak[d] = av[d] = 0.f;
+        for (int i = 0; i < G; ++i) {
+          const float w = sds[i * (G + 1) + j], p = sp[i * (G + 1) + j];
+#pragma unroll
+          for (int d = 0; d < 16; ++d) {
+            ak[d] += w * sq[i * LD + d0 + d];
+            av[d] += p * sdo[i * LD + d0 + d];
+          }
+        }
+        if (j == 0) {
+          float* dst = cls_partial + (((i64)b * N + n) * H + h) * 3 * DH + d0;
+#pragma unroll
+          for (int d = 0; d < 16; ++d) {
+            dst[DH + d] = ak[d] * scale;
+            dst[2 * DH + d] = av[d];
+          }
+        } else {
+          bf16* dst = dqkv + tok * 3 * D + (i64)b * S * 3 * D + h * DH + d0;
+#pragma unroll
+          for (int d = 0; d < 16; d += 2) {
+            *reinterpret_cast<__nv_bfloat162*>(dst + D + d) =
+                __floats2bfloat162_rn(ak[d] * scale, ak[d + 1] * scale);
+            *reinterpret_cast<__nv_bfloat162*>(dst + 2 * D + d) =
+                __floats2bfloat162_rn(av[d], av[d + 1]);
+          }
+        }
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// dqkv[b, 0, slot*D + h*DH + d] = sum_g partial[b, g, h, slot, d], g = 0 .. G-1
+// in order (the CLS token's dq, dk, dv from the groups' partials).
+__global__ void cls_grad_combine_kernel(const float* __restrict__ partial, int G, int H, int DH,
+                                        i64 S, bf16* __restrict__ dqkv) {
+  const int h = blockIdx.x, b = blockIdx.y, D = H * DH;
+  for (int i = threadIdx.x; i < 3 * DH; i += blockDim.x) {
+    const int slot = i / DH, d = i % DH;
+    float s = 0.f;
+    for (int gi = 0; gi < G; ++gi)
+      s += partial[((((i64)b * G + gi) * H + h) * 3 + slot) * DH + d];
+    dqkv[(i64)b * S * 3 * D + slot * D + h * DH + d] = __float2bfloat16(s);
+  }
+}
+
+}  // namespace tvts

@@ -7,7 +7,10 @@
 // from row_stats_kernel, applied as A tiles move to shared memory and rounded
 // to bf16 there (the JAX kernels also round LN(x) to bf16 before the product).
 // Epilogue: bias, activation (none / quick_gelu / exact erf gelu), residual add
-// from a separate `res` tensor, bf16 store.
+// from a separate `res` tensor, bf16 store (or an f32 store to `Yf`, which the
+// training backward uses for dL/dLN(x) = dqkv @ Wqkv ahead of the LayerNorm
+// backward; it passes the transposed weight, so the product is the
+// untransposed-weight one, dY @ W).
 //
 // Bound on the H100: tensor-core issue for the big products (K = 768..5120).
 // This first version stages tiles through registers into a double-buffered
@@ -71,6 +74,7 @@ struct GemmArgs {
   const bf16* res;   // residual rows (stride ldres) or null
   i64 ldres;
   bf16* Y;
+  float* Yf;  // non-null: f32 output instead of Y
   i64 ldy;
   int M, N, K, act;
 };
@@ -81,6 +85,9 @@ __device__ __forceinline__ float activate(float v, int act) {
   return v;
 }
 
+// F32_OUT is a template parameter, not a runtime branch: a runtime test in the
+// epilogue cost the bf16 kernel 4-6% (one A/B call on the H100, PERF.md).
+template <bool F32_OUT>
 __global__ void __launch_bounds__(GEMM_THREADS) ln_gemm_kernel(const GemmArgs a) {
   __shared__ __align__(16) bf16 sA[2][GEMM_BM][GEMM_LDS];
   __shared__ __align__(16) bf16 sB[2][GEMM_BN][GEMM_LDS];
@@ -209,8 +216,11 @@ __global__ void __launch_bounds__(GEMM_THREADS) ln_gemm_kernel(const GemmArgs a)
           v0 += r.x;
           v1 += r.y;
         }
-        *reinterpret_cast<__nv_bfloat162*>(a.Y + (i64)row * a.ldy + col) =
-            __floats2bfloat162_rn(v0, v1);
+        if constexpr (F32_OUT)
+          *reinterpret_cast<float2*>(a.Yf + (i64)row * a.ldy + col) = make_float2(v0, v1);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(a.Y + (i64)row * a.ldy + col) =
+              __floats2bfloat162_rn(v0, v1);
       }
 }
 
@@ -226,7 +236,10 @@ inline cudaError_t launch_ln_gemm(const GemmArgs& a, float eps, float2* stats,
     args.stats = nullptr;
   }
   dim3 grid((a.N + GEMM_BN - 1) / GEMM_BN, (a.M + GEMM_BM - 1) / GEMM_BM);
-  ln_gemm_kernel<<<grid, GEMM_THREADS, 0, stream>>>(args);
+  if (args.Yf)
+    ln_gemm_kernel<true><<<grid, GEMM_THREADS, 0, stream>>>(args);
+  else
+    ln_gemm_kernel<false><<<grid, GEMM_THREADS, 0, stream>>>(args);
   return cudaGetLastError();
 }
 

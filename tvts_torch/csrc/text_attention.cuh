@@ -22,6 +22,10 @@
 // products (2 * S^2 * D * 2 flops per sequence against 4 * S * D^2 * 2: 7%),
 // so the sub-path is bound by ln_gemm; at S = 1181 the core is about half of
 // the flops.
+//
+// With a non-null `lse` [B, H, S] f32 the kernel also writes each row's
+// natural-log log-sum-exp, the save of the training backward
+// (attention_bwd.cuh); null leaves the inference path as it was.
 #pragma once
 
 #include <math.h>
@@ -35,8 +39,8 @@ constexpr int TX_BK = 64;
 
 template <int DH>
 __global__ void __launch_bounds__(128)
-    text_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int S, int H,
-                     float scale, int causal) {
+    text_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+                     float* __restrict__ lse, int S, int H, float scale, int causal) {
   constexpr int LD = DH + 8;
   __shared__ __align__(16) bf16 sQ[TX_BQ][LD];
   __shared__ __align__(16) bf16 sK[TX_BK][LD];
@@ -171,6 +175,9 @@ __global__ void __launch_bounds__(128)
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int qi = row0 + r * 8;
+    if (lse && t4 == 0 && qi < S)  // training save: natural-log lse of the scaled logits
+      lse[((i64)b * H + h) * S + qi] = (m[r] + __log2f(l[r])) * 0.6931471805599453f;
     l[r] = 1.f / l[r];
   }
 #pragma unroll

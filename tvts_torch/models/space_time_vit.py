@@ -11,7 +11,9 @@ tvts_tpu/models/space_time_vit.py).
 
 Parameter names are the reference `.pth` names (`video_model.` stripped), so a
 released checkpoint loads with `load_state_dict(strict=True)`. The compute
-dtype is the dtype of the weights; LayerNorm parameters stay float32.
+dtype is `compute_dtype` when set (bf16 activations over f32 master weights,
+the training setup), else the dtype of the weights; LayerNorm parameters stay
+float32.
 LayerScale, PatchDropout and the attentional pooler (H/14 options no shipped
 config enables) are not ported yet: a config that sets them raises.
 """
@@ -64,6 +66,7 @@ class SpaceTimeViT(nn.Module):
         if cfg.pool_style not in ("openai", "openclip"):
             raise ValueError(f"unknown pool_style {cfg.pool_style!r}")
         self.cfg = cfg
+        self.compute_dtype: torch.dtype | None = None
         D, p = cfg.width, cfg.patch_size
         self.conv1 = nn.Conv2d(3, D, kernel_size=p, stride=p, bias=False)
         self.class_embedding = nn.Parameter(torch.empty(D))
@@ -77,7 +80,7 @@ class SpaceTimeViT(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.conv1.weight.dtype
+        return self.compute_dtype or self.conv1.weight.dtype
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -107,7 +110,7 @@ class SpaceTimeViT(nn.Module):
             video = video[:, None]
         B, T, C, H, W = video.shape
         dtype = self.dtype
-        x = F.conv2d(video.reshape(B * T, C, H, W).to(dtype), self.conv1.weight,
+        x = F.conv2d(video.reshape(B * T, C, H, W).to(dtype), self.conv1.weight.to(dtype),
                      stride=cfg.patch_size)                  # [BT, D, h, w]
         x = x.flatten(2).transpose(1, 2).reshape(B, T, -1, cfg.width)
         pos = self.positional_embedding.float()

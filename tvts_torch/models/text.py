@@ -46,6 +46,7 @@ class TextTransformer(nn.Module):
     def __init__(self, cfg: TextConfig):
         super().__init__()
         self.text_cfg = cfg
+        self.compute_dtype: torch.dtype | None = None  # None: the weights' dtype
         self.text_token_embedding = nn.Embedding(cfg.vocab_size, cfg.width)
         self.text_positional_embedding = nn.Parameter(
             torch.empty(cfg.context_length, cfg.width))
@@ -70,8 +71,9 @@ class TextTransformer(nn.Module):
     def embed_tokens(self, token_ids: torch.Tensor) -> torch.Tensor:
         """[B, ctx] ids -> token + positional embedding [B, ctx, width]."""
         weight = self.text_token_embedding.weight
-        return F.embedding(token_ids.long(), weight) + self.text_positional_embedding.to(
-            weight.dtype)
+        dtype = self.compute_dtype or weight.dtype
+        return (F.embedding(token_ids.long(), weight).to(dtype)
+                + self.text_positional_embedding.to(dtype))
 
     def project_text(self, x_eot: torch.Tensor) -> torch.Tensor:
         """ln_final, then @ text_projection, on the EOT rows [B, width]."""

@@ -1,12 +1,19 @@
 """TVTSv2 container (counterpart of tvts_tpu/models/tvts_v2.py): the text
-tower and the space-time video tower under the reference `.pth` layout.
+tower, the space-time video tower and the transcript-sorting head under the
+reference `.pth` layout.
 
 The reference keeps the text tower's parameters at the top level of the
 model (`text_token_embedding`, `text_positional_embedding`,
 `text_model.resblocks.*`, `text_ln_final`, `text_projection`) beside
-`video_model.*`, so TVTSv2 extends `TextTransformer` with `video_model`.
-The sort head (`pred_model.*`) and the training forward arrive with slice 3;
-until then `__call__` raises.
+`video_model.*` and `pred_model.*`, so TVTSv2 extends `TextTransformer`.
+
+`forward(video, text_ids, keep_ind)` is the training forward (reference
+model_dist_TVTSv2_ViT_B_16.py:61-116): text ids arrive clip-major
+[n_trans * B, ctx]; the contrastive text embedding is the mean over the
+n_trans clips; the video embedding is the pooled CLS; the sort head reads the
+per-clip text embeddings detached, as [B, n_trans, D], beside the video order
+tokens. Returns (text_emb [B, D], video_emb [B, D], predict_order
+[B, n_trans, n_trans] or None when n_trans == 1).
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from tvts_torch.models.configs import TVTSv2Config
+from tvts_torch.models.sort import SortTransformer
 from tvts_torch.models.space_time_vit import SpaceTimeViT
 from tvts_torch.models.text import TextTransformer
 
@@ -23,14 +31,30 @@ class TVTSv2(TextTransformer):
         super().__init__(cfg.text)
         self.cfg = cfg
         self.video_model = SpaceTimeViT(cfg.vision)
+        self.pred_model = SortTransformer(cfg.sort)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.video_model.reset_parameters(generator)
         self.reset_text_parameters(generator)
+        self.pred_model.reset_parameters(generator)
+
+    def set_compute_dtype(self, dtype: torch.dtype | None) -> None:
+        """Activation dtype of both towers (None: the weights' dtype)."""
+        self.compute_dtype = dtype
+        self.video_model.compute_dtype = dtype
 
     def compute_video(self, video: torch.Tensor, keep_ind: torch.Tensor | None = None):
         """[B, T, C, H, W] -> (pooled [B, out], order_tokens [B, S', out])."""
         return self.video_model(video, keep_ind)
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError("TVTSv2 training forward (sort head): slice 3")
+    def forward(self, video: torch.Tensor, text_ids: torch.Tensor,
+                keep_ind: torch.Tensor | None = None):
+        bz = video.shape[0]
+        text_emb = self.compute_text(text_ids)  # [n_trans * B, D]
+        n_trans = text_emb.shape[0] // bz
+        per_clip = text_emb.reshape(n_trans, bz, text_emb.shape[-1])
+        video_emb, order_tokens = self.compute_video(video, keep_ind)
+        predict_order = None
+        if n_trans != 1:
+            predict_order = self.pred_model(per_clip.detach().transpose(0, 1), order_tokens)
+        return per_clip.mean(0), video_emb, predict_order

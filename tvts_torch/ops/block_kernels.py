@@ -1,7 +1,8 @@
 """The four sub-path kernels of the B/16 extraction tower, hand-written in CUDA
 C++ for Hopper (sources in tvts_torch/csrc/), each beside its plain PyTorch
 version; and the build and load of the one kernel library, which also carries
-the text-attention kernel of ops/text_attention.py.
+the text-attention kernel of ops/text_attention.py and the training backward
+kernels of ops/block_backward.py.
 
 Layout: tokens [B, S, D] with S = 1 + T*N, CLS first, frame-major patches
 (the JAX kernels' d-major xT is ``x[:, 1:].reshape(B, T, N, D).swapaxes(-1,
@@ -106,13 +107,24 @@ def library() -> ctypes.CDLL:
     p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.tvts_error_string.argtypes = [i]
     lib.tvts_error_string.restype = ctypes.c_char_p
-    lib.tvts_ln_gemm.argtypes = [p, i64, p, p, f, p, p, p, p, i64, p, i64, i, i, i, i, p]
-    lib.tvts_time_core.argtypes = [p, p, i, i, i, i, i, f, p]
-    lib.tvts_space_core.argtypes = [p, p, i, i, i, i, i, f, p]
-    lib.tvts_cls_attention.argtypes = [p, i64, p, p, i64, i64, i, p, i64, p, i, i, i, f, p]
-    lib.tvts_text_core.argtypes = [p, p, i, i, i, i, f, i, p]
-    for fn in (lib.tvts_ln_gemm, lib.tvts_time_core, lib.tvts_space_core,
-               lib.tvts_cls_attention, lib.tvts_text_core):
+    argtypes = {
+        "tvts_ln_gemm": [p, i64, p, p, f, p, p, p, p, i64, p, p, i64, i, i, i, i, p],
+        "tvts_time_core": [p, p, p, i, i, i, i, i, f, p],
+        "tvts_space_core": [p, p, p, i, i, i, i, i, f, p],
+        "tvts_cls_attention": [p, i64, p, p, i64, i64, i, p, i64, p, p, i, i, i, f, p],
+        "tvts_text_core": [p, p, p, i, i, i, i, f, i, p],
+        # training backward
+        "tvts_wgrad": [p, i64, p, i64, p, p, p, p, p, i, i, i, i, i, p],
+        "tvts_reduce": [p, i, i64, p, p, p],
+        "tvts_ln_bwd": [p, p, p, p, p, p, p, p, i, i, i, i, p],
+        "tvts_attn_delta": [p, p, i, i, i, i, p, p],
+        "tvts_flash_bwd": [p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, p],
+        "tvts_time_bwd": [p, p, p, p, p, p, i, i, i, i, i, f, p],
+        "tvts_cls_grad_combine": [p, i, i, i, i, i64, p, p],
+    }
+    for name, types in argtypes.items():
+        fn = getattr(lib, name)
+        fn.argtypes = types
         fn.restype = i
     return lib
 
@@ -127,29 +139,38 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
 def _ln_gemm(lib, x, rows, lda, ln, w, b, out, act="none", res=None, ldres=0,
              eps=LN_EPS):
     """out = act(LN?(x rows at stride lda) @ w.T + b) (+ res), on the card;
-    `eps` is the LayerNorm's (1e-5 in the towers, 1e-6 in the sort head)."""
+    `eps` is the LayerNorm's (1e-5 in the towers, 1e-6 in the sort head). An
+    f32 `out` takes the f32 store. Returns the LayerNorm row statistics
+    ([rows, 2] f32: mean, rstd) or None."""
     stats = torch.empty(rows, 2, dtype=torch.float32, device=x.device) if ln else None
     ln_w, ln_b = ln if ln else (None, None)
+    f32 = out.dtype == torch.float32
     _check(lib, lib.tvts_ln_gemm(
         _ptr(x), lda, _ptr(ln_w), _ptr(ln_b), eps, _ptr(stats), _ptr(w), _ptr(b),
-        _ptr(res), ldres, _ptr(out), out.shape[-1], rows, w.shape[0], w.shape[1],
-        ACTS[act], torch.cuda.current_stream(x.device).cuda_stream))
+        _ptr(res), ldres, None if f32 else _ptr(out), _ptr(out) if f32 else None,
+        out.shape[-1], rows, w.shape[0], w.shape[1], ACTS[act], _stream(x)))
+    return stats
 
 
 def _cls_row(lib, q, q_bstride, k, v, kv_bstride, kv_rstride, n_keys, out, out_bstride,
-             num_heads, head_dim):
-    """Split-KV CLS global row: out[b] = softmax(q[b] k[b]^T / sqrt(d)) v[b]."""
+             num_heads, head_dim, lse=None):
+    """Split-KV CLS global row: out[b] = softmax(q[b] k[b]^T / sqrt(d)) v[b];
+    with `lse` [B, H, n_keys] the row's log-sum-exp goes to lse[:, :, 0]."""
     B = q.shape[0]
     n_chunks = -(-n_keys // 128)
     partial = torch.empty(B, num_heads, n_chunks, head_dim + 2, dtype=torch.float32,
                           device=q.device)
     _check(lib, lib.tvts_cls_attention(
         _ptr(q), q_bstride, _ptr(k), _ptr(v), kv_bstride, kv_rstride, n_keys, _ptr(out),
-        out_bstride, _ptr(partial), B, num_heads, head_dim, head_dim ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream))
+        out_bstride, _ptr(partial), _ptr(lse), B, num_heads, head_dim, head_dim ** -0.5,
+        _stream(q)))
 
 
 # ---------------------------------------------------------------------------
@@ -220,9 +241,13 @@ def time_block_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_frames, num_he
 
 
 def _attention_sub_path(core: str, x, res, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
-                        num_frames, num_heads) -> torch.Tensor:
+                        num_frames, num_heads, save: bool = False):
     """res + Proj(Attn(LN(x))) on the card: ln_gemm qkv rows -> `core` on the
-    patch rows -> split-KV CLS row -> ln_gemm proj with the residual."""
+    patch rows -> split-KV CLS row -> ln_gemm proj with the residual.
+
+    save=True (training forward) also returns what the backward needs:
+    (out, qkv [B, S, 3D], attn [B, S, D] (pre-projection), lse [B, H, S] f32
+    (the per-row log-sum-exp; row 0 the CLS row), LN row stats [B*S, 2] f32)."""
     B, S, D = x.shape
     N = _patches_per_frame(S, num_frames)
     d = _check_attention_args(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_frames,
@@ -231,16 +256,17 @@ def _attention_sub_path(core: str, x, res, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
     lib = library()
     with torch.cuda.device(x.device):
         qkv = torch.empty(B, S, 3 * D, dtype=x.dtype, device=x.device)
-        _ln_gemm(lib, x, B * S, D, (ln_w, ln_b), wqkv, bqkv, qkv)
+        stats = _ln_gemm(lib, x, B * S, D, (ln_w, ln_b), wqkv, bqkv, qkv)
         attn = torch.empty_like(x)
-        _check(lib, getattr(lib, core)(_ptr(qkv), _ptr(attn), B, num_frames, N, num_heads,
-                                       d, d ** -0.5,
-                                       torch.cuda.current_stream(x.device).cuda_stream))
+        lse = (torch.empty(B, num_heads, S, dtype=torch.float32, device=x.device)
+               if save else None)
+        _check(lib, getattr(lib, core)(_ptr(qkv), _ptr(attn), _ptr(lse), B, num_frames, N,
+                                       num_heads, d, d ** -0.5, _stream(x)))
         _cls_row(lib, qkv, S * 3 * D, qkv[..., D:], qkv[..., 2 * D:], S * 3 * D, 3 * D, S,
-                 attn, S * D, num_heads, d)
+                 attn, S * D, num_heads, d, lse=lse)
         out = torch.empty_like(x)
         _ln_gemm(lib, attn, B * S, D, None, wproj, bproj, out, res=res, ldres=D)
-    return out
+    return (out, qkv, attn, lse, stats) if save else out
 
 
 def fused_time_block(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_frames: int,

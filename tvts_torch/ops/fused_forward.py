@@ -1,7 +1,9 @@
-"""Inference forward of SpaceTimeViT through the sub-path kernels (counterpart
-of tvts_tpu/ops/fused_forward.py, the kernel_version-7 block loop).
+"""Forwards of SpaceTimeViT and TVTSv2 through the sub-path kernels
+(counterpart of tvts_tpu/ops/fused_forward.py): the inference tower (the
+kernel_version-7 block loop), and the differentiable training tower and
+train_apply (H5, H6, H7).
 
-Per block: H1 time -> H2 space (residual from the block input) -> H3 MLP. With
+Inference, per block: H1 time -> H2 space (residual from the block input) -> H3 MLP. With
 need_tokens=False the last block runs only what the pooled embedding needs:
 H4 (the CLS row of the space sub-path) and the MLP on that one row. The stem
 (patchify conv, positional and temporal adds, ln_pre), the last block's CLS-row
@@ -15,11 +17,18 @@ from __future__ import annotations
 import torch
 
 from tvts_torch.models.space_time_vit import SpaceTimeViT
+from tvts_torch.ops.block_backward import space_subpath, time_subpath
 from tvts_torch.ops.block_kernels import (
     fused_mlp_block,
     fused_space_block,
     fused_space_cls_only,
     fused_time_block,
+    space_block_plain,
+    time_block_plain,
+)
+from tvts_torch.ops.text_attention import (
+    sort_transformer_fused_forward,
+    text_transformer_fused_forward,
 )
 
 
@@ -49,3 +58,56 @@ def space_time_vit_fused_forward(model: SpaceTimeViT, video: torch.Tensor,
                             blk.mlp.c_fc.bias, blk.mlp.c_proj.weight,
                             blk.mlp.c_proj.bias, act=cfg.act)
     return model.pool(x, need_tokens)
+
+
+def space_time_vit_fused_train_forward(model: SpaceTimeViT, video: torch.Tensor,
+                                       keep_ind: torch.Tensor | None = None,
+                                       space_kernel: bool = True,
+                                       time_kernel: bool = True):
+    """The differentiable tower (counterpart of the JAX package's
+    make_fused_train_forward, row layout): the stem, then per block H6 time ->
+    H5 space (residual from the block input) -> the plain-torch MLP (XLA in
+    the JAX package), then pool(need_tokens=True): the sort head reads every
+    token, so there is no CLS-only tail. space_kernel / time_kernel=False run
+    the plain sub-path instead. The weights are cast to the compute dtype
+    (differentiably: f32 masters get the gradient). Returns (pooled, tokens)."""
+    cfg = model.cfg
+    x = model.embed(video, keep_ind)
+    T = video.shape[1] if video.ndim == 5 else 1
+    dt = x.dtype
+
+    def weights(ln, attn):
+        return (ln.weight, ln.bias, attn.qkv.weight.to(dt), attn.qkv.bias.to(dt),
+                attn.proj.weight.to(dt), attn.proj.bias.to(dt))
+
+    for blk in model.transformer.resblocks:
+        tw = weights(blk.ln_3, blk.timeattn)
+        tr = (time_subpath if time_kernel else time_block_plain)(x, *tw, T, cfg.heads)
+        sw = weights(blk.ln_1, blk.attn)
+        x = (space_subpath if space_kernel else space_block_plain)(tr, x, *sw, T, cfg.heads)
+        x = x + blk.mlp(blk.ln_2(x))
+    return model.pool(x, need_tokens=True)
+
+
+def train_apply(model, batch: dict, *, space_kernel: bool = True, time_kernel: bool = True,
+                text_kernel: bool = True, sort_kernel: bool = True,
+                text_tune_from: int | None = None):
+    """TVTSv2.forward through the kernels (counterpart of the JAX package's
+    make_fused_train_apply, row layout, no mesh): (text_emb, video_emb,
+    predict_order) of a batch dict, as model(video, text_ids, keep_ind)
+    returns them. text_tune_from: the first trainable text block (the blocks
+    below it take the dx-only H7 backward)."""
+    video, text_ids = batch["video"], batch["text_ids"]
+    bz = video.shape[0]
+    text_emb = (text_transformer_fused_forward(model, text_ids, tune_from=text_tune_from)
+                if text_kernel else model.compute_text(text_ids))
+    n_trans = text_emb.shape[0] // bz
+    per_clip = text_emb.reshape(n_trans, bz, text_emb.shape[-1])
+    pooled, tokens = space_time_vit_fused_train_forward(
+        model.video_model, video, batch.get("keep_ind"), space_kernel, time_kernel)
+    predict_order = None
+    if n_trans != 1:
+        sort_text = per_clip.detach().transpose(0, 1)
+        predict_order = (sort_transformer_fused_forward(model.pred_model, sort_text, tokens)
+                         if sort_kernel else model.pred_model(sort_text, tokens))
+    return per_clip.mean(0), pooled, predict_order
