@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's main paths -- TVTSv2 B/16 video feature
+"""Smoke run of the PyTorch port's main paths -- TVTSv2 video feature
 extraction, zero-shot eval (retrieval, prompt recognition, SSV2 multiple
-choice) and the B/16 pretraining step (forward, backward, AdamW) through the
-hand-written Hopper kernels -- on one CUDA card.
+choice) and the pretraining step (forward, backward, AdamW) through the
+hand-written Hopper kernels, for B/16, B/32 and H/14 -- on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure raises and exits non-zero; they
-run in the order 1-5, 7, 6):
+run in the order 1-5, 7, 6 for B/16, then 9 (B/32) and 8 (H/14) with their
+times):
 1. refuse to run without CUDA; print the card's name and power limit;
 2. build the kernels from tvts_torch/csrc with nvcc (sm_90a); print the build
    seconds and the -Xptxas -v register / shared-memory lines;
@@ -15,16 +16,24 @@ run in the order 1-5, 7, 6):
    on the card: H1-H4 at the B/16 shape (B=2), at N=49 (B/32) and at D=1280,
    H=16 (head dim 80); H7 (text attention) at the B/16 text shape (B=8, S=77,
    D=512, causal), the H/14 text shape (B=4, S=77, D=1024, H=16) and the sort
-   head shape (B=2, S=1181, D=512, non-causal, LN eps 1e-6); the backwards of
-   H6 (time) and H5 (space) at the B/16 train shape (B=2, N=98) and at D=1280,
-   H=16 (N=76), and of H7 at the text shape (causal, frozen and not) and the
-   sort shape, each gradient tensor within 0.06 * max|ref| of the plain
-   backward;
+   head shapes (B/16: B=2, S=1181, D=512; H/14: B=1, S=916, D=1024, H=16;
+   non-causal, LN eps 1e-6); the backwards of H6 (time) and H5 (space) at the
+   B/16 train shape (B=2, N=98) and at D=1280, H=16 (N=76), with their saving
+   forwards; of H7 at the text shapes (B/16 causal, frozen and not; H/14) and
+   the sort shapes; H8 (the MLP sub-path) forward (output and saved hidden)
+   and every backward gradient, recomputing and saving, at the B/16 train
+   shape (quick_gelu) and the H/14 train shape (B=1, S=913, D=1280, exact
+   gelu); H9 (the attention cores on q, k, v) space and time at (N=196,
+   d=64), (N=49, d=64), (N=256, d=80). Forwards within BAND (H9 within
+   min(BAND, 0.02 * max|ref|), and no farther from plain in f32 than plain in
+   bf16 is), each gradient tensor within 0.06 * max|ref| of the plain backward;
 4. extraction main path: build_model("TVTSv2_B_16") with seeded weights (noise
    on every leaf of both towers), extract_embeddings over 3 batches of 8
    synthetic clips (the last ragged) through the kernels; launch counts
    12/11/11/1 per forward; pooled cosine against the eager tower in bf16 and
-   in f32; extract_video_feature;
+   in f32; extract_video_feature; then the eager tower built with
+   use_pallas=True (12 H9 space launches a forward) against the same tower
+   without it;
 5. zero-shot main path, kernels on both towers: run_retrieval over 21
    clip-caption pairs in batches of 8, run_recognition over a few class
    names, run_ssv2_mc with a few options per clip; 11 H7 launches per text
@@ -41,12 +50,30 @@ run in the order 1-5, 7, 6):
    kernels with finite losses, frozen blocks unchanged bit for bit, every
    trainable tensor moved, and per step 12 H6 and 12 H5 forwards and
    backwards, 12 H7 forwards (11 text, 1 sort) and 12 H7 backwards (9 frozen);
-   H1-H4 not called;
+   H1-H4 not called; then the same gate with mlp_mode="pallas" (12 H8
+   forwards and backwards a step, recomputing the hidden) and with
+   layout="dmajor" (the same, from the saved hidden);
 6. times with CUDA events after warm-up: clips/s at B=64 and captions/s at
    B=256 (kernels, eager), each kernel against its plain version; the train
-   step at B=20 (ms, clips/s, peak memory; kernels, eager), each backward
-   kernel against its plain backward at the B=20 shapes, and the device-time
-   breakdown of one kernel-path train step from torch.profiler.
+   step at B=20 (ms, clips/s, peak memory; kernels, kernels with
+   mlp_mode="pallas", eager), each backward kernel, the saving forwards, H8
+   and H9 against their plain versions at the B=20 shapes (H9 also against
+   the one library call that computes it, a masked
+   scaled_dot_product_attention: `library_ms`), and the
+   device-time breakdown of one kernel-path train step from torch.profiler;
+9. B/32: extraction at B=8 through the kernels (counts 12/11/11/1, cosine
+   gates), clips/s at B=64 (kernels, eager);
+8. H/14 at full width and depth (32 blocks of 1280, text 24 blocks of 1024):
+   extraction over 2 batches of 4 clips (last ragged; counts 32/31/31/1,
+   cosine gates); zero-shot retrieval (23 H7 launches per text forward);
+   clips/s at B=16; the train step with f32 masters and bf16 compute,
+   OptimizerConfig(text_layers=24, text_tune_layers=6), B=4: the step-0 gate
+   under the "best" preset (H5 space, checkpointed plain time, H7 text with 18
+   frozen blocks, plain sort head and MLP), two optimizer steps with frozen
+   tensors unchanged, then the gate with every kernel on (time, mlp and sort
+   "pallas": per step 32 H5, H6 and H8 forwards and backwards, 24 H7
+   forwards and backwards, 18 of them frozen); the step at B=8 (preset, every
+   kernel, eager) and the profile of one preset step.
 The line before the last is {"kernels": [...]}, each with its bound (the
 larger of its bytes over 3.35 TB/s and its flops over 989 TFLOP/s, from the
 shapes timed); the last is {"ok": true, "device": {...}}.
@@ -65,6 +92,11 @@ import torch
 # max|diff| band of the Pallas kernels against XLA in bf16 (0.031-0.047 at
 # mean|out| ~0.8), scaled where the reference is larger
 BAND = 0.05
+# the attention cores alone (H9): max|diff| against plain over max|ref|, never
+# above BAND (plain in bf16 rounds its logits and lies 0.006 * max|ref| to
+# 0.012 * max|ref| from its own f32 result, so a tighter band would hold the
+# kernel to plain's rounding)
+CORE_BAND = 0.02
 COS_BF16, COS_F32 = 0.999, 0.995
 REPLACES = {
     "fused_time_block": "tvts_tpu/ops/pallas_block_attention.py:2456",
@@ -75,6 +107,13 @@ REPLACES = {
     "time_subpath_backward": "tvts_tpu/ops/pallas_block_backward.py:736",
     "space_subpath_backward": "tvts_tpu/ops/pallas_block_backward.py:3106",
     "text_subpath_backward": "tvts_tpu/ops/pallas_text_attention.py:264",
+    "time_subpath": "tvts_tpu/ops/pallas_block_attention.py:643",
+    "space_subpath": "tvts_tpu/ops/pallas_block_attention.py:3058",
+    "mlp_subpath": "tvts_tpu/ops/pallas_block_attention.py:406",
+    "mlp_subpath (saved hidden)": "tvts_tpu/ops/pallas_block_attention.py:2604",
+    "mlp_subpath_backward": "tvts_tpu/ops/pallas_block_attention.py:1021",
+    "mlp_subpath_backward (saved hidden)": "tvts_tpu/ops/pallas_block_backward.py:2637",
+    "divided_space_time_attention_fused": "tvts_tpu/ops/pallas_attention.py:107",
 }
 SOURCE = "tvts_torch/csrc/block_kernels.cu"
 PEAK_FLOPS, HBM_BYTES_S = 989e12, 3.35e12  # H100 SXM: dense bf16, HBM3
@@ -85,11 +124,20 @@ BWD_SHAPES = {"B/16 train": (2, 12, 98, 768, 12), "D=1280 H=16": (1, 12, 76, 128
 # H7 backward parity shapes: (B, S, D, H, causal, LN eps, frozen)
 TEXT_BWD_SHAPES = {"text": (8, 77, 512, 8, True, 1e-5, False),
                    "text frozen": (8, 77, 512, 8, True, 1e-5, True),
-                   "sort head": (2, 1181, 512, 8, False, 1e-6, False)}
+                   "sort head": (2, 1181, 512, 8, False, 1e-6, False),
+                   "H/14 text": (4, 77, 1024, 16, True, 1e-5, False),
+                   "H/14 sort head": (1, 916, 1024, 16, False, 1e-6, False)}
 # H7 parity shapes: (B, S, D, H, causal, LN eps)
 TEXT_SHAPES = {"B/16 text": (8, 77, 512, 8, True, 1e-5),
                "H/14 text": (4, 77, 1024, 16, True, 1e-5),
-               "sort head": (2, 1181, 512, 8, False, 1e-6)}
+               "sort head": (2, 1181, 512, 8, False, 1e-6),
+               "H/14 sort head": (1, 916, 1024, 16, False, 1e-6)}
+# H8 parity shapes: (B, T, N, D, activation)
+MLP_SHAPES = {"B/16 train": (2, 12, 98, 768, "quick_gelu"),
+              "H/14 train": (1, 12, 76, 1280, "gelu")}
+# H9 parity shapes: (B, T, N, H, d)
+CORE_SHAPES = {"N=196 d=64": (2, 12, 196, 12, 64), "N=49 d=64": (2, 12, 49, 12, 64),
+               "N=256 d=80": (1, 12, 256, 16, 80)}
 WORDS = ("a person is playing the guitar on stage while dog runs across green field "
          "under blue sky man cooks pasta in small kitchen woman rides bike through "
          "city street at night children swim pool dance read book").split()
@@ -175,6 +223,74 @@ def text_backward_calls(bb, ta, a, g, H, causal, eps, frozen):
             lambda: ta.text_subpath_backward_plain(g, a["x"], *w, H, causal, eps, frozen))
 
 
+def mlp_calls(bk, bb, a, g, act, save):
+    """H8 on the inputs `a` and the output gradient g: (forward kernel ->
+    (out, saved hidden or None), forward plain -> (out, hidden), backward
+    kernel, backward plain)."""
+    from tvts_torch.models.layers import layer_norm_f32, linear
+
+    w = (a["ln_w"], a["ln_b"], a["wfc"], a["bfc"], a["wpr"], a["bpr"])
+
+    def forward():
+        out, _, h = bk._mlp_sub_path(a["x"], *w, act, save_hidden=save)
+        return out, h
+
+    def forward_plain():
+        return (bk.mlp_block_plain(a["x"], *w, act),
+                linear(layer_norm_f32(a["x"], a["ln_w"], a["ln_b"]), a["wfc"], a["bfc"]))
+
+    return (forward, forward_plain,
+            lambda: bb.vjp(lambda *t: bb.mlp_subpath(*t, act, save), g, (a["x"], *w)),
+            lambda: bb.mlp_subpath_backward_plain(g, a["x"], *w, act))
+
+
+def core_inputs(B, T, N, H, d, seed, device):
+    """q (pre-scaled), k, v [B, H, S, d] as the tower hands them to H9: the
+    head-split views of a [B, S, 3D] qkv product (logits of unit variance)."""
+    from tvts_torch.ops.attention import split_heads
+
+    rng = np.random.default_rng(seed)
+    qkv = torch.tensor(rng.standard_normal((B, 1 + T * N, 3 * H * d)), dtype=torch.bfloat16,
+                       device=device)
+    q, k, v = qkv.chunk(3, dim=-1)
+    return split_heads(q * d ** -0.5, H), split_heads(k, H), split_heads(v, H)
+
+
+def core_calls(ac, qkv, T, N, mode):
+    """(kernel call, plain call) of H9."""
+    from tvts_torch.ops.attention import divided_space_time_attention
+
+    return (lambda: ac.divided_space_time_attention_fused(*qkv, T, N, mode),
+            lambda: divided_space_time_attention(*qkv, T, N, mode))
+
+
+def core_library_call(qkv, T, N, mode):
+    """H9 as one library call: scaled_dot_product_attention under a constant
+    bool [S, S] mask of the divided pattern (the CLS row sees every token; a
+    patch row sees the CLS key and its own frame (space) or its own location
+    across frames (time)). Timed as `library_ms`; the port never calls it."""
+    q = qkv[0]
+    idx = torch.arange(T * N, device=q.device)
+    group = idx // N if mode == "space" else idx % N
+    mask = torch.ones(1 + T * N, 1 + T * N, dtype=torch.bool, device=q.device)
+    mask[1:, 1:] = group[:, None] == group[None, :]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(*qkv, attn_mask=mask,
+                                                                    scale=1.0)
+
+
+def core_band_check(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, float]:
+    """(max|diff|, max|ref|, tolerance) of an attention core's output: the
+    band follows the reference's own scale (CORE_BAND * max|ref|, at most
+    BAND), since a core's output is a softmax average far below the sub-paths'
+    mean of 0.8."""
+    if got.shape != want.shape or not torch.isfinite(got.float()).all():
+        raise AssertionError("core output: wrong shape or non-finite")
+    diff = (got.float() - want.float()).abs().max().item()
+    ref = want.float().abs().max().item()
+    return diff, ref, min(BAND, CORE_BAND * ref)
+
+
+MLP_GRAD_NAMES = ("dx", "dln_w", "dln_b", "dwfc", "dbfc", "dwproj", "dbproj")
 GRAD_NAMES = {"time_subpath_backward": ("dx", "dln_w", "dln_b", "dwqkv", "dbqkv", "dwproj",
                                         "dbproj"),
               "space_subpath_backward": ("dx", "dbase", "dln_w", "dln_b", "dwqkv", "dbqkv",
@@ -225,6 +341,33 @@ def text_work(B: int, S: int, D: int, H: int, causal: bool, backward: bool,
         return (gemm * M * D * D + 10 * D * pairs,
                 2 * M * D * 7 + 4 * B * H * S + (1 if frozen else 2) * weights)
     return 8 * M * D * D + 4 * D * pairs, 4 * M * D + weights
+
+
+def saving_forward_work(kind: str, B: int, T: int, N: int, D: int, H: int):
+    """(flops, bytes) of the training forward of H6 / H5: the inference
+    sub-path plus the saved qkv rows, attention output and per-row lse."""
+    S = 1 + T * N
+    flops, nbytes = attention_work(kind, B, T, N, D, H, backward=False)
+    return flops, nbytes + 2 * B * S * 4 * D + 4 * B * H * S
+
+
+def mlp_work(M: int, D: int, backward: bool, save: bool):
+    """(flops, bytes) of H8 over M rows of width D (hidden 4D): two products
+    forward; backward four, and a fifth when the hidden is recomputed."""
+    product = 2 * M * D * 4 * D
+    weights = 2 * 2 * 4 * D * D  # both matrices, bf16
+    hidden = 2 * M * 4 * D if save else 0
+    if backward:  # g, x in, dx out; weights in, their gradients out
+        return (4 if save else 5) * product, 3 * 2 * M * D + 2 * weights + hidden
+    return 2 * product, 2 * 2 * M * D + weights + hidden
+
+
+def core_work(mode: str, B: int, T: int, N: int, H: int, d: int):
+    """(flops, bytes) of H9: QK^T and PV over the (query, key) pairs of every
+    head (the CLS row over every token); q, k, v read and the output written."""
+    S = 1 + T * N
+    keys = T + 1 if mode == "time" else N + 1
+    return 4 * H * d * B * (T * N * keys + S), 4 * 2 * B * H * S * d
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -316,12 +459,17 @@ def cos_rows(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 def counted(bk, bb, ta) -> list:
     """Every kernel wrapper that counts its launches."""
-    return [*bk.KERNELS, ta.fused_text_attention_block, *bb.KERNELS, ta.text_subpath_backward]
+    from tvts_torch.ops import attention_cores as ac
+
+    return [*bk.KERNELS, ta.fused_text_attention_block, *bb.KERNELS, ta.text_subpath_backward,
+            ac.divided_space_time_attention_fused]
 
 
 def launch_counts(bk, bb, ta) -> dict[str, int]:
     counts = {fn.__name__: fn.launches for fn in counted(bk, bb, ta)}
     counts["text_subpath_backward (frozen)"] = ta.text_subpath_backward.frozen_launches
+    counts["mlp_subpath (saved hidden)"] = bb.mlp_subpath.saved_launches
+    counts["mlp_subpath_backward (saved hidden)"] = bb.mlp_subpath_backward.saved_launches
     return counts
 
 
@@ -329,6 +477,15 @@ def reset_launch_counts(bk, bb, ta) -> None:
     for fn in counted(bk, bb, ta):
         fn.launches = 0
     ta.text_subpath_backward.frozen_launches = 0
+    bb.mlp_subpath.saved_launches = bb.mlp_subpath_backward.saved_launches = 0
+
+
+def expect_launches(tag: str, got: dict, want: dict) -> None:
+    """Fail unless the launch counts are `want`, and 0 for every other kernel."""
+    full = dict.fromkeys(got, 0)
+    full.update(want)
+    if got != full:
+        raise AssertionError(f"{tag}: launches {got}, expected {full}")
 
 
 def grads_of(model, loss_fn, batch) -> tuple[float, dict]:
@@ -340,39 +497,60 @@ def grads_of(model, loss_fn, batch) -> tuple[float, dict]:
                          for (n, _), g in zip(named, grads)}
 
 
-def train_phase(dev, bk, bb, ta) -> dict:
-    """Phase 7 (module notes). Returns what phase 6 times."""
-    from functools import partial
-
-    from tvts_torch.models.factory import build_model
-    from tvts_torch.ops.fused_forward import train_apply
-    from tvts_torch.ops.kernel_config import resolve_kernel_config, train_apply_kwargs
-    from tvts_torch.train.optim import OptimizerConfig, freeze_mask, make_optimizer
-    from tvts_torch.train.step import make_loss_fn, make_train_step
-
-    cfg, model = build_model("TVTSv2_B_16", eval_mode=False, device=dev, seed=0,
-                             compute_dtype=torch.bfloat16)
-    rng = np.random.default_rng(11)
-    with torch.no_grad():  # seeded noise on every leaf, the sort head's included
+def add_noise_(model, seed: int, dev) -> None:
+    """Seeded N(0, 0.02^2) noise on every leaf (the time attention is zero at
+    init), from a generator on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
         for p in model.parameters():
-            p.add_(torch.from_numpy(0.02 * rng.standard_normal(p.shape).astype(np.float32))
-                   .to(dev))
+            p.add_(0.02 * torch.randn(p.shape, generator=gen, device=dev))
+
+
+def build_train(arch: str, dev, noise_seed: int, text_tune_layers: int, tag: str) -> dict:
+    """build_model(arch, eval_mode=False) with f32 masters, bf16 compute and
+    seeded noise on every leaf, and the optimizer of tools/train_bench.py."""
+    from tvts_torch.models.factory import build_model
+    from tvts_torch.train.optim import OptimizerConfig, freeze_mask, make_optimizer
+
+    cfg, model = build_model(arch, eval_mode=False, device=dev, seed=0,
+                             compute_dtype=torch.bfloat16)
+    add_noise_(model, noise_seed, dev)
     v = cfg.vision
-    # the optimizer of tools/train_bench.py
     ocfg = OptimizerConfig(schedule=(6, 8), steps_per_epoch=1000, text_layers=cfg.text.layers,
-                           text_tune_layers=3)
-    kcfg = resolve_kernel_config(cfg.name, {"preset": "best"})
-    kernel_apply = partial(train_apply, **train_apply_kwargs(kcfg, ocfg))
+                           text_tune_layers=text_tune_layers)
     optimizer = make_optimizer(model, ocfg)
     frozen = [n for n, f in freeze_mask(model, ocfg).items() if f]
-    print(f"[7] {cfg.name} train: mask {v.mask_ratio}, n_keep {v.n_keep}, "
+    print(f"[{tag}] {cfg.name} train: mask {v.mask_ratio}, n_keep {v.n_keep}, "
           f"S = {1 + v.num_frames * v.n_keep}; {sum(p.numel() for p in model.parameters())} "
           f"f32 master parameters, bf16 compute; {len(frozen)} frozen tensors "
-          f"(text blocks 0-{ocfg.text_tune_from - 1}); kernel config {kcfg}")
-    batch = train_batch(cfg, 8, seed=12, device=dev)
+          f"(text blocks 0-{ocfg.text_tune_from - 1})")
+    return dict(cfg=cfg, model=model, optimizer=optimizer, ocfg=ocfg, frozen=frozen)
 
-    # step-0 gate: kernel path against the eager path
-    loss_k, gk = grads_of(model, make_loss_fn(apply_fn=kernel_apply), batch)
+
+def kernel_apply(train: dict, tag: str, **overrides):
+    """train_apply under the arch's "best" preset with `overrides`."""
+    from functools import partial
+
+    from tvts_torch.ops.fused_forward import train_apply
+    from tvts_torch.ops.kernel_config import resolve_kernel_config, train_apply_kwargs
+
+    kcfg = resolve_kernel_config(train["cfg"].name, {"preset": "best", **overrides})
+    kwargs = train_apply_kwargs(kcfg, train["ocfg"])
+    print(f"[{tag}] kernel config {kcfg} -> {kwargs}")
+    return partial(train_apply, **kwargs)
+
+
+def step0_gate(tag: str, label: str, model, batch, apply_fn, bk, bb, ta) -> dict:
+    """The kernel path against the eager path at the current parameters
+    (|dloss| < 2e-2, worst relative gradient error < 0.12 over tensors with
+    max|g| > 1e-2 * global). Returns the launches of the kernel path's one
+    forward and backward."""
+    from tvts_torch.train.step import make_loss_fn
+
+    reset_launch_counts(bk, bb, ta)
+    loss_k, gk = grads_of(model, make_loss_fn(apply_fn=apply_fn), batch)
+    torch.cuda.synchronize()
+    launches = launch_counts(bk, bb, ta)
     loss_e, ge = grads_of(model, make_loss_fn(), batch)
     gscale = max(g.abs().max().item() for g in ge.values())
     rows = []
@@ -381,35 +559,35 @@ def train_phase(dev, bk, bb, ta) -> dict:
         err = (gk[name] - e).abs().max().item()
         rows.append((err / (amax + 1e-6), err, amax, name))
     sig = sorted((r for r in rows if r[2] > 1e-2 * gscale), reverse=True)
-    print(f"[7] step-0 loss kernels {loss_k:.6f} eager {loss_e:.6f} |diff| "
+    print(f"[{tag}] {label}: step-0 loss kernels {loss_k:.6f} eager {loss_e:.6f} |diff| "
           f"{abs(loss_k - loss_e):.3e} (< 2e-2); global max|g| {gscale:.3e}; top 5 by "
           f"relative error among {len(sig)} significant tensors (max|g| > 1e-2 * global):")
     for rel, err, amax, name in sig[:5]:
-        print(f"[7]   rel {rel:.3e} abs {err:.3e} max|g| {amax:.3e} {name}")
-    if abs(loss_k - loss_e) >= 2e-2 or (sig and sig[0][0] >= 0.12):
-        raise AssertionError("train step 0: kernel path disagrees with the eager path")
-    del gk, ge
+        print(f"[{tag}]   rel {rel:.3e} abs {err:.3e} max|g| {amax:.3e} {name}")
+    if not np.isfinite(loss_k) or abs(loss_k - loss_e) >= 2e-2 or (sig and sig[0][0] >= 0.12):
+        raise AssertionError(f"{label}: kernel path disagrees with the eager path at step 0")
+    print(f"[{tag}] {label}: launches of one forward and backward: "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    return launches
 
-    # three optimizer steps on the kernels
+
+def optimizer_steps(tag: str, train: dict, apply_fn, batch, n_steps: int, bk, bb, ta) -> dict:
+    """n optimizer steps on the kernels: finite losses, frozen tensors
+    unchanged bit for bit, every trainable tensor moved. Returns the launches."""
+    from tvts_torch.train.step import make_train_step
+
+    model, frozen = train["model"], train["frozen"]
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    step = make_train_step(model, optimizer, ocfg, apply_fn=kernel_apply)
-    n_steps = 3
+    step = make_train_step(model, train["optimizer"], train["ocfg"], apply_fn=apply_fn)
     reset_launch_counts(bk, bb, ta)
     for i in range(n_steps):
         aux = {k: v.item() for k, v in step(batch).items()}
-        print(f"[7] step {i}: " + ", ".join(f"{k} {v:.6f}" for k, v in aux.items()))
+        print(f"[{tag}] step {i}: " + ", ".join(f"{k} {v:.6f}" for k, v in aux.items()))
         if not all(np.isfinite(list(aux.values()))):
             raise AssertionError(f"train step {i}: non-finite {aux}")
     torch.cuda.synchronize()
     launches = launch_counts(bk, bb, ta)
-    print(f"[7] launches over {n_steps} steps: {launches}")
-    want = dict.fromkeys(launches, 0)
-    want.update({name: 12 * n_steps for name in (
-        "time_subpath", "time_subpath_backward", "space_subpath", "space_subpath_backward",
-        "fused_text_attention_block", "text_subpath_backward")})
-    want["text_subpath_backward (frozen)"] = 9 * n_steps
-    if launches != want:
-        raise AssertionError(f"train launches {launches}, expected {want}")
+    print(f"[{tag}] launches over {n_steps} steps: { {k: n for k, n in launches.items() if n} }")
     moved, changed = [], []
     for n, p in model.named_parameters():
         same = torch.equal(p.detach(), before[n])
@@ -417,39 +595,85 @@ def train_phase(dev, bk, bb, ta) -> dict:
          else []).append(n)
     if changed or moved:
         raise AssertionError(f"frozen tensors changed {changed}; trainable unmoved {moved}")
-    print(f"[7] {len(frozen)} frozen tensors unchanged bit for bit; all "
+    print(f"[{tag}] {len(frozen)} frozen tensors unchanged bit for bit; all "
           f"{len(before) - len(frozen)} trainable tensors moved")
-    return dict(cfg=cfg, model=model, optimizer=optimizer, ocfg=ocfg,
-                kernel_apply=kernel_apply, launches=launches)
+    return launches
 
 
-def train_times(dev, card, bk, bb, ta, train: dict, times: dict) -> None:
-    """Phase 6, train part: the step at B=20, each backward against its plain
-    backward at the B=20 shapes, the profiler breakdown of one step."""
+def step_launches(layers: int, text_layers: int, frozen: int, n_steps: int = 1, time=True,
+                  mlp=False, sort=True, saved=False) -> dict:
+    """The launches of n train steps: per step `layers` H5 (and H6, H8)
+    forwards and backwards, text_layers - 1 text and one sort H7 forwards and
+    as many backwards, `frozen` of them dx-only."""
+    want = {"space_subpath": layers, "space_subpath_backward": layers,
+            "fused_text_attention_block": text_layers - 1 + sort,
+            "text_subpath_backward": text_layers - 1 + sort,
+            "text_subpath_backward (frozen)": frozen}
+    if time:
+        want.update({"time_subpath": layers, "time_subpath_backward": layers})
+    if mlp:
+        want.update({"mlp_subpath": layers, "mlp_subpath_backward": layers})
+    if saved:
+        want.update({"mlp_subpath (saved hidden)": layers,
+                     "mlp_subpath_backward (saved hidden)": layers})
+    return {k: n * n_steps for k, n in want.items()}
+
+
+def train_phase(dev, bk, bb, ta) -> dict:
+    """Phase 7 (module notes). Returns what phase 6 times."""
+    train = build_train("TVTSv2_B_16", dev, noise_seed=11, text_tune_layers=3, tag="7")
+    cfg = train["cfg"]
+    L, TL = cfg.vision.layers, cfg.text.layers
+    best = kernel_apply(train, "7")
+    batch = train_batch(cfg, 8, seed=12, device=dev)
+    got = step0_gate("7", "preset", train["model"], batch, best, bk, bb, ta)
+    expect_launches("train gate", got, step_launches(L, TL, 9))
+    n_steps = 3
+    launches = optimizer_steps("7", train, best, batch, n_steps, bk, bb, ta)
+    expect_launches("train steps", launches, step_launches(L, TL, 9, n_steps))
+    # H8 on the same path: recomputing (mlp_mode="pallas"), then saving (the all-kernel layout)
+    mlp = kernel_apply(train, "7", mlp_mode="pallas")
+    got = step0_gate("7", 'mlp_mode="pallas"', train["model"], batch, mlp, bk, bb, ta)
+    expect_launches("train gate, H8", got, step_launches(L, TL, 9, mlp=True))
+    launches.update({k: got[k] for k in ("mlp_subpath", "mlp_subpath_backward")})
+    got = step0_gate("7", 'layout="dmajor"', train["model"], batch,
+                     kernel_apply(train, "7", layout="dmajor"), bk, bb, ta)
+    expect_launches("train gate, H8 saving", got, step_launches(L, TL, 9, mlp=True, saved=True))
+    launches.update({k: got[k] for k in ("mlp_subpath (saved hidden)",
+                                         "mlp_subpath_backward (saved hidden)")})
+    return dict(train, kernel_apply=best, mlp_apply=mlp, launches=launches)
+
+
+def time_steps(tag: str, label: str, train: dict, apply_fn, batch, card: str,
+               iters: int = 3) -> float:
+    """ms of one optimizer step (host clock around synchronised steps), with
+    clips/s and the peak device memory."""
     from tvts_torch.train.step import make_train_step
 
-    cfg, model = train["cfg"], train["model"]
-    v, B = cfg.vision, 20
-    batch = train_batch(cfg, B, seed=13, device=dev)
-    for path, apply_fn in (("kernels", train["kernel_apply"]), ("eager", None)):
-        step = make_train_step(model, train["optimizer"], train["ocfg"], apply_fn=apply_fn)
+    B = batch["video"].shape[0]
+    step = make_train_step(train["model"], train["optimizer"], train["ocfg"], apply_fn=apply_fn)
+    step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
         step(batch)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        iters = 3
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            step(batch)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) / iters * 1e3
-        mem = torch.cuda.max_memory_allocated() / 2 ** 30
-        print(f"[6] B/16 train step B={B} {path:7s}: {ms:.2f} ms/step, {B / ms * 1e3:.2f} "
-              f"clips/s, peak memory {mem:.2f} GiB [{card}]")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[{tag}] {train['cfg'].name} train step B={B} {label:22s}: {ms:.2f} ms/step, "
+          f"{B / ms * 1e3:.2f} clips/s, peak memory {mem:.2f} GiB [{card}]")
+    return ms
 
-    step = make_train_step(model, train["optimizer"], train["ocfg"],
-                           apply_fn=train["kernel_apply"])
+
+def profile_step(tag: str, train: dict, apply_fn, batch, card: str) -> None:
+    """Device-time breakdown of one kernel-path train step (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from tvts_torch.train.step import make_train_step
+
+    B = batch["video"].shape[0]
+    step = make_train_step(train["model"], train["optimizer"], train["ocfg"], apply_fn=apply_fn)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -464,8 +688,8 @@ def train_times(dev, card, bk, bb, ta, train: dict, times: dict) -> None:
              e.key, e.count) for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in host]
     busy = sum(r[0] for r in rows) / 1e3
-    print(f"[6] profiled kernel-path step B={B}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
-          f"(idle share {max(0.0, 1 - busy / wall):.3f}) [{card}]")
+    print(f"[{tag}] profiled {train['cfg'].name} kernel-path step B={B}: wall {wall:.2f} ms, "
+          f"device busy {busy:.2f} ms (idle share {max(0.0, 1 - busy / wall):.3f}) [{card}]")
     groups = {}
     for us, key, count in rows:
         group = ("hand-written (tvts::)" if "tvts::" in key
@@ -475,10 +699,25 @@ def train_times(dev, card, bk, bb, ta, train: dict, times: dict) -> None:
                  else "other PyTorch kernels (elementwise, reductions, copies, conv)")
         groups[group] = groups.get(group, 0.0) + us / 1e3
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"[6]   {ms:9.3f} ms ({ms / busy:.3f}) {group}")
-    print("[6]   top device time by kernel:")
+        print(f"[{tag}]   {ms:9.3f} ms ({ms / busy:.3f}) {group}")
+    print(f"[{tag}]   top device time by kernel:")
     for us, key, count in sorted(rows, reverse=True)[:24]:
-        print(f"[6]   {us / 1e3:9.3f} ms {count:5d}x {key[:100]}")
+        print(f"[{tag}]   {us / 1e3:9.3f} ms {count:5d}x {key[:100]}")
+
+
+def train_times(dev, card, bk, bb, ta, ac, train: dict, times: dict, library: dict) -> None:
+    """Phase 6, train part: the step at B=20 (kernels, kernels with H8, eager),
+    each backward against its plain backward, the saving forwards, H8 and H9
+    against their plain versions at the B=20 shapes, the profiler breakdown of
+    one step."""
+    cfg = train["cfg"]
+    v, B = cfg.vision, 20
+    batch = train_batch(cfg, B, seed=13, device=dev)
+    for label, apply_fn in (("kernels", train["kernel_apply"]),
+                            ('kernels mlp_mode="pallas"', train["mlp_apply"]),
+                            ("eager", None)):
+        time_steps("6", label, train, apply_fn, batch, card)
+    profile_step("6", train, train["kernel_apply"], batch, card)
 
     S = 1 + v.num_frames * v.n_keep
     T, N, D, H = v.num_frames, v.n_keep, v.width, v.heads
@@ -488,16 +727,25 @@ def train_times(dev, card, bk, bb, ta, train: dict, times: dict) -> None:
         a[k] = torch.randn(B, S, D, generator=gen, device=dev, dtype=torch.bfloat16)
     g = torch.randn(B, S, D, generator=gen, device=dev, dtype=torch.bfloat16)
     w = (a["ln_w"], a["ln_b"], a["wqkv"], a["bqkv"], a["wproj"], a["bproj"])
-    for name, core, kind in (("time_subpath_backward", "tvts_time_core", "time"),
-                             ("space_subpath_backward", "tvts_space_core", "space")):
+    for kind, core in (("time", "tvts_time_core"), ("space", "tvts_space_core")):
+        name = f"{kind}_subpath_backward"
         res = a["x"] if kind == "time" else a["base"]
+        with torch.inference_mode():  # the training forward, keeping its saves
+            k_ms = cuda_ms(lambda: bk._attention_sub_path(core, a["x"], res, *w, T, H, save=True),
+                           iters=5)
+            plain_fwd = bk.time_block_plain if kind == "time" else bk.space_block_plain
+            extra = (a["base"],) if kind == "space" else ()
+            p_ms = cuda_ms(lambda: plain_fwd(a["x"], *extra, *w, T, H), iters=3)
+        times[f"{kind}_subpath"] = (k_ms, p_ms, bound_ms(*saving_forward_work(kind, B, T, N, D, H)))
+        print(f"[6] {kind}_subpath (saving forward) B={B} S={S}: kernel {k_ms:.3f} ms, plain "
+              f"forward {p_ms:.3f} ms, bound {times[f'{kind}_subpath'][2][0]:.3f} ms "
+              f"({times[f'{kind}_subpath'][2][1]}) [{card}]")
         _, *saves = bk._attention_sub_path(core, a["x"], res, *w, T, H, save=True)
         fn = getattr(bb, name)
         k_ms = cuda_ms(lambda: fn(g, a["x"], saves, a["ln_w"], a["ln_b"], a["wqkv"],
                                   a["wproj"], T, H), iters=5)
         plain = bb.time_subpath_backward_plain if kind == "time" \
             else bb.space_subpath_backward_plain
-        extra = (a["base"],) if kind == "space" else ()
         p_ms = cuda_ms(lambda: plain(g, a["x"], *extra, *w, T, H), iters=3)
         times[name] = (k_ms, p_ms, bound_ms(*attention_work(kind, B, T, N, D, H, True)))
         print(f"[6] {name:22s} B={B} S={S}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
@@ -525,44 +773,250 @@ def train_times(dev, card, bk, bb, ta, train: dict, times: dict) -> None:
         print(f"[6] text_subpath_backward {label} B={TB} S={TS} D={TD}: kernel {k_ms:.3f} ms, "
               f"plain {p_ms:.3f} ms (forward + backward), bound {bnd[0]:.3f} ms ({bnd[1]}) "
               f"[{card}]")
+    mlp_times("6", card, bk, bb, a, g, v.act, times)
+    for mode in ("space", "time"):
+        qkv = core_inputs(B, T, N, H, D // H, 19, dev)
+        kernel, plain = core_calls(ac, qkv, T, N, mode)
+        one_call = core_library_call(qkv, T, N, mode)
+        with torch.inference_mode():
+            k_ms, p_ms = cuda_ms(kernel, iters=10), cuda_ms(plain, iters=5)
+            l_ms = cuda_ms(one_call, iters=10)
+            diff, ref, tol = core_band_check(one_call(), plain())
+        if diff > tol:
+            raise AssertionError(f"the masked library call is not H9 {mode}: max|diff| {diff}")
+        bnd = bound_ms(*core_work(mode, B, T, N, H, D // H))
+        if mode == "space":  # the mode the towers run (use_pallas=True)
+            times["divided_space_time_attention_fused"] = (k_ms, p_ms, bnd)
+            library["divided_space_time_attention_fused"] = l_ms
+        print(f"[6] divided_space_time_attention_fused {mode} B={B} N={N} d={D // H}: kernel "
+              f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, masked scaled_dot_product_attention "
+              f"{l_ms:.3f} ms (max|diff| to plain {diff:.5f}, tol {tol:.5f}), bound "
+              f"{bnd[0]:.3f} ms ({bnd[1]}) [{card}]")
 
 
-def main() -> int:
-    # ---- phase 1: the card --------------------------------------------------
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device -- this script runs only on the card",
-              file=sys.stderr)
-        return 1
-    card = card_line()
-    dev = torch.device("cuda")
-    print(f"[1] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+def mlp_times(tag: str, card: str, bk, bb, a: dict, g, act: str, times: dict | None) -> None:
+    """H8 forward and backward, recomputing and saving, against plain, on the
+    inputs a["x"] and the output gradient g."""
+    B, S, D = a["x"].shape
+    w = (a["ln_w"], a["ln_b"], a["wfc"], a["bfc"], a["wpr"], a["bpr"])
+    p_fwd = p_bwd = None
+    for save in (False, True):
+        form = "saved hidden" if save else "recomputing"
+        with torch.inference_mode():
+            k_ms = cuda_ms(lambda: bk._mlp_sub_path(a["x"], *w, act, save_hidden=save), iters=5)
+            p_fwd = p_fwd or cuda_ms(lambda: bk.mlp_block_plain(a["x"], *w, act), iters=5)
+        bnd = bound_ms(*mlp_work(B * S, D, False, save))
+        print(f"[{tag}] mlp_subpath forward ({form}) B={B} S={S} D={D} {act}: kernel "
+              f"{k_ms:.3f} ms, plain {p_fwd:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}) [{card}]")
+        suffix = " (saved hidden)" if save else ""
+        if times is not None:
+            times["mlp_subpath" + suffix] = (k_ms, p_fwd, bnd)
+        _, stats, h = bk._mlp_sub_path(a["x"], *w, act, save_hidden=save)
+        k_ms = cuda_ms(lambda: bb.mlp_subpath_backward(g, a["x"], stats, h, a["ln_w"], a["ln_b"],
+                                                       a["wfc"], a["bfc"], a["wpr"], act),
+                       iters=5)
+        p_bwd = p_bwd or cuda_ms(lambda: bb.mlp_subpath_backward_plain(g, a["x"], *w, act),
+                                 iters=3)
+        bnd = bound_ms(*mlp_work(B * S, D, True, save))
+        print(f"[{tag}] mlp_subpath_backward ({form}) B={B} S={S} D={D} {act}: kernel "
+              f"{k_ms:.3f} ms, plain {p_bwd:.3f} ms (forward + backward), bound {bnd[0]:.3f} ms "
+              f"({bnd[1]}) [{card}]")
+        if times is not None:
+            times["mlp_subpath_backward" + suffix] = (k_ms, p_bwd, bnd)
+        del h
 
-    from tvts_torch.eval.embed import embed_texts, extract_embeddings, make_embed_fns
-    from tvts_torch.eval.feature_extraction import extract_video_feature
-    from tvts_torch.eval.zero_recognition import run_recognition
-    from tvts_torch.eval.zero_ret import run_retrieval
-    from tvts_torch.eval.zero_ssv2_mc import run_ssv2_mc
+
+def no_tf32():
+    """Context: full-float32 products and convolutions for the f32 reference."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+    return ctx()
+
+
+def extraction_phase(tag: str, arch: str, dev, bk, bb, ta, n_clips: int, batch_size: int,
+                     noise_seed: int) -> dict:
+    """build_model(arch) in bf16 and f32 with seeded weights and noise on every
+    leaf; extract_embeddings over ceil(n_clips / batch_size) batches (the last
+    ragged) through the kernels, with the launch counts layers / layers-1 /
+    layers-1 / 1 per forward; pooled cosine against the eager tower in bf16
+    and f32."""
+    from tvts_torch.eval.embed import extract_embeddings
     from tvts_torch.models.factory import build_model
-    from tvts_torch.ops import block_backward as bb
-    from tvts_torch.ops import block_kernels as bk
-    from tvts_torch.ops import text_attention as ta
-    from tvts_torch.text.tokenizer import tokenize_openclip
 
-    # ---- phase 2: build ------------------------------------------------------
-    t0 = time.perf_counter()
-    so, log = bk.build()
-    bk.library()
-    print(f"[2] built {so.name} in {time.perf_counter() - t0:.1f} s")
-    entry = ""
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-        elif "Used" in line:
-            print(f"[2]   {entry}: {line.split(':', 1)[1].strip()}")
-        elif "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill"):
-            print(f"[2]   {entry}: {line.strip()}")
+    cfg, model = build_model(arch, dtype=torch.bfloat16, device=dev, seed=0)
+    _, model32 = build_model(arch, dtype=torch.float32, device=dev, seed=0)
+    add_noise_(model32, noise_seed, dev)
+    model.load_state_dict(model32.state_dict())
+    zero = [n for n, p in model.named_parameters() if not p.any()]
+    if zero:
+        raise AssertionError(f"all-zero parameters: {zero}")
+    v, tc = cfg.vision, cfg.text
+    print(f"[{tag}] {cfg.name}: video width {v.width}, {v.layers} blocks, {v.heads} heads, "
+          f"{v.num_frames} frames, {v.patches_per_frame} patches/frame, {v.act}, "
+          f"{v.pool_style} pool; text width {tc.width}, {tc.layers} blocks, {tc.heads} heads, "
+          f"context {tc.context_length}; {sum(p.numel() for p in model.parameters())} "
+          f"parameters, all non-zero")
+    clips = np.random.default_rng(2).standard_normal(
+        (n_clips, v.num_frames, 3, v.input_resolution, v.input_resolution)).astype(np.float32)
+    loader = SyntheticLoader(clips, v.patches_per_frame, batch_size=batch_size)
+    n_forwards = -(-n_clips // batch_size)
+    reset_launch_counts(bk, bb, ta)
+    fused = extract_embeddings(model, loader, use_fused=True)["video"]
+    launches = launch_counts(bk, bb, ta)
+    per_forward = dict(zip(bk.launch_counts(), (v.layers, v.layers - 1, v.layers - 1, 1)))
+    print(f"[{tag}] launches over {n_forwards} forwards: "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    expect_launches(f"{cfg.name} extraction", launches,
+                    {name: n * n_forwards for name, n in per_forward.items()})
+    eager = extract_embeddings(model, loader, use_fused=False)["video"]
+    with no_tf32():
+        eager32 = extract_embeddings(model32, loader, use_fused=False)["video"]
+    if fused.shape != (n_clips, v.output_dim) or not np.isfinite(fused).all():
+        raise AssertionError(f"fused embeddings: shape {fused.shape} or non-finite")
+    c16, c32 = cos_rows(fused, eager).min(), cos_rows(fused, eager32).min()
+    unit = fused / np.linalg.norm(fused, axis=-1, keepdims=True)
+    across = (unit @ unit.T)[~np.eye(len(unit), dtype=bool)].mean()
+    print(f"[{tag}] pooled cosine, kernel path vs eager: min {c16:.6f} (bf16, >= {COS_BF16}), "
+          f"min {c32:.6f} (f32, >= {COS_F32}); mean cosine across clips {across:.4f}")
+    if c16 < COS_BF16 or c32 < COS_F32:
+        raise AssertionError(f"{cfg.name}: kernel path disagrees with the eager tower")
+    return dict(cfg=cfg, model=model, model32=model32, clips=clips, fused=fused, eager=eager,
+                launches=launches, per_forward=per_forward, n_forwards=n_forwards)
 
-    # ---- phase 3: kernel parity ---------------------------------------------
+
+def extraction_rate(tag: str, cfg, model, B: int, dev, card: str, iters: int) -> None:
+    """clips/s of embed_video on B device-resident clips, kernels and eager."""
+    from tvts_torch.eval.embed import make_embed_fns
+
+    v = cfg.vision
+    gen = torch.Generator(device=dev).manual_seed(3)
+    video = torch.randn(B, v.num_frames, 3, v.input_resolution, v.input_resolution,
+                        generator=gen, device=dev)
+    keep = torch.arange(v.patches_per_frame, device=dev)[None].expand(B, -1)
+    rates = {}
+    for path, use_fused in (("kernels", True), ("eager", False)):
+        _, embed_video = make_embed_fns(model, use_fused=use_fused)
+        ms = cuda_ms(lambda: embed_video(video, keep), iters=iters)
+        rates[path] = B / (ms / 1e3)
+        print(f"[{tag}] {cfg.name} extraction B={B} {path:7s}: {ms:.2f} ms/batch, "
+              f"{rates[path]:.2f} clips/s [{card}]")
+    print(f"[{tag}] {cfg.name} extraction kernels / eager: "
+          f"{rates['kernels'] / rates['eager']:.3f} [{card}]")
+
+
+def use_pallas_phase(tag: str, ext: dict, dev, bk, bb, ta) -> int:
+    """Extraction through the eager tower built with use_pallas=True (the
+    space core of every block on H9) against the same tower without it.
+    Returns the H9 launches."""
+    from tvts_torch.eval.embed import extract_embeddings
+    from tvts_torch.models.factory import build_model
+
+    cfg = ext["cfg"]
+    _, model = build_model(cfg.name, dtype=torch.bfloat16, device=dev, seed=0, use_pallas=True)
+    model.load_state_dict(ext["model32"].state_dict())
+    loader = SyntheticLoader(ext["clips"], cfg.vision.patches_per_frame, batch_size=8)
+    reset_launch_counts(bk, bb, ta)
+    got = extract_embeddings(model, loader, use_fused=False)["video"]
+    launches = launch_counts(bk, bb, ta)
+    name = "divided_space_time_attention_fused"
+    print(f"[{tag}] use_pallas=True eager tower: launches over {ext['n_forwards']} forwards: "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    expect_launches("use_pallas extraction", launches,
+                    {name: cfg.vision.layers * ext["n_forwards"]})
+    with no_tf32():
+        eager32 = extract_embeddings(ext["model32"], loader, use_fused=False)["video"]
+    c16, c32 = cos_rows(got, ext["eager"]).min(), cos_rows(got, eager32).min()
+    print(f"[{tag}] pooled cosine, use_pallas=True vs use_pallas=False: min {c16:.6f} (bf16, >= "
+          f"{COS_BF16}), min {c32:.6f} (f32, >= {COS_F32})")
+    if not np.isfinite(got).all() or c16 < COS_BF16 or c32 < COS_F32:
+        raise AssertionError("the use_pallas tower disagrees with the plain eager tower")
+    return launches[name]
+
+
+def b32_phase(dev, card, bk, bb, ta) -> None:
+    """Phase 9: B/32 (N = 49) through the extraction kernels, and its rate."""
+    ext = extraction_phase("9", "TVTSv2_B_32", dev, bk, bb, ta, n_clips=8, batch_size=8,
+                           noise_seed=21)
+    extraction_rate("6", ext["cfg"], ext["model"], 64, dev, card, iters=5)
+
+
+def h14_phase(dev, card, bk, bb, ta) -> None:
+    """Phase 8: H/14 at full width and depth through every path (module notes)."""
+    from tvts_torch.eval.zero_ret import run_retrieval
+
+    ext = extraction_phase("8", "TVTSv2_H_14", dev, bk, bb, ta, n_clips=7, batch_size=4,
+                           noise_seed=22)
+    cfg, model = ext["cfg"], ext["model"]
+    del ext["model32"]
+    torch.cuda.empty_cache()
+    captions = synthetic_captions(len(ext["clips"]), seed=4)
+    loader = SyntheticLoader(ext["clips"], cfg.vision.patches_per_frame, 4, text=captions)
+    reset_launch_counts(bk, bb, ta)
+    ret, sims = run_retrieval(model, loader, use_fused=True)
+    launches = launch_counts(bk, bb, ta)
+    n = ext["n_forwards"]
+    print(f"[8] zero-shot launches over {n} text and {n} video forwards: "
+          f"{ {k: c for k, c in launches.items() if c} }")
+    want = {name: c * n for name, c in ext["per_forward"].items()}
+    want["fused_text_attention_block"] = (cfg.text.layers - 1) * n
+    expect_launches("H/14 zero-shot", launches, want)
+    ret_eager, sims_eager = run_retrieval(model, loader, use_fused=False)
+    for path, res in (("kernels", ret), ("eager", ret_eager)):
+        print(f"[8] retrieval {path:7s}: " + json.dumps(res))
+    print(f"[8] retrieval sims {sims.shape}, max|diff| kernels vs eager "
+          f"{float(np.abs(sims - sims_eager).max()):.6f}")
+    if sims.shape != (len(captions),) * 2 or not np.isfinite(sims).all():
+        raise AssertionError("H/14 retrieval similarity matrix: wrong shape or non-finite")
+    extraction_rate("6", cfg, model, 16, dev, card, iters=3)
+    del ext, model
+    torch.cuda.empty_cache()
+
+    train = build_train("TVTSv2_H_14", dev, noise_seed=23, text_tune_layers=6, tag="8")
+    cfg = train["cfg"]
+    L, TL, frozen = cfg.vision.layers, cfg.text.layers, train["ocfg"].text_tune_from
+    batch = train_batch(cfg, 4, seed=24, device=dev)
+    preset = kernel_apply(train, "8")
+    got = step0_gate("8", "preset", train["model"], batch, preset, bk, bb, ta)
+    expect_launches("H/14 gate, preset", got,
+                    step_launches(L, TL, frozen, time=False, sort=False))
+    n_steps = 2
+    launches = optimizer_steps("8", train, preset, batch, n_steps, bk, bb, ta)
+    expect_launches("H/14 steps", launches,
+                    step_launches(L, TL, frozen, n_steps, time=False, sort=False))
+    every = kernel_apply(train, "8", time_mode="pallas", mlp_mode="pallas", sort_mode="pallas")
+    got = step0_gate("8", "every kernel", train["model"], batch, every, bk, bb, ta)
+    expect_launches("H/14 gate, every kernel", got, step_launches(L, TL, frozen, mlp=True))
+
+    B = 8
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"[6] before the H/14 steps at B={B}: {(total - free) / 2 ** 30:.2f} GiB of "
+          f"{total / 2 ** 30:.2f} GiB in use [{card}]")
+    batch = train_batch(cfg, B, seed=25, device=dev)
+    for label, apply_fn in (("preset", preset), ("every kernel", every), ("eager", None)):
+        time_steps("6", label, train, apply_fn, batch, card, iters=2)
+    profile_step("6", train, preset, batch, card)
+    # H8 and H7 at this model's B=8 shapes
+    v = cfg.vision
+    S = 1 + v.num_frames * v.n_keep
+    a = seeded_inputs(1, 1, 1, v.width, seed=26, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(27)
+    a["x"] = torch.randn(B, S, v.width, generator=gen, device=dev, dtype=torch.bfloat16)
+    g = torch.randn(B, S, v.width, generator=gen, device=dev, dtype=torch.bfloat16)
+    mlp_times("6", card, bk, bb, a, g, v.act, None)
+
+
+def parity_phase(dev, bk, bb, ta, ac) -> dict:
+    """Phase 3 (module notes). Returns name -> max|diff| at the B/16 shapes."""
     max_err = {}
     for label, (B, T, N, D, H, act) in {
             "B/16": (2, 12, 196, 768, 12, "quick_gelu"),
@@ -593,7 +1047,7 @@ def main() -> int:
         want = plain()
         torch.cuda.synchronize()
         diff, ref, tol = band_check(got, want)
-        print(f"[3] fused_text_attention_block {label:9s} B={B} S={S} D={D} H={H} "
+        print(f"[3] fused_text_attention_block {label:14s} B={B} S={S} D={D} H={H} "
               f"causal={causal} eps={eps:g}: max|diff| {diff:.5f} mean|ref| {ref:.4f} "
               f"(tol {tol:.4f})")
         if diff > tol:
@@ -603,6 +1057,20 @@ def main() -> int:
     for label, (B, T, N, D, H) in BWD_SHAPES.items():
         a = seeded_inputs(B, T, N, D, seed=7, device=dev)
         g = seeded_inputs(B, T, N, D, seed=8, device=dev)["x"]
+        w = (a["ln_w"], a["ln_b"], a["wqkv"], a["bqkv"], a["wproj"], a["bproj"])
+        with torch.no_grad():  # the saving forwards
+            for name, got, want in (
+                    ("time_subpath", bb.time_subpath(a["x"], *w, T, H),
+                     bk.time_block_plain(a["x"], *w, T, H)),
+                    ("space_subpath", bb.space_subpath(a["x"], a["base"], *w, T, H),
+                     bk.space_block_plain(a["x"], a["base"], *w, T, H))):
+                diff, ref, tol = band_check(got, want)
+                print(f"[3] {name:22s} {label:12s} (saving forward) max|diff| {diff:.5f} "
+                      f"mean|ref| {ref:.4f} (tol {tol:.4f})")
+                if diff > tol:
+                    raise AssertionError(f"{name} {label}: max|diff| {diff} > {tol}")
+                if label == "B/16 train":
+                    max_err[name] = diff
         for name, (kernel, plain) in backward_calls(bb, a, g, T, H).items():
             before = getattr(bb, name).launches
             got = kernel()
@@ -626,59 +1094,117 @@ def main() -> int:
                                 GRAD_NAMES["text_subpath_backward"], got, plain())
         if label == "text":
             max_err["text_subpath_backward"] = worst
+    for label, (B, T, N, D, act) in MLP_SHAPES.items():
+        a = seeded_inputs(B, T, N, D, seed=7, device=dev)
+        g = seeded_inputs(B, T, N, D, seed=8, device=dev)["x"]
+        for save in (False, True):
+            form = "saved hidden" if save else "recomputing"
+            fwd, fwd_plain, bwd, bwd_plain = mlp_calls(bk, bb, a, g, act, save)
+            (out, h), (want, want_h) = fwd(), fwd_plain()
+            torch.cuda.synchronize()
+            if (h is not None) != save:
+                raise AssertionError(f"mlp_subpath {label}: hidden saved {h is not None}")
+            for what, x, y in (("out", out, want),) + ((("hidden", h, want_h),) if save else ()):
+                diff, ref, tol = band_check(x, y)
+                print(f"[3] mlp_subpath {label} {act} ({form}) {what}: max|diff| {diff:.5f} "
+                      f"mean|ref| {ref:.4f} (tol {tol:.4f})")
+                if diff > tol:
+                    raise AssertionError(f"mlp_subpath {label} {what}: max|diff| {diff} > {tol}")
+                if label == "B/16 train" and what == "out":
+                    max_err["mlp_subpath" + (" (saved hidden)" if save else "")] = diff
+            before = (bb.mlp_subpath.launches, bb.mlp_subpath.saved_launches,
+                      bb.mlp_subpath_backward.launches, bb.mlp_subpath_backward.saved_launches)
+            got = bwd()
+            torch.cuda.synchronize()
+            after = (bb.mlp_subpath.launches, bb.mlp_subpath.saved_launches,
+                     bb.mlp_subpath_backward.launches, bb.mlp_subpath_backward.saved_launches)
+            if after != (before[0] + 1, before[1] + save, before[2] + 1, before[3] + save):
+                raise AssertionError(f"mlp_subpath did not count its launches: {before} {after}")
+            worst = grad_band_check(f"mlp_subpath_backward {label} ({form})", MLP_GRAD_NAMES,
+                                    got, bwd_plain())
+            if label == "B/16 train":
+                max_err["mlp_subpath_backward" + (" (saved hidden)" if save else "")] = worst
+        del a, g
+    from tvts_torch.ops.attention import divided_space_time_attention
+
+    for label, (B, T, N, H, d) in CORE_SHAPES.items():
+        qkv = core_inputs(B, T, N, H, d, seed=3, device=dev)
+        for mode in ("space", "time"):
+            kernel, plain = core_calls(ac, qkv, T, N, mode)
+            before = ac.divided_space_time_attention_fused.launches
+            got = kernel()
+            torch.cuda.synchronize()
+            if ac.divided_space_time_attention_fused.launches != before + 1:
+                raise AssertionError("divided_space_time_attention_fused did not count its launch")
+            want = plain()
+            diff, ref, tol = core_band_check(got, want)
+            # and against plain in f32 on the same values: the kernel may lie no
+            # farther from it than plain in bf16 does
+            want32 = divided_space_time_attention(*(t.float() for t in qkv), T, N, mode)
+            diff32 = (got.float() - want32).abs().max().item()
+            tol32 = (want.float() - want32).abs().max().item()
+            print(f"[3] divided_space_time_attention_fused {mode:5s} {label}: max|diff| "
+                  f"{diff:.5f} max|ref| {ref:.4f} (tol {tol:.4f} = min({BAND}, {CORE_BAND} * "
+                  f"max|ref|)); to plain in f32 {diff32:.5f} (<= plain bf16's own {tol32:.5f})")
+            if diff > tol or diff32 > tol32:
+                raise AssertionError(f"H9 {mode} {label}: max|diff| {diff} > {tol}, or "
+                                     f"{diff32} > {tol32} against f32")
+            if label == "N=196 d=64" and mode == "space":
+                max_err["divided_space_time_attention_fused"] = diff
+    return max_err
+
+
+def main() -> int:
+    # ---- phase 1: the card --------------------------------------------------
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device -- this script runs only on the card",
+              file=sys.stderr)
+        return 1
+    card = card_line()
+    dev = torch.device("cuda")
+    print(f"[1] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+
+    from tvts_torch.eval.embed import embed_texts, make_embed_fns
+    from tvts_torch.eval.feature_extraction import extract_video_feature
+    from tvts_torch.eval.zero_recognition import run_recognition
+    from tvts_torch.eval.zero_ret import run_retrieval
+    from tvts_torch.eval.zero_ssv2_mc import run_ssv2_mc
+    from tvts_torch.ops import attention_cores as ac
+    from tvts_torch.ops import block_backward as bb
+    from tvts_torch.ops import block_kernels as bk
+    from tvts_torch.ops import text_attention as ta
+    from tvts_torch.text.tokenizer import tokenize_openclip
+
+    # ---- phase 2: build ------------------------------------------------------
+    t0 = time.perf_counter()
+    so, log = bk.build()
+    bk.library()
+    print(f"[2] built {so.name} in {time.perf_counter() - t0:.1f} s")
+    entry = ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "Used" in line:
+            print(f"[2]   {entry}: {line.split(':', 1)[1].strip()}")
+        elif "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill"):
+            print(f"[2]   {entry}: {line.strip()}")
+
+    # ---- phase 3: kernel parity ---------------------------------------------
+    max_err = parity_phase(dev, bk, bb, ta, ac)
 
     # ---- phase 4: main path -------------------------------------------------
-    cfg, model = build_model("TVTSv2_B_16", dtype=torch.bfloat16, device=dev, seed=0)
-    _, model32 = build_model("TVTSv2_B_16", dtype=torch.float32, device=dev, seed=0)
-    rng = np.random.default_rng(1)
-    with torch.no_grad():
-        for p in model32.parameters():  # seeded noise on every leaf (time qkv is 0 at init)
-            p.add_(torch.from_numpy(0.02 * rng.standard_normal(p.shape).astype(np.float32))
-                   .to(dev))
-    model.load_state_dict(model32.state_dict())
-    zero = [n for n, p in model.named_parameters() if not p.any()]
-    if zero:
-        raise AssertionError(f"all-zero parameters: {zero}")
-    v = cfg.vision
-    tc = cfg.text
-    print(f"[4] {cfg.name}: video width {v.width}, {v.layers} blocks, {v.num_frames} frames, "
-          f"{v.patches_per_frame} patches/frame; text width {tc.width}, {tc.layers} blocks, "
-          f"{tc.heads} heads, context {tc.context_length}; "
-          f"{sum(p.numel() for p in model.parameters())} parameters, all non-zero")
-
-    clips = np.random.default_rng(2).standard_normal(
-        (21, v.num_frames, 3, v.input_resolution, v.input_resolution)).astype(np.float32)
-    loader = SyntheticLoader(clips, v.patches_per_frame, batch_size=8)
-    reset_launch_counts(bk, bb, ta)
-    fused = extract_embeddings(model, loader, use_fused=True)["video"]
-    launches = launch_counts(bk, bb, ta)
-    per_forward = dict(zip(bk.launch_counts(), (12, 11, 11, 1)))
-    n_forwards = 3
-    print(f"[4] launches over {n_forwards} forwards: {launches}")
-    want = dict.fromkeys(launches, 0)
-    want.update({name: n * n_forwards for name, n in per_forward.items()})
-    if launches != want:
-        raise AssertionError(f"extraction launches {launches}, expected {want}")
-    eager = extract_embeddings(model, loader, use_fused=False)["video"]
-    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    eager32 = extract_embeddings(model32, loader, use_fused=False)["video"]
-    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-
-    if fused.shape != (21, v.output_dim) or not np.isfinite(fused).all():
-        raise AssertionError(f"fused embeddings: shape {fused.shape} or non-finite")
-    c16, c32 = cos_rows(fused, eager).min(), cos_rows(fused, eager32).min()
-    unit = fused / np.linalg.norm(fused, axis=-1, keepdims=True)
-    across = (unit @ unit.T)[~np.eye(len(unit), dtype=bool)].mean()
-    print(f"[4] pooled cosine, kernel path vs eager: min {c16:.6f} (bf16, >= {COS_BF16}), "
-          f"min {c32:.6f} (f32, >= {COS_F32}); mean cosine across clips {across:.4f}")
-    if c16 < COS_BF16 or c32 < COS_F32:
-        raise AssertionError("kernel path disagrees with the eager tower")
+    ext = extraction_phase("4", "TVTSv2_B_16", dev, bk, bb, ta, n_clips=21, batch_size=8,
+                           noise_seed=1)
+    cfg, model, model32, clips, fused = (ext[k] for k in ("cfg", "model", "model32", "clips",
+                                                           "fused"))
+    launches, per_forward, n_forwards = ext["launches"], ext["per_forward"], ext["n_forwards"]
+    v, tc = cfg.vision, cfg.text
     feat = extract_video_feature(model, clips[:1], use_fused=True)
     if feat.shape != (1, v.output_dim) or not np.isfinite(feat).all():
         raise AssertionError(f"extract_video_feature: shape {feat.shape}")
     print(f"[4] extract_video_feature -> {feat.shape}, cosine to batch row "
           f"{cos_rows(feat, fused[:1])[0]:.6f}")
+    launches["divided_space_time_attention_fused"] = use_pallas_phase("4", ext, dev, bk, bb, ta)
 
     # ---- phase 5: zero-shot main path ---------------------------------------
     captions = synthetic_captions(len(clips), seed=4)
@@ -702,12 +1228,10 @@ def main() -> int:
     text_forwards = n_forwards + len(classnames) + len(clips)
     video_forwards = 3 * n_forwards
     print(f"[5] launches over {text_forwards} text and {video_forwards} video forwards: "
-          f"{zs_launches}")
-    want = dict.fromkeys(zs_launches, 0)
-    want.update({name: n * video_forwards for name, n in per_forward.items()})
+          f"{ {k: n for k, n in zs_launches.items() if n} }")
+    want = {name: n * video_forwards for name, n in per_forward.items()}
     want["fused_text_attention_block"] = (tc.layers - 1) * text_forwards
-    if zs_launches != want:
-        raise AssertionError(f"zero-shot launches {zs_launches}, expected {want}")
+    expect_launches("zero-shot", zs_launches, want)
     launches["fused_text_attention_block"] = zs_launches["fused_text_attention_block"]
     ret_eager, sims_eager = run_retrieval(model, ret_loader, use_fused=False)
     for path, res in (("kernels", ret), ("eager", ret_eager)):
@@ -729,12 +1253,10 @@ def main() -> int:
     for path, m, use_fused in (("kernels", model, True), ("eager", model, False),
                                ("eager32", model32, False)):
         embed_text, _ = make_embed_fns(m, use_fused=use_fused)
-        if path == "eager32":
-            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-        texts[path] = np.concatenate([embed_texts(embed_text, captions[i:i + 8], dev,
-                                                  batch_size=8)
-                                      for i in range(0, len(captions), 8)])
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        with no_tf32():
+            texts[path] = np.concatenate([embed_texts(embed_text, captions[i:i + 8], dev,
+                                                      batch_size=8)
+                                          for i in range(0, len(captions), 8)])
     if texts["kernels"].shape != (len(captions), tc.output_dim) \
             or not np.isfinite(texts["kernels"]).all():
         raise AssertionError(f"text embeddings: shape {texts['kernels'].shape} or non-finite")
@@ -744,41 +1266,29 @@ def main() -> int:
           f"min {t32:.6f} (f32, >= {COS_F32})")
     if t16 < COS_BF16 or t32 < COS_F32:
         raise AssertionError("text kernel path disagrees with the eager tower")
-    del model32
+    del model32, ext
 
     # ---- phase 7: train main path -------------------------------------------
     train = train_phase(dev, bk, bb, ta)
-    launches.update({name: train["launches"][name] for name in (
-        "time_subpath_backward", "space_subpath_backward", "text_subpath_backward")})
+    launches.update({name: n for name, n in train["launches"].items()
+                     if name in REPLACES and not launches.get(name)})
 
     # ---- phase 6: times -----------------------------------------------------
     B = 64
+    extraction_rate("6", cfg, model, B, dev, card, iters=5)
     gen = torch.Generator(device=dev).manual_seed(3)
-    video = torch.randn(B, v.num_frames, 3, v.input_resolution, v.input_resolution,
-                        generator=gen, device=dev)
-    keep = torch.arange(v.patches_per_frame, device=dev)[None].expand(B, -1)
-    rates = {}
-    for path, use_fused in (("kernels", True), ("eager", False)):
-        _, embed_video = make_embed_fns(model, use_fused=use_fused)
-        ms = cuda_ms(lambda: embed_video(video, keep), iters=5)
-        rates[path] = B / (ms / 1e3)
-        print(f"[6] B/16 extraction B={B} {path:7s}: {ms:.2f} ms/batch, "
-              f"{rates[path]:.2f} clips/s [{card}]")
-    print(f"[6] extraction kernels / eager: {rates['kernels'] / rates['eager']:.3f} [{card}]")
-    del video
-
     a = seeded_inputs(1, 1, 1, v.width, seed=0, device=dev)  # weights; x, base below
     S = 1 + v.num_frames * v.patches_per_frame
     a["x"] = torch.randn(B, S, v.width, generator=gen, device=dev, dtype=torch.bfloat16)
     a["base"] = torch.randn(B, S, v.width, generator=gen, device=dev, dtype=torch.bfloat16)
-    times = {}
+    times, library = {}, {}
     with torch.inference_mode():
         for name, (kernel, plain) in kernel_calls(bk, a, v.num_frames, v.heads,
                                                   v.act).items():
             k_ms = cuda_ms(kernel, iters=10)
             p_ms = cuda_ms(plain, iters=10)
             if name == "fused_mlp_block":
-                work = (16 * a["x"].numel() * v.width, 4 * a["x"].numel() + 16 * v.width ** 2)
+                work = mlp_work(B * S, v.width, False, False)
             elif name == "fused_space_cls_only":
                 M, D = a["x"].shape[0] * S, v.width
                 work = (4 * M * D * D + 4 * B * D * D + 4 * D * M,
@@ -790,6 +1300,7 @@ def main() -> int:
             times[name] = (k_ms, p_ms, bound_ms(*work))
             print(f"[6] {name:22s} B={B}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
                   f"{times[name][2][0]:.3f} ms ({times[name][2][1]}) [{card}]")
+    del a
 
     TB = 256
     ids = torch.from_numpy(tokenize_openclip(
@@ -818,16 +1329,29 @@ def main() -> int:
                   f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}) "
                   f"[{card}]")
     del model
-    train_times(dev, card, bk, bb, ta, train, times)
+    train_times(dev, card, bk, bb, ta, ac, train, times, library)
+    del train
+    torch.cuda.empty_cache()
 
+    # ---- phase 9 (B/32) and phase 8 (H/14), with their times -----------------
+    b32_phase(dev, card, bk, bb, ta)
+    torch.cuda.empty_cache()
+    h14_phase(dev, card, bk, bb, ta)
+
+    unlaunched = [name for name in REPLACES if not launches.get(name)]
+    if unlaunched:
+        raise AssertionError(f"kernels that no main path launched: {unlaunched}")
     print(card)
     # library_ms: no single PyTorch call computes a whole sub-path (LayerNorm,
-    # qkv product, divided or causal attention, proj product and residual)
+    # the products, divided or causal attention, activation and residual, or
+    # their gradients); the H9 cores alone are one masked
+    # scaled_dot_product_attention call (core_library_call)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": max_err[name],
          "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": times[name][2][0],
-         "bound_by": times[name][2][1], "library_ms": None} for name in REPLACES]}))
+         "bound_by": times[name][2][1], "library_ms": library.get(name)}
+        for name in REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

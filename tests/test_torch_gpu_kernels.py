@@ -1,5 +1,6 @@
 """The Hopper kernels (H1-H4 sub-paths of the video tower, H7 text attention,
-and the H5 / H6 / H7 training backwards) against their plain PyTorch versions,
+the H5 / H6 / H7 training backwards, the H8 MLP sub-path with its backward and
+the H9 attention cores) against their plain PyTorch versions,
 on the card in bf16, with chip_smoke.py's seeded inputs and bands; and a small
 train step, kernel path against eager. Marked `gpu`: they skip where no CUDA
 device is present.
@@ -19,21 +20,30 @@ import torch
 
 from chip_smoke import (
     BWD_SHAPES,
+    CORE_SHAPES,
     GRAD_NAMES,
+    MLP_GRAD_NAMES,
+    MLP_SHAPES,
     TEXT_BWD_SHAPES,
     TEXT_SHAPES,
     backward_calls,
     band_check,
+    core_band_check,
+    core_calls,
+    core_inputs,
     grad_band_check,
     kernel_calls,
+    mlp_calls,
     seeded_inputs,
     text_backward_calls,
     text_calls,
     text_inputs,
 )
+from tvts_torch.ops import attention_cores as ac
 from tvts_torch.ops import block_backward as bb
 from tvts_torch.ops import block_kernels as bk
 from tvts_torch.ops import text_attention as ta
+from tvts_torch.ops.attention import divided_space_time_attention
 
 pytestmark = pytest.mark.gpu
 
@@ -197,9 +207,66 @@ def test_text_backward_kernel_matches_plain(cuda, label):
     grad_band_check(label, GRAD_NAMES["text_subpath_backward"], got, plain())
 
 
+@pytest.mark.parametrize("save", [False, True])
+@pytest.mark.parametrize("label", list(MLP_SHAPES))
+def test_mlp_subpath_kernel_matches_plain(cuda, label, save):
+    """H8: the forward (and the hidden it saves) and every gradient, with the
+    hidden recomputed and saved."""
+    B, T, N, D, act = MLP_SHAPES[label]
+    a = seeded_inputs(B, T, N, D, 7, cuda)
+    g = seeded_inputs(B, T, N, D, 8, cuda)["x"]
+    fwd, fwd_plain, bwd, bwd_plain = mlp_calls(bk, bb, a, g, act, save)
+    (out, h), (want, want_h) = fwd(), fwd_plain()
+    diff, ref, tol = band_check(out, want)
+    assert diff <= tol, (diff, ref)
+    assert (h is not None) == save
+    if save:
+        diff, ref, tol = band_check(h, want_h)
+        assert diff <= tol, (diff, ref)
+    before = bb.mlp_subpath.launches, bb.mlp_subpath_backward.saved_launches
+    got = bwd()
+    assert (bb.mlp_subpath.launches, bb.mlp_subpath_backward.saved_launches) == \
+        (before[0] + 1, before[1] + save)
+    grad_band_check(label, MLP_GRAD_NAMES, got, bwd_plain())
+
+
+@pytest.mark.parametrize("mode", ["space", "time"])
+@pytest.mark.parametrize("label", list(CORE_SHAPES))
+def test_attention_core_kernel_matches_plain(cuda, label, mode):
+    """H9 on the head-split views the tower hands it, and on contiguous
+    [B, H, S, d] copies of them."""
+    B, T, N, H, d = CORE_SHAPES[label]
+    qkv = core_inputs(B, T, N, H, d, 3, cuda)
+    kernel, plain = core_calls(ac, qkv, T, N, mode)
+    before = ac.divided_space_time_attention_fused.launches
+    got = kernel()
+    assert ac.divided_space_time_attention_fused.launches == before + 1
+    want = plain()
+    diff, ref, tol = core_band_check(got, want)
+    assert diff <= tol, (diff, ref)
+    # no farther from plain in f32 than plain in bf16 is
+    want32 = divided_space_time_attention(*(t.float() for t in qkv), T, N, mode)
+    assert (got.float() - want32).abs().max() <= (want.float() - want32).abs().max()
+    dense = core_calls(ac, tuple(t.contiguous() for t in qkv), T, N, mode)[0]()
+    assert dense.is_contiguous() and torch.equal(dense, got)
+
+
+def test_attention_core_kernel_raises_on_what_it_does_not_take(cuda):
+    q, k, v = core_inputs(1, 4, 16, 4, 64, 4, cuda)
+    with pytest.raises(RuntimeError, match="forward only"):  # no graph: no silent zero gradient
+        ac.divided_space_time_attention_fused(q.clone().requires_grad_(), k, v, 4, 16, "space")
+    with pytest.raises(TypeError):
+        ac.divided_space_time_attention_fused(q.float(), k.float(), v.float(), 4, 16, "space")
+    with pytest.raises(ValueError, match="head dim"):
+        ac.divided_space_time_attention_fused(q[..., :32], k[..., :32], v[..., :32], 4, 16,
+                                              "space")
+    with pytest.raises(ValueError, match="share strides"):
+        ac.divided_space_time_attention_fused(q, k, v.contiguous(), 4, 16, "space")
+
+
 def test_small_train_step_kernels_match_eager_on_card(cuda):
     """A 2-block model at head dim 64 (f32 masters, bf16 compute): the loss
-    and gradients of train_apply against the eager forward, within the step-0
+    and gradients of train_apply (H5, H6, H7 and H8) against the eager forward, within the step-0
     gate of chip_smoke.py (|dloss| < 2e-2, relative error < 0.12 on the
     significant tensors)."""
     from tvts_torch.models.configs import SortConfig, TextConfig, TVTSv2Config, VisionConfig
@@ -230,7 +297,8 @@ def test_small_train_step_kernels_match_eager_on_card(cuda):
              "keep_ind": torch.stack([torch.randperm(16)[:8] for _ in range(B)]).to(cuda),
              "labels": torch.arange(cfg.num_clips).repeat(B, 1).to(cuda)}
     params = list(model.parameters())
-    lk, _ = make_loss_fn(apply_fn=lambda m, b: train_apply(m, b, text_tune_from=1))(model, batch)
+    lk, _ = make_loss_fn(apply_fn=lambda m, b: train_apply(m, b, text_tune_from=1,
+                                                           mlp_kernel=True))(model, batch)
     gk = torch.autograd.grad(lk, params, allow_unused=True)
     le, _ = make_loss_fn()(model, batch)
     ge = torch.autograd.grad(le, params, allow_unused=True)

@@ -287,14 +287,15 @@ def test_resolve_kernel_config_matches_jax(arch, kernels_cfg, env):
 def test_train_apply_kwargs_map_every_mode():
     ocfg = OptimizerConfig()
     best = train_apply_kwargs(resolve_kernel_config("TVTSv2_B_16", {"preset": "best"}, {}), ocfg)
-    assert best == dict(space_kernel=True, time_kernel=True, text_kernel=True,
-                        sort_kernel=True, text_tune_from=9)
+    assert best == dict(space_kernel=True, time_kernel=True, mlp_kernel=False,
+                        mlp_save_hidden=False, text_kernel=True, sort_kernel=True,
+                        text_tune_from=9)
     h14 = train_apply_kwargs(resolve_kernel_config("TVTSv2_H_14", {}, {}), ocfg)
     assert (h14["time_kernel"], h14["text_kernel"], h14["text_tune_from"]) == (False, False, None)
     for mode in ("pallas", "pallas_ps", "pallas_v2", "pallas_v5", "pallas_v10", "pallas_v10r"):
         kcfg = resolve_kernel_config("TVTSv2_B_16", {"space_mode": mode}, {})
         assert train_apply_kwargs(kcfg)["space_kernel"]
-    with pytest.raises(NotImplementedError, match="H8"):
-        train_apply_kwargs(resolve_kernel_config("TVTSv2_B_16", {"mlp_mode": "pallas"}, {}))
+    assert train_apply_kwargs(  # H8
+        resolve_kernel_config("TVTSv2_B_16", {"mlp_mode": "pallas"}, {}))["mlp_kernel"]
     with pytest.raises(ValueError, match="time_mode"):
         train_apply_kwargs(resolve_kernel_config("TVTSv2_B_16", {"time_mode": "pallas_v9"}, {}))

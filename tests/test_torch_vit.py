@@ -114,6 +114,15 @@ def test_activations_match_jax(act):
 
 
 def test_unported_tower_options_raise():
+    """The tower builds with every H/14 option; what stays unsupported, as in
+    the JAX package, is LayerScale in the fused train forward, and an unknown
+    pool style."""
+    from tvts_torch.ops.fused_forward import space_time_vit_fused_train_forward
+
     for extra in ({"ls_init": 0.1}, {"patch_dropout": 0.5}, {"attentional_pool": True}):
-        with pytest.raises(NotImplementedError):
-            SpaceTimeViT(VisionConfig(**tiny_vision("openclip", **extra)))
+        SpaceTimeViT(VisionConfig(**tiny_vision("openclip", **extra)))
+    model = SpaceTimeViT(VisionConfig(**tiny_vision("openclip", ls_init=0.1)))
+    with pytest.raises(NotImplementedError):
+        space_time_vit_fused_train_forward(model, torch.zeros(1, 4, 3, 32, 32))
+    with pytest.raises(ValueError):
+        SpaceTimeViT(VisionConfig(**tiny_vision("mean")))

@@ -5,6 +5,14 @@
 // core also writes the natural-log log-sum-exp of the scaled logits of every
 // row it computes (row 0, the CLS row, from cls_combine_kernel), which the
 // backward kernels (attention_bwd.cuh) use to recompute the probabilities.
+//
+// The same two cores are the attention cores on their own (H9, replacing
+// tvts_tpu/ops/pallas_attention.py::_space_attention_fused and
+// _time_attention_fused): with STRIDED = true they read separate q, k, v
+// [B, H, S, d] tensors of any batch, head and row strides (q pre-scaled: the
+// caller passes scale 1) and write an output laid out likewise. STRIDED is a
+// template parameter, so the packed kernels of H1 / H2 keep their
+// compile-time addressing.
 #pragma once
 
 #include <math.h>
@@ -12,6 +20,39 @@
 #include "common.cuh"
 
 namespace tvts {
+
+// Element strides (batch, head, row) of q, k, v and the output for the
+// STRIDED cores; the last dimension is contiguous.
+struct CoreStrides {
+  i64 q[3], k[3], v[3], o[3];
+};
+
+// Row `tok` of head h of batch b of q (which = 0), k (1) or v (2). Packed: the
+// [B, S, 3D] qkv rows at `q`; strided: three tensors.
+template <int DH, bool STRIDED>
+struct CoreAddr {
+  const bf16 *q, *k, *v;
+  bf16* o;
+  int H, S;
+  CoreStrides st;
+
+  __device__ __forceinline__ const bf16* row(int which, int b, int h, i64 tok) const {
+    if constexpr (STRIDED) {
+      const bf16* p = which == 0 ? q : which == 1 ? k : v;
+      const i64* s = which == 0 ? st.q : which == 1 ? st.k : st.v;
+      return p + b * s[0] + h * s[1] + tok * s[2];
+    } else {
+      const int D = H * DH;
+      return q + ((i64)b * S + tok) * 3 * D + which * D + h * DH;
+    }
+  }
+  __device__ __forceinline__ bf16* out_row(int b, int h, i64 tok) const {
+    if constexpr (STRIDED)
+      return o + b * st.o[0] + h * st.o[1] + tok * st.o[2];
+    else
+      return o + ((i64)b * S + tok) * H * DH + h * DH;
+  }
+};
 
 // ---------------------------------------------------------------------------
 // Time core. Patch (t, n) attends over the CLS key plus location n in every
@@ -21,36 +62,35 @@ namespace tvts {
 // ---------------------------------------------------------------------------
 constexpr int TIME_WARPS = 4;
 
-template <int DH>
+template <int DH, bool STRIDED>
 __global__ void __launch_bounds__(TIME_WARPS * 32)
-    time_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                     float* __restrict__ lse, int T, int N, int H, float scale) {
+    time_core_kernel(const CoreAddr<DH, STRIDED> view, float* __restrict__ lse, int T, int N,
+                     float scale) {
   extern __shared__ float tsm[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n = blockIdx.x, b = blockIdx.y;
-  const int D = H * DH, S = 1 + T * N;
+  const int H = view.H, S = view.S;
   const int QS = DH + 1;  // padded query rows: lane t reads row t conflict-free
   float* sq = tsm + warp * (T * QS + 2 * (T + 1) * DH);
   float* sk = sq + T * QS;
   float* sv = sk + (T + 1) * DH;
-  const bf16* base = qkv + (i64)b * S * 3 * D;
 
   for (int h = warp; h < H; h += TIME_WARPS) {
     // key/value row s: s == 0 is the CLS token, s >= 1 is frame s-1 at n
     for (int r = 0; r < 3 * T + 2; ++r) {
-      int tok, col;
+      int tok, which;
       float* dst;
       if (r < T) {
-        tok = 1 + r * N + n; col = h * DH; dst = sq + r * QS;
+        tok = 1 + r * N + n; which = 0; dst = sq + r * QS;
       } else if (r < 2 * T + 1) {
         const int s = r - T;
-        tok = s == 0 ? 0 : 1 + (s - 1) * N + n; col = D + h * DH; dst = sk + s * DH;
+        tok = s == 0 ? 0 : 1 + (s - 1) * N + n; which = 1; dst = sk + s * DH;
       } else {
         const int s = r - 2 * T - 1;
-        tok = s == 0 ? 0 : 1 + (s - 1) * N + n; col = 2 * D + h * DH; dst = sv + s * DH;
+        tok = s == 0 ? 0 : 1 + (s - 1) * N + n; which = 2; dst = sv + s * DH;
       }
       const __nv_bfloat162* src =
-          reinterpret_cast<const __nv_bfloat162*>(base + (i64)tok * 3 * D + col);
+          reinterpret_cast<const __nv_bfloat162*>(view.row(which, b, h, tok));
       for (int e = lane; e < DH / 2; e += 32) {
         const float2 f = __bfloat1622float2(src[e]);
         dst[2 * e] = f.x;
@@ -88,7 +128,7 @@ __global__ void __launch_bounds__(TIME_WARPS * 32)
     __syncwarp();
     for (int t = 0; t < T; ++t) {
       __nv_bfloat162* dst =
-          reinterpret_cast<__nv_bfloat162*>(out + ((i64)b * S + 1 + t * N + n) * D + h * DH);
+          reinterpret_cast<__nv_bfloat162*>(view.out_row(b, h, 1 + t * N + n));
       for (int e = lane; e < DH / 2; e += 32)
         dst[e] = __floats2bfloat162_rn(sq[t * QS + 2 * e], sq[t * QS + 2 * e + 1]);
     }
@@ -109,10 +149,10 @@ inline size_t time_core_smem(int T, int DH) {
 constexpr int SP_BQ = 64;
 constexpr int SP_BK = 64;
 
-template <int DH>
+template <int DH, bool STRIDED>
 __global__ void __launch_bounds__(128)
-    space_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                      float* __restrict__ lse, int T, int N, int H, float scale_log2) {
+    space_core_kernel(const CoreAddr<DH, STRIDED> view, float* __restrict__ lse, int T, int N,
+                      float scale_log2) {
   constexpr int LD = DH + 8;
   __shared__ __align__(16) bf16 sQ[SP_BQ][LD];
   __shared__ __align__(16) bf16 sK[SP_BK][LD];
@@ -121,8 +161,7 @@ __global__ void __launch_bounds__(128)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = blockIdx.x * SP_BQ, h = blockIdx.y;
   const int b = blockIdx.z / T, t = blockIdx.z % T;
-  const int D = H * DH, S = 1 + T * N;
-  const bf16* base = qkv + (i64)b * S * 3 * D;
+  const int H = view.H, S = view.S;
   const i64 frame_row0 = 1 + (i64)t * N;  // token row of patch 0 of frame t
   constexpr int VPR = DH / 8;             // 16-byte vectors per head row
 
@@ -130,7 +169,7 @@ __global__ void __launch_bounds__(128)
     const int r = e / VPR, c = (e % VPR) * 8;
     uint4 u = make_uint4(0, 0, 0, 0);
     if (q0 + r < N)
-      u = *reinterpret_cast<const uint4*>(base + (frame_row0 + q0 + r) * 3 * D + h * DH + c);
+      u = *reinterpret_cast<const uint4*>(view.row(0, b, h, frame_row0 + q0 + r) + c);
     *reinterpret_cast<uint4*>(&sQ[r][c]) = u;
   }
   __syncthreads();
@@ -155,9 +194,8 @@ __global__ void __launch_bounds__(128)
       uint4 uk = make_uint4(0, 0, 0, 0), uv = uk;
       if (j < n_keys) {
         const i64 tok = j == 0 ? 0 : frame_row0 + j - 1;
-        const bf16* row = base + tok * 3 * D + h * DH + c;
-        uk = *reinterpret_cast<const uint4*>(row + D);
-        uv = *reinterpret_cast<const uint4*>(row + 2 * D);
+        uk = *reinterpret_cast<const uint4*>(view.row(1, b, h, tok) + c);
+        uv = *reinterpret_cast<const uint4*>(view.row(2, b, h, tok) + c);
       }
       *reinterpret_cast<uint4*>(&sK[r][c]) = uk;
       *reinterpret_cast<uint4*>(&sV[r][c]) = uv;
@@ -248,7 +286,7 @@ __global__ void __launch_bounds__(128)
   for (int r = 0; r < 2; ++r) {
     const int qi = q0 + warp * 16 + g + r * 8;
     if (qi >= N) continue;
-    bf16* dst = out + ((i64)b * S + frame_row0 + qi) * D + h * DH;
+    bf16* dst = view.out_row(b, h, frame_row0 + qi);
 #pragma unroll
     for (int i = 0; i < DH / 8; ++i)
       *reinterpret_cast<__nv_bfloat162*>(dst + i * 8 + t4 * 2) =

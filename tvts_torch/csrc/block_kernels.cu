@@ -11,6 +11,62 @@
 using tvts::bf16;
 using tvts::i64;
 
+// Launchers of the attention cores, packed (H1 / H2) and strided (H9).
+namespace {
+
+template <int DH, bool STRIDED>
+tvts::CoreAddr<DH, STRIDED> core_view(const void* q, const void* k, const void* v, void* out,
+                                      int H, int S, const i64* strides) {
+  tvts::CoreAddr<DH, STRIDED> view;
+  view.q = (const bf16*)q;
+  view.k = (const bf16*)k;
+  view.v = (const bf16*)v;
+  view.o = (bf16*)out;
+  view.H = H;
+  view.S = S;
+  for (int i = 0; i < 3; ++i) {
+    view.st.q[i] = strides ? strides[i] : 0;
+    view.st.k[i] = strides ? strides[3 + i] : 0;
+    view.st.v[i] = strides ? strides[6 + i] : 0;
+    view.st.o[i] = strides ? strides[9 + i] : 0;
+  }
+  return view;
+}
+
+template <int DH, bool STRIDED>
+cudaError_t launch_time_core(const void* q, const void* k, const void* v, void* out, void* lse,
+                             const i64* strides, int B, int T, int N, int H, float scale,
+                             cudaStream_t s) {
+  const size_t smem = tvts::time_core_smem(T, DH);
+  cudaError_t err =
+      cudaFuncSetAttribute(tvts::time_core_kernel<DH, STRIDED>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  tvts::time_core_kernel<DH, STRIDED><<<dim3(N, B), tvts::TIME_WARPS * 32, smem, s>>>(
+      core_view<DH, STRIDED>(q, k, v, out, H, 1 + T * N, strides), (float*)lse, T, N, scale);
+  return cudaGetLastError();
+}
+
+template <int DH, bool STRIDED>
+cudaError_t launch_space_core(const void* q, const void* k, const void* v, void* out, void* lse,
+                              const i64* strides, int B, int T, int N, int H, float scale,
+                              cudaStream_t s) {
+  dim3 grid((N + tvts::SP_BQ - 1) / tvts::SP_BQ, H, B * T);
+  tvts::space_core_kernel<DH, STRIDED><<<grid, 128, 0, s>>>(
+      core_view<DH, STRIDED>(q, k, v, out, H, 1 + T * N, strides), (float*)lse, T, N,
+      scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+// 12 element strides (batch, head, row of q, k, v, out): rows 16-byte aligned
+bool strides_ok(const i64* st) {
+  for (int i = 0; i < 12; ++i)
+    if (st[i] % 8) return false;
+  return true;
+}
+
+}  // namespace
+
 extern "C" {
 
 const char* tvts_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
@@ -18,12 +74,19 @@ const char* tvts_error_string(int err) { return cudaGetErrorString((cudaError_t)
 // Y[M, N] = epilogue(LN?(X[M, K]) @ W[N, K]^T + bias), see ln_gemm.cuh.
 // ln_w == NULL: no LayerNorm. bias/res may be NULL. stats: f32 scratch [M, 2]
 // (the LayerNorm row statistics, kept by the training forward). Yf != NULL:
-// f32 output there instead of Y.
+// f32 output there instead of Y. epi (ln_gemm.cuh's Epilogue): 1 also writes
+// the pre-activation product to Y2 (bf16); 2 / 3 read the hidden Hin (bf16 /
+// f32) and write product * act'(Hin) to Y and act(Hin) to Y2; Y2 and Hin are
+// [M, N] at stride ldy.
 int tvts_ln_gemm(const void* X, i64 lda, const void* ln_w, const void* ln_b, float eps,
                  void* stats, const void* W, const void* bias, const void* res, i64 ldres,
-                 void* Y, void* Yf, i64 ldy, int M, int N, int K, int act, void* stream) {
+                 void* Y, void* Yf, i64 ldy, int M, int N, int K, int act, void* Y2,
+                 const void* Hin, int epi, void* stream) {
   if (K % tvts::GEMM_BK != 0 || N % 8 != 0 || lda % 8 != 0 || ldy % 2 != 0 || act < 0 ||
-      act > 2)
+      act > 2 || epi < 0 || epi > 3)
+    return (int)cudaErrorInvalidValue;
+  if (epi != tvts::EPI_PLAIN && (Yf || !Y || !Y2)) return (int)cudaErrorInvalidValue;
+  if (epi >= tvts::EPI_ACT_GRAD_BF16 && (!Hin || bias || res || ln_w))
     return (int)cudaErrorInvalidValue;
   tvts::GemmArgs a;
   a.X = (const bf16*)X;
@@ -42,7 +105,9 @@ int tvts_ln_gemm(const void* X, i64 lda, const void* ln_w, const void* ln_b, flo
   a.N = N;
   a.K = K;
   a.act = act;
-  return (int)tvts::launch_ln_gemm(a, eps, (float2*)stats, (cudaStream_t)stream);
+  a.Y2 = (bf16*)Y2;
+  a.Hin = Hin;
+  return (int)tvts::launch_ln_gemm(a, eps, (float2*)stats, epi, (cudaStream_t)stream);
 }
 
 // Time attention of the patch rows of out [B, S, H*dh] from qkv [B, S, 3*H*dh];
@@ -50,44 +115,51 @@ int tvts_ln_gemm(const void* X, i64 lda, const void* ln_w, const void* ln_b, flo
 int tvts_time_core(const void* qkv, void* out, void* lse, int B, int T, int N, int H, int dh,
                    float scale, void* stream) {
   if (T < 1 || T > 32) return (int)cudaErrorInvalidValue;
-  const size_t smem = tvts::time_core_smem(T, dh);
-  dim3 grid(N, B);
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (dh == 64) {
-    err = cudaFuncSetAttribute(tvts::time_core_kernel<64>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    tvts::time_core_kernel<64><<<grid, tvts::TIME_WARPS * 32, smem, s>>>(
-        (const bf16*)qkv, (bf16*)out, (float*)lse, T, N, H, scale);
-  } else if (dh == 80) {
-    err = cudaFuncSetAttribute(tvts::time_core_kernel<80>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    tvts::time_core_kernel<80><<<grid, tvts::TIME_WARPS * 32, smem, s>>>(
-        (const bf16*)qkv, (bf16*)out, (float*)lse, T, N, H, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dh == 64)
+    return (int)launch_time_core<64, false>(qkv, nullptr, nullptr, out, lse, nullptr, B, T, N,
+                                            H, scale, s);
+  if (dh == 80)
+    return (int)launch_time_core<80, false>(qkv, nullptr, nullptr, out, lse, nullptr, B, T, N,
+                                            H, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Space attention of the patch rows of out [B, S, H*dh] from qkv [B, S, 3*H*dh];
 // lse != NULL: also their log-sum-exp into lse [B, H, S] (training save).
 int tvts_space_core(const void* qkv, void* out, void* lse, int B, int T, int N, int H, int dh,
                     float scale, void* stream) {
-  dim3 grid((N + tvts::SP_BQ - 1) / tvts::SP_BQ, H, B * T);
-  const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = (cudaStream_t)stream;
   if (dh == 64)
-    tvts::space_core_kernel<64><<<grid, 128, 0, s>>>((const bf16*)qkv, (bf16*)out,
-                                                    (float*)lse, T, N, H, scale_log2);
-  else if (dh == 80)
-    tvts::space_core_kernel<80><<<grid, 128, 0, s>>>((const bf16*)qkv, (bf16*)out,
-                                                    (float*)lse, T, N, H, scale_log2);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return (int)launch_space_core<64, false>(qkv, nullptr, nullptr, out, lse, nullptr, B, T, N,
+                                             H, scale, s);
+  if (dh == 80)
+    return (int)launch_space_core<80, false>(qkv, nullptr, nullptr, out, lse, nullptr, B, T, N,
+                                             H, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The attention cores on their own (H9): the patch rows of out from separate
+// q, k, v of logical shape [B, H, 1 + T*N, dh], each addressed by its element
+// strides (batch, head, row); strides: 12 values for q, k, v, out in that
+// order, multiples of 8. space != 0: the space core, else the time core. The
+// logits are scaled by `scale` (1 for a pre-scaled q).
+int tvts_attention_core_strided(const void* q, const void* k, const void* v, void* out,
+                                const i64* strides, int B, int T, int N, int H, int dh,
+                                float scale, int space, void* stream) {
+  if (!strides_ok(strides) || (!space && (T < 1 || T > 32))) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dh == 64)
+    return (int)(space ? launch_space_core<64, true>(q, k, v, out, nullptr, strides, B, T, N, H,
+                                                     scale, s)
+                       : launch_time_core<64, true>(q, k, v, out, nullptr, strides, B, T, N, H,
+                                                    scale, s));
+  if (dh == 80)
+    return (int)(space ? launch_space_core<80, true>(q, k, v, out, nullptr, strides, B, T, N, H,
+                                                     scale, s)
+                       : launch_time_core<80, true>(q, k, v, out, nullptr, strides, B, T, N, H,
+                                                    scale, s));
+  return (int)cudaErrorInvalidValue;
 }
 
 // CLS global row: out[b, h*dh:(h+1)*dh] = softmax(q_b,h . k_b,h,j * scale) @ v over

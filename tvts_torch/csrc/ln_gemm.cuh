@@ -12,6 +12,18 @@
 // backward; it passes the transposed weight, so the product is the
 // untransposed-weight one, dY @ W).
 //
+// Two more epilogues serve the differentiable MLP sub-path (H8), chosen by the
+// EPI template parameter so that the inference kernel's code does not change:
+// - EPI_SAVE_PRE: the pre-activation hidden h = LN(x) Wfc^T + bfc goes to `Y2`
+//   in bf16 beside act(h) in `Y`, the activation taken from the rounded h (the
+//   saving forward of tvts_tpu/ops/pallas_block_attention.py::
+//   fused_mlp_block_v7, :2552-2563);
+// - EPI_ACT_GRAD_BF16 / _F32: the product is g Wproj and the epilogue reads the
+//   hidden h (`Hin`, bf16 as saved or f32 as recomputed), writes
+//   dh = product * act'(h) to `Y` and act(h) to `Y2`, both bf16 (the
+//   arithmetic of _act_and_grad, pallas_block_attention.py:945-953, with erff
+//   for the exact gelu).
+//
 // Bound on the H100: tensor-core issue for the big products (K = 768..5120).
 // This first version stages tiles through registers into a double-buffered
 // shared-memory ring (128x128x32 tiles, 8 warps of 64x32); wgmma/TMA and a
@@ -23,6 +35,7 @@
 namespace tvts {
 
 enum Act { ACT_NONE = 0, ACT_QUICK_GELU = 1, ACT_GELU = 2 };
+enum Epilogue { EPI_PLAIN = 0, EPI_SAVE_PRE = 1, EPI_ACT_GRAD_BF16 = 2, EPI_ACT_GRAD_F32 = 3 };
 
 constexpr int GEMM_BM = 128;
 constexpr int GEMM_BN = 128;
@@ -77,6 +90,8 @@ struct GemmArgs {
   float* Yf;  // non-null: f32 output instead of Y
   i64 ldy;
   int M, N, K, act;
+  bf16* Y2;         // EPI_SAVE_PRE: h; EPI_ACT_GRAD_*: act(h); [M, N] at stride ldy
+  const void* Hin;  // EPI_ACT_GRAD_*: the hidden h [M, N] at stride ldy
 };
 
 __device__ __forceinline__ float activate(float v, int act) {
@@ -85,9 +100,28 @@ __device__ __forceinline__ float activate(float v, int act) {
   return v;
 }
 
+// a = act(h), da = act'(h): quick_gelu s + 1.702 h s (1 - s) with s =
+// sigmoid(1.702 h); exact gelu cdf + h * phi.
+__device__ __forceinline__ void act_and_grad(float h, int act, float& a, float& da) {
+  if (act == ACT_QUICK_GELU) {
+    const float s = 1.f / (1.f + __expf(-1.702f * h));
+    a = h * s;
+    da = s * (1.f + 1.702f * h * (1.f - s));
+  } else if (act == ACT_GELU) {
+    const float cdf = 0.5f * (1.f + erff(h * 0.70710678118654752f));
+    const float phi = __expf(-0.5f * h * h) * 0.3989422804014327f;
+    a = h * cdf;
+    da = cdf + h * phi;
+  } else {
+    a = h;
+    da = 1.f;
+  }
+}
+
 // F32_OUT is a template parameter, not a runtime branch: a runtime test in the
 // epilogue cost the bf16 kernel 4-6% (one A/B call on the H100, PERF.md).
-template <bool F32_OUT>
+// EPI likewise: the H8 epilogues are compiled into kernels of their own.
+template <bool F32_OUT, int EPI>
 __global__ void __launch_bounds__(GEMM_THREADS) ln_gemm_kernel(const GemmArgs a) {
   __shared__ __align__(16) bf16 sA[2][GEMM_BM][GEMM_LDS];
   __shared__ __align__(16) bf16 sB[2][GEMM_BN][GEMM_LDS];
@@ -202,11 +236,32 @@ __global__ void __launch_bounds__(GEMM_THREADS) ln_gemm_kernel(const GemmArgs a)
         const int col = n0 + wn * 32 + ni * 8 + t4 * 2;
         if (row >= a.M || col >= a.N) continue;
         float v0 = acc[mi][ni][2 * half], v1 = acc[mi][ni][2 * half + 1];
+        if constexpr (EPI >= EPI_ACT_GRAD_BF16) {
+          const i64 at = (i64)row * a.ldy + col;
+          float2 h;
+          if constexpr (EPI == EPI_ACT_GRAD_F32)
+            h = *reinterpret_cast<const float2*>(static_cast<const float*>(a.Hin) + at);
+          else
+            h = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(a.Hin) + at));
+          float a0, a1, d0, d1;
+          act_and_grad(h.x, a.act, a0, d0);
+          act_and_grad(h.y, a.act, a1, d1);
+          *reinterpret_cast<__nv_bfloat162*>(a.Y + at) = __floats2bfloat162_rn(v0 * d0, v1 * d1);
+          *reinterpret_cast<__nv_bfloat162*>(a.Y2 + at) = __floats2bfloat162_rn(a0, a1);
+          continue;
+        }
         if (a.bias) {
           const float2 bb = __bfloat1622float2(
               *reinterpret_cast<const __nv_bfloat162*>(a.bias + col));
           v0 += bb.x;
           v1 += bb.y;
+        }
+        if constexpr (EPI == EPI_SAVE_PRE) {
+          const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+          *reinterpret_cast<__nv_bfloat162*>(a.Y2 + (i64)row * a.ldy + col) = h;
+          v0 = __low2float(h);
+          v1 = __high2float(h);
         }
         v0 = activate(v0, a.act);
         v1 = activate(v1, a.act);
@@ -224,7 +279,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) ln_gemm_kernel(const GemmArgs a)
       }
 }
 
-inline cudaError_t launch_ln_gemm(const GemmArgs& a, float eps, float2* stats,
+inline cudaError_t launch_ln_gemm(const GemmArgs& a, float eps, float2* stats, int epi,
                                   cudaStream_t stream) {
   GemmArgs args = a;
   if (args.ln_w != nullptr) {
@@ -236,10 +291,16 @@ inline cudaError_t launch_ln_gemm(const GemmArgs& a, float eps, float2* stats,
     args.stats = nullptr;
   }
   dim3 grid((a.N + GEMM_BN - 1) / GEMM_BN, (a.M + GEMM_BM - 1) / GEMM_BM);
-  if (args.Yf)
-    ln_gemm_kernel<true><<<grid, GEMM_THREADS, 0, stream>>>(args);
+  if (epi == EPI_SAVE_PRE)
+    ln_gemm_kernel<false, EPI_SAVE_PRE><<<grid, GEMM_THREADS, 0, stream>>>(args);
+  else if (epi == EPI_ACT_GRAD_BF16)
+    ln_gemm_kernel<false, EPI_ACT_GRAD_BF16><<<grid, GEMM_THREADS, 0, stream>>>(args);
+  else if (epi == EPI_ACT_GRAD_F32)
+    ln_gemm_kernel<false, EPI_ACT_GRAD_F32><<<grid, GEMM_THREADS, 0, stream>>>(args);
+  else if (args.Yf)
+    ln_gemm_kernel<true, EPI_PLAIN><<<grid, GEMM_THREADS, 0, stream>>>(args);
   else
-    ln_gemm_kernel<false><<<grid, GEMM_THREADS, 0, stream>>>(args);
+    ln_gemm_kernel<false, EPI_PLAIN><<<grid, GEMM_THREADS, 0, stream>>>(args);
   return cudaGetLastError();
 }
 

@@ -37,7 +37,9 @@ def _pad_to(arr: np.ndarray, n: int) -> np.ndarray:
 def make_embed_fns(model, use_fused: bool = False, **tpu_knobs):
     """(embed_text, embed_video) for a TVTSv2. use_fused=True runs both towers
     through the kernels (text: H7, EOT-only last block; video: H1-H4,
-    CLS-only last block); use_fused=False the eager modules.
+    CLS-only last block); use_fused=False the eager modules. The kernels do
+    not read LayerScale gammas, so the video tower of such a config stays
+    eager, as in the JAX package.
     embed_text(ids [N, ctx]) -> [N, out]; embed_video(video, keep) -> pooled."""
     unknown = set(tpu_knobs) - set(TPU_SCHEDULE_KNOBS)
     if unknown:
@@ -45,6 +47,7 @@ def make_embed_fns(model, use_fused: bool = False, **tpu_knobs):
     if tpu_knobs:
         log.warning("ignoring TPU schedule knobs %s: the Hopper kernels choose "
                     "their own tiling", sorted(tpu_knobs))
+    fused_video = use_fused and model.video_model.cfg.ls_init is None
 
     @torch.inference_mode()
     def embed_text(ids: torch.Tensor) -> torch.Tensor:
@@ -54,7 +57,7 @@ def make_embed_fns(model, use_fused: bool = False, **tpu_knobs):
 
     @torch.inference_mode()
     def embed_video(video: torch.Tensor, keep: torch.Tensor | None) -> torch.Tensor:
-        if use_fused:
+        if fused_video:
             pooled, _ = space_time_vit_fused_forward(model.video_model, video, keep,
                                                      need_tokens=False)
         else:

@@ -5,7 +5,10 @@ Numerics contracts, as in the JAX package:
   dtype; its parameters stay float32 whatever the tower's dtype.
 - `quick_gelu` is x * sigmoid(1.702 x); "gelu" is the exact erf form.
 - `VarAttention` is the qkv/proj pair around divided space-time attention;
-  `zero_init=True` is the time-attention init (qkv zeros, proj weight ones).
+  `zero_init=True` is the time-attention init (qkv zeros, proj weight ones);
+  `use_pallas=True` runs the space core on the H9 kernel
+  (ops/attention_cores.py; forward only), the time core stays plain, as in
+  the JAX package.
 - `SelfAttention` is plain multi-head attention (text tower), optionally
   causal: masked logits are filled with finfo(float32).min and the softmax
   runs in float32.
@@ -82,14 +85,21 @@ def mlp(x: torch.Tensor, wfc: torch.Tensor, bfc: torch.Tensor, wproj: torch.Tens
 
 def var_attention(x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor,
                   wproj: torch.Tensor, bproj: torch.Tensor, num_frames: int,
-                  patches_per_frame: int, mode: str, num_heads: int) -> torch.Tensor:
+                  patches_per_frame: int, mode: str, num_heads: int,
+                  use_pallas: bool = False) -> torch.Tensor:
     """proj(divided attention(qkv(x))) on x [B, S, D]."""
     d = x.shape[-1] // num_heads
     q, k, v = linear(x, wqkv, bqkv).chunk(3, dim=-1)
     q = split_heads(q * d ** -0.5, num_heads)
     k = split_heads(k, num_heads)
     v = split_heads(v, num_heads)
-    out = divided_space_time_attention(q, k, v, num_frames, patches_per_frame, mode)
+    if use_pallas and mode == "space":
+        # imported here: ops/block_kernels.py imports this module
+        from tvts_torch.ops.attention_cores import divided_space_time_attention_fused
+
+        out = divided_space_time_attention_fused(q, k, v, num_frames, patches_per_frame, mode)
+    else:
+        out = divided_space_time_attention(q, k, v, num_frames, patches_per_frame, mode)
     return linear(merge_heads(out), wproj, bproj)
 
 
@@ -133,10 +143,10 @@ class VarAttention(nn.Module):
         nn.init.zeros_(self.proj.bias)
 
     def forward(self, x: torch.Tensor, num_frames: int, patches_per_frame: int,
-                mode: str) -> torch.Tensor:
+                mode: str, use_pallas: bool = False) -> torch.Tensor:
         return var_attention(x, self.qkv.weight, self.qkv.bias, self.proj.weight,
                              self.proj.bias, num_frames, patches_per_frame, mode,
-                             self.num_heads)
+                             self.num_heads, use_pallas)
 
 
 def self_attention(x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor,

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tvts_torch.models.configs import TextConfig
 from tvts_torch.models.layers import LayerNormF32, Mlp, SelfAttention
@@ -43,9 +44,10 @@ class TextBlocks(nn.Module):
 
 
 class TextTransformer(nn.Module):
-    def __init__(self, cfg: TextConfig):
+    def __init__(self, cfg: TextConfig, remat: bool = False):
         super().__init__()
         self.text_cfg = cfg
+        self.remat = remat  # checkpoint each block where autograd records
         self.compute_dtype: torch.dtype | None = None  # None: the weights' dtype
         self.text_token_embedding = nn.Embedding(cfg.vocab_size, cfg.width)
         self.text_positional_embedding = nn.Parameter(
@@ -82,8 +84,9 @@ class TextTransformer(nn.Module):
     def compute_text(self, token_ids: torch.Tensor) -> torch.Tensor:
         """[N, ctx] ids -> [N, output_dim] text embeddings (not normalised)."""
         x = self.embed_tokens(token_ids)
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self.text_model.resblocks:
-            x = blk(x)
+            x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
         eot = token_ids.long().argmax(dim=-1)
         return self.project_text(x[torch.arange(x.shape[0], device=x.device), eot])
 

@@ -14,6 +14,10 @@ n_trans clips; the video embedding is the pooled CLS; the sort head reads the
 per-clip text embeddings detached, as [B, n_trans, D], beside the video order
 tokens. Returns (text_emb [B, D], video_emb [B, D], predict_order
 [B, n_trans, n_trans] or None when n_trans == 1).
+
+`remat=True` checkpoints every block of both towers (the sort head is not
+rematerialised, as in the JAX package); `use_pallas=True` runs the video
+tower's space attention core on the H9 kernel (forward only).
 """
 
 from __future__ import annotations
@@ -27,10 +31,10 @@ from tvts_torch.models.text import TextTransformer
 
 
 class TVTSv2(TextTransformer):
-    def __init__(self, cfg: TVTSv2Config):
-        super().__init__(cfg.text)
+    def __init__(self, cfg: TVTSv2Config, remat: bool = False, use_pallas: bool = False):
+        super().__init__(cfg.text, remat=remat)
         self.cfg = cfg
-        self.video_model = SpaceTimeViT(cfg.vision)
+        self.video_model = SpaceTimeViT(cfg.vision, remat=remat, use_pallas=use_pallas)
         self.pred_model = SortTransformer(cfg.sort)
 
     def reset_parameters(self, generator: torch.Generator) -> None:

@@ -1,7 +1,8 @@
-"""H5 and H6: the differentiable space and time sub-paths of the training
-tower, hand-written in CUDA C++ for Hopper (sources in tvts_torch/csrc/), each
-beside its plain PyTorch version; and the backward chain they share with the
-H7 text sub-path (ops/text_attention.py).
+"""H5, H6 and H8: the differentiable space, time and MLP sub-paths of the
+training tower, hand-written in CUDA C++ for Hopper (sources in
+tvts_torch/csrc/), each beside its plain PyTorch version; and the backward
+chain the attention sub-paths share with the H7 text sub-path
+(ops/text_attention.py).
 
 `time_subpath` (H6) replaces tvts_tpu/ops/pallas_block_backward.py::
 make_time_subpath (:812): forward fused_time_attention_block_v2 with saves
@@ -39,6 +40,31 @@ block_kernels: the plain version on a CPU tensor, the kernels (bf16) on a CUDA
 tensor, or raise. `.launches` counts calls that ran the kernels on the card:
 `time_subpath` / `space_subpath` their forwards, `time_subpath_backward` /
 `space_subpath_backward` their backwards.
+
+`mlp_subpath` (H8) replaces tvts_tpu/ops/pallas_block_attention.py::
+make_mlp_subpath (:1066; backward fused_mlp_block_bwd, :1021, which recomputes
+the hidden) and pallas_block_backward.py::make_mlp_subpath_v7 (:2690; forward
+fused_mlp_block_v7 with save_h, backward fused_mlp_block_v7_bwd, :2637, from
+the saved bf16 hidden): one schedule, `save_hidden` choosing between them.
+Forward: the H3 chain keeping the LN row stats and, with save_hidden, the
+pre-activation hidden h in bf16 (a second output of the first product's
+epilogue). Backward, for g = dL/d(out):
+  h (f32) = LN(x) Wfc^T + bfc                 ln_gemm, only when not saved
+  dh = (g @ Wproj) * act'(h), a = act(h)      ln_gemm on Wproj^T, act' epilogue
+  dWproj = g^T a, dbproj = colsum(g)          wgrad
+  dWfc = dh^T LN(x), dbfc = colsum(dh)        wgrad with the LN prologue
+  dxln = dh @ Wfc                             ln_gemm on Wfc^T, f32 out
+  dx = g + LN_bwd(dxln), dln_w, dln_b         ln_bwd + fixed-order sums
+Rounding points as on the TPU: LN(x), act(h), dh and g are bf16 at every
+product, accumulation f32; act' comes from the bf16 h when it was saved and
+from the f32 h when it is recomputed. dbfc sums the bf16 dh (wgrad's column
+sum), where the TPU kernel sums dh before rounding: within the gradient band.
+Bound on the H100: the products (forward 4 * M * D * 4D flops, backward twice
+that plus the recompute). wgrad's f32 split-M partials are bounded by its
+split rule (at most 2 * SMs output tiles in flight: 2 splits of 9.4 MB at
+D = 768, 1 of 26 MB at D = 1280). `mlp_subpath.launches` counts the forwards,
+`mlp_subpath_backward.launches` the backwards (`.saved_launches` of each those
+that wrote or read a saved hidden).
 """
 
 from __future__ import annotations
@@ -280,6 +306,84 @@ def space_subpath(x, base, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_frames: int
                                num_heads)
 
 
-KERNELS = (time_subpath, time_subpath_backward, space_subpath, space_subpath_backward)
+# ---------------------------------------------------------------------------
+# H8: MLP sub-path (training)
+# ---------------------------------------------------------------------------
+def mlp_subpath_backward_plain(g, x, ln_w, ln_b, wfc, bfc, wproj, bproj, act="quick_gelu"):
+    """(dx, dln_w, dln_b, dwfc, dbfc, dwproj, dbproj) of mlp_block_plain."""
+    return vjp(lambda *a: bk.mlp_block_plain(*a, act), g,
+               (x, ln_w, ln_b, wfc, bfc, wproj, bproj))
+
+
+def mlp_subpath_backward(g, x, stats, h, ln_w, ln_b, wfc, bfc, wproj, act="quick_gelu"):
+    """H8 backward on the card (module notes). stats: the forward's LN row
+    stats; h: the saved pre-activation hidden [B, S, 4D] bf16, or None to
+    recompute it (in f32). Returns (dx, dln_w, dln_b, dwfc, dbfc, dwproj,
+    dbproj)."""
+    B, S, D = x.shape
+    M, hidden = B * S, wfc.shape[0]
+    bk._expect("g", g, x, x.dtype, (B, S, D))
+    lib = bk.library()
+    with torch.cuda.device(x.device):
+        g2, x2 = g.view(M, D), x.view(M, D)
+        saved = h is not None
+        if not saved:
+            h = torch.empty(M, hidden, dtype=torch.float32, device=x.device)
+            bk._ln_gemm(lib, x2, M, D, (ln_w, ln_b), wfc, bfc, h)
+        dh = torch.empty(M, hidden, dtype=x.dtype, device=x.device)
+        a = torch.empty_like(dh)
+        bk._ln_gemm(lib, g2, M, D, None, wproj.t().contiguous(), None, dh, act=act,
+                    hidden=h.view(M, hidden), act_out=a)
+        del h
+        dwproj, dbproj = _wgrad(lib, g2, a, dtype=wproj.dtype)
+        del a
+        dwfc, dbfc = _wgrad(lib, dh, x2, stats=stats, ln=(ln_w, ln_b), dtype=wfc.dtype)
+        dxln = torch.empty(M, D, dtype=torch.float32, device=x.device)
+        bk._ln_gemm(lib, dh, M, hidden, None, wfc.t().contiguous(), None, dxln)
+        dx, dln_w, dln_b = _ln_backward(lib, x2, stats, dxln, ln_w, g2, weight_grads=True)
+    mlp_subpath_backward.launches += 1
+    mlp_subpath_backward.saved_launches += saved
+    return dx.view(B, S, D), dln_w, dln_b, dwfc, dbfc, dwproj, dbproj
+
+
+class _MlpSubpath(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, wfc, bfc, wproj, bproj, act, save_hidden):
+        ctx.act = act
+        weights = (ln_w, ln_b, wfc, bfc, wproj, bproj)
+        if not bk._dispatch(x):
+            ctx.save_for_backward(x, *weights)
+            return bk.mlp_block_plain(x, *weights, act)
+        out, stats, h = bk._mlp_sub_path(x, *weights, act, save_hidden=save_hidden)
+        mlp_subpath.launches += 1
+        mlp_subpath.saved_launches += h is not None
+        ctx.save_for_backward(x, *weights, stats, *(() if h is None else (h,)))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ln_w, ln_b, wfc, bfc, wproj, bproj, *saves = ctx.saved_tensors
+        if saves:
+            stats, h = saves[0], (saves[1] if len(saves) > 1 else None)
+            grads = mlp_subpath_backward(g.contiguous(), x, stats, h, ln_w, ln_b, wfc, bfc,
+                                         wproj, ctx.act)
+        else:
+            grads = mlp_subpath_backward_plain(g, x, ln_w, ln_b, wfc, bfc, wproj, bproj, ctx.act)
+        return (*grads, None, None)
+
+
+def mlp_subpath(x, ln_w, ln_b, wfc, bfc, wproj, bproj, act: str = "quick_gelu",
+                save_hidden: bool = False) -> torch.Tensor:
+    """H8 (differentiable). x: [B, S, D] -> x + c_proj(act(c_fc(LN_2(x)))).
+    save_hidden keeps the pre-activation hidden for the backward (more
+    activation memory, no recompute of the first product)."""
+    if act not in ("quick_gelu", "gelu"):
+        raise ValueError(f"unknown activation {act!r}")
+    return _MlpSubpath.apply(x, ln_w, ln_b, wfc, bfc, wproj, bproj, act, save_hidden)
+
+
+KERNELS = (time_subpath, time_subpath_backward, space_subpath, space_subpath_backward,
+           mlp_subpath, mlp_subpath_backward)
 for _fn in KERNELS:
     _fn.launches = 0
+mlp_subpath.saved_launches = mlp_subpath_backward.saved_launches = 0

@@ -108,9 +108,10 @@ def library() -> ctypes.CDLL:
     lib.tvts_error_string.argtypes = [i]
     lib.tvts_error_string.restype = ctypes.c_char_p
     argtypes = {
-        "tvts_ln_gemm": [p, i64, p, p, f, p, p, p, p, i64, p, p, i64, i, i, i, i, p],
+        "tvts_ln_gemm": [p, i64, p, p, f, p, p, p, p, i64, p, p, i64, i, i, i, i, p, p, i, p],
         "tvts_time_core": [p, p, p, i, i, i, i, i, f, p],
         "tvts_space_core": [p, p, p, i, i, i, i, i, f, p],
+        "tvts_attention_core_strided": [p, p, p, p, ctypes.POINTER(i64), i, i, i, i, i, f, i, p],
         "tvts_cls_attention": [p, i64, p, p, i64, i64, i, p, i64, p, p, i, i, i, f, p],
         "tvts_text_core": [p, p, p, i, i, i, i, f, i, p],
         # training backward
@@ -144,33 +145,45 @@ def _stream(x: torch.Tensor) -> int:
 
 
 def _ln_gemm(lib, x, rows, lda, ln, w, b, out, act="none", res=None, ldres=0,
-             eps=LN_EPS):
+             eps=LN_EPS, pre=None, hidden=None, act_out=None):
     """out = act(LN?(x rows at stride lda) @ w.T + b) (+ res), on the card;
     `eps` is the LayerNorm's (1e-5 in the towers, 1e-6 in the sort head). An
     f32 `out` takes the f32 store. Returns the LayerNorm row statistics
-    ([rows, 2] f32: mean, rstd) or None."""
+    ([rows, 2] f32: mean, rstd) or None.
+
+    The H8 epilogues (csrc/ln_gemm.cuh): with `pre` (bf16, out's shape) the
+    pre-activation product goes there and `out` gets the activation of the
+    rounded value; with `hidden` (bf16 or f32) and `act_out` (bf16), both of
+    out's shape, out = (x @ w.T) * act'(hidden) and act_out = act(hidden)."""
     stats = torch.empty(rows, 2, dtype=torch.float32, device=x.device) if ln else None
     ln_w, ln_b = ln if ln else (None, None)
     f32 = out.dtype == torch.float32
+    if hidden is not None:
+        epi, second = (3 if hidden.dtype == torch.float32 else 2), act_out
+    else:
+        epi, second = (1 if pre is not None else 0), pre
     _check(lib, lib.tvts_ln_gemm(
         _ptr(x), lda, _ptr(ln_w), _ptr(ln_b), eps, _ptr(stats), _ptr(w), _ptr(b),
         _ptr(res), ldres, None if f32 else _ptr(out), _ptr(out) if f32 else None,
-        out.shape[-1], rows, w.shape[0], w.shape[1], ACTS[act], _stream(x)))
+        out.shape[-1], rows, w.shape[0], w.shape[1], ACTS[act], _ptr(second), _ptr(hidden),
+        epi, _stream(x)))
     return stats
 
 
 def _cls_row(lib, q, q_bstride, k, v, kv_bstride, kv_rstride, n_keys, out, out_bstride,
-             num_heads, head_dim, lse=None):
-    """Split-KV CLS global row: out[b] = softmax(q[b] k[b]^T / sqrt(d)) v[b];
-    with `lse` [B, H, n_keys] the row's log-sum-exp goes to lse[:, :, 0]."""
-    B = q.shape[0]
+             num_heads, head_dim, lse=None, scale=None, batch=None):
+    """Split-KV CLS global row: out[b] = softmax(q[b] k[b]^T * scale) v[b]
+    (scale 1/sqrt(d) unless given); head h of a row sits at offset h * d.
+    With `lse` [B, H, n_keys] the row's log-sum-exp goes to lse[:, :, 0].
+    `batch` overrides q.shape[0] as the number of batches."""
+    B = q.shape[0] if batch is None else batch
     n_chunks = -(-n_keys // 128)
     partial = torch.empty(B, num_heads, n_chunks, head_dim + 2, dtype=torch.float32,
                           device=q.device)
     _check(lib, lib.tvts_cls_attention(
         _ptr(q), q_bstride, _ptr(k), _ptr(v), kv_bstride, kv_rstride, n_keys, _ptr(out),
-        out_bstride, _ptr(partial), _ptr(lse), B, num_heads, head_dim, head_dim ** -0.5,
-        _stream(q)))
+        out_bstride, _ptr(partial), _ptr(lse), B, num_heads, head_dim,
+        head_dim ** -0.5 if scale is None else scale, _stream(q)))
 
 
 # ---------------------------------------------------------------------------
@@ -312,13 +325,14 @@ def mlp_block_plain(x, ln_w, ln_b, wfc, bfc, wproj, bproj, act):
     return x + mlp(layer_norm_f32(x, ln_w, ln_b), wfc, bfc, wproj, bproj, act)
 
 
-def fused_mlp_block(x, ln_w, ln_b, wfc, bfc, wproj, bproj,
-                    act: str = "quick_gelu") -> torch.Tensor:
-    """H3. x: [B, S, D] -> x + c_proj(act(c_fc(LN_2(x))))."""
+def _mlp_sub_path(x, ln_w, ln_b, wfc, bfc, wproj, bproj, act: str, save_hidden: bool = False):
+    """x + c_proj(act(c_fc(LN_2(x)))) on the card: ln_gemm with the LN prologue
+    and the activation epilogue, then ln_gemm with the residual. Returns (out,
+    LN row stats [B*S, 2] f32, h): h is the pre-activation hidden [B, S, 4D]
+    in bf16 with save_hidden (the activation is then taken from the rounded
+    h), else None."""
     if act not in ("quick_gelu", "gelu"):
         raise ValueError(f"unknown activation {act!r}")
-    if not _dispatch(x):
-        return mlp_block_plain(x, ln_w, ln_b, wfc, bfc, wproj, bproj, act)
     B, S, D = x.shape
     hidden = wfc.shape[0]
     if D % 32 or hidden % 32:
@@ -333,10 +347,22 @@ def fused_mlp_block(x, ln_w, ln_b, wfc, bfc, wproj, bproj,
     _expect("bproj", bproj, x, bf, (D,))
     lib = library()
     with torch.cuda.device(x.device):
-        h = torch.empty(B, S, hidden, dtype=x.dtype, device=x.device)
-        _ln_gemm(lib, x, B * S, D, (ln_w, ln_b), wfc, bfc, h, act=act)
+        h_act = torch.empty(B, S, hidden, dtype=x.dtype, device=x.device)
+        h_pre = torch.empty_like(h_act) if save_hidden else None
+        stats = _ln_gemm(lib, x, B * S, D, (ln_w, ln_b), wfc, bfc, h_act, act=act, pre=h_pre)
         out = torch.empty_like(x)
-        _ln_gemm(lib, h, B * S, hidden, None, wproj, bproj, out, res=x, ldres=D)
+        _ln_gemm(lib, h_act, B * S, hidden, None, wproj, bproj, out, res=x, ldres=D)
+    return out, stats, h_pre
+
+
+def fused_mlp_block(x, ln_w, ln_b, wfc, bfc, wproj, bproj,
+                    act: str = "quick_gelu") -> torch.Tensor:
+    """H3. x: [B, S, D] -> x + c_proj(act(c_fc(LN_2(x))))."""
+    if act not in ("quick_gelu", "gelu"):
+        raise ValueError(f"unknown activation {act!r}")
+    if not _dispatch(x):
+        return mlp_block_plain(x, ln_w, ln_b, wfc, bfc, wproj, bproj, act)
+    out, _, _ = _mlp_sub_path(x, ln_w, ln_b, wfc, bfc, wproj, bproj, act)
     fused_mlp_block.launches += 1
     return out
 

@@ -1,7 +1,7 @@
 """Forwards of SpaceTimeViT and TVTSv2 through the sub-path kernels
 (counterpart of tvts_tpu/ops/fused_forward.py): the inference tower (the
 kernel_version-7 block loop), and the differentiable training tower and
-train_apply (H5, H6, H7).
+train_apply (H5, H6, H7, H8).
 
 Inference, per block: H1 time -> H2 space (residual from the block input) -> H3 MLP. With
 need_tokens=False the last block runs only what the pooled embedding needs:
@@ -15,14 +15,16 @@ with the eager module.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from tvts_torch.models.space_time_vit import SpaceTimeViT
-from tvts_torch.ops.block_backward import space_subpath, time_subpath
+from tvts_torch.ops.block_backward import mlp_subpath, space_subpath, time_subpath
 from tvts_torch.ops.block_kernels import (
     fused_mlp_block,
     fused_space_block,
     fused_space_cls_only,
     fused_time_block,
+    mlp_block_plain,
     space_block_plain,
     time_block_plain,
 )
@@ -63,40 +65,58 @@ def space_time_vit_fused_forward(model: SpaceTimeViT, video: torch.Tensor,
 def space_time_vit_fused_train_forward(model: SpaceTimeViT, video: torch.Tensor,
                                        keep_ind: torch.Tensor | None = None,
                                        space_kernel: bool = True,
-                                       time_kernel: bool = True):
+                                       time_kernel: bool = True,
+                                       mlp_kernel: bool = False,
+                                       mlp_save_hidden: bool = False):
     """The differentiable tower (counterpart of the JAX package's
-    make_fused_train_forward, row layout): the stem, then per block H6 time ->
-    H5 space (residual from the block input) -> the plain-torch MLP (XLA in
-    the JAX package), then pool(need_tokens=True): the sort head reads every
-    token, so there is no CLS-only tail. space_kernel / time_kernel=False run
-    the plain sub-path instead. The weights are cast to the compute dtype
-    (differentiably: f32 masters get the gradient). Returns (pooled, tokens)."""
+    make_fused_train_forward): the stem, then per block H6 time -> H5 space
+    (residual from the block input) -> the MLP sub-path, H8 with mlp_kernel
+    (mlp_save_hidden: its hidden-saving form) and plain torch without (XLA in
+    the JAX package's presets), then pool(need_tokens=True): the sort head
+    reads every token, so there is no CLS-only tail. space_kernel /
+    time_kernel=False run the plain sub-path instead, the plain time sub-path
+    rematerialised in the backward (the JAX package's H/14 memory mode). The
+    weights are cast to the compute dtype (differentiably: f32 masters get the
+    gradient). Returns (pooled, tokens)."""
     cfg = model.cfg
+    if cfg.ls_init is not None:
+        # the sub-paths read the ln / attn / mlp parameters only
+        raise NotImplementedError("the fused train forward does not support LayerScale "
+                                  "(cfg.ls_init set); run the eager tower for such a config")
     x = model.embed(video, keep_ind)
     T = video.shape[1] if video.ndim == 5 else 1
     dt = x.dtype
 
-    def weights(ln, attn):
-        return (ln.weight, ln.bias, attn.qkv.weight.to(dt), attn.qkv.bias.to(dt),
-                attn.proj.weight.to(dt), attn.proj.bias.to(dt))
+    def weights(ln, first, second):
+        return (ln.weight, ln.bias, first.weight.to(dt), first.bias.to(dt),
+                second.weight.to(dt), second.bias.to(dt))
+
+    def time_plain(x, *tw):
+        if not torch.is_grad_enabled():
+            return time_block_plain(x, *tw, T, cfg.heads)
+        return checkpoint(time_block_plain, x, *tw, T, cfg.heads, use_reentrant=False)
 
     for blk in model.transformer.resblocks:
-        tw = weights(blk.ln_3, blk.timeattn)
-        tr = (time_subpath if time_kernel else time_block_plain)(x, *tw, T, cfg.heads)
-        sw = weights(blk.ln_1, blk.attn)
+        tw = weights(blk.ln_3, blk.timeattn.qkv, blk.timeattn.proj)
+        tr = time_subpath(x, *tw, T, cfg.heads) if time_kernel else time_plain(x, *tw)
+        sw = weights(blk.ln_1, blk.attn.qkv, blk.attn.proj)
         x = (space_subpath if space_kernel else space_block_plain)(tr, x, *sw, T, cfg.heads)
-        x = x + blk.mlp(blk.ln_2(x))
+        mw = weights(blk.ln_2, blk.mlp.c_fc, blk.mlp.c_proj)
+        x = (mlp_subpath(x, *mw, cfg.act, mlp_save_hidden) if mlp_kernel
+             else mlp_block_plain(x, *mw, cfg.act))
     return model.pool(x, need_tokens=True)
 
 
 def train_apply(model, batch: dict, *, space_kernel: bool = True, time_kernel: bool = True,
                 text_kernel: bool = True, sort_kernel: bool = True,
+                mlp_kernel: bool = False, mlp_save_hidden: bool = False,
                 text_tune_from: int | None = None):
     """TVTSv2.forward through the kernels (counterpart of the JAX package's
     make_fused_train_apply, row layout, no mesh): (text_emb, video_emb,
     predict_order) of a batch dict, as model(video, text_ids, keep_ind)
-    returns them. text_tune_from: the first trainable text block (the blocks
-    below it take the dx-only H7 backward)."""
+    returns them. mlp_kernel runs the video tower's MLP sub-paths on H8.
+    text_tune_from: the first trainable text block (the blocks below it take
+    the dx-only H7 backward)."""
     video, text_ids = batch["video"], batch["text_ids"]
     bz = video.shape[0]
     text_emb = (text_transformer_fused_forward(model, text_ids, tune_from=text_tune_from)
@@ -104,7 +124,8 @@ def train_apply(model, batch: dict, *, space_kernel: bool = True, time_kernel: b
     n_trans = text_emb.shape[0] // bz
     per_clip = text_emb.reshape(n_trans, bz, text_emb.shape[-1])
     pooled, tokens = space_time_vit_fused_train_forward(
-        model.video_model, video, batch.get("keep_ind"), space_kernel, time_kernel)
+        model.video_model, video, batch.get("keep_ind"), space_kernel, time_kernel,
+        mlp_kernel, mlp_save_hidden)
     predict_order = None
     if n_trans != 1:
         sort_text = per_clip.detach().transpose(0, 1)

@@ -11,8 +11,11 @@ config file drives both. `train_apply_kwargs` maps it onto the port:
   pallas_v10r) computes the same function and runs H5; every time mode
   (pallas, pallas_tps, pallas_v3) runs H6; "xla" runs the plain sub-path;
 - text_mode / sort_mode "pallas" run H7, "xla" the plain torch modules;
-- mlp_mode "pallas" (H8, which no preset sets) is not ported: it raises;
-- the knobs that only schedule the TPU kernels (layout, sfpp, time_chunk,
+- mlp_mode "pallas" (which no preset sets) runs H8 in its recomputing form,
+  "xla" the plain torch MLP;
+- layout "dmajor" is the JAX package's all-kernel tower (its space, time and
+  mlp modes are ignored there): H5, H6 and H8 in its hidden-saving form;
+- the other knobs that only schedule the TPU kernels (sfpp, time_chunk,
   time_vmem_mb, scan, smv, interpret; save_acts, which picks saved or
   recomputed activations) are accepted and logged as ignored;
 - text_tune_from (the first trainable text block) comes from the
@@ -64,7 +67,7 @@ KERNEL_BEST = {
 
 SPACE_MODES = ("pallas", "pallas_ps", "pallas_v2", "pallas_v5", "pallas_v10", "pallas_v10r")
 TIME_MODES = ("pallas", "pallas_tps", "pallas_v3")
-TPU_SCHEDULE_KNOBS = ("layout", "space_fpp", "time_chunk", "time_vmem_mb", "scan_blocks",
+TPU_SCHEDULE_KNOBS = ("space_fpp", "time_chunk", "time_vmem_mb", "scan_blocks",
                       "smv", "interpret", "save_acts")
 
 
@@ -101,18 +104,20 @@ def train_apply_kwargs(kcfg: dict, opt_cfg=None) -> dict:
     """ops/fused_forward.train_apply's keyword arguments for a resolved
     config; text_tune_from from `opt_cfg` (an OptimizerConfig) when the text
     tower runs H7."""
-    if kcfg["mlp_mode"] == "pallas":
-        raise NotImplementedError("mlp_mode='pallas' (H8, the fused MLP backward) is not "
-                                  "ported yet; use mlp_mode='xla'")
-    if kcfg["mlp_mode"] != "xla":
-        raise ValueError(f"mlp_mode {kcfg['mlp_mode']!r} not in ('pallas', 'xla')")
+    layout = kcfg.get("layout", "row")
+    if layout not in ("row", "dmajor"):
+        raise ValueError(f"layout {layout!r} not in ('row', 'dmajor')")
+    dmajor = layout == "dmajor"
     ignored = {k: kcfg[k] for k in TPU_SCHEDULE_KNOBS if k in kcfg and kcfg[k] != _BASE[k]}
     if ignored:
         log.info("ignoring TPU schedule knobs %s: the Hopper kernels choose their own "
                  "schedule", ignored)
     text_kernel = _kernel_or_plain("text_mode", kcfg["text_mode"], ("pallas",))
-    return dict(space_kernel=_kernel_or_plain("space_mode", kcfg["space_mode"], SPACE_MODES),
-                time_kernel=_kernel_or_plain("time_mode", kcfg["time_mode"], TIME_MODES),
-                text_kernel=text_kernel,
+    kernels = (_kernel_or_plain("space_mode", kcfg["space_mode"], SPACE_MODES),
+               _kernel_or_plain("time_mode", kcfg["time_mode"], TIME_MODES),
+               _kernel_or_plain("mlp_mode", kcfg["mlp_mode"], ("pallas",)))
+    space_kernel, time_kernel, mlp_kernel = (True, True, True) if dmajor else kernels
+    return dict(space_kernel=space_kernel, time_kernel=time_kernel, mlp_kernel=mlp_kernel,
+                mlp_save_hidden=dmajor, text_kernel=text_kernel,
                 sort_kernel=_kernel_or_plain("sort_mode", kcfg["sort_mode"], ("pallas",)),
                 text_tune_from=opt_cfg.text_tune_from if text_kernel and opt_cfg else None)

@@ -11,8 +11,9 @@ ddp_prefix=False)` writes for a full TVTSv2 tree (or a bare video tower):
   layout: `text_projection` and `proj` stay [in, out];
 - the renames of `_RENAMES`: the text tower to its top-level reference names
   with nn.MultiheadAttention's in_proj/out_proj, the sort head's blocks and
-  fc1/fc2, and `blocks_{i}` -> `transformer.resblocks.{i}` for the video
-  tower.
+  fc1/fc2, `blocks_{i}` -> `transformer.resblocks.{i}` for the video tower,
+  and the attentional pooler's `attn_pool.attn.{q,k,v}_proj_weight`,
+  `in_proj_bias`, `out_proj.*`; LayerScale's `ls_*.gamma` keeps its name.
 numpy only: no JAX and no `tvts_tpu` import.
 """
 
@@ -37,6 +38,10 @@ _RENAMES = tuple((re.compile(p), r) for p, r in (
     (r"^pred_model\.blocks_(\d+)\.", r"pred_model.blocks.\1."),
     (r"^(pred_model\..*)\.mlp\.c_fc\.", r"\1.mlp.fc1."),
     (r"^(pred_model\..*)\.mlp\.c_proj\.", r"\1.mlp.fc2."),
+    # the attentional pooler under nn.MultiheadAttention's names (kdim != embed_dim)
+    (r"(^|\.)attn_pool\.([qkv])_proj\.weight$", r"\1attn_pool.attn.\2_proj_weight"),
+    (r"(^|\.)attn_pool\.qkv_bias$", r"\1attn_pool.attn.in_proj_bias"),
+    (r"(^|\.)attn_pool\.proj\.", r"\1attn_pool.attn.out_proj."),
     (r"(^|\.)blocks_(\d+)\.", r"\1transformer.resblocks.\2."),  # video tower
 ))
 
