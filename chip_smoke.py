@@ -10,8 +10,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero; they
 run in the order 1-5, 7, 6 for B/16, then 9 (B/32) and 8 (H/14) with their
 times):
 1. refuse to run without CUDA; print the card's name and power limit;
-2. build the kernels from tvts_torch/csrc with nvcc (sm_90a); print the build
-   seconds and the -Xptxas -v register / shared-memory lines;
+2. build the kernels from tvts_torch/csrc with nvcc (sm_90a, one nvcc per
+   translation unit, all at once); print the build seconds, the -Xptxas -v
+   register / shared-memory / spill lines and any wgmma serialisation ptxas
+   reports;
 3. kernel parity, in bf16 on seeded inputs against the plain PyTorch versions
    on the card: H1-H4 at the B/16 shape (B=2), at N=49 (B/32) and at D=1280,
    H=16 (head dim 80); H7 (text attention) at the B/16 text shape (B=8, S=77,
@@ -54,7 +56,11 @@ times):
    forwards and backwards a step, recomputing the hidden) and with
    layout="dmajor" (the same, from the saved hidden);
 6. times with CUDA events after warm-up: clips/s at B=64 and captions/s at
-   B=256 (kernels, eager), each kernel against its plain version; the train
+   B=256 (kernels, eager), each kernel against its plain version; the device
+   time by CUDA kernel of one B=64 extraction forward and of H1 and H3 alone
+   (torch.profiler); every ln_gemm product shape of the B/16 extraction
+   forward and train step (ms, TFLOP/s, bound, one F.linear on the same
+   operands as library_ms), printed as {"ln_gemm": [...]}; the train
    step at B=20 (ms, clips/s, peak memory; kernels, kernels with
    mlp_mode="pallas", eager), each backward kernel, the saving forwards, H8
    and H9 against their plain versions at the B=20 shapes (H9 also against
@@ -74,6 +80,8 @@ times):
    "pallas": per step 32 H5, H6 and H8 forwards and backwards, 24 H7
    forwards and backwards, 18 of them frozen); the step at B=8 (preset, every
    kernel, eager) and the profile of one preset step.
+`python3 chip_smoke.py --profile` runs phases 1 and 2 and then only the B/16
+profiles and the ln_gemm table of phase 6.
 The line before the last is {"kernels": [...]}, each with its bound (the
 larger of its bytes over 3.35 TB/s and its flops over 989 TFLOP/s, from the
 shapes timed); the last is {"ok": true, "device": {...}}.
@@ -666,27 +674,44 @@ def time_steps(tag: str, label: str, train: dict, apply_fn, batch, card: str,
     return ms
 
 
-def profile_step(tag: str, train: dict, apply_fn, batch, card: str) -> None:
-    """Device-time breakdown of one kernel-path train step (torch.profiler)."""
+def profiled(fn) -> tuple[list, float]:
+    """One call of fn under torch.profiler: ([(device us, kernel name, count)],
+    wall ms on the host clock to the synchronise)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from tvts_torch.train.step import make_train_step
-
-    B = batch["video"].shape[0]
-    step = make_train_step(train["model"], train["optimizer"], train["ocfg"], apply_fn=apply_fn)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(batch)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     host = {e.key for e in events if e.device_type == torch.autograd.DeviceType.CPU}
     # device rows that are kernels (a host range such as the optimizer's step
     # also shows on the device timeline, over its kernels)
-    rows = [(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0),
+    return [(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0),
              e.key, e.count) for e in events
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in host]
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in host], wall
+
+
+def profile_kernels(tag: str, label: str, fn, card: str, top: int = 12) -> None:
+    """Device time by CUDA kernel of one call of fn after a warm-up call, each
+    kernel with its share of the call's device time."""
+    fn()
+    rows, wall = profiled(fn)
+    busy = sum(r[0] for r in rows) / 1e3
+    print(f"[{tag}] profiled {label}: device busy {busy:.3f} ms, wall {wall:.3f} ms [{card}]")
+    for us, key, count in sorted(rows, reverse=True)[:top]:
+        print(f"[{tag}]   {us / 1e3:9.3f} ms ({us / 1e3 / busy:.3f}) {count:5d}x {key[:100]}")
+
+
+def profile_step(tag: str, train: dict, apply_fn, batch, card: str) -> None:
+    """Device-time breakdown of one kernel-path train step (torch.profiler)."""
+    from tvts_torch.train.step import make_train_step
+
+    B = batch["video"].shape[0]
+    step = make_train_step(train["model"], train["optimizer"], train["ocfg"], apply_fn=apply_fn)
+    rows, wall = profiled(lambda: step(batch))
     busy = sum(r[0] for r in rows) / 1e3
     print(f"[{tag}] profiled {train['cfg'].name} kernel-path step B={B}: wall {wall:.2f} ms, "
           f"device busy {busy:.2f} ms (idle share {max(0.0, 1 - busy / wall):.3f}) [{card}]")
@@ -824,6 +849,124 @@ def mlp_times(tag: str, card: str, bk, bb, a: dict, g, act: str, times: dict | N
         if times is not None:
             times["mlp_subpath_backward" + suffix] = (k_ms, p_bwd, bnd)
         del h
+
+
+def ln_gemm_products(cfg) -> list[dict]:
+    """Every ln_gemm product shape of the extraction forward at B=64 clips and
+    of the train step at B=20 (the forwards, the backwards' dx products, the
+    text and sort-head attention) of the training config `cfg` (its n_keep
+    patches a frame in the step, all of them in extraction): name, M, N, K,
+    A's row stride, LayerNorm prologue (its eps) or none, epilogue."""
+    B, TB = 64, 20
+    v, tc, sort = cfg.vision, cfg.text, cfg.sort
+    D, Dt, Ds = v.width, tc.width, sort.embed_dim
+    S = 1 + v.num_frames * v.patches_per_frame
+    Me, Mt = B * S, TB * (1 + v.num_frames * v.n_keep)
+    Mx, Ms = TB * cfg.num_clips * tc.context_length, TB * (Mt // TB + cfg.num_clips)
+    ln, act = 1e-5, v.act
+
+    def p(name, M, N, K, eps=None, epi="bias", lda=None):
+        return dict(name=name, M=M, N=N, K=K, lda=lda or K, ln=eps, epi=epi,
+                    act=act if act in epi or "act_grad" in epi else "none")
+
+    return [
+        p("extraction qkv (H1, H2)", Me, 3 * D, D, ln),
+        p("extraction proj (H1, H2)", Me, D, D, epi="bias+residual"),
+        p("extraction c_fc (H3)", Me, 4 * D, D, ln, epi=f"bias+{act}"),
+        p("extraction c_proj (H3)", Me, D, 4 * D, epi="bias+residual"),
+        p("extraction kv (H4)", Me, 2 * D, D, ln),
+        p("extraction CLS q (H4)", B, D, D, ln, lda=S * D),
+        p("step qkv (H5, H6)", Mt, 3 * D, D, ln),
+        p("step proj (H5, H6)", Mt, D, D, epi="bias+residual"),
+        p("step dattn = g Wproj (H5, H6)", Mt, D, D, epi="none"),
+        p("step dxln = dqkv Wqkv (H5, H6)", Mt, D, 3 * D, epi="f32"),
+        p("step c_fc saving h (H8)", Mt, 4 * D, D, ln, epi=f"bias+{act}+save"),
+        p("step h = c_fc f32 (H8 backward)", Mt, 4 * D, D, ln, epi="bias+f32"),
+        p("step dh = g Wproj * act'(h bf16) (H8)", Mt, 4 * D, D, epi="act_grad_bf16"),
+        p("step dh = g Wproj * act'(h f32) (H8)", Mt, 4 * D, D, epi="act_grad_f32"),
+        p("step dxln = dh Wfc (H8)", Mt, D, 4 * D, epi="f32"),
+        p("step text qkv (H7)", Mx, 3 * Dt, Dt, ln),
+        p("step text proj (H7)", Mx, Dt, Dt, epi="bias+residual"),
+        p("step text dxln (H7)", Mx, Dt, 3 * Dt, epi="f32"),
+        p("step sort qkv (H7)", Ms, 3 * Ds, Ds, 1e-6),
+        p("step sort dxln (H7)", Ms, Ds, 3 * Ds, epi="f32"),
+    ]
+
+
+def ln_gemm_table(dev, card: str, bk) -> list[dict]:
+    """Each B/16 product of ln_gemm_products through ln_gemm on seeded operands:
+    ms (CUDA events), TFLOP/s, its bound (operands read once, outputs written
+    once), and as library_ms one torch.nn.functional.linear on the same A, W
+    and bias (the product alone; timed here only, never called by the port)."""
+    from tvts_torch.models.configs import tvtsv2_b_16
+
+    lib = bk.library()
+    gen = torch.Generator(device=dev).manual_seed(31)
+    bf = torch.bfloat16
+    rows = []
+    for p in ln_gemm_products(tvtsv2_b_16()):
+        M, N, K, epi = p["M"], p["N"], p["K"], p["epi"]
+        x = torch.randn(M, p["lda"], generator=gen, device=dev, dtype=bf)
+        w = torch.randn(N, K, generator=gen, device=dev, dtype=bf) * K ** -0.5
+        b = 0.1 * torch.randn(N, generator=gen, device=dev, dtype=bf)
+        f32 = "f32" in epi and "act_grad" not in epi
+        out = torch.empty(M, N, device=dev, dtype=torch.float32 if f32 else bf)
+        ln = (1 + 0.1 * torch.randn(K, generator=gen, device=dev),
+              0.1 * torch.randn(K, generator=gen, device=dev)) if p["ln"] else None
+        kw = dict(act=p["act"], eps=p["ln"] or bk.LN_EPS)
+        extra = 0
+        if "residual" in epi:
+            kw.update(res=torch.randn(M, N, generator=gen, device=dev, dtype=bf), ldres=N)
+            extra += 2 * M * N
+        if "save" in epi:
+            kw["pre"] = torch.empty_like(out)
+            extra += 2 * M * N
+        if "act_grad" in epi:
+            hdt = torch.float32 if epi.endswith("f32") else bf
+            kw.update(hidden=torch.randn(M, N, generator=gen, device=dev, dtype=hdt),
+                      act_out=torch.empty_like(out))
+            extra += (4 if hdt == torch.float32 else 2) * M * N + 2 * M * N
+        bias = None if epi in ("none", "f32") or "act_grad" in epi else b
+        ms = cuda_ms(lambda: bk._ln_gemm(lib, x, M, p["lda"], ln, w, bias, out, **kw),
+                     iters=5)
+        a2 = x[:, :K]
+        lib_ms = cuda_ms(lambda: torch.nn.functional.linear(a2, w, bias), iters=5)
+        flops = 2 * M * N * K
+        nbytes = 2 * M * K + 2 * N * K + out.element_size() * M * N + extra
+        bnd = bound_ms(flops, nbytes)
+        rows.append(dict(name=p["name"], M=M, N=N, K=K,
+                         prologue=f"layernorm eps {p['ln']:g}" if p["ln"] else "none",
+                         epilogue=epi, ms=ms, tflops=flops / ms / 1e9, bound_ms=bnd[0],
+                         bound_by=bnd[1], library_ms=lib_ms))
+        print(f"[6] ln_gemm {p['name']:40s} M={M} N={N} K={K}: {ms:.3f} ms, "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, bound {bnd[0]:.3f} ms ({bnd[1]}), "
+              f"F.linear {lib_ms:.3f} ms [{card}]")
+        del x, out, kw
+    return rows
+
+
+def forward_profile(cfg, model, B: int, dev, card: str, bk) -> None:
+    """Device time by CUDA kernel of one kernel-path extraction forward at B
+    clips, and of H1 and H3 alone on [B, S, D] inputs."""
+    from tvts_torch.eval.embed import make_embed_fns
+
+    v = cfg.vision
+    gen = torch.Generator(device=dev).manual_seed(3)
+    video = torch.randn(B, v.num_frames, 3, v.input_resolution, v.input_resolution,
+                        generator=gen, device=dev)
+    keep = torch.arange(v.patches_per_frame, device=dev)[None].expand(B, -1)
+    _, embed_video = make_embed_fns(model, use_fused=True)
+    profile_kernels("6", f"{cfg.name} extraction forward B={B}", lambda: embed_video(video, keep),
+                    card, top=16)
+    del video
+    a = seeded_inputs(1, 1, 1, v.width, seed=0, device=dev)
+    S = 1 + v.num_frames * v.patches_per_frame
+    a["x"] = torch.randn(B, S, v.width, generator=gen, device=dev, dtype=torch.bfloat16)
+    a["base"] = a["x"]
+    calls = kernel_calls(bk, a, v.num_frames, v.heads, v.act)
+    with torch.inference_mode():
+        for name in ("fused_time_block", "fused_mlp_block"):
+            profile_kernels("6", f"{name} B={B}", calls[name][0], card)
 
 
 def no_tf32():
@@ -1188,6 +1331,17 @@ def main() -> int:
             print(f"[2]   {entry}: {line.split(':', 1)[1].strip()}")
         elif "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill"):
             print(f"[2]   {entry}: {line.strip()}")
+        elif "Performance Loss" in line:  # e.g. wgmma serialised by ptxas
+            print(f"[2]   {line.split(':', 1)[1].strip()}")
+
+    if "--profile" in sys.argv[1:]:  # only the B/16 profiles and the ln_gemm table
+        from tvts_torch.models.factory import build_model
+
+        cfg, model = build_model("TVTSv2_B_16", dtype=torch.bfloat16, device=dev, seed=0)
+        add_noise_(model, 1, dev)
+        forward_profile(cfg, model, 64, dev, card, bk)
+        print(json.dumps({"ln_gemm": ln_gemm_table(dev, card, bk)}))
+        return 0
 
     # ---- phase 3: kernel parity ---------------------------------------------
     max_err = parity_phase(dev, bk, bb, ta, ac)
@@ -1276,6 +1430,8 @@ def main() -> int:
     # ---- phase 6: times -----------------------------------------------------
     B = 64
     extraction_rate("6", cfg, model, B, dev, card, iters=5)
+    forward_profile(cfg, model, B, dev, card, bk)
+    ln_gemm_rows = ln_gemm_table(dev, card, bk)
     gen = torch.Generator(device=dev).manual_seed(3)
     a = seeded_inputs(1, 1, 1, v.width, seed=0, device=dev)  # weights; x, base below
     S = 1 + v.num_frames * v.patches_per_frame
@@ -1342,6 +1498,7 @@ def main() -> int:
     if unlaunched:
         raise AssertionError(f"kernels that no main path launched: {unlaunched}")
     print(card)
+    print(json.dumps({"ln_gemm": ln_gemm_rows}))
     # library_ms: no single PyTorch call computes a whole sub-path (LayerNorm,
     # the products, divided or causal attention, activation and residual, or
     # their gradients); the H9 cores alone are one masked

@@ -124,3 +124,84 @@ def test_wrappers_reject_bad_geometry_and_devices():
         bk.fused_time_block(x.to("meta"), *w, num_frames=T, num_heads=H)
     with pytest.raises(ValueError, match="activation"):
         bk.fused_mlp_block(x, *w[:2], *_torch(a, "wfc", "bfc", "wpr", "bpr"), act="relu")
+
+
+# ---------------------------------------------------------------------------
+# ln_gemm's launch plan (the checks its wrapper makes before every launch)
+# ---------------------------------------------------------------------------
+def _attention_products(M, D):
+    """(M, N, K, lda, ldy, ldres, out bytes): qkv, proj; the backward's dattn
+    and dxln (f32)."""
+    return [(M, 3 * D, D, D, 3 * D, 0, 2), (M, D, D, D, D, D, 2),
+            (M, D, D, D, D, 0, 2), (M, D, 3 * D, 3 * D, D, 0, 4)]
+
+
+def _mlp_products(M, D, hidden):
+    """c_fc (bf16; f32 when the backward recomputes h), c_proj, dh, dxln."""
+    return [(M, hidden, D, D, hidden, 0, 2), (M, hidden, D, D, hidden, 0, 4),
+            (M, D, hidden, hidden, D, D, 2), (M, hidden, D, D, hidden, 0, 2),
+            (M, D, hidden, hidden, D, 0, 4)]
+
+
+def _port_products(cfg):
+    """Every ln_gemm product the port issues for a model: extraction (H1-H4)
+    at B in (1, 8, 64), the train step (H5, H6, H8) at B in (1, 8, 20), the
+    text tower (H7) and the sort head, with the backwards' dx products."""
+    v, t, s = cfg.vision, cfg.text, cfg.sort
+    D, hidden = v.width, int(v.width * v.mlp_ratio)
+    S_ext, S_train = 1 + v.num_frames * v.patches_per_frame, 1 + v.num_frames * v.n_keep
+    out = []
+    for B in (1, 8, 64):
+        out += _attention_products(B * S_ext, D) + _mlp_products(B * S_ext, D, hidden)
+        out += [(B * S_ext, 2 * D, D, D, 2 * D, 0, 2), (B, D, D, S_ext * D, D, 0, 2),
+                (B, D, D, D, D, D, 2)]  # H4: kv, the CLS rows' q, proj
+    for B in (1, 8, 20):
+        out += _attention_products(B * S_train, D) + _mlp_products(B * S_train, D, hidden)
+        M_sort = B * (S_train + cfg.num_clips)
+        out += _attention_products(M_sort, s.embed_dim)
+        out += _mlp_products(M_sort, s.embed_dim, int(s.embed_dim * s.mlp_ratio))
+    for n_text in (1, 80, 256):
+        out += _attention_products(n_text * t.context_length, t.width)
+    return out
+
+
+@pytest.mark.parametrize("arch", ["tvtsv2_b_32", "tvtsv2_b_16", "tvtsv2_h_14"])
+def test_gemm_plan_accepts_every_product_the_port_issues(arch):
+    from tvts_torch.models import configs
+
+    BM, BN, BK = bk.GEMM_TILE
+    products = _port_products(getattr(configs, arch)())
+    assert len(products) > 50
+    for M, N, K, lda, ldy, ldres, out_bytes in products:
+        plan = bk.gemm_plan(M, N, K, lda, ldy, ldres, out_bytes,
+                            {"x": 0x7F0000000000, "w": 0x7F0000100000})
+        assert plan["grid"] == (-(-N // BN), -(-M // BM))
+        assert plan["box_a"] == (BK, BM) and plan["box_w"] == (BK, BN)
+        assert plan["k_steps"] * BK == K
+        assert plan["smem"] <= 232448  # what a Hopper block may take
+
+
+def test_gemm_plan_raises_naming_the_argument():
+    with pytest.raises(ValueError, match="K = 96"):
+        bk.gemm_plan(128, 256, 96, 96, 256)
+    with pytest.raises(ValueError, match="K = 32"):
+        bk.gemm_plan(128, 256, 32, 32, 256)
+    with pytest.raises(ValueError, match="lda = 772"):  # 1544 bytes
+        bk.gemm_plan(128, 256, 768, 772, 256)
+    with pytest.raises(ValueError, match="ldy = 260"):
+        bk.gemm_plan(128, 256, 768, 768, 260)
+    with pytest.raises(ValueError, match="ldres = 12"):
+        bk.gemm_plan(128, 256, 768, 768, 256, ldres=12)
+    with pytest.raises(ValueError, match="x at 0x1002"):
+        bk.gemm_plan(128, 256, 768, 768, 256, pointers={"x": 0x1002})
+    with pytest.raises(ValueError, match="N = 260"):
+        bk.gemm_plan(128, 260, 768, 768, 264)
+    bk.gemm_plan(128, 256, 768, 768, 260, out_bytes=4)  # 1040 bytes: an f32 row may
+
+
+def test_ln_gemm_wrapper_checks_the_plan_before_any_launch():
+    # no library is loaded or called: the plan refuses first
+    x = torch.zeros(4, 96, dtype=torch.bfloat16)
+    w = torch.zeros(64, 96, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="K = 96"):
+        bk._ln_gemm(None, x, 4, 96, None, w, None, torch.empty(4, 64, dtype=torch.bfloat16))

@@ -307,3 +307,174 @@ def test_small_train_step_kernels_match_eager_on_card(cuda):
     for p, a, b in zip(params, gk, ge):
         if b.abs().max().item() > 1e-2 * gscale and a is not None:
             assert (a - b).abs().max().item() / b.abs().max().item() < 0.12
+
+
+# ---------------------------------------------------------------------------
+# ln_gemm on its own, against the plain product
+# ---------------------------------------------------------------------------
+def _gemm_operands(M, N, K, lda, seed, dev, ln_eps=None, hidden_dtype=None):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    ops = dict(x=torch.randn(M, lda, generator=gen, device=dev, dtype=bf) + 0.5,
+               w=torch.randn(N, K, generator=gen, device=dev, dtype=bf) * K ** -0.5,
+               b=0.1 * torch.randn(N, generator=gen, device=dev, dtype=bf),
+               res=torch.randn(M, N, generator=gen, device=dev, dtype=bf))
+    if ln_eps is not None:
+        ops["ln"] = (1 + 0.1 * torch.randn(K, generator=gen, device=dev),
+                     0.1 * torch.randn(K, generator=gen, device=dev))
+    if hidden_dtype is not None:
+        ops["hidden"] = torch.randn(M, N, generator=gen, device=dev, dtype=hidden_dtype)
+    return ops
+
+
+def _gemm_plain(o, K, act, epi, ln_eps):
+    """The product in f32 from the same bf16 operands, rounded where the
+    kernel rounds: LN(x) and, when saved, the pre-activation h."""
+    from tvts_torch.models.layers import get_activation, layer_norm_f32
+
+    a = o["x"][:, :K]
+    if ln_eps is not None:
+        a = layer_norm_f32(a, *o["ln"], ln_eps)
+    y = a.float() @ o["w"].float().T
+    if epi.startswith("act_grad"):
+        h = o["hidden"].float().requires_grad_()
+        ah = get_activation(act)(h)
+        (dh,) = torch.autograd.grad(ah, h, y)
+        return dh.detach(), ah.detach()
+    y = y + o["b"].float()
+    pre = None
+    if epi == "save":
+        pre = y.to(torch.bfloat16)
+        y = pre.float()
+    y = get_activation(act)(y) if act != "none" else y
+    if epi == "residual":
+        y = y + o["res"].float()
+    return y, pre
+
+
+def _gemm_check(got, want):
+    scale = want.float().abs().max().item()
+    diff = (got.float() - want.float()).abs().max().item()
+    assert torch.isfinite(got.float()).all() and diff <= 1e-2 * scale + 1e-2, (diff, scale)
+
+
+GEMM_CASES = [  # (epilogue, LayerNorm eps or None, activation)
+    ("plain", None, "none"), ("plain", 1e-5, "quick_gelu"), ("plain", 1e-6, "gelu"),
+    ("residual", None, "none"), ("residual", 1e-5, "gelu"),
+    ("f32", None, "none"), ("f32", 1e-5, "none"), ("f32", 1e-6, "none"),
+    ("save", 1e-5, "quick_gelu"), ("save", 1e-6, "gelu"),
+    ("act_grad_bf16", None, "quick_gelu"), ("act_grad_bf16", None, "gelu"),
+    ("act_grad_f32", None, "quick_gelu"), ("act_grad_f32", None, "gelu"),
+]
+
+
+def _run_gemm(o, M, N, K, lda, epi, ln_eps, act):
+    bf = torch.bfloat16
+    dev = o["x"].device
+    out = torch.empty(M, N, device=dev, dtype=torch.float32 if epi == "f32" else bf)
+    kw = dict(act=act, eps=ln_eps or bk.LN_EPS)
+    bias = o["b"]
+    if epi == "residual":
+        kw.update(res=o["res"], ldres=N)
+    if epi == "save":
+        kw["pre"] = torch.empty_like(out)
+    if epi.startswith("act_grad"):
+        kw.update(hidden=o["hidden"], act_out=torch.empty_like(out))
+        bias = None
+    bk._ln_gemm(bk.library(), o["x"], M, lda, o.get("ln"), o["w"], bias, out, **kw)
+    torch.cuda.synchronize()
+    return out, kw.get("pre", kw.get("act_out"))
+
+
+@pytest.mark.parametrize("case", GEMM_CASES, ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}")
+def test_ln_gemm_matches_plain_at_every_epilogue(cuda, case):
+    epi, ln_eps, act = case
+    M, N, K = 300, 768, 768
+    hdt = {"act_grad_bf16": torch.bfloat16, "act_grad_f32": torch.float32}.get(epi)
+    o = _gemm_operands(M, N, K, K, 40, cuda, ln_eps, hdt)
+    got, second = _run_gemm(o, M, N, K, K, epi, ln_eps, act)
+    want, want2 = _gemm_plain(o, K, act, epi, ln_eps)
+    _gemm_check(got, want)
+    if want2 is not None:
+        _gemm_check(second, want2)
+
+
+@pytest.mark.parametrize("M", [1, 63, 65, 150592])
+@pytest.mark.parametrize("strided", [False, True])
+def test_ln_gemm_ragged_rows_and_strided_a(cuda, M, strided):
+    N, K = 256 + 64, 768  # N ragged too
+    lda = 3 * K if strided else K  # e.g. the q third of a [M, 3K] row
+    for ln_eps in (None, 1e-5):
+        o = _gemm_operands(M, N, K, lda, 41, cuda, ln_eps)
+        got, _ = _run_gemm(o, M, N, K, lda, "plain", ln_eps, "none")
+        _gemm_check(got, _gemm_plain(o, K, "none", "plain", ln_eps)[0])
+
+
+@pytest.mark.parametrize("K", [512, 768, 1280, 3072, 5120])
+def test_ln_gemm_every_depth(cuda, K):
+    M, N = 257, 512
+    for ln_eps, epi in ((None, "residual"), (1e-5, "plain"), (None, "f32")):
+        o = _gemm_operands(M, N, K, K, 42, cuda, ln_eps)
+        got, _ = _run_gemm(o, M, N, K, K, epi, ln_eps, "none")
+        _gemm_check(got, _gemm_plain(o, K, "none", epi, ln_eps)[0])
+
+
+def test_ln_gemm_raises_before_launch_on_what_it_does_not_take(cuda):
+    o = _gemm_operands(64, 256, 96, 96, 43, cuda)
+    with pytest.raises(ValueError, match="K = 96"):
+        _run_gemm(o, 64, 256, 96, 96, "plain", None, "none")
+    o = _gemm_operands(64, 256, 768, 776, 44, cuda)
+    o["x"] = o["x"].view(-1)[1:].clone()[:63 * 776 + 1][1:].view(63, 776)  # 2 bytes off
+    assert o["x"].data_ptr() % 16
+    with pytest.raises(ValueError, match="x at .* not 16-byte aligned"):
+        _run_gemm(o, 63, 256, 768, 776, "plain", None, "none")
+
+
+# ---------------------------------------------------------------------------
+# the time core on its own (packed with lse; strided), against plain
+# ---------------------------------------------------------------------------
+def _time_plain(qkv, T, N, H, d):
+    """Patch rows of the time attention and their lse, in f32 from the bf16
+    qkv [B, S, 3D] (q scaled by d^-0.5)."""
+    B, S, _ = qkv.shape
+    q, k, v = (t.float().view(B, S, H, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    q = q[:, :, 1:].reshape(B, H, T, N, d).permute(0, 1, 3, 2, 4) * d ** -0.5  # [B,H,N,T,d]
+    kp = k[:, :, 1:].reshape(B, H, T, N, d).permute(0, 1, 3, 2, 4)
+    vp = v[:, :, 1:].reshape(B, H, T, N, d).permute(0, 1, 3, 2, 4)
+    keys = torch.cat([k[:, :, :1, None].expand(B, H, N, 1, d), kp], dim=3)
+    vals = torch.cat([v[:, :, :1, None].expand(B, H, N, 1, d), vp], dim=3)
+    logits = q @ keys.transpose(-1, -2)  # [B, H, N, T, 1 + T]
+    out = torch.softmax(logits, -1) @ vals  # [B, H, N, T, d]
+    lse = torch.logsumexp(logits, -1)  # [B, H, N, T]
+    out = out.permute(0, 3, 2, 1, 4).reshape(B, T * N, H * d)
+    return out, lse.permute(0, 1, 3, 2).reshape(B, H, T * N)
+
+
+@pytest.mark.parametrize("N", [49, 196, 256])
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("T", [1, 12, 16, 32])
+def test_time_core_matches_plain(cuda, T, d, N):
+    H = 12 if d == 64 else 16
+    B, S, D = 2 if N < 256 else 1, 1 + T * N, H * d
+    rng = np.random.default_rng(45)
+    qkv = torch.tensor(rng.standard_normal((B, S, 3 * D)), dtype=torch.bfloat16, device=cuda)
+    lib = bk.library()
+    out = torch.zeros(B, S, D, dtype=torch.bfloat16, device=cuda)
+    lse = torch.zeros(B, H, S, dtype=torch.float32, device=cuda)
+    bk._check(lib, lib.tvts_time_core(bk._ptr(qkv), bk._ptr(out), bk._ptr(lse), B, T, N, H, d,
+                                      d ** -0.5, bk._stream(qkv)))
+    torch.cuda.synchronize()
+    want, want_lse = _time_plain(qkv, T, N, H, d)
+    diff = (out[:, 1:].float() - want).abs().max().item()
+    assert diff <= 0.01 * want.abs().max().item(), diff  # the bf16 store only
+    assert (lse[:, :, 1:] - want_lse).abs().max().item() <= 1e-3
+    assert not out[:, 0].any()  # the CLS row is the split-KV kernel's
+    # strided (H9): the head-split views of the same rows, q pre-scaled
+    from tvts_torch.ops.attention import split_heads
+
+    q, k, v = qkv.chunk(3, dim=-1)
+    q, k, v = split_heads(q * d ** -0.5, H), split_heads(k, H), split_heads(v, H)
+    got = ac.divided_space_time_attention_fused(q, k, v, T, N, "time")
+    plain = divided_space_time_attention(q, k, v, T, N, "time")
+    diff, ref, tol = core_band_check(got, plain)
+    assert diff <= tol, (diff, ref)

@@ -17,6 +17,8 @@
 
 #include <math.h>
 
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace tvts {
@@ -55,90 +57,142 @@ struct CoreAddr {
 };
 
 // ---------------------------------------------------------------------------
-// Time core. Patch (t, n) attends over the CLS key plus location n in every
-// frame: per (b, n, h), T <= 32 queries over 1 + T keys. Too small for the
-// tensor cores; one warp per (b, n, h), lane t owns query t, keys and values
-// broadcast from shared memory, online f32 softmax. Writes patch rows only.
+// Time core (H1 and H6's forward packed; H9 time strided). It replaces the
+// time attention inside tvts_tpu/ops/pallas_block_attention.py::
+// fused_time_attention_block_v7 (:2456) and pallas_attention.py::
+// _time_attention_fused (:69). Patch (t, n) attends over the CLS key plus
+// location n in every frame: per (b, n, h), T <= 32 queries over 1 + T keys.
+// Bound on the H100: bytes (q, k and v read once, the output written once;
+// the 13-key products at T = 12 are a few GFLOP at B = 64, far too small for
+// the tensor cores to matter). Design: one block per (b, n, head group), a
+// group of at most TIME_MAX_ROWS / T heads (6 of 12 at T = 12): small blocks,
+// several on an SM, so that one block's loads overlap another's arithmetic
+// (one block over all 12 heads holds 35 K registers and runs alone on its
+// SM, its loads and then its math). 16-byte cp.async copies,
+// neighbouring threads on neighbouring addresses, bring the T query rows and
+// the 1 + T key and value rows of the group into shared memory as bf16 (the
+// CLS key and value rows once a block, not once a head).
+// A thread owns each (t, h) query row, with an exact max-shifted online f32
+// softmax over the 1 + T keys in the first version's order of operations
+// (its training-step gates sit near their limits at H/14: a logit summed in
+// another order moved the worst gradient error from 0.102 to 0.124 against a
+// limit of 0.12; PERF.md). Each output row
+// goes back over its own query row in shared memory and leaves in 16-byte
+// stores. Writes patch rows only (the CLS row is the split-KV kernel's).
 // ---------------------------------------------------------------------------
-constexpr int TIME_WARPS = 4;
+constexpr int TIME_MAX_ROWS = 128;  // query rows (threads) a block
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
 
 template <int DH, bool STRIDED>
-__global__ void __launch_bounds__(TIME_WARPS * 32)
+__global__ void __launch_bounds__(TIME_MAX_ROWS, 2)
     time_core_kernel(const CoreAddr<DH, STRIDED> view, float* __restrict__ lse, int T, int N,
-                     float scale) {
-  extern __shared__ float tsm[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n = blockIdx.x, b = blockIdx.y;
+                     int HG, float scale) {
+  extern __shared__ __align__(16) bf16 tsm[];
+  constexpr int VPR = DH / 8;   // 16-byte vectors per head row
+  const int n = blockIdx.x, b = blockIdx.y, h0 = blockIdx.z * HG;
   const int H = view.H, S = view.S;
-  const int QS = DH + 1;  // padded query rows: lane t reads row t conflict-free
-  float* sq = tsm + warp * (T * QS + 2 * (T + 1) * DH);
-  float* sk = sq + T * QS;
-  float* sv = sk + (T + 1) * DH;
+  const int hg = min(HG, H - h0);
+  const int RW = HG * DH;  // a token's row in shared memory: the group's heads
+  bf16* sq = tsm;                // [T][RW]
+  bf16* sk = sq + T * RW;        // [1 + T][RW], key s: s == 0 the CLS token, else frame s - 1
+  bf16* sv = sk + (T + 1) * RW;  // [1 + T][RW]
 
-  for (int h = warp; h < H; h += TIME_WARPS) {
-    // key/value row s: s == 0 is the CLS token, s >= 1 is frame s-1 at n
-    for (int r = 0; r < 3 * T + 2; ++r) {
-      int tok, which;
-      float* dst;
-      if (r < T) {
-        tok = 1 + r * N + n; which = 0; dst = sq + r * QS;
-      } else if (r < 2 * T + 1) {
-        const int s = r - T;
-        tok = s == 0 ? 0 : 1 + (s - 1) * N + n; which = 1; dst = sk + s * DH;
-      } else {
-        const int s = r - 2 * T - 1;
-        tok = s == 0 ? 0 : 1 + (s - 1) * N + n; which = 2; dst = sv + s * DH;
-      }
-      const __nv_bfloat162* src =
-          reinterpret_cast<const __nv_bfloat162*>(view.row(which, b, h, tok));
-      for (int e = lane; e < DH / 2; e += 32) {
-        const float2 f = __bfloat1622float2(src[e]);
-        dst[2 * e] = f.x;
-        dst[2 * e + 1] = f.y;
-      }
+  const int per_row = hg * VPR;
+  for (int e = threadIdx.x; e < (3 * T + 2) * per_row; e += blockDim.x) {
+    const int r = e / per_row, rem = e - r * per_row;
+    const int hh = rem / VPR, c = rem - hh * VPR;
+    int which, s;
+    bf16* dst;
+    if (r < T) {
+      which = 0; s = r + 1; dst = sq + r * RW;
+    } else if (r < 2 * T + 1) {
+      which = 1; s = r - T; dst = sk + s * RW;
+    } else {
+      which = 2; s = r - 2 * T - 1; dst = sv + s * RW;
     }
-    __syncwarp();
-    if (lane < T) {
-      float q[DH], acc[DH];
+    const i64 tok = s == 0 ? 0 : 1 + (i64)(s - 1) * N + n;
+    cp_async16(dst + hh * DH + c * 8, view.row(which, b, h0 + hh, tok) + c * 8);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // thread q owns query row q = hh * T + t (neighbouring threads share a head:
+  // their key and value reads are broadcasts); the arithmetic, its order
+  // included, is the first version's: each logit one f32 chain over the head
+  // dim, so that the training step's numerics do not move with the layout
+  const int q = threadIdx.x;
+  const bool live = q < T * hg;
+  const int qc = live ? q : 0;
+  const int hh = qc / T, t = qc - hh * T;
+  float qf[DH], acc[DH];
 #pragma unroll
-      for (int i = 0; i < DH; ++i) {
-        q[i] = sq[lane * QS + i] * scale;
-        acc[i] = 0.f;
-      }
-      float m = -INFINITY, l = 0.f;
-      for (int s = 0; s <= T; ++s) {
-        const float* kr = sk + s * DH;
-        float dot = 0.f;
+  for (int i = 0; i < DH; i += 8) {
+    float f[8];
+    unpack_bf16x8(*reinterpret_cast<const uint4*>(sq + t * RW + hh * DH + i), f);
 #pragma unroll
-        for (int i = 0; i < DH; ++i) dot += q[i] * kr[i];
-        const float m_new = fmaxf(m, dot);
-        const float corr = __expf(m - m_new);
-        const float p = __expf(dot - m_new);
-        l = l * corr + p;
-        const float* vr = sv + s * DH;
-#pragma unroll
-        for (int i = 0; i < DH; ++i) acc[i] = acc[i] * corr + p * vr[i];
-        m = m_new;
-      }
-      const float inv = 1.f / l;
-#pragma unroll
-      for (int i = 0; i < DH; ++i) sq[lane * QS + i] = acc[i] * inv;
-      if (lse) lse[((i64)b * H + h) * S + 1 + lane * N + n] = m + __logf(l);
+    for (int e = 0; e < 8; ++e) {
+      qf[i + e] = f[e] * scale;
+      acc[i + e] = 0.f;
     }
-    __syncwarp();
-    for (int t = 0; t < T; ++t) {
-      __nv_bfloat162* dst =
-          reinterpret_cast<__nv_bfloat162*>(view.out_row(b, h, 1 + t * N + n));
-      for (int e = lane; e < DH / 2; e += 32)
-        dst[e] = __floats2bfloat162_rn(sq[t * QS + 2 * e], sq[t * QS + 2 * e + 1]);
+  }
+  float m = -INFINITY, l = 0.f;
+  for (int s = 0; s <= T; ++s) {
+    const bf16* kr = sk + s * RW + hh * DH;
+    float dot = 0.f;
+#pragma unroll
+    for (int i = 0; i < DH; i += 8) {
+      float f[8];
+      unpack_bf16x8(*reinterpret_cast<const uint4*>(kr + i), f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) dot += qf[i + e] * f[e];
     }
-    __syncwarp();
+    const float m_new = fmaxf(m, dot);
+    const float corr = __expf(m - m_new);
+    const float p = __expf(dot - m_new);
+    l = l * corr + p;
+    const bf16* vr = sv + s * RW + hh * DH;
+#pragma unroll
+    for (int i = 0; i < DH; i += 8) {
+      float f[8];
+      unpack_bf16x8(*reinterpret_cast<const uint4*>(vr + i), f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[i + e] = acc[i + e] * corr + p * f[e];
+    }
+    m = m_new;
+  }
+  if (live) {
+    const float inv = 1.f / l;
+#pragma unroll
+    for (int i = 0; i < DH; i += 8) {
+      float o[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) o[e] = acc[i + e] * inv;
+      *reinterpret_cast<uint4*>(sq + t * RW + hh * DH + i) = pack_bf16x8(o);  // only q read it
+    }
+    if (lse) lse[((i64)b * H + h0 + hh) * S + 1 + (i64)t * N + n] = m + __logf(l);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < T * per_row; e += blockDim.x) {
+    const int r = e / per_row, rem = e - r * per_row;
+    const int h = rem / VPR, c = rem - h * VPR;
+    *reinterpret_cast<uint4*>(view.out_row(b, h0 + h, 1 + (i64)r * N + n) + c * 8) =
+        *reinterpret_cast<const uint4*>(sq + r * RW + h * DH + c * 8);
   }
 }
 
-inline size_t time_core_smem(int T, int DH) {
-  return sizeof(float) * TIME_WARPS * (T * (DH + 1) + 2 * (T + 1) * DH);
+// Heads a block takes: at most TIME_MAX_ROWS / T, the H heads split as evenly
+// as that allows.
+inline int time_core_heads(int T, int H) {
+  const int cap = std::max(1, TIME_MAX_ROWS / T);
+  const int groups = (H + cap - 1) / cap;
+  return (H + groups - 1) / groups;
 }
+
+inline size_t time_core_smem(int T, int HG, int DH) { return (size_t)(3 * T + 2) * HG * DH * 2; }
 
 // ---------------------------------------------------------------------------
 // Space core. Patch (t, i) attends over the CLS key plus frame t's N patches:

@@ -37,13 +37,16 @@ template <int DH, bool STRIDED>
 cudaError_t launch_time_core(const void* q, const void* k, const void* v, void* out, void* lse,
                              const i64* strides, int B, int T, int N, int H, float scale,
                              cudaStream_t s) {
-  const size_t smem = tvts::time_core_smem(T, DH);
+  const int HG = tvts::time_core_heads(T, H);
+  const size_t smem = tvts::time_core_smem(T, HG, DH);
   cudaError_t err =
       cudaFuncSetAttribute(tvts::time_core_kernel<DH, STRIDED>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  tvts::time_core_kernel<DH, STRIDED><<<dim3(N, B), tvts::TIME_WARPS * 32, smem, s>>>(
-      core_view<DH, STRIDED>(q, k, v, out, H, 1 + T * N, strides), (float*)lse, T, N, scale);
+  const int threads = (T * HG + 31) / 32 * 32;
+  tvts::time_core_kernel<DH, STRIDED><<<dim3(N, B, (H + HG - 1) / HG), threads, smem, s>>>(
+      core_view<DH, STRIDED>(q, k, v, out, H, 1 + T * N, strides), (float*)lse, T, N, HG,
+      scale);
   return cudaGetLastError();
 }
 
@@ -82,8 +85,13 @@ int tvts_ln_gemm(const void* X, i64 lda, const void* ln_w, const void* ln_b, flo
                  void* stats, const void* W, const void* bias, const void* res, i64 ldres,
                  void* Y, void* Yf, i64 ldy, int M, int N, int K, int act, void* Y2,
                  const void* Hin, int epi, void* stream) {
-  if (K % tvts::GEMM_BK != 0 || N % 8 != 0 || lda % 8 != 0 || ldy % 2 != 0 || act < 0 ||
-      act > 2 || epi < 0 || epi > 3)
+  // what block_kernels.py::gemm_plan checks, again: K a multiple of the k step,
+  // 16-byte aligned operands and row strides (TMA's and the epilogue's rules)
+  const void* ptrs[] = {X, W, bias, res, Y, Yf, Y2, Hin};
+  for (const void* ptr : ptrs)
+    if ((uintptr_t)ptr % 16) return (int)cudaErrorInvalidValue;
+  if (K % tvts::GEMM_BK != 0 || N % 8 != 0 || lda % 8 != 0 || ldy % (Yf ? 4 : 8) != 0 ||
+      ldres % 8 != 0 || M < 1 || act < 0 || act > 2 || epi < 0 || epi > 3)
     return (int)cudaErrorInvalidValue;
   if (epi != tvts::EPI_PLAIN && (Yf || !Y || !Y2)) return (int)cudaErrorInvalidValue;
   if (epi >= tvts::EPI_ACT_GRAD_BF16 && (!Hin || bias || res || ln_w))

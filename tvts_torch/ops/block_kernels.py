@@ -15,12 +15,21 @@ There is no fallback. `<wrapper>.launches` counts wrapper calls that ran the
 kernel on the card: one per sub-path, however many CUDA launches it takes.
 
 Kernel notes (replaces / bound on the card / design):
+- ln_gemm (csrc/ln_gemm.cuh) carries every product below: bound by the
+  tensor cores. A 128 x 256 tile a block, TMA loads into a 4-stage mbarrier
+  ring fed by one producer warp, two consumer warpgroups on wgmma m64n256k16
+  with both operands in shared memory (the LayerNorm prologue rewrites the
+  A rows of the next stage in place while the current stage's wgmmas run),
+  the epilogue staged through the drained ring in 16-byte vectors.
+  `gemm_plan` checks what it takes (K a multiple of 64, 16-byte strides and
+  addresses) before every launch.
 - fused_time_block replaces tvts_tpu/ops/pallas_block_attention.py::
   fused_time_attention_block_v7 (:2456). Bound by the qkv and proj products
-  (2*S*D*4D flops per clip); the core is T+1 = 13 keys per query, too small
-  for the tensor cores. Design: ln_gemm (LN_3 prologue) -> qkv rows; one
-  warp per (b, n, h) with lane t owning query t for the core; split-KV CLS
-  row; ln_gemm proj with the residual x in its epilogue.
+  (2*S*D*4D flops per clip); the core (T+1 = 13 keys per query) is bound by
+  its bytes. Design: ln_gemm (LN_3 prologue) -> qkv rows; the time core, one
+  block per (b, n) over every head, q, k and v read once into shared memory
+  in 16-byte copies, two threads per query row; split-KV CLS row; ln_gemm
+  proj with the residual x in its epilogue.
 - fused_space_block replaces fused_space_attention_block_v9 (:2964). Bound
   by the same two products; the core (N queries over 1 + N keys per frame)
   runs flash-style on the tensor cores with an online f32 softmax over
@@ -59,7 +68,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "--use_fast_math", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+               "--use_fast_math", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 ACTS = {"none": 0, "quick_gelu": 1, "gelu": 2}
 LN_EPS = 1e-5
 
@@ -77,12 +86,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _units() -> list[tuple[str, list[str]]]:
+    """(source, defines) of each translation unit: block_kernels.cu, and
+    ln_gemm.cu once for each GEMM variant that ln_gemm.cuh lists."""
+    header = (_CSRC / "ln_gemm.cuh").read_text()
+    n = sum(line.startswith("#define TVTS_GEMM_VARIANT_") for line in header.splitlines())
+    return [("block_kernels.cu", [])] + [("ln_gemm.cu", [f"-DTVTS_GEMM_PART={i}"])
+                                         for i in range(n)]
+
+
 def build() -> tuple[Path, str]:
-    """Compile csrc/*.cu into tvts_torch/_build/ unless a library built from
-    the same sources and flags is there. Returns (library path, compiler
-    output, which holds the `-Xptxas -v` register and shared-memory lines)."""
+    """Compile csrc/ into tvts_torch/_build/ unless a library built from the
+    same sources and flags is there: every translation unit in its own nvcc,
+    all at once, then one link. Returns (library path, compiler output, which
+    holds the `-Xptxas -v` register and shared-memory lines)."""
     sources = sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
-    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    units = _units()
+    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode() + repr(units).encode())
     for src in sources:
         digest.update(src.name.encode() + src.read_bytes())
     stem = f"libtvts_kernels_{digest.hexdigest()[:16]}"
@@ -90,13 +110,25 @@ def build() -> tuple[Path, str]:
     if so.exists() and log.exists():
         return so, log.read_text()
     _BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = _BUILD / f"{stem}.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC / "block_kernels.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    log.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)  # atomic: a concurrent build never loads a partial file
+    tmp = _BUILD / f"{stem}.{os.getpid()}"  # per process: a concurrent build never collides
+    objs = [Path(f"{tmp}.{i}.o") for i in range(len(units))]
+    procs = [subprocess.Popen([_nvcc(), *_NVCC_FLAGS, *defines, "-c", "-o", str(obj),
+                               str(_CSRC / src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for (src, defines), obj in zip(units, objs)]
+    outputs = [proc.communicate()[0] for proc in procs]
+    failed = [(unit, out) for unit, proc, out in zip(units, procs, outputs) if proc.returncode]
+    if not failed:
+        link = subprocess.run([_nvcc(), *_NVCC_FLAGS[:2], "-shared", "-o", f"{tmp}.so",
+                               *map(str, objs)], capture_output=True, text=True)
+        if link.returncode:
+            failed = [("link", link.stdout + link.stderr)]
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(f"{unit}: {out}" for unit, out in failed))
+    log.write_text("".join(outputs))
+    os.replace(f"{tmp}.so", so)  # atomic: a concurrent build never loads a partial file
     return so, log.read_text()
 
 
@@ -144,6 +176,38 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+GEMM_TILE = (128, 256, 64)  # output rows, output columns, k step of a block (csrc/ln_gemm.cuh)
+GEMM_STAGES = 4
+
+
+def gemm_plan(M: int, N: int, K: int, lda: int, ldy: int, ldres: int = 0,
+              out_bytes: int = 2, pointers: dict[str, int] | None = None) -> dict:
+    """The launch of ln_gemm for Y [M, N] = A [M, K at row stride lda] @ W [N, K]^T:
+    the tile grid, the TMA boxes of A and W, the k steps and the shared memory
+    of a block. Raises ValueError, naming the argument, on what the kernel
+    does not take: K not a multiple of the k step (64), a row stride that is
+    not a multiple of 16 bytes, a base address (`pointers`: name -> address)
+    that is not 16-byte aligned, N not a multiple of 8."""
+    BM, BN, BK = GEMM_TILE
+    if M < 1 or N < 1:
+        raise ValueError(f"M = {M}, N = {N}: ln_gemm takes a non-empty product")
+    if K < BK or K % BK:
+        raise ValueError(f"K = {K}: ln_gemm takes a multiple of {BK}")
+    if N % 8:
+        raise ValueError(f"N = {N}: ln_gemm takes a multiple of 8")
+    if lda < K:
+        raise ValueError(f"lda = {lda} is shorter than K = {K}")
+    for name, ld, size in (("lda", lda, 2), ("ldy", ldy, out_bytes), ("ldres", ldres, 2)):
+        if ld * size % 16:
+            raise ValueError(f"{name} = {ld} elements ({ld * size} bytes): ln_gemm takes row "
+                             f"strides of a multiple of 16 bytes")
+    for name, ptr in (pointers or {}).items():
+        if ptr is not None and ptr % 16:
+            raise ValueError(f"{name} at {ptr:#x} is not 16-byte aligned")
+    return dict(grid=(-(-N // BN), -(-M // BM)), box_a=(BK, BM), box_w=(BK, BN),
+                k_steps=K // BK, smem=GEMM_STAGES * (BM + BN) * BK * 2 + 1024 + 16 * GEMM_STAGES)
+
+
 def _ln_gemm(lib, x, rows, lda, ln, w, b, out, act="none", res=None, ldres=0,
              eps=LN_EPS, pre=None, hidden=None, act_out=None):
     """out = act(LN?(x rows at stride lda) @ w.T + b) (+ res), on the card;
@@ -155,13 +219,16 @@ def _ln_gemm(lib, x, rows, lda, ln, w, b, out, act="none", res=None, ldres=0,
     pre-activation product goes there and `out` gets the activation of the
     rounded value; with `hidden` (bf16 or f32) and `act_out` (bf16), both of
     out's shape, out = (x @ w.T) * act'(hidden) and act_out = act(hidden)."""
-    stats = torch.empty(rows, 2, dtype=torch.float32, device=x.device) if ln else None
     ln_w, ln_b = ln if ln else (None, None)
     f32 = out.dtype == torch.float32
     if hidden is not None:
         epi, second = (3 if hidden.dtype == torch.float32 else 2), act_out
     else:
         epi, second = (1 if pre is not None else 0), pre
+    gemm_plan(rows, w.shape[0], w.shape[1], lda, out.shape[-1], ldres, out.element_size(),
+              {"x": _ptr(x), "w": _ptr(w), "bias": _ptr(b), "res": _ptr(res), "out": _ptr(out),
+               "second output": _ptr(second), "hidden": _ptr(hidden)})
+    stats = torch.empty(rows, 2, dtype=torch.float32, device=x.device) if ln else None
     _check(lib, lib.tvts_ln_gemm(
         _ptr(x), lda, _ptr(ln_w), _ptr(ln_b), eps, _ptr(stats), _ptr(w), _ptr(b),
         _ptr(res), ldres, None if f32 else _ptr(out), _ptr(out) if f32 else None,
