@@ -29,6 +29,7 @@ times):
    d=64), (N=49, d=64), (N=256, d=80). Forwards within BAND (H9 within
    min(BAND, 0.02 * max|ref|), and no farther from plain in f32 than plain in
    bf16 is), each gradient tensor within 0.06 * max|ref| of the plain backward;
+   the space core's CLS row (f32 P V) within half a bf16 unit of plain;
 4. extraction main path: build_model("TVTSv2_B_16") with seeded weights (noise
    on every leaf of both towers), extract_embeddings over 3 batches of 8
    synthetic clips (the last ragged) through the kernels; launch counts
@@ -57,8 +58,10 @@ times):
    layout="dmajor" (the same, from the saved hidden);
 6. times with CUDA events after warm-up: clips/s at B=64 and captions/s at
    B=256 (kernels, eager), each kernel against its plain version; the device
-   time by CUDA kernel of one B=64 extraction forward and of H1 and H3 alone
-   (torch.profiler); every ln_gemm product shape of the B/16 extraction
+   time by CUDA kernel of one B=64 extraction forward and of H1-H4 alone
+   (torch.profiler; H2 must launch no cls_partial, H4 no ln_gemm); the space
+   core alone at B=64 against its byte bound and one masked
+   scaled_dot_product_attention; every ln_gemm product shape of the B/16 extraction
    forward and train step (ms, TFLOP/s, bound, one F.linear on the same
    operands as library_ms), printed as {"ln_gemm": [...]}; the train
    step at B=20 (ms, clips/s, peak memory; kernels, kernels with
@@ -80,8 +83,11 @@ times):
    "pallas": per step 32 H5, H6 and H8 forwards and backwards, 24 H7
    forwards and backwards, 18 of them frozen); the step at B=8 (preset, every
    kernel, eager) and the profile of one preset step.
-`python3 chip_smoke.py --profile` runs phases 1 and 2 and then only the B/16
-profiles and the ln_gemm table of phase 6.
+`python3 chip_smoke.py --profile` runs phases 1 and 2 and then only the
+numbers an A/B compares (`profile_phase`): the space core's patch-row digest
+and CLS row against plain,
+the B/16 profiles, the space core alone, H1-H4, the ln_gemm table, the saving
+forwards and the step at B=20, and the B/16, B/32 and H/14 extraction rates.
 The line before the last is {"kernels": [...]}, each with its bound (the
 larger of its bytes over 3.35 TB/s and its flops over 989 TFLOP/s, from the
 shapes timed); the last is {"ok": true, "device": {...}}.
@@ -694,15 +700,16 @@ def profiled(fn) -> tuple[list, float]:
             if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in host], wall
 
 
-def profile_kernels(tag: str, label: str, fn, card: str, top: int = 12) -> None:
+def profile_kernels(tag: str, label: str, fn, card: str, top: int = 12) -> list:
     """Device time by CUDA kernel of one call of fn after a warm-up call, each
-    kernel with its share of the call's device time."""
+    kernel with its share of the call's device time. Returns the rows."""
     fn()
     rows, wall = profiled(fn)
     busy = sum(r[0] for r in rows) / 1e3
     print(f"[{tag}] profiled {label}: device busy {busy:.3f} ms, wall {wall:.3f} ms [{card}]")
     for us, key, count in sorted(rows, reverse=True)[:top]:
         print(f"[{tag}]   {us / 1e3:9.3f} ms ({us / 1e3 / busy:.3f}) {count:5d}x {key[:100]}")
+    return rows
 
 
 def profile_step(tag: str, train: dict, apply_fn, batch, card: str) -> None:
@@ -874,8 +881,6 @@ def ln_gemm_products(cfg) -> list[dict]:
         p("extraction proj (H1, H2)", Me, D, D, epi="bias+residual"),
         p("extraction c_fc (H3)", Me, 4 * D, D, ln, epi=f"bias+{act}"),
         p("extraction c_proj (H3)", Me, D, 4 * D, epi="bias+residual"),
-        p("extraction kv (H4)", Me, 2 * D, D, ln),
-        p("extraction CLS q (H4)", B, D, D, ln, lda=S * D),
         p("step qkv (H5, H6)", Mt, 3 * D, D, ln),
         p("step proj (H5, H6)", Mt, D, D, epi="bias+residual"),
         p("step dattn = g Wproj (H5, H6)", Mt, D, D, epi="none"),
@@ -945,9 +950,10 @@ def ln_gemm_table(dev, card: str, bk) -> list[dict]:
     return rows
 
 
-def forward_profile(cfg, model, B: int, dev, card: str, bk) -> None:
+def forward_profile(cfg, model, B: int, dev, card: str, bk) -> dict:
     """Device time by CUDA kernel of one kernel-path extraction forward at B
-    clips, and of H1 and H3 alone on [B, S, D] inputs."""
+    clips, and of H1, H2, H3 and H4 alone on [B, S, D] inputs. Returns each
+    sub-path's CUDA kernel names."""
     from tvts_torch.eval.embed import make_embed_fns
 
     v = cfg.vision
@@ -964,9 +970,128 @@ def forward_profile(cfg, model, B: int, dev, card: str, bk) -> None:
     a["x"] = torch.randn(B, S, v.width, generator=gen, device=dev, dtype=torch.bfloat16)
     a["base"] = a["x"]
     calls = kernel_calls(bk, a, v.num_frames, v.heads, v.act)
+    names = {}
     with torch.inference_mode():
-        for name in ("fused_time_block", "fused_mlp_block"):
-            profile_kernels("6", f"{name} B={B}", calls[name][0], card)
+        for name in ("fused_time_block", "fused_space_block", "fused_mlp_block",
+                     "fused_space_cls_only"):
+            rows = profile_kernels("6", f"{name} B={B}", calls[name][0], card)
+            names[name] = [key for _, key, _ in rows]
+    return names
+
+
+def expect_profiles(names: dict) -> None:
+    """H2 runs no split-KV CLS row (its CLS query is folded into the space
+    core), and H4 runs no ln_gemm: no product over all B*S rows."""
+    if any("cls_partial" in key for key in names["fused_space_block"]):
+        raise AssertionError(f"H2 still launches cls_partial: {names['fused_space_block']}")
+    if any("gemm" in key for key in names["fused_space_cls_only"]):
+        raise AssertionError(f"H4 launches a product kernel: {names['fused_space_cls_only']}")
+    print(f"[6] H2 alone launches no cls_partial; H4 alone no ln_gemm: "
+          f"{sorted(set(k[:60] for k in names['fused_space_cls_only']))}")
+
+
+def cls_row_check(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """The CLS row (f32 P V, one bf16 store) against plain in f32: every
+    element within half a bf16 unit of the plain value (2^-8 |want|) plus
+    1e-5 * max|want|. -> (max|diff|, the share of elements whose bf16 value
+    is not plain's rounded to bf16)."""
+    want = want.float()
+    diff = (got.float() - want).abs()
+    bound = 2.0 ** -8 * want.abs() + 1e-5 * want.abs().max()
+    if (diff > bound).any():
+        raise AssertionError(f"the CLS row is off by more than its bf16 store: max|diff| "
+                             f"{diff.max().item():.3e}, {(diff > bound).sum().item()} elements")
+    share = (got != want.to(got.dtype)).float().mean().item()
+    return diff.max().item(), share
+
+
+def space_core_rows(dev, bk) -> None:
+    """The space core on seeded inputs (B/16's N = 196, d = 64; H/14's N =
+    256, d = 80): the sha256 of its patch rows and their lse (equal digests
+    in two trees mean bit-identical patch rows), and its CLS row against
+    plain (cls_row_check)."""
+    import hashlib
+
+    for B, T, N, H, d in ((2, 12, 196, 12, 64), (1, 12, 256, 16, 80)):
+        rng = np.random.default_rng(51)
+        qkv = torch.tensor(rng.standard_normal((B, 1 + T * N, 3 * H * d)), dtype=torch.bfloat16,
+                           device=dev)
+        out, lse = bk.space_core(qkv, T, H, with_lse=True)
+        torch.cuda.synchronize()
+        digest = hashlib.sha256(out[:, 1:].contiguous().view(torch.int16).cpu().numpy().tobytes()
+                                + lse[:, :, 1:].contiguous().cpu().numpy().tobytes())
+        print(f"[6] space core N={N} d={d}: patch rows and lse sha256 {digest.hexdigest()}")
+        want, want_lse = bk.space_core_plain(qkv, T, H)
+        diff, share = cls_row_check(out[:, 0], want[:, 0])
+        lse_diff = (lse[:, :, 0] - want_lse[:, :, 0]).abs().max().item()
+        print(f"[6] space core N={N} d={d}: CLS row max|diff| to plain (f32) {diff:.3e} "
+              f"(max|ref| {want[:, 0].abs().max().item():.4f}), {share:.4%} of its elements "
+              f"not plain's rounded to bf16; its lse max|diff| {lse_diff:.3e}")
+
+
+def space_core_times(dev, card: str, bk, cfg, B: int) -> tuple:
+    """The space core alone at the extraction shape (CLS row included): ms,
+    its byte bound (q, k, v read once, the output written once) and one masked
+    scaled_dot_product_attention over the same q, k and v (library_ms, timed
+    here only), which it must match. Returns (ms, bound, library ms)."""
+    from tvts_torch.ops.attention import merge_heads, split_heads
+
+    v = cfg.vision
+    T, N, H, D = v.num_frames, v.patches_per_frame, v.heads, v.width
+    S = 1 + T * N
+    gen = torch.Generator(device=dev).manual_seed(52)
+    qkv = torch.randn(B, S, 3 * D, generator=gen, device=dev, dtype=torch.bfloat16)
+    d = D // H
+
+    def call():
+        return bk.space_core(qkv, T, H)
+    q, k, vv = qkv.chunk(3, dim=-1)
+    views = (split_heads(q * d ** -0.5, H), split_heads(k, H), split_heads(vv, H))
+    one_call = core_library_call(views, T, N, "space")
+    with torch.inference_mode():
+        ms = cuda_ms(call, iters=10)
+        l_ms = cuda_ms(one_call, iters=5)
+        out = call()
+        diff, ref, tol = core_band_check(out, merge_heads(one_call()))
+    if diff > tol:
+        raise AssertionError(f"the space core disagrees with the masked library call: {diff}")
+    bnd = bound_ms(*core_work("space", B, T, N, H, d))
+    print(f"[6] space core alone B={B} S={S} (CLS row included): {ms:.3f} ms, masked "
+          f"scaled_dot_product_attention {l_ms:.3f} ms (max|diff| {diff:.5f}, tol {tol:.5f}), "
+          f"bound {bnd[0]:.3f} ms ({bnd[1]}), {ms / bnd[0]:.2f}x the bound [{card}]")
+    del qkv, out
+    return ms, bnd, l_ms
+
+
+def block_times(bk, v, B: int, dev, card: str) -> dict:
+    """H1-H4 at [B, 1 + T*N, D] against their plain versions: name -> (ms,
+    plain ms, bound). H4's bound is its function's least work: x read once,
+    the weights once, the absorbed products (logits and P^T Y over every row,
+    4 * B*S*D*H flops, and the CLS rows' matvecs)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    a = seeded_inputs(1, 1, 1, v.width, seed=0, device=dev)  # weights; x, base below
+    S = 1 + v.num_frames * v.patches_per_frame
+    a["x"] = torch.randn(B, S, v.width, generator=gen, device=dev, dtype=torch.bfloat16)
+    a["base"] = torch.randn(B, S, v.width, generator=gen, device=dev, dtype=torch.bfloat16)
+    times = {}
+    with torch.inference_mode():
+        for name, (kernel, plain) in kernel_calls(bk, a, v.num_frames, v.heads,
+                                                  v.act).items():
+            k_ms = cuda_ms(kernel, iters=10)
+            p_ms = cuda_ms(plain, iters=10)
+            M, D = B * S, v.width
+            if name == "fused_mlp_block":
+                work = mlp_work(M, D, False, False)
+            elif name == "fused_space_cls_only":
+                work = (4 * M * D * v.heads + 8 * B * D * D, 2 * M * D + 8 * D * D + 4 * B * D)
+            else:
+                work = attention_work("time" if name == "fused_time_block" else "space", B,
+                                      v.num_frames, v.patches_per_frame, v.width, v.heads,
+                                      backward=False)
+            times[name] = (k_ms, p_ms, bound_ms(*work))
+            print(f"[6] {name:22s} B={B}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+                  f"{times[name][2][0]:.3f} ms ({times[name][2][1]}) [{card}]")
+    return times
 
 
 def no_tf32():
@@ -1297,6 +1422,54 @@ def parity_phase(dev, bk, bb, ta, ac) -> dict:
     return max_err
 
 
+def profile_phase(dev, card: str, bk, bb, ta) -> None:
+    """`--profile`: the digest of the space core's patch rows, the B/16
+    profiles, the space core alone, H1-H4 at B=64, the ln_gemm table, the
+    saving forwards and the train step at B=20, and the extraction rates of
+    B/16, B/32 (B=64) and H/14 (B=16). A copy of this script run in another
+    tree of the port gives that tree's numbers for an A/B in the same call
+    (a tree without `block_kernels.space_core` needs it defined first)."""
+    from tvts_torch.models.factory import build_model
+
+    space_core_rows(dev, bk)
+    cfg, model = build_model("TVTSv2_B_16", dtype=torch.bfloat16, device=dev, seed=0)
+    add_noise_(model, 1, dev)
+    v = cfg.vision
+    forward_profile(cfg, model, 64, dev, card, bk)
+    space_core_times(dev, card, bk, cfg, 64)
+    block_times(bk, v, 64, dev, card)
+    extraction_rate("6", cfg, model, 64, dev, card, iters=5)
+    del model
+    print(json.dumps({"ln_gemm": ln_gemm_table(dev, card, bk)}))
+    train = build_train("TVTSv2_B_16", dev, noise_seed=11, text_tune_layers=3, tag="6")
+    B = 20
+    batch = train_batch(train["cfg"], B, seed=13, device=dev)
+    time_steps("6", "kernels", train, kernel_apply(train, "6"), batch, card)
+    v = train["cfg"].vision  # the pretraining config: n_keep patches a frame
+    S, T, N, D, H = 1 + v.num_frames * v.n_keep, v.num_frames, v.n_keep, v.width, v.heads
+    a = seeded_inputs(1, 1, 1, D, seed=14, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    for key in ("x", "base"):
+        a[key] = torch.randn(B, S, D, generator=gen, device=dev, dtype=torch.bfloat16)
+    w = (a["ln_w"], a["ln_b"], a["wqkv"], a["bqkv"], a["wproj"], a["bproj"])
+    with torch.inference_mode():
+        for kind, core, res in (("time", "tvts_time_core", a["x"]),
+                                ("space", "tvts_space_core", a["base"])):
+            ms = cuda_ms(lambda: bk._attention_sub_path(core, a["x"], res, *w, T, H, save=True),
+                         iters=5)
+            bnd = bound_ms(*saving_forward_work(kind, B, T, N, D, H))
+            print(f"[6] {kind}_subpath (saving forward) B={B} S={S}: kernel {ms:.3f} ms, bound "
+                  f"{bnd[0]:.3f} ms ({bnd[1]}) [{card}]")
+    del train, batch, a
+    torch.cuda.empty_cache()
+    for arch, B in (("TVTSv2_B_32", 64), ("TVTSv2_H_14", 16)):
+        cfg, model = build_model(arch, dtype=torch.bfloat16, device=dev, seed=0)
+        add_noise_(model, 1, dev)
+        extraction_rate("6", cfg, model, B, dev, card, iters=3)
+        del model
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     # ---- phase 1: the card --------------------------------------------------
     if not torch.cuda.is_available():
@@ -1334,17 +1507,13 @@ def main() -> int:
         elif "Performance Loss" in line:  # e.g. wgmma serialised by ptxas
             print(f"[2]   {line.split(':', 1)[1].strip()}")
 
-    if "--profile" in sys.argv[1:]:  # only the B/16 profiles and the ln_gemm table
-        from tvts_torch.models.factory import build_model
-
-        cfg, model = build_model("TVTSv2_B_16", dtype=torch.bfloat16, device=dev, seed=0)
-        add_noise_(model, 1, dev)
-        forward_profile(cfg, model, 64, dev, card, bk)
-        print(json.dumps({"ln_gemm": ln_gemm_table(dev, card, bk)}))
+    if "--profile" in sys.argv[1:]:
+        profile_phase(dev, card, bk, bb, ta)
         return 0
 
     # ---- phase 3: kernel parity ---------------------------------------------
     max_err = parity_phase(dev, bk, bb, ta, ac)
+    space_core_rows(dev, bk)
 
     # ---- phase 4: main path -------------------------------------------------
     ext = extraction_phase("4", "TVTSv2_B_16", dev, bk, bb, ta, n_clips=21, batch_size=8,
@@ -1430,33 +1599,13 @@ def main() -> int:
     # ---- phase 6: times -----------------------------------------------------
     B = 64
     extraction_rate("6", cfg, model, B, dev, card, iters=5)
-    forward_profile(cfg, model, B, dev, card, bk)
+    expect_profiles(forward_profile(cfg, model, B, dev, card, bk))
     ln_gemm_rows = ln_gemm_table(dev, card, bk)
-    gen = torch.Generator(device=dev).manual_seed(3)
-    a = seeded_inputs(1, 1, 1, v.width, seed=0, device=dev)  # weights; x, base below
-    S = 1 + v.num_frames * v.patches_per_frame
-    a["x"] = torch.randn(B, S, v.width, generator=gen, device=dev, dtype=torch.bfloat16)
-    a["base"] = torch.randn(B, S, v.width, generator=gen, device=dev, dtype=torch.bfloat16)
-    times, library = {}, {}
-    with torch.inference_mode():
-        for name, (kernel, plain) in kernel_calls(bk, a, v.num_frames, v.heads,
-                                                  v.act).items():
-            k_ms = cuda_ms(kernel, iters=10)
-            p_ms = cuda_ms(plain, iters=10)
-            if name == "fused_mlp_block":
-                work = mlp_work(B * S, v.width, False, False)
-            elif name == "fused_space_cls_only":
-                M, D = a["x"].shape[0] * S, v.width
-                work = (4 * M * D * D + 4 * B * D * D + 4 * D * M,
-                        2 * M * D + 4 * B * D + 8 * D * D)
-            else:
-                work = attention_work("time" if name == "fused_time_block" else "space", B,
-                                      v.num_frames, v.patches_per_frame, v.width, v.heads,
-                                      backward=False)
-            times[name] = (k_ms, p_ms, bound_ms(*work))
-            print(f"[6] {name:22s} B={B}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
-                  f"{times[name][2][0]:.3f} ms ({times[name][2][1]}) [{card}]")
-    del a
+    times = block_times(bk, v, B, dev, card)
+    core_ms, core_bound, core_library = space_core_times(dev, card, bk, cfg, B)
+    core = {"B": B, "ms": core_ms, "bound_ms": core_bound[0], "bound_by": core_bound[1],
+            "library_ms": core_library}
+    library = {}
 
     TB = 256
     ids = torch.from_numpy(tokenize_openclip(
@@ -1499,6 +1648,7 @@ def main() -> int:
         raise AssertionError(f"kernels that no main path launched: {unlaunched}")
     print(card)
     print(json.dumps({"ln_gemm": ln_gemm_rows}))
+    print(json.dumps({"space_core": core}))
     # library_ms: no single PyTorch call computes a whole sub-path (LayerNorm,
     # the products, divided or causal attention, activation and residual, or
     # their gradients); the H9 cores alone are one masked

@@ -97,6 +97,48 @@ def test_build_model_extract_embeddings_ragged_loader(monkeypatch, use_fused):
         make_embed_fns(model, use_fused=True, not_a_knob=1)
 
 
+def _pooler_tvts(monkeypatch, **extra):
+    """A tiny TVTSv2 whose video tower (the tiny_vision("openclip") geometry)
+    has the attentional pooler, weights reset from seed 0 plus 0.02 noise."""
+    from tvts_torch.models import configs
+    from tvts_torch.models.factory import build_model
+
+    vision = configs.VisionConfig(**{**tiny_vision("openclip", **extra), "mask_ratio": 0.0})
+    cfg0 = configs.TVTSv2Config(name="tiny_pooler", vision=vision,
+                                text=configs.TextConfig(**tiny_text()),
+                                sort=configs.SortConfig(embed_dim=48, num_heads=4))
+    monkeypatch.setitem(configs.MODEL_REGISTRY, "tiny_pooler", lambda: cfg0)
+    _, model = build_model("tiny_pooler", seed=0, device="cpu")
+    with torch.no_grad():
+        rng = np.random.default_rng(1)
+        for p in model.parameters():
+            p.add_(torch.from_numpy(0.02 * rng.standard_normal(p.shape).astype(np.float32)))
+    return model
+
+
+@pytest.mark.parametrize("extra", [dict(n_queries=6, attn_pooler_heads=4),
+                                   dict(n_queries=5, attn_pooler_heads=2, ls_init=0.3)],
+                         ids=["pooler", "pooler+layerscale"])
+def test_attentional_pooler_tower_stays_exact_through_make_embed_fns(monkeypatch, extra):
+    """The pooler cross-attends every token, so the CLS-only fused tail cannot
+    serve it: make_embed_fns(use_fused=True) keeps such a tower eager (equal to
+    compute_video), and the fused forward without tokens refuses it rather
+    than pooling one row; with tokens it stays exact."""
+    model = _pooler_tvts(monkeypatch, attentional_pool=True, **extra)
+    video = torch.from_numpy(tiny_inputs(2)[0])
+    keep = torch.arange(4)[None].expand(2, -1)
+    with torch.no_grad():
+        want, _ = model.compute_video(video, keep)
+        for use_fused in (False, True):
+            _, embed_video = make_embed_fns(model, use_fused=use_fused)
+            torch.testing.assert_close(embed_video(video, keep), want, rtol=0, atol=0)
+        with pytest.raises(NotImplementedError, match="attentional pooler"):
+            space_time_vit_fused_forward(model.video_model, video, keep, need_tokens=False)
+        if "ls_init" not in extra:  # the fused tower reads no LayerScale gammas
+            got, _ = space_time_vit_fused_forward(model.video_model, video, keep)
+            np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=RTOL)
+
+
 def test_extract_video_feature_full_keep_set():
     model, params, _ = jax_tvts()
     video, _ = tiny_inputs(10, batch=1)

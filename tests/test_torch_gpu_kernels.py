@@ -28,6 +28,7 @@ from chip_smoke import (
     TEXT_SHAPES,
     backward_calls,
     band_check,
+    cls_row_check,
     core_band_check,
     core_calls,
     core_inputs,
@@ -478,3 +479,90 @@ def test_time_core_matches_plain(cuda, T, d, N):
     plain = divided_space_time_attention(q, k, v, T, N, "time")
     diff, ref, tol = core_band_check(got, plain)
     assert diff <= tol, (diff, ref)
+
+
+# ---------------------------------------------------------------------------
+# the space core on its own (packed with its CLS fold and lse; strided),
+# and H4 at the model shapes, against plain
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("N", [49, 196, 256])
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("T", [1, 12, 32])
+def test_space_core_matches_plain(cuda, T, d, N):
+    """The packed core with its CLS fold (H2, H5's saving forward): every
+    row and every row's lse, the CLS row (f32 P V) within half a bf16 unit
+    of plain; then the strided core (H9) on the head-split views of the same
+    rows."""
+    H = 12 if d == 64 else 16
+    B, S, D = 2 if N < 256 else 1, 1 + T * N, H * d
+    rng = np.random.default_rng(46)
+    qkv = torch.tensor(rng.standard_normal((B, S, 3 * D)), dtype=torch.bfloat16, device=cuda)
+    out, lse = bk.space_core(qkv, T, H, with_lse=True)
+    torch.cuda.synchronize()
+    want, want_lse = bk.space_core_plain(qkv, T, H)
+    scale = want.abs().max().item()
+    diff = (out.float() - want).abs().max().item()
+    assert diff <= 0.01 * scale, diff  # the bf16 store (and the patch rows' P in bf16) only
+    cls_row_check(out[:, 0], want[:, 0])
+    assert (lse - want_lse).abs().max().item() <= 1e-3
+    from tvts_torch.ops.attention import split_heads
+
+    q, k, v = qkv.chunk(3, dim=-1)
+    q, k, v = split_heads(q * d ** -0.5, H), split_heads(k, H), split_heads(v, H)
+    got = ac.divided_space_time_attention_fused(q, k, v, T, N, "space")
+    plain = divided_space_time_attention(q, k, v, T, N, "space")
+    diff, ref, tol = core_band_check(got, plain)
+    assert diff <= tol, (diff, ref)
+
+
+def test_space_core_is_deterministic(cuda):
+    """The CLS partials merge in a fixed order: two runs agree bit for bit."""
+    rng = np.random.default_rng(47)
+    qkv = torch.tensor(rng.standard_normal((2, 1 + 12 * 196, 3 * 768)), dtype=torch.bfloat16,
+                       device=cuda)
+    first, first_lse = bk.space_core(qkv, 12, 12, with_lse=True)
+    out, lse = bk.space_core(qkv, 12, 12, with_lse=True)
+    assert torch.equal(out, first) and torch.equal(lse, first_lse)
+
+
+@pytest.mark.parametrize("d, n_max", [(64, 783), (80, 639)])
+def test_space_core_raises_above_its_shared_memory(cuda, d, n_max):
+    """A frame's 1 + N keys and values must fit one block's shared memory:
+    the largest N runs, one more raises before any launch, in the core, in
+    H2 and in H9."""
+    H, T = 2, 1
+    qkv = torch.randn(1, 1 + T * n_max, 3 * H * d, device=cuda, dtype=torch.bfloat16)
+    out = bk.space_core(qkv, T, H)
+    torch.cuda.synchronize()
+    cls_row_check(out[:, 0], bk.space_core_plain(qkv, T, H)[0][:, 0])
+    qkv = torch.randn(1, 2 + T * n_max, 3 * H * d, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=f"at most {n_max} patches"):
+        bk.space_core(qkv, T, H)
+    a = seeded_inputs(1, T, n_max + 1, H * d, 49, cuda)
+    with pytest.raises(ValueError, match=f"at most {n_max} patches"):
+        bk.fused_space_block(a["x"], a["base"], a["ln_w"], a["ln_b"], a["wqkv"], a["bqkv"],
+                             a["wproj"], a["bproj"], T, H)
+    q, k, v = (t.reshape(1, 2 + T * n_max, H, d).transpose(1, 2) for t in qkv.chunk(3, -1))
+    with pytest.raises(ValueError, match=f"at most {n_max} patches"):
+        ac.divided_space_time_attention_fused(q, k, v, T, n_max + 1, "space")
+
+
+# (B, T, N, D, H): B/16, B/32 and H/14 widths, an odd batch
+CLS_ONLY_SHAPES = [(3, 12, 196, 768, 12), (5, 12, 49, 768, 12), (3, 4, 256, 1280, 16)]
+
+
+@pytest.mark.parametrize("shape", CLS_ONLY_SHAPES, ids=lambda s: f"N{s[2]}-D{s[3]}")
+def test_cls_only_kernel_matches_plain_at_model_shapes(cuda, shape):
+    B, T, N, D, H = shape
+    kernel, plain = kernel_calls(bk, seeded_inputs(B, T, N, D, 48, cuda), T, H,
+                                 "gelu")["fused_space_cls_only"]
+    before = bk.fused_space_cls_only.launches
+    got = kernel()
+    assert bk.fused_space_cls_only.launches == before + 1
+    torch.cuda.synchronize()
+    want = plain()
+    assert got.shape == want.shape == (B, 1, D)
+    diff, ref, tol = band_check(got, want)
+    assert diff <= tol, (diff, ref)
+    again = kernel()  # chunks merged in a fixed order: no run-to-run drift
+    assert torch.equal(got, again)

@@ -82,11 +82,6 @@ struct CoreAddr {
 // ---------------------------------------------------------------------------
 constexpr int TIME_MAX_ROWS = 128;  // query rows (threads) a block
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
 template <int DH, bool STRIDED>
 __global__ void __launch_bounds__(TIME_MAX_ROWS, 2)
     time_core_kernel(const CoreAddr<DH, STRIDED> view, float* __restrict__ lse, int T, int N,
@@ -195,165 +190,324 @@ inline int time_core_heads(int T, int H) {
 inline size_t time_core_smem(int T, int HG, int DH) { return (size_t)(3 * T + 2) * HG * DH * 2; }
 
 // ---------------------------------------------------------------------------
-// Space core. Patch (t, i) attends over the CLS key plus frame t's N patches:
-// per (b, t, h), N queries over 1 + N keys, the CLS key being key 0. Flash
-// style on the tensor cores: a block holds 64 queries (4 warps x 16 rows) and
-// walks 64-key tiles with an online f32 softmax; ragged tiles are masked.
+// Space core (H2 and H5's forward packed; H9 space strided). It replaces the
+// space attention inside tvts_tpu/ops/pallas_block_attention.py::
+// fused_space_attention_block_v9 (:2964) and pallas_attention.py::
+// _space_attention_fused (:31). Patch (t, i) attends over the CLS key plus
+// frame t's N patches: per (b, t, h), N queries over 1 + N keys, the CLS key
+// being key 0. With `cls_partial` the same block also carries the clip's CLS
+// query as one more query row over frame t's patches (and the CLS key in the
+// t = 0 block only) and writes its f32 partial (m, l, acc[DH]) to
+// cls_partial [B, H, T, DH + 2]; cls_combine_kernel merges the T partials.
+// Bound on the H100: bytes (q, k and v read once, the output written once;
+// at B/16, B = 64: 0.28 ms of bytes against 0.09 ms of tensor-core flops).
+// Design: one block per (b, t, h) owns the whole frame. Its 1 + N key and
+// value rows are staged in shared memory once (16-byte cp.async, one group
+// per 64-key tile, so tile 0's arithmetic starts while the later tiles are
+// in flight), padded with zero rows to a multiple of 16; every 16-row query
+// slab of the frame walks them there (warp w takes slabs w, w + 4, ...; its
+// q fragments come straight from global memory). The arithmetic is the first
+// version's, in its order: 64-key tiles in key order with the CLS key in tile
+// 0, an online f32 softmax in the log2 domain rescaled once a tile, P rounded
+// to bf16 for PV on mma.sync m16n8k16. Only the 16-key chunks that hold a
+// live key run (N = 196: the fourth tile does 16 keys, not 64); a skipped
+// chunk would have added exact zeros, so the patch rows and their lse are
+// bit for bit the first version's. The CLS row keeps P in f32 for P V, as
+// the TPU kernel does (pallas_block_attention.py:2940-2944): its slab (the
+// last) is the first slab of its warp, which leaves the row's probabilities
+// and each tile's max in shared memory; a warp with one slab fewer (the
+// frame's slabs do not divide evenly over the warps: 13 at N = 196) sums
+// p * v in f32 from there once its own slabs are done, off the block's
+// critical path. 61 KB (d = 64, N = 196) to 96 KB (d = 80, N = 256) a
+// block: two or three blocks an SM; the staged frame bounds N
+// (space_core_smem against the 227 KB a block may take).
 // ---------------------------------------------------------------------------
-constexpr int SP_BQ = 64;
-constexpr int SP_BK = 64;
+constexpr int SP_WARPS = 4;
+constexpr int SP_BK = 64;  // keys a tile: the softmax's rescale points
 
-template <int DH, bool STRIDED>
-__global__ void __launch_bounds__(128)
-    space_core_kernel(const CoreAddr<DH, STRIDED> view, float* __restrict__ lse, int T, int N,
-                      float scale_log2) {
-  constexpr int LD = DH + 8;
-  __shared__ __align__(16) bf16 sQ[SP_BQ][LD];
-  __shared__ __align__(16) bf16 sK[SP_BK][LD];
-  __shared__ __align__(16) bf16 sV[SP_BK][LD];
+__host__ __device__ inline int space_core_rows(int N) { return (N + 1 + 15) / 16 * 16; }
+__host__ __device__ inline int space_core_tiles(int N) { return (N + 1 + SP_BK - 1) / SP_BK; }
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * SP_BQ, h = blockIdx.y;
-  const int b = blockIdx.z / T, t = blockIdx.z % T;
-  const int H = view.H, S = view.S;
-  const i64 frame_row0 = 1 + (i64)t * N;  // token row of patch 0 of frame t
-  constexpr int VPR = DH / 8;             // 16-byte vectors per head row
+// K and V [rows][DH + 8] bf16, then the CLS row's P [tiles * SP_BK] and each
+// tile's running max [tiles] in f32
+inline size_t space_core_smem(int N, int DH) {
+  return (size_t)2 * space_core_rows(N) * (DH + 8) * sizeof(bf16) +
+         (size_t)space_core_tiles(N) * (SP_BK + 1) * sizeof(float);
+}
 
-  for (int e = tid; e < SP_BQ * VPR; e += 128) {
-    const int r = e / VPR, c = (e % VPR) * 8;
-    uint4 u = make_uint4(0, 0, 0, 0);
-    if (q0 + r < N)
-      u = *reinterpret_cast<const uint4*>(view.row(0, b, h, frame_row0 + q0 + r) + c);
-    *reinterpret_cast<uint4*>(&sQ[r][c]) = u;
-  }
-  __syncthreads();
-
+// A warp's 16 query rows: q fragments, output accumulators, the online
+// softmax state of rows g and g + 8 (log2 domain) and whether each row is
+// the CLS query outside frame 0 (key 0 masked); the CLS query's row in the
+// slab, if it holds it.
+template <int DH>
+struct SpaceSlab {
   uint32_t qf[DH / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk)
-    ldmatrix_x4(qf[kk], &sQ[warp * 16 + (lane & 15)][kk * 16 + (lane >> 4) * 8]);
-
   float o[DH / 8][4];
-#pragma unroll
-  for (int i = 0; i < DH / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const int g = lane >> 2, t4 = lane & 3;
-  const int n_keys = N + 1;
+  float m[2], l[2];
+  bool mask0[2];
+  int cls_row;  // -1: no CLS query in this slab
+};
 
-  for (int k0 = 0; k0 < n_keys; k0 += SP_BK) {
-    __syncthreads();  // previous tile fully consumed
-    for (int e = tid; e < SP_BK * VPR; e += 128) {
-      const int r = e / VPR, c = (e % VPR) * 8;
-      const int j = k0 + r;
-      uint4 uk = make_uint4(0, 0, 0, 0), uv = uk;
-      if (j < n_keys) {
-        const i64 tok = j == 0 ? 0 : frame_row0 + j - 1;
-        uk = *reinterpret_cast<const uint4*>(view.row(1, b, h, tok) + c);
-        uv = *reinterpret_cast<const uint4*>(view.row(2, b, h, tok) + c);
-      }
-      *reinterpret_cast<uint4*>(&sK[r][c]) = uk;
-      *reinterpret_cast<uint4*>(&sV[r][c]) = uv;
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys)
-    float s[SP_BK / 8][4];
+// Query row qi of the slab's frame: qi < N the patch, qi == N the CLS token.
+template <int DH, bool STRIDED>
+__device__ __forceinline__ void space_slab_begin(SpaceSlab<DH>& st,
+                                                 const CoreAddr<DH, STRIDED>& view, int b,
+                                                 int h, int t, int N, int NQ, int q0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const i64 frame_row0 = 1 + (i64)t * N;
 #pragma unroll
-    for (int i = 0; i < SP_BK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + g + r * 8;
+    st.mask0[r] = qi == N && t > 0;
+    const bf16* row = qi < NQ ? view.row(0, b, h, qi < N ? frame_row0 + qi : 0) : nullptr;
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk)
 #pragma unroll
-      for (int np = 0; np < SP_BK / 16; ++np) {
-        uint32_t kf[4];
-        const int j = lane >> 3;
-        ldmatrix_x4(kf, &sK[np * 16 + (lane & 7) + (j >> 1) * 8][kk * 16 + (j & 1) * 8]);
-        mma_bf16_16816(s[2 * np], qf[kk], kf[0], kf[1]);
-        mma_bf16_16816(s[2 * np + 1], qf[kk], kf[2], kf[3]);
-      }
+      for (int half = 0; half < 2; ++half)  // A fragment: (row, cols t4*2 [+ 8])
+        st.qf[kk][r + 2 * half] =
+            row ? *reinterpret_cast<const uint32_t*>(row + kk * 16 + half * 8 + t4 * 2) : 0u;
+    st.m[r] = -INFINITY;
+    st.l[r] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i) st.o[i][0] = st.o[i][1] = st.o[i][2] = st.o[i][3] = 0.f;
+  st.cls_row = NQ > N && N >= q0 && N < q0 + 16 ? N - q0 : -1;
+}
 
-    // online softmax in the log2 domain; this thread owns rows g and g + 8
-    float tmax[2] = {-INFINITY, -INFINITY};
+// The CLS row's P V in f32 (lanes on head-column pairs, four chains of keys
+// a pair), from its probabilities sPc, each relative to its tile's running
+// max sMt[tile], rescaled to the last tile's max; padding keys have p = 0.
+template <int DH>
+__device__ __forceinline__ void space_cls_pv(const bf16* sV, const float* sPc,
+                                             const float* sMt, int n_keys, float* acc_out) {
+  constexpr int LD = DH + 8;
+  const int lane = threadIdx.x & 31, n_tiles = (n_keys + SP_BK - 1) / SP_BK;
+  const int rows = (n_keys + 15) / 16 * 16;
+  const float m_last = sMt[n_tiles - 1];
+  for (int c2 = lane; c2 < DH / 2; c2 += 32) {
+    float a0 = 0.f, a1 = 0.f;
+    for (int i = 0; i < n_tiles; ++i) {
+      const int k0 = i * SP_BK, kend = min(k0 + SP_BK, rows);  // a multiple of 4
+      float x[4] = {0.f, 0.f, 0.f, 0.f}, y[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int j = k0; j < kend; j += 4) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = sPc[j + e];
+          const float2 v = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(sV + (j + e) * LD + 2 * c2));
+          x[e] += p * v.x;
+          y[e] += p * v.y;
+        }
+      }
+      const float w = exp2f(sMt[i] - m_last);
+      a0 += w * ((x[0] + x[1]) + (x[2] + x[3]));
+      a1 += w * ((y[0] + y[1]) + (y[2] + y[3]));
+    }
+    *reinterpret_cast<float2*>(acc_out + 2 * c2) = make_float2(a0, a1);
+  }
+}
+
+template <int DH>
+__device__ __forceinline__ void space_slab_tile(SpaceSlab<DH>& st, const bf16* sK,
+                                                const bf16* sV, float* sPc, float* sMt,
+                                                int k0, int n_keys, float scale_log2) {
+  constexpr int LD = DH + 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int n16 = (min(SP_BK, n_keys - k0) + 15) >> 4;  // 16-key chunks with a live key
+
+  // S = Q K^T for the 16 rows x the tile's live chunks (8 n-tiles of 8 keys)
+  float s[SP_BK / 8][4];
+#pragma unroll
+  for (int i = 0; i < SP_BK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+#pragma unroll
+    for (int np = 0; np < SP_BK / 16; ++np) {
+      if (np >= n16) continue;
+      uint32_t kf[4];
+      const int j = lane >> 3;
+      ldmatrix_x4(kf, sK + (k0 + np * 16 + (lane & 7) + (j >> 1) * 8) * LD + kk * 16 +
+                          (j & 1) * 8);
+      mma_bf16_16816(s[2 * np], st.qf[kk], kf[0], kf[1]);
+      mma_bf16_16816(s[2 * np + 1], st.qf[kk], kf[2], kf[3]);
+    }
+
+  // online softmax in the log2 domain; this thread owns rows g and g + 8
+  float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nt = 0; nt < SP_BK / 8; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int key = k0 + nt * 8 + t4 * 2 + (c & 1);
+      const bool live = key < n_keys && !(key == 0 && st.mask0[c >> 1]);
+      const float v = live ? s[nt][c] * scale_log2 : -INFINITY;
+      s[nt][c] = v;
+      tmax[c >> 1] = fmaxf(tmax[c >> 1], v);
+    }
+  float corr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+    // finite: tile 0 holds key 0 (CLS) and, for the CLS query, a patch key
+    const float m_new = fmaxf(st.m[r], tmax[r]);
+    corr[r] = exp2f(st.m[r] - m_new);
+    st.m[r] = m_new;
+    st.l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int nt = 0; nt < SP_BK / 8; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float p = exp2f(s[nt][c] - st.m[c >> 1]);
+      s[nt][c] = p;
+      st.l[c >> 1] += p;
+    }
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i) {
+    st.o[i][0] *= corr[0];
+    st.o[i][1] *= corr[0];
+    st.o[i][2] *= corr[1];
+    st.o[i][3] *= corr[1];
+  }
+  if (st.cls_row >= 0 && g == (st.cls_row & 7)) {  // the CLS row's f32 P, for space_cls_pv
+    const int rc = st.cls_row >> 3;
 #pragma unroll
     for (int nt = 0; nt < SP_BK / 8; ++nt)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int key = k0 + nt * 8 + t4 * 2 + (c & 1);
-        const float v = key < n_keys ? s[nt][c] * scale_log2 : -INFINITY;
-        s[nt][c] = v;
-        tmax[c >> 1] = fmaxf(tmax[c >> 1], v);
-      }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
-      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
-      const float m_new = fmaxf(m[r], tmax[r]);  // finite: key 0 (CLS) is in tile 0
-      corr[r] = exp2f(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= corr[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < SP_BK / 8; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = exp2f(s[nt][c] - m[c >> 1]);
-        s[nt][c] = p;
-        l[c >> 1] += p;
-      }
-#pragma unroll
-    for (int i = 0; i < DH / 8; ++i) {
-      o[i][0] *= corr[0];
-      o[i][1] *= corr[0];
-      o[i][2] *= corr[1];
-      o[i][3] *= corr[1];
-    }
-
-    // O += P V: the S accumulator layout is the A-fragment layout of P
-#pragma unroll
-    for (int kt = 0; kt < SP_BK / 16; ++kt) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16x2(s[2 * kt][0], s[2 * kt][1]);
-      pa[1] = pack_bf16x2(s[2 * kt][2], s[2 * kt][3]);
-      pa[2] = pack_bf16x2(s[2 * kt + 1][0], s[2 * kt + 1][1]);
-      pa[3] = pack_bf16x2(s[2 * kt + 1][2], s[2 * kt + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < DH / 16; ++dp) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, &sV[kt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8]
-                                 [dp * 16 + ((lane >> 4) & 1) * 8]);
-        mma_bf16_16816(o[2 * dp], pa, vf[0], vf[1]);
-        mma_bf16_16816(o[2 * dp + 1], pa, vf[2], vf[3]);
-      }
-    }
+      for (int c = 0; c < 4; ++c)
+        if ((c >> 1) == rc) sPc[k0 + nt * 8 + t4 * 2 + (c & 1)] = s[nt][c];
+    if (t4 == 0) sMt[k0 / SP_BK] = rc ? st.m[1] : st.m[0];
   }
 
+  // O += P V over the live chunks: the S accumulator layout is the A-fragment layout of P
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const int qi = q0 + warp * 16 + g + r * 8;
-    if (lse && t4 == 0 && qi < N)  // m is in log2 units: lse = (m + log2 l) ln 2
-      lse[((i64)b * H + h) * S + frame_row0 + qi] = (m[r] + __log2f(l[r])) * 0.6931471805599453f;
-    l[r] = 1.f / l[r];
+  for (int kt = 0; kt < SP_BK / 16; ++kt) {
+    if (kt >= n16) continue;
+    uint32_t pa[4];
+    pa[0] = pack_bf16x2(s[2 * kt][0], s[2 * kt][1]);
+    pa[1] = pack_bf16x2(s[2 * kt][2], s[2 * kt][3]);
+    pa[2] = pack_bf16x2(s[2 * kt + 1][0], s[2 * kt + 1][1]);
+    pa[3] = pack_bf16x2(s[2 * kt + 1][2], s[2 * kt + 1][3]);
+#pragma unroll
+    for (int dp = 0; dp < DH / 16; ++dp) {
+      uint32_t vf[4];
+      ldmatrix_x4_trans(vf, sV + (k0 + kt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                dp * 16 + ((lane >> 4) & 1) * 8);
+      mma_bf16_16816(st.o[2 * dp], pa, vf[0], vf[1]);
+      mma_bf16_16816(st.o[2 * dp + 1], pa, vf[2], vf[3]);
+    }
   }
+}
+
+// Patch rows: output (bf16) and lse; the CLS row: its f32 partial.
+template <int DH, bool STRIDED>
+__device__ __forceinline__ void space_slab_end(SpaceSlab<DH>& st,
+                                               const CoreAddr<DH, STRIDED>& view, float* lse,
+                                               float* cls_partial, int b, int h, int t, int T,
+                                               int N, int q0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int H = view.H, S = view.S;
+  const i64 frame_row0 = 1 + (i64)t * N;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + warp * 16 + g + r * 8;
+    st.l[r] += __shfl_xor_sync(0xffffffffu, st.l[r], 1);
+    st.l[r] += __shfl_xor_sync(0xffffffffu, st.l[r], 2);
+    const int qi = q0 + g + r * 8;
+    if (qi == N && cls_partial) {  // the CLS query (its acc: space_cls_pv): m in natural-log
+      if (t4 == 0) {                 // units of the scaled logits
+        float* out = cls_partial + (((i64)b * H + h) * T + t) * (DH + 2);
+        out[0] = st.m[r] * 0.6931471805599453f;
+        out[1] = st.l[r];
+      }
+      continue;
+    }
     if (qi >= N) continue;
+    if (lse && t4 == 0)  // m is in log2 units: lse = (m + log2 l) ln 2
+      lse[((i64)b * H + h) * S + frame_row0 + qi] =
+          (st.m[r] + __log2f(st.l[r])) * 0.6931471805599453f;
+    const float inv = 1.f / st.l[r];
     bf16* dst = view.out_row(b, h, frame_row0 + qi);
 #pragma unroll
     for (int i = 0; i < DH / 8; ++i)
       *reinterpret_cast<__nv_bfloat162*>(dst + i * 8 + t4 * 2) =
-          __floats2bfloat162_rn(o[i][2 * r] * l[r], o[i][2 * r + 1] * l[r]);
+          __floats2bfloat162_rn(st.o[i][2 * r] * inv, st.o[i][2 * r + 1] * inv);
   }
 }
 
+template <int DH, bool STRIDED>
+__global__ void __launch_bounds__(SP_WARPS * 32, 2)
+    space_core_kernel(const CoreAddr<DH, STRIDED> view, float* __restrict__ lse,
+                      float* __restrict__ cls_partial, int T, int N, float scale_log2) {
+  constexpr int LD = DH + 8;
+  constexpr int VPR = DH / 8;  // 16-byte vectors per head row
+  extern __shared__ __align__(16) bf16 ssm[];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int b = blockIdx.x / T, t = blockIdx.x % T, h = blockIdx.y;
+  const int n_keys = N + 1, rows = space_core_rows(N);
+  const int n_tiles = (n_keys + SP_BK - 1) / SP_BK;
+  bf16* sK = ssm;              // [rows][LD], key s: s == 0 the CLS token, else patch s - 1
+  bf16* sV = ssm + rows * LD;  // [rows][LD]
+  float* sPc = reinterpret_cast<float*>(sV + rows * LD);  // [n_tiles * SP_BK] the CLS row's P
+  float* sMt = sPc + n_tiles * SP_BK;                     // [n_tiles] its max at each tile
+  const i64 frame_row0 = 1 + (i64)t * N;
+
+  // stage the frame's keys and values, one cp.async group per tile
+  for (int k0 = 0; k0 < n_keys; k0 += SP_BK) {
+    const int kend = min(k0 + SP_BK, rows);
+    for (int e = tid; e < (kend - k0) * VPR; e += SP_WARPS * 32) {
+      const int r = k0 + e / VPR, c = (e % VPR) * 8;
+      if (r < n_keys) {
+        const i64 tok = r == 0 ? 0 : frame_row0 + r - 1;
+        cp_async16(sK + r * LD + c, view.row(1, b, h, tok) + c);
+        cp_async16(sV + r * LD + c, view.row(2, b, h, tok) + c);
+      } else {  // padding: zero rows (their P is 0, so V must be finite)
+        *reinterpret_cast<uint4*>(sK + r * LD + c) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(sV + r * LD + c) = make_uint4(0, 0, 0, 0);
+      }
+    }
+    cp_async_commit();
+  }
+
+  const int NQ = N + (cls_partial != nullptr);
+  const int n_slabs = (NQ + 15) / 16;
+  // the CLS query's slab (the last) goes first on its warp; the next warp,
+  // one slab fewer unless the slabs divide evenly, sums its P V
+  const int cls_slab = cls_partial ? n_slabs - 1 : -1;
+  const int cls_warp = cls_slab % SP_WARPS, pv_warp = (cls_warp + 1) % SP_WARPS;
+  const int first = cls_partial && warp == cls_warp ? cls_slab : warp;
+  SpaceSlab<DH> st;
+  // each warp's first slab walks the tiles as they land
+  const bool active = first < n_slabs;
+  if (active) space_slab_begin(st, view, b, h, t, N, NQ, first * 16);
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait_pending(n_tiles - 1 - i);
+    __syncthreads();
+    if (active) space_slab_tile(st, sK, sV, sPc, sMt, i * SP_BK, n_keys, scale_log2);
+  }
+  if (active) space_slab_end(st, view, lse, cls_partial, b, h, t, T, N, first * 16);
+  if (cls_partial) __syncthreads();  // the CLS row's P in place
+  // the other slabs find every tile in place
+  for (int slab = warp; slab < n_slabs; slab += SP_WARPS) {
+    if (slab == first) continue;
+    space_slab_begin(st, view, b, h, t, N, NQ, slab * 16);
+    for (int k0 = 0; k0 < n_keys; k0 += SP_BK)
+      space_slab_tile(st, sK, sV, sPc, sMt, k0, n_keys, scale_log2);
+    space_slab_end(st, view, lse, cls_partial, b, h, t, T, N, slab * 16);
+  }
+  if (cls_partial && warp == pv_warp)
+    space_cls_pv<DH>(sV, sPc, sMt, n_keys,
+                     cls_partial + (((i64)b * view.H + h) * T + t) * (DH + 2) + 2);
+}
+
 // ---------------------------------------------------------------------------
-// CLS global row: one query per (b, h) over L keys. The TPU kernels carry the
-// online-softmax state across sequential grid steps; CUDA blocks run in no
-// order, so this is split-KV: each block writes a partial (m, l, acc[DH]) in
-// f32 for its chunk of keys, and cls_combine_kernel merges the chunks of each
-// (b, h) in a fixed order (no atomics: the result does not vary run to run).
+// CLS global row of H1 and H9 (H2 folds its CLS query into the space core,
+// whose T partials cls_combine_kernel merges too): one query per (b, h) over
+// L keys. The TPU kernels carry the online-softmax state across sequential
+// grid steps; CUDA blocks run in no order, so this is split-KV: each block
+// writes a partial (m, l, acc[DH]) in f32 for its chunk of keys, and
+// cls_combine_kernel merges the chunks of each (b, h) in a fixed order (no
+// atomics: the result does not vary run to run).
 // ---------------------------------------------------------------------------
 constexpr int CLS_CHUNK = 128;
 

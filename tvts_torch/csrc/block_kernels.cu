@@ -4,6 +4,7 @@
 // synchronise, and returns cudaGetLastError() after its launches.
 #include "attention.cuh"
 #include "attention_bwd.cuh"
+#include "cls_pool.cuh"
 #include "ln_gemm.cuh"
 #include "text_attention.cuh"
 #include "weight_grad.cuh"
@@ -52,12 +53,21 @@ cudaError_t launch_time_core(const void* q, const void* k, const void* v, void* 
 
 template <int DH, bool STRIDED>
 cudaError_t launch_space_core(const void* q, const void* k, const void* v, void* out, void* lse,
-                              const i64* strides, int B, int T, int N, int H, float scale,
-                              cudaStream_t s) {
-  dim3 grid((N + tvts::SP_BQ - 1) / tvts::SP_BQ, H, B * T);
-  tvts::space_core_kernel<DH, STRIDED><<<grid, 128, 0, s>>>(
-      core_view<DH, STRIDED>(q, k, v, out, H, 1 + T * N, strides), (float*)lse, T, N,
-      scale * 1.4426950408889634f);
+                              void* cls_partial, const i64* strides, int B, int T, int N, int H,
+                              float scale, cudaStream_t s) {
+  const size_t smem = tvts::space_core_smem(N, DH);
+  cudaError_t err = cudaFuncSetAttribute(tvts::space_core_kernel<DH, STRIDED>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int S = 1 + T * N;
+  tvts::space_core_kernel<DH, STRIDED><<<dim3(B * T, H), tvts::SP_WARPS * 32, smem, s>>>(
+      core_view<DH, STRIDED>(q, k, v, out, H, S, strides), (float*)lse, (float*)cls_partial, T,
+      N, scale * 1.4426950408889634f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !cls_partial) return err;
+  // the CLS row from the T frames' partials (packed only: rows of [B, S, H*DH])
+  tvts::cls_combine_kernel<DH><<<dim3(H, B), DH, 0, s>>>(
+      (const float*)cls_partial, T, H, (bf16*)out, (i64)S * H * DH, (float*)lse, S);
   return cudaGetLastError();
 }
 
@@ -133,17 +143,19 @@ int tvts_time_core(const void* qkv, void* out, void* lse, int B, int T, int N, i
   return (int)cudaErrorInvalidValue;
 }
 
-// Space attention of the patch rows of out [B, S, H*dh] from qkv [B, S, 3*H*dh];
-// lse != NULL: also their log-sum-exp into lse [B, H, S] (training save).
-int tvts_space_core(const void* qkv, void* out, void* lse, int B, int T, int N, int H, int dh,
-                    float scale, void* stream) {
+// Space attention of out [B, S, H*dh] from qkv [B, S, 3*H*dh]: the patch rows,
+// and with cls_partial (f32 scratch [B, H, T, dh + 2]) also the CLS row, its
+// query folded into the frames' blocks; lse != NULL: the log-sum-exp of
+// every row written into lse [B, H, S] (training save).
+int tvts_space_core(const void* qkv, void* out, void* lse, void* cls_partial, int B, int T,
+                    int N, int H, int dh, float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dh == 64)
-    return (int)launch_space_core<64, false>(qkv, nullptr, nullptr, out, lse, nullptr, B, T, N,
-                                             H, scale, s);
+    return (int)launch_space_core<64, false>(qkv, nullptr, nullptr, out, lse, cls_partial,
+                                             nullptr, B, T, N, H, scale, s);
   if (dh == 80)
-    return (int)launch_space_core<80, false>(qkv, nullptr, nullptr, out, lse, nullptr, B, T, N,
-                                             H, scale, s);
+    return (int)launch_space_core<80, false>(qkv, nullptr, nullptr, out, lse, cls_partial,
+                                             nullptr, B, T, N, H, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -158,13 +170,13 @@ int tvts_attention_core_strided(const void* q, const void* k, const void* v, voi
   if (!strides_ok(strides) || (!space && (T < 1 || T > 32))) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dh == 64)
-    return (int)(space ? launch_space_core<64, true>(q, k, v, out, nullptr, strides, B, T, N, H,
-                                                     scale, s)
+    return (int)(space ? launch_space_core<64, true>(q, k, v, out, nullptr, nullptr, strides, B,
+                                                     T, N, H, scale, s)
                        : launch_time_core<64, true>(q, k, v, out, nullptr, strides, B, T, N, H,
                                                     scale, s));
   if (dh == 80)
-    return (int)(space ? launch_space_core<80, true>(q, k, v, out, nullptr, strides, B, T, N, H,
-                                                     scale, s)
+    return (int)(space ? launch_space_core<80, true>(q, k, v, out, nullptr, nullptr, strides, B,
+                                                     T, N, H, scale, s)
                        : launch_time_core<80, true>(q, k, v, out, nullptr, strides, B, T, N, H,
                                                     scale, s));
   return (int)cudaErrorInvalidValue;
@@ -212,6 +224,96 @@ int tvts_text_core(const void* qkv, void* out, void* lse, int B, int S, int H, i
   dim3 grid((S + tvts::TX_BQ - 1) / tvts::TX_BQ, H, B);
   tvts::text_core_kernel<64><<<grid, 128, 0, (cudaStream_t)stream>>>(
       (const bf16*)qkv, (bf16*)out, (float*)lse, S, H, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// H4, the CLS-only space tail (cls_pool.cuh): out [B, D] = basecls +
+// Proj(the CLS row of the space attention of LN(x)) from x [B, S, D] alone.
+// Scratch (f32): q [B, D], u [B, H, D], partial [B, C, H, D + 2], zf [B, H, D];
+// att [B, D] bf16. Chunks of R rows (a multiple of 16), C * R >= S.
+int tvts_cls_only(const void* x, int B, int S, int H, int dh, const void* ln_w,
+                  const void* ln_b, float eps, const void* wqkv, const void* bqkv,
+                  const void* wproj, const void* bproj, const void* basecls, void* out, void* q,
+                  void* u, void* partial, void* zf, void* att, int C, int R, void* stream) {
+  const int D = H * dh;
+  if (H > tvts::CP_HEADS || D % 16 || D > 1280 || R % tvts::CP_ROWS || (i64)C * R < S ||
+      dh > 128 || dh % tvts::MV_ROWS)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const bf16* W = (const bf16*)wqkv;
+  const bf16* bias = (const bf16*)bqkv;
+  const dim3 mv_grid(D / tvts::MV_ROWS, (B + tvts::MV_BATCH - 1) / tvts::MV_BATCH);
+  const size_t mv_smem = (size_t)tvts::MV_BATCH * D * sizeof(float);
+  tvts::ClsMatvecArgs a{};
+  a.B = B;
+  a.N = D;
+  a.K = D;
+  // q = Wq LN(x_0) + bq, f32
+  a.W = W;
+  a.bias = bias;
+  a.in = x;
+  a.in_bstride = (i64)S * D;
+  a.group_rows = D;
+  a.ln_w = (const float*)ln_w;
+  a.ln_b = (const float*)ln_b;
+  a.eps = eps;
+  a.out = q;
+  a.out_bstride = D;
+  tvts::cls_matvec_kernel<false, true><<<mv_grid, 256, mv_smem, s>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  tvts::cls_u_kernel<<<dim3(H, (B + tvts::MV_BATCH - 1) / tvts::MV_BATCH,
+                             (D / 2 + tvts::U_THREADS - 1) / tvts::U_THREADS),
+                        tvts::U_THREADS, 0, s>>>(
+      (const float*)q, W + (i64)D * D, (float*)u, B, H, dh, 1.f / sqrtf((float)dh));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = tvts::cls_pool_smem(D);
+  const int pairs_per_warp = (D / 16 + 7) / 8;
+  if (pairs_per_warp <= 6) {
+    err = cudaFuncSetAttribute(tvts::cls_pool_kernel<6>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    tvts::cls_pool_kernel<6><<<dim3(C, B), tvts::CP_THREADS, smem, s>>>(
+        (const bf16*)x, S, D, H, (const float*)ln_w, (const float*)ln_b, eps, (const float*)u,
+        R, (float*)partial);
+  } else {
+    err = cudaFuncSetAttribute(tvts::cls_pool_kernel<10>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    tvts::cls_pool_kernel<10><<<dim3(C, B), tvts::CP_THREADS, smem, s>>>(
+        (const bf16*)x, S, D, H, (const float*)ln_w, (const float*)ln_b, eps, (const float*)u,
+        R, (float*)partial);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  tvts::cls_pool_merge_kernel<<<dim3(H, B), 256, 0, s>>>((const float*)partial, C, H, D,
+                                                        (float*)zf);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // att = Wv_h zf_h + bv (bf16)
+  a.W = W + 2 * (i64)D * D;
+  a.bias = bias + 2 * D;
+  a.in = zf;
+  a.in_bstride = (i64)H * D;
+  a.in_gstride = D;
+  a.group_rows = dh;
+  a.ln_w = a.ln_b = nullptr;
+  a.out = att;
+  tvts::cls_matvec_kernel<true, false><<<mv_grid, 256, mv_smem, s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // out = basecls + Wproj att + bproj
+  a.W = (const bf16*)wproj;
+  a.bias = (const bf16*)bproj;
+  a.in = att;
+  a.in_bstride = D;
+  a.in_gstride = 0;
+  a.group_rows = D;
+  a.res = (const bf16*)basecls;
+  a.res_bstride = D;
+  a.out = out;
+  tvts::cls_matvec_kernel<false, false><<<mv_grid, 256, mv_smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 

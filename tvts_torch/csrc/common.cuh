@@ -26,6 +26,29 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// 16-byte asynchronous copy global -> shared (L2 only), and its groups:
+// commit the copies issued so far as one group; wait until at most `n`
+// groups are still in flight (n is clamped to 3: waiting for more is safe).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  if (n >= 3)
+    asm volatile("cp.async.wait_group 3;\n" ::: "memory");
+  else if (n == 2)
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else if (n == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 // Four 8x8 b16 matrices from shared memory; lane l gives the row address of
 // matrix l / 8. Without .trans lane l receives row l/4, columns 2(l%4)..+1.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {

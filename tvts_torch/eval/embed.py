@@ -38,8 +38,9 @@ def make_embed_fns(model, use_fused: bool = False, **tpu_knobs):
     """(embed_text, embed_video) for a TVTSv2. use_fused=True runs both towers
     through the kernels (text: H7, EOT-only last block; video: H1-H4,
     CLS-only last block); use_fused=False the eager modules. The kernels do
-    not read LayerScale gammas, so the video tower of such a config stays
-    eager, as in the JAX package.
+    not read LayerScale gammas, and the CLS-only last block leaves the
+    attentional pooler one row where it cross-attends every token, so the
+    video tower of either config stays eager.
     embed_text(ids [N, ctx]) -> [N, out]; embed_video(video, keep) -> pooled."""
     unknown = set(tpu_knobs) - set(TPU_SCHEDULE_KNOBS)
     if unknown:
@@ -47,7 +48,8 @@ def make_embed_fns(model, use_fused: bool = False, **tpu_knobs):
     if tpu_knobs:
         log.warning("ignoring TPU schedule knobs %s: the Hopper kernels choose "
                     "their own tiling", sorted(tpu_knobs))
-    fused_video = use_fused and model.video_model.cfg.ls_init is None
+    vcfg = model.video_model.cfg
+    fused_video = use_fused and vcfg.ls_init is None and not vcfg.attentional_pool
 
     @torch.inference_mode()
     def embed_text(ids: torch.Tensor) -> torch.Tensor:

@@ -71,6 +71,8 @@ def divided_space_time_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torc
         raise ValueError(f"head dim {d}: the kernels take 64 or 80")
     if mode == "time" and not 1 <= T <= 32:
         raise ValueError(f"{T} frames: the time core takes 1..32")
+    if mode == "space":
+        bk._check_space_frame(N, d)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or t.dtype != torch.bfloat16 or t.shape != q.shape:
             raise TypeError(f"{name}: the kernels take bf16 tensors of one shape on one card, "

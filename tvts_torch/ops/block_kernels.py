@@ -10,7 +10,8 @@ Layout: tokens [B, S, D] with S = 1 + T*N, CLS first, frame-major patches
 dtype, LayerNorm parameters float32.
 
 Dispatch: on a CPU tensor a wrapper runs the plain version; on a CUDA tensor
-it launches the kernel (bf16 only; d in {64, 80}, T <= 32, any N) or raises.
+it launches the kernel (bf16 only; d in {64, 80}, T <= 32; N up to what the
+space core's shared memory holds: 783 at d = 64, 639 at d = 80) or raises.
 There is no fallback. `<wrapper>.launches` counts wrapper calls that ran the
 kernel on the card: one per sub-path, however many CUDA launches it takes.
 
@@ -27,26 +28,40 @@ Kernel notes (replaces / bound on the card / design):
   fused_time_attention_block_v7 (:2456). Bound by the qkv and proj products
   (2*S*D*4D flops per clip); the core (T+1 = 13 keys per query) is bound by
   its bytes. Design: ln_gemm (LN_3 prologue) -> qkv rows; the time core, one
-  block per (b, n) over every head, q, k and v read once into shared memory
-  in 16-byte copies, two threads per query row; split-KV CLS row; ln_gemm
-  proj with the residual x in its epilogue.
+  block per (b, n, group of at most 128 / T heads), the group's q, k and v
+  read once into shared memory in 16-byte cp.async copies, one thread per
+  query row (the first version's order of operations); split-KV CLS row;
+  ln_gemm proj with the residual x in its epilogue.
 - fused_space_block replaces fused_space_attention_block_v9 (:2964). Bound
   by the same two products; the core (N queries over 1 + N keys per frame)
-  runs flash-style on the tensor cores with an online f32 softmax over
-  64-key tiles, the CLS key being key 0. The proj epilogue adds `base`, the
-  block input (not the time output).
+  is bound by its bytes. Design: ln_gemm qkv rows; the space core, one block
+  per (b, t, h) staging the frame's 1 + N key and value rows in shared
+  memory once (cp.async, a group per 64-key tile), every 16-row query slab
+  walking them on mma.sync with an online f32 softmax over 64-key tiles (the
+  CLS key being key 0; only the 16-key chunks holding a live key run). The
+  CLS query rides along as one more query row of each frame's block, which
+  writes an f32 partial (m, l, acc) of its frame, its P V summed in f32 as
+  the TPU kernel does (by a warp with a slab fewer); a combine kernel merges
+  the T partials in a fixed order (`space_core`). The proj epilogue adds `base`,
+  the block input (not the time output).
 - fused_mlp_block replaces fused_mlp_block_v7 (:2604). Bound by the two
   products (16*S*D^2 flops per clip). Design: ln_gemm with the LN_2
   prologue and the activation epilogue, then ln_gemm with the residual.
-- fused_space_cls_only replaces fused_space_cls_only_v7 (:3339). Bound by
-  the k/v product over every token (the per-frame queries are dead). Design:
-  ln_gemm for k/v of all rows and for q of the CLS rows only, split-KV CLS
-  row, ln_gemm proj with the residual basecls.
-The CLS global row: the TPU kernels carry the online-softmax state across
-sequential grid steps; CUDA blocks run in no order, so each block writes a
-partial (m, l, acc) for its chunk of keys and a second kernel combines them
-in a fixed order (deterministic, no atomics). Softmax is exact everywhere:
-the max-free `smv="cp"` clamp of the TPU kernels is not carried over.
+- fused_space_cls_only replaces fused_space_cls_only_v7 (:3339). The
+  per-frame queries are dead and k, v are linear in y = LN(x), so the CLS
+  row is computed from x alone: u_h = Wk_h^T q_h / sqrt(d), logits y_j . u_h,
+  z_h = sum_j p_hj y_j, att_h = Wv_h z_h + bv_h (csrc/cls_pool.cuh). Bound by
+  its bytes: x read once. Design: a matvec kernel for q (LayerNorm of the
+  CLS rows) and one for u; one pass over x in row chunks (LayerNorm, logits
+  and P^T Y on mma.sync, an online softmax per head), f32 partials merged in
+  a fixed order; matvec kernels for att and for proj with the residual
+  basecls. No k or v is ever formed.
+The CLS global row of H1 (and H9): the TPU kernels carry the online-softmax
+state across sequential grid steps; CUDA blocks run in no order, so each
+block writes a partial (m, l, acc) for its chunk of keys and a second kernel
+combines them in a fixed order (deterministic, no atomics). Softmax is exact
+everywhere: the max-free `smv="cp"` clamp of the TPU kernels is not carried
+over.
 """
 
 from __future__ import annotations
@@ -142,7 +157,9 @@ def library() -> ctypes.CDLL:
     argtypes = {
         "tvts_ln_gemm": [p, i64, p, p, f, p, p, p, p, i64, p, p, i64, i, i, i, i, p, p, i, p],
         "tvts_time_core": [p, p, p, i, i, i, i, i, f, p],
-        "tvts_space_core": [p, p, p, i, i, i, i, i, f, p],
+        "tvts_space_core": [p, p, p, p, i, i, i, i, i, f, p],
+        "tvts_cls_only": [p, i, i, i, i, p, p, f, p, p, p, p, p, p, p, p, p, p, p, i, i,
+                          p],
         "tvts_attention_core_strided": [p, p, p, p, ctypes.POINTER(i64), i, i, i, i, i, f, i, p],
         "tvts_cls_attention": [p, i64, p, p, i64, i64, i, p, i64, p, p, i, i, i, f, p],
         "tvts_text_core": [p, p, p, i, i, i, i, f, i, p],
@@ -237,6 +254,28 @@ def _ln_gemm(lib, x, rows, lda, ln, w, b, out, act="none", res=None, ldres=0,
     return stats
 
 
+SMEM_OPTIN = 227 * 1024  # shared memory one block may take on the H100 (sm_90)
+
+
+def space_core_smem(N: int, d: int) -> int:
+    """Shared memory of a space-core block (csrc/attention.cuh): the frame's
+    1 + N key and value rows in bf16, padded to 16 rows and to d + 8 columns,
+    then the CLS row's f32 P and running max, 65 floats a 64-key tile."""
+    return 4 * (-(-(N + 1) // 16) * 16) * (d + 8) + 4 * 65 * -(-(N + 1) // 64)
+
+
+def _check_space_frame(N: int, d: int) -> None:
+    """Raise ValueError when a frame of N patches does not fit a space-core block."""
+    if space_core_smem(N, d) > SMEM_OPTIN:
+        n_max = SMEM_OPTIN // (4 * (d + 8)) // 16 * 16 - 1
+        while space_core_smem(n_max, d) > SMEM_OPTIN:
+            n_max -= 16
+        raise ValueError(f"{N} patches a frame at head dim {d}: the space core stages a "
+                         f"frame's {N + 1} key and value rows in shared memory "
+                         f"({space_core_smem(N, d)} bytes); at most {n_max} patches fit the "
+                         f"{SMEM_OPTIN} bytes a block may take")
+
+
 def _cls_row(lib, q, q_bstride, k, v, kv_bstride, kv_rstride, n_keys, out, out_bstride,
              num_heads, head_dim, lse=None, scale=None, batch=None):
     """Split-KV CLS global row: out[b] = softmax(q[b] k[b]^T * scale) v[b]
@@ -323,7 +362,8 @@ def time_block_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_frames, num_he
 def _attention_sub_path(core: str, x, res, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
                         num_frames, num_heads, save: bool = False):
     """res + Proj(Attn(LN(x))) on the card: ln_gemm qkv rows -> `core` on the
-    patch rows -> split-KV CLS row -> ln_gemm proj with the residual.
+    patch rows -> the CLS row (the space core's fold and combine; after the
+    time core the split-KV kernel) -> ln_gemm proj with the residual.
 
     save=True (training forward) also returns what the backward needs:
     (out, qkv [B, S, 3D], attn [B, S, D] (pre-projection), lse [B, H, S] f32
@@ -332,6 +372,8 @@ def _attention_sub_path(core: str, x, res, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
     N = _patches_per_frame(S, num_frames)
     d = _check_attention_args(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_frames,
                               num_heads)
+    if core == "tvts_space_core":
+        _check_space_frame(N, d)
     _expect("residual", res, x, x.dtype, (B, S, D))
     lib = library()
     with torch.cuda.device(x.device):
@@ -340,13 +382,67 @@ def _attention_sub_path(core: str, x, res, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
         attn = torch.empty_like(x)
         lse = (torch.empty(B, num_heads, S, dtype=torch.float32, device=x.device)
                if save else None)
-        _check(lib, getattr(lib, core)(_ptr(qkv), _ptr(attn), _ptr(lse), B, num_frames, N,
-                                       num_heads, d, d ** -0.5, _stream(x)))
-        _cls_row(lib, qkv, S * 3 * D, qkv[..., D:], qkv[..., 2 * D:], S * 3 * D, 3 * D, S,
-                 attn, S * D, num_heads, d, lse=lse)
+        if core == "tvts_space_core":  # the CLS row folded into the frames' blocks
+            _space_core(lib, qkv, attn, lse, num_frames, N, num_heads, d)
+        else:
+            _check(lib, getattr(lib, core)(_ptr(qkv), _ptr(attn), _ptr(lse), B, num_frames, N,
+                                           num_heads, d, d ** -0.5, _stream(x)))
+            _cls_row(lib, qkv, S * 3 * D, qkv[..., D:], qkv[..., 2 * D:], S * 3 * D, 3 * D, S,
+                     attn, S * D, num_heads, d, lse=lse)
         out = torch.empty_like(x)
         _ln_gemm(lib, attn, B * S, D, None, wproj, bproj, out, res=res, ldres=D)
     return (out, qkv, attn, lse, stats) if save else out
+
+
+def _space_core(lib, qkv, out, lse, T, N, H, d):
+    partial = torch.empty(qkv.shape[0], H, T, d + 2, dtype=torch.float32, device=qkv.device)
+    _check(lib, lib.tvts_space_core(_ptr(qkv), _ptr(out), _ptr(lse), _ptr(partial),
+                                    qkv.shape[0], T, N, H, d, d ** -0.5, _stream(qkv)))
+
+
+def space_core_plain(qkv, num_frames, num_heads):
+    """Every row of the space attention on packed rows qkv [B, S, 3D] (q not
+    pre-scaled), in f32: patch (t, i) over the CLS key and frame t's patches,
+    the CLS query over every token. -> (out [B, S, D], lse [B, H, S])."""
+    B, S, D3 = qkv.shape
+    T, H = num_frames, num_heads
+    N = _patches_per_frame(S, T)
+    d = D3 // 3 // H
+    q, k, v = (t.float().reshape(B, S, H, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    q = q * d ** -0.5
+    qp, kp, vp = (t[:, :, 1:].reshape(B, H, T, N, d) for t in (q, k, v))
+    keys = torch.cat([k[:, :, None, :1].expand(B, H, T, 1, d), kp], dim=3)  # [B, H, T, 1+N, d]
+    vals = torch.cat([v[:, :, None, :1].expand(B, H, T, 1, d), vp], dim=3)
+    logits = qp @ keys.transpose(-1, -2)  # [B, H, T, N, 1 + N]
+    out_p = (torch.softmax(logits, -1) @ vals).reshape(B, H, T * N, d)
+    cls_logits = q[:, :, :1] @ k.transpose(-1, -2)  # [B, H, 1, S]
+    out_c = torch.softmax(cls_logits, -1) @ v
+    out = torch.cat([out_c, out_p], dim=2).transpose(1, 2).reshape(B, S, H * d)
+    lse = torch.cat([torch.logsumexp(cls_logits, -1),
+                     torch.logsumexp(logits, -1).reshape(B, H, T * N)], dim=2)
+    return out, lse
+
+
+def space_core(qkv, num_frames: int, num_heads: int, with_lse: bool = False):
+    """H2's space core alone on packed rows qkv [B, S, 3D] as ln_gemm writes
+    them (q not pre-scaled): -> every row of the attention [B, S, D] (row 0
+    the CLS query over every token, folded into the frames' blocks and
+    combined), and with with_lse every row's log-sum-exp [B, H, S] f32. On a
+    CPU tensor, space_core_plain rounded to qkv's dtype."""
+    B, S, D3 = qkv.shape
+    N = _patches_per_frame(S, num_frames)
+    if not _dispatch(qkv):
+        out, lse = space_core_plain(qkv, num_frames, num_heads)
+        return (out.to(qkv.dtype), lse) if with_lse else out.to(qkv.dtype)
+    d = _check_geometry(D3 // 3, num_heads, num_frames)
+    _check_space_frame(N, d)
+    _expect("qkv", qkv, qkv, torch.bfloat16, (B, S, D3))
+    with torch.cuda.device(qkv.device):
+        out = torch.empty(B, S, D3 // 3, dtype=qkv.dtype, device=qkv.device)
+        lse = (torch.empty(B, num_heads, S, dtype=torch.float32, device=qkv.device)
+               if with_lse else None)
+        _space_core(library(), qkv, out, lse, num_frames, N, num_heads, d)
+    return (out, lse) if with_lse else out
 
 
 def fused_time_block(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_frames: int,
@@ -463,18 +559,36 @@ def fused_space_cls_only(x, basecls, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
     d = _check_attention_args(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_frames,
                               num_heads)
     _expect("basecls", basecls, x, x.dtype, (B, 1, D))
+    if num_heads > 16 or D > 1280:
+        raise ValueError(f"{num_heads} heads of width {D}: H4 takes at most 16 heads and a "
+                         f"width of at most 1280")
+    # two blocks of the pass over x fit an SM up to D = 768 (csrc/cls_pool.cuh)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    C, R = cls_chunks(B, S, sms * (2 if D <= 768 else 1))
     lib = library()
     with torch.cuda.device(x.device):
-        kv = torch.empty(B, S, 2 * D, dtype=x.dtype, device=x.device)
-        _ln_gemm(lib, x, B * S, D, (ln_w, ln_b), wqkv[D:], bqkv[D:], kv)
-        q = torch.empty(B, D, dtype=x.dtype, device=x.device)
-        _ln_gemm(lib, x, B, S * D, (ln_w, ln_b), wqkv[:D], bqkv[:D], q)  # CLS rows only
-        att = torch.empty(B, D, dtype=x.dtype, device=x.device)
-        _cls_row(lib, q, D, kv, kv[..., D:], S * 2 * D, 2 * D, S, att, D, num_heads, d)
+        f32 = dict(dtype=torch.float32, device=x.device)
+        q, att = torch.empty(B, D, **f32), torch.empty(B, D, dtype=x.dtype, device=x.device)
+        u, zf = torch.empty(B, num_heads, D, **f32), torch.empty(B, num_heads, D, **f32)
+        partial = torch.empty(B, C, num_heads, D + 2, **f32)
         out = torch.empty_like(basecls)
-        _ln_gemm(lib, att, B, D, None, wproj, bproj, out, res=basecls, ldres=D)
+        _check(lib, lib.tvts_cls_only(
+            _ptr(x), B, S, num_heads, d, _ptr(ln_w), _ptr(ln_b), LN_EPS, _ptr(wqkv), _ptr(bqkv),
+            _ptr(wproj), _ptr(bproj), _ptr(basecls), _ptr(out), _ptr(q), _ptr(u),
+            _ptr(partial), _ptr(zf), _ptr(att), C, R, _stream(x)))
     fused_space_cls_only.launches += 1
     return out
+
+
+def cls_chunks(B: int, S: int, slots: int) -> tuple[int, int]:
+    """(C, R): H4's pass over x splits each clip's S rows into C chunks of R
+    rows (a multiple of 16; C * R >= S, no chunk empty), so that the B * C
+    blocks fill about two waves of the `slots` blocks the card holds at once
+    (a third, nearly empty wave costs as much as a full one)."""
+    C = min(max(1, 2 * slots // B), -(-S // 16))
+    rows = -(-S // C)
+    R = -(-rows // 16) * 16
+    return -(-S // R), R
 
 
 KERNELS = (fused_time_block, fused_space_block, fused_mlp_block, fused_space_cls_only)

@@ -40,6 +40,11 @@ def space_time_vit_fused_forward(model: SpaceTimeViT, video: torch.Tensor,
     """Equivalent to model(video, keep_ind). Returns (pooled, tokens); with
     need_tokens=False tokens is None and the last block is CLS-only."""
     cfg = model.cfg
+    if not need_tokens and cfg.attentional_pool:
+        # the pooler cross-attends every token; the CLS-only last block keeps one
+        raise NotImplementedError("need_tokens=False does not support the attentional "
+                                  "pooler (cfg.attentional_pool set): its queries attend "
+                                  "every token of the last block; pass need_tokens=True")
     x = model.embed(video, keep_ind)
     T = video.shape[1] if video.ndim == 5 else 1
     blocks = model.transformer.resblocks
