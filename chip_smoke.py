@@ -63,7 +63,13 @@ times):
    core alone at B=64 against its byte bound and one masked
    scaled_dot_product_attention; every ln_gemm product shape of the B/16 extraction
    forward and train step (ms, TFLOP/s, bound, one F.linear on the same
-   operands as library_ms), printed as {"ln_gemm": [...]}; the train
+   operands as library_ms), printed as {"ln_gemm": [...]}; every wgrad
+   product of the B/16 step at B=20 and the H/14 step at B=8 (device ms,
+   TFLOP/s, bound, one torch.matmul(a.t(), b) as library_ms, each held
+   against wgrad_plain), printed as {"wgrad": [...]}; the backward time core
+   alone at B=20 against its byte bound and plain backward, and the sha256 of
+   its dqkv and CLS partials at the B/16 (N=98, d=64) and H/14 (N=76, d=80)
+   train shapes (equal digests in two trees: bit-identical outputs); the train
    step at B=20 (ms, clips/s, peak memory; kernels, kernels with
    mlp_mode="pallas", eager), each backward kernel, the saving forwards, H8
    and H9 against their plain versions at the B=20 shapes (H9 also against
@@ -83,11 +89,14 @@ times):
    "pallas": per step 32 H5, H6 and H8 forwards and backwards, 24 H7
    forwards and backwards, 18 of them frozen); the step at B=8 (preset, every
    kernel, eager) and the profile of one preset step.
+The step profiles also print the device time and launches of every wgrad and
+backward time-core kernel.
 `python3 chip_smoke.py --profile` runs phases 1 and 2 and then only the
 numbers an A/B compares (`profile_phase`): the space core's patch-row digest
-and CLS row against plain,
-the B/16 profiles, the space core alone, H1-H4, the ln_gemm table, the saving
-forwards and the step at B=20, and the B/16, B/32 and H/14 extraction rates.
+and CLS row against plain, the backward time core's digests, the B/16
+profiles, the space core alone, H1-H4, the ln_gemm and wgrad tables, the
+backward time core alone, the step at B=20 with its profile, the saving
+forwards, and the B/16, B/32 and H/14 extraction rates.
 The line before the last is {"kernels": [...]}, each with its bound (the
 larger of its bytes over 3.35 TB/s and its flops over 989 TFLOP/s, from the
 shapes timed); the last is {"ok": true, "device": {...}}.
@@ -128,6 +137,11 @@ REPLACES = {
     "mlp_subpath_backward": "tvts_tpu/ops/pallas_block_attention.py:1021",
     "mlp_subpath_backward (saved hidden)": "tvts_tpu/ops/pallas_block_backward.py:2637",
     "divided_space_time_attention_fused": "tvts_tpu/ops/pallas_attention.py:107",
+    # the weight-gradient half of the backward kernels (also :736, :2637;
+    # pallas_block_attention.py:1021; pallas_text_attention.py:264)
+    "wgrad": "tvts_tpu/ops/pallas_block_backward.py:3106",
+    # the attention-core part of fused_time_attention_block_v2_bwd (:736)
+    "time_core_backward": "tvts_tpu/ops/pallas_block_backward.py:501",
 }
 SOURCE = "tvts_torch/csrc/block_kernels.cu"
 PEAK_FLOPS, HBM_BYTES_S = 989e12, 3.35e12  # H100 SXM: dense bf16, HBM3
@@ -618,13 +632,16 @@ def step_launches(layers: int, text_layers: int, frozen: int, n_steps: int = 1, 
                   mlp=False, sort=True, saved=False) -> dict:
     """The launches of n train steps: per step `layers` H5 (and H6, H8)
     forwards and backwards, text_layers - 1 text and one sort H7 forwards and
-    as many backwards, `frozen` of them dx-only."""
+    as many backwards, `frozen` of them dx-only; two wgrad products each
+    backward that is not frozen, one backward time core each H6 backward."""
+    text = text_layers - 1 + sort
     want = {"space_subpath": layers, "space_subpath_backward": layers,
-            "fused_text_attention_block": text_layers - 1 + sort,
-            "text_subpath_backward": text_layers - 1 + sort,
-            "text_subpath_backward (frozen)": frozen}
+            "fused_text_attention_block": text, "text_subpath_backward": text,
+            "text_subpath_backward (frozen)": frozen,
+            "wgrad": 2 * (layers * (1 + time + mlp) + text - frozen)}
     if time:
-        want.update({"time_subpath": layers, "time_subpath_backward": layers})
+        want.update({"time_subpath": layers, "time_subpath_backward": layers,
+                     "time_core_backward": layers})
     if mlp:
         want.update({"mlp_subpath": layers, "mlp_subpath_backward": layers})
     if saved:
@@ -732,6 +749,10 @@ def profile_step(tag: str, train: dict, apply_fn, batch, card: str) -> None:
         groups[group] = groups.get(group, 0.0) + us / 1e3
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"[{tag}]   {ms:9.3f} ms ({ms / busy:.3f}) {group}")
+    for name in ("wgrad_kernel", "time_bwd_kernel"):
+        us = sum(r[0] for r in rows if name in r[1])
+        n = sum(r[2] for r in rows if name in r[1])
+        print(f"[{tag}]   {us / 1e3:9.3f} ms in {n} launches: every {name}")
     print(f"[{tag}]   top device time by kernel:")
     for us, key, count in sorted(rows, reverse=True)[:24]:
         print(f"[{tag}]   {us / 1e3:9.3f} ms {count:5d}x {key[:100]}")
@@ -898,6 +919,33 @@ def ln_gemm_products(cfg) -> list[dict]:
     ]
 
 
+def wgrad_products(cfg, B: int) -> list[dict]:
+    """Every weight-gradient product (wgrad) of one train step at B clips of
+    the training config `cfg` (its n_keep patches a frame): C [N1, N2] = A^T
+    B over M rows, B being LN(x) (with its eps) for the products that follow
+    a LayerNorm: the video attention blocks (H5, H6), the video MLP (H8,
+    mlp_mode="pallas"), the unfrozen text blocks and the sort head (H7)."""
+    v, tc, sort = cfg.vision, cfg.text, cfg.sort
+    D, Dt, Ds = v.width, tc.width, sort.embed_dim
+    hidden = int(D * v.mlp_ratio)
+    Mt = B * (1 + v.num_frames * v.n_keep)
+    Mx, Ms = B * cfg.num_clips * tc.context_length, B * (Mt // B + cfg.num_clips)
+
+    def p(name, M, N1, N2, eps=None):
+        return dict(name=name, M=M, N1=N1, N2=N2, ln=eps)
+
+    return [
+        p("dWproj (H5, H6)", Mt, D, D),
+        p("dWqkv (H5, H6)", Mt, 3 * D, D, 1e-5),
+        p("dWproj = g^T act (H8)", Mt, D, hidden),
+        p("dWfc (H8)", Mt, hidden, D, 1e-5),
+        p("text dWproj (H7)", Mx, Dt, Dt),
+        p("text dWqkv (H7)", Mx, 3 * Dt, Dt, 1e-5),
+        p("sort dWproj (H7)", Ms, Ds, Ds),
+        p("sort dWqkv (H7)", Ms, 3 * Ds, Ds, 1e-6),
+    ]
+
+
 def ln_gemm_table(dev, card: str, bk) -> list[dict]:
     """Each B/16 product of ln_gemm_products through ln_gemm on seeded operands:
     ms (CUDA events), TFLOP/s, its bound (operands read once, outputs written
@@ -948,6 +996,136 @@ def ln_gemm_table(dev, card: str, bk) -> list[dict]:
               f"F.linear {lib_ms:.3f} ms [{card}]")
         del x, out, kw
     return rows
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of fn's CUDA kernels per call (torch.profiler), after a
+    warm-up: the host's launch overhead, which CUDA events around a short
+    function would count, left out."""
+    for _ in range(2):
+        fn()
+    rows, _ = profiled(lambda: [fn() for _ in range(iters)])
+    return sum(r[0] for r in rows) / 1e3 / iters
+
+
+def wgrad_operands(M: int, N1: int, N2: int, ln, gen, dev) -> tuple:
+    """a [M, N1] and b [M, N2] bf16 (b offset to a LayerNorm's scale), and
+    with a LayerNorm eps the row statistics of b and its parameters."""
+    bf = torch.bfloat16
+    a = torch.randn(M, N1, generator=gen, device=dev, dtype=bf)
+    b = torch.randn(M, N2, generator=gen, device=dev, dtype=bf) + 0.5
+    if ln is None:
+        return a, b, None, None
+    bf32 = b.float()
+    stats = torch.stack([bf32.mean(-1), torch.rsqrt(bf32.var(-1, unbiased=False) + ln)], -1)
+    return a, b, stats, (1 + 0.1 * torch.randn(N2, generator=gen, device=dev),
+                         0.1 * torch.randn(N2, generator=gen, device=dev))
+
+
+def wgrad_table(dev, card: str, bb) -> tuple[list[dict], dict]:
+    """Each weight-gradient product of the B/16 step at B=20 and of the H/14
+    step at B=8 (wgrad_products) through wgrad on seeded operands: ms (device
+    time, device_ms; the partials' reduction included), TFLOP/s, its bound (operands
+    read once, dW and db written once in bf16) and as library_ms one
+    torch.matmul(a.t(), b) on the same bf16 operands (for the LayerNorm
+    products on the pre-normalised b; timed here only, never called by the
+    port). Every product is held against wgrad_plain (LN(b) rounded as the
+    kernel rounds it): each element within one bf16 unit in the last place of
+    it plus 1e-5 * max|ref|, where the f32 summation order decides. Returns
+    (rows, the B/16 dWqkv row's kernel-line numbers)."""
+    from tvts_torch.models.configs import tvtsv2_b_16, tvtsv2_h_14
+
+    gen = torch.Generator(device=dev).manual_seed(33)
+    rows, line = [], None
+    for arch, cfg, B in (("B/16", tvtsv2_b_16(), 20), ("H/14", tvtsv2_h_14(), 8)):
+        for p in wgrad_products(cfg, B):
+            M, N1, N2 = p["M"], p["N1"], p["N2"]
+            a, b, stats, ln = wgrad_operands(M, N1, N2, p["ln"], gen, dev)
+            ms = device_ms(lambda: bb.wgrad(a, b, stats, ln))
+            lib_ms = device_ms(lambda: torch.matmul(a.t(), b))
+            got = bb.wgrad(a, b, stats, ln)
+            torch.cuda.synchronize()
+            want = bb.wgrad_plain(a, b, stats, ln, dtype=torch.float32)
+            err = 0.0
+            for g, w in zip(got, want):
+                diff = (g.float() - w).abs()
+                unit = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+                if (diff > unit + 1e-5 * w.abs().max()).any():
+                    raise AssertionError(f"wgrad {arch} {p['name']}: off plain by more than "
+                                         f"one bf16 unit (max|diff| {diff.max().item()})")
+                err = max(err, diff.max().item())
+            flops = 2 * M * N1 * N2
+            bnd = bound_ms(flops, 2 * M * (N1 + N2) + 2 * (N1 * N2 + N1))
+            rows.append(dict(name=f"{arch} {p['name']}", M=M, N1=N1, N2=N2,
+                             prologue=f"layernorm eps {p['ln']:g}" if p["ln"] else "none",
+                             ms=ms, tflops=flops / ms / 1e9, bound_ms=bnd[0], bound_by=bnd[1],
+                             library_ms=lib_ms, max_abs_err=err))
+            print(f"[6] wgrad {arch} {p['name']:24s} M={M} N1={N1} N2={N2} "
+                  f"{'LN' if p['ln'] else '  '}: {ms:.3f} ms, {flops / ms / 1e9:.1f} TFLOP/s, "
+                  f"bound {bnd[0]:.3f} ms ({bnd[1]}), torch.matmul {lib_ms:.3f} ms "
+                  f"({ms / lib_ms:.2f}x), max|diff| to plain {err:.3e} [{card}]")
+            if arch == "B/16" and p["name"].startswith("dWqkv"):
+                p_ms = device_ms(lambda: bb.wgrad_plain(a, b, stats, ln), iters=3)
+                line = dict(ms=ms, plain_ms=p_ms, bound=bnd, library_ms=lib_ms, max_abs_err=err)
+            del a, b, stats, got, want
+    return rows, line
+
+
+def time_bwd_work(B: int, T: int, N: int, H: int, d: int) -> tuple[float, float]:
+    """(flops, bytes) of the backward time core: per (clip, location, head)
+    G = T + 1 elements, 10 * d * G^2 flops (the logits and dP, dq, dk and dv);
+    qkv and dO read once with the lse and delta, dqkv written once."""
+    S, D, G = 1 + T * N, H * d, T + 1
+    return 10 * d * G * G * B * N * H, 2 * B * S * (3 * D + D + 3 * D) + 8 * B * H * S
+
+
+def time_core_bwd_inputs(B, T, N, H, d, seed, dev, bb):
+    """Seeded qkv and dO (bf16) and the lse and delta of the plain core."""
+    rng = np.random.default_rng(seed)
+    S, D = 1 + T * N, H * d
+    qkv = torch.tensor(rng.standard_normal((B, S, 3 * D)), dtype=torch.bfloat16, device=dev)
+    dO = torch.tensor(rng.standard_normal((B, S, D)), dtype=torch.bfloat16, device=dev)
+    out, lse = bb.time_core_plain(qkv, T, H)
+    delta = (dO.float() * out).reshape(B, S, H, d).sum(-1).transpose(1, 2).contiguous()
+    return qkv, dO, lse.contiguous(), delta
+
+
+def time_core_bwd_digests(dev, bb) -> None:
+    """The backward time core at the B/16 (N = 98, d = 64) and H/14 (N = 76,
+    d = 80) train shapes: the sha256 of its dqkv and of the groups' CLS
+    partials (equal digests in two trees: bit-identical outputs)."""
+    import hashlib
+
+    for B, T, N, H, d in ((2, 12, 98, 12, 64), (1, 12, 76, 16, 80)):
+        qkv, dO, lse, delta = time_core_bwd_inputs(B, T, N, H, d, 53, dev, bb)
+        with torch.cuda.device(dev):
+            dqkv, partial = bb._time_core_backward(bb.bk.library(), qkv, dO, lse, delta, T, H)
+        torch.cuda.synchronize()
+        for name, t in (("dqkv", dqkv.view(torch.int16)), ("CLS partials", partial)):
+            digest = hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+            print(f"[6] time core backward N={N} d={d}: {name} sha256 {digest}")
+
+
+def time_core_bwd_times(dev, card: str, bb, B: int = 20) -> dict:
+    """The backward time core alone at the B/16 step shape (B clips, S =
+    1177, d = 64), the CLS combine included (device time, device_ms), against
+    its byte bound and the
+    plain backward; held against the plain backward (each element within the
+    bf16 store plus 1e-4 * max|ref|). Returns the kernel line's numbers."""
+    T, N, H, d = 12, 98, 12, 64
+    qkv, dO, lse, delta = time_core_bwd_inputs(B, T, N, H, d, 54, dev, bb)
+    ms = device_ms(lambda: bb.time_core_backward(qkv, dO, lse, delta, T, H))
+    p_ms = device_ms(lambda: bb.time_core_backward_plain(qkv, dO, lse, delta, T, H), iters=3)
+    got = bb.time_core_backward(qkv, dO, lse, delta, T, H).float()
+    want = bb.time_core_backward_plain(qkv, dO, lse, delta, T, H)
+    diff = (got - want).abs()
+    if (diff > 2.0 ** -8 * want.abs() + 1e-4 * want.abs().max()).any():
+        raise AssertionError(f"the backward time core disagrees with plain: {diff.max().item()}")
+    bnd = bound_ms(*time_bwd_work(B, T, N, H, d))
+    print(f"[6] time core backward alone B={B} S={1 + T * N} d={d}: {ms:.3f} ms, plain "
+          f"{p_ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}), {ms / bnd[0]:.2f}x the bound, "
+          f"max|diff| to plain {diff.max().item():.3e} [{card}]")
+    return dict(ms=ms, plain_ms=p_ms, bound=bnd, max_abs_err=diff.max().item())
 
 
 def forward_profile(cfg, model, B: int, dev, card: str, bk) -> dict:
@@ -1432,6 +1610,7 @@ def profile_phase(dev, card: str, bk, bb, ta) -> None:
     from tvts_torch.models.factory import build_model
 
     space_core_rows(dev, bk)
+    time_core_bwd_digests(dev, bb)
     cfg, model = build_model("TVTSv2_B_16", dtype=torch.bfloat16, device=dev, seed=0)
     add_noise_(model, 1, dev)
     v = cfg.vision
@@ -1441,10 +1620,14 @@ def profile_phase(dev, card: str, bk, bb, ta) -> None:
     extraction_rate("6", cfg, model, 64, dev, card, iters=5)
     del model
     print(json.dumps({"ln_gemm": ln_gemm_table(dev, card, bk)}))
+    print(json.dumps({"wgrad": wgrad_table(dev, card, bb)[0]}))
+    time_core_bwd_times(dev, card, bb)
     train = build_train("TVTSv2_B_16", dev, noise_seed=11, text_tune_layers=3, tag="6")
     B = 20
     batch = train_batch(train["cfg"], B, seed=13, device=dev)
-    time_steps("6", "kernels", train, kernel_apply(train, "6"), batch, card)
+    best = kernel_apply(train, "6")
+    time_steps("6", "kernels", train, best, batch, card)
+    profile_step("6", train, best, batch, card)
     v = train["cfg"].vision  # the pretraining config: n_keep patches a frame
     S, T, N, D, H = 1 + v.num_frames * v.n_keep, v.num_frames, v.n_keep, v.width, v.heads
     a = seeded_inputs(1, 1, 1, D, seed=14, device=dev)
@@ -1606,6 +1789,13 @@ def main() -> int:
     core = {"B": B, "ms": core_ms, "bound_ms": core_bound[0], "bound_by": core_bound[1],
             "library_ms": core_library}
     library = {}
+    wgrad_rows, line = wgrad_table(dev, card, bb)
+    times["wgrad"] = (line["ms"], line["plain_ms"], line["bound"])
+    library["wgrad"], max_err["wgrad"] = line["library_ms"], line["max_abs_err"]
+    line = time_core_bwd_times(dev, card, bb)
+    times["time_core_backward"] = (line["ms"], line["plain_ms"], line["bound"])
+    max_err["time_core_backward"] = line["max_abs_err"]
+    time_core_bwd_digests(dev, bb)
 
     TB = 256
     ids = torch.from_numpy(tokenize_openclip(
@@ -1648,11 +1838,13 @@ def main() -> int:
         raise AssertionError(f"kernels that no main path launched: {unlaunched}")
     print(card)
     print(json.dumps({"ln_gemm": ln_gemm_rows}))
+    print(json.dumps({"wgrad": wgrad_rows}))
     print(json.dumps({"space_core": core}))
     # library_ms: no single PyTorch call computes a whole sub-path (LayerNorm,
     # the products, divided or causal attention, activation and residual, or
-    # their gradients); the H9 cores alone are one masked
-    # scaled_dot_product_attention call (core_library_call)
+    # their gradients) or the backward time core; the H9 cores alone are one
+    # masked scaled_dot_product_attention call (core_library_call), wgrad's
+    # product one torch.matmul(a.t(), b) (wgrad_table)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": max_err[name],

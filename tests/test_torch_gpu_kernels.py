@@ -566,3 +566,124 @@ def test_cls_only_kernel_matches_plain_at_model_shapes(cuda, shape):
     assert diff <= tol, (diff, ref)
     again = kernel()  # chunks merged in a fixed order: no run-to-run drift
     assert torch.equal(got, again)
+
+
+# ---------------------------------------------------------------------------
+# wgrad (TMA + wgmma, split-M) on its own, against an f32 product
+# ---------------------------------------------------------------------------
+def _wgrad_operands(M, N1, N2, seed, dev, ln):
+    """a [M, N1], b [M, N2] bf16; with `ln`, b's row statistics and LayerNorm
+    parameters whose weights are powers of two (so the kernel's fused
+    multiply-add and plain torch round LN(b) alike, to the same bf16 values)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    a = torch.randn(M, N1, generator=gen, device=dev, dtype=bf)
+    b = torch.randn(M, N2, generator=gen, device=dev, dtype=bf) + 0.5
+    if not ln:
+        return a, b, None, None
+    w = 2.0 ** torch.randint(-1, 2, (N2,), generator=gen, device=dev).float()
+    bias = torch.randint(-8, 9, (N2,), generator=gen, device=dev).float() / 8
+    bf32 = b.float()
+    stats = torch.stack([bf32.mean(-1), torch.rsqrt(bf32.var(-1, unbiased=False) + 1e-5)], -1)
+    return a, b, stats, (w, bias)
+
+
+def bf16_unit(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 unit in the last place at |x|: 2^(floor(log2 |x|) - 7)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+def _wgrad_check(got, want):
+    """Every element within one bf16 unit of the f32 reference, plus 1e-5 *
+    max|ref| where the sum nearly cancels and the f32 summation order decides
+    the last bits."""
+    want = want.float()
+    diff = (got.float() - want).abs()
+    bound = bf16_unit(want) + 1e-5 * want.abs().max()
+    assert torch.isfinite(got.float()).all()
+    assert (diff <= bound).all(), (diff.max().item(), (diff > bound).sum().item())
+
+
+# (M, N1, N2, LayerNorm on b): attention D = 512, 768, 1280 (dWproj, dWqkv),
+# the MLP's two products, a ragged M, an M below one split, ragged N1 and N2
+WGRAD_CASES = [(6160, 512, 512, False), (6160, 1536, 512, True),
+               (23540, 768, 768, False), (23540, 2304, 768, True),
+               (7304, 1280, 1280, False), (7304, 3840, 1280, True),
+               (23540, 768, 3072, False), (23540, 3072, 768, True),
+               (1001, 768, 768, True), (40, 2304, 768, True), (300, 200, 328, True)]
+
+
+@pytest.mark.parametrize("case", WGRAD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_wgrad_matches_f32_reference(cuda, case):
+    M, N1, N2, ln = case
+    a, b, stats, lnp = _wgrad_operands(M, N1, N2, 50, cuda, ln)
+    before = bb.wgrad.launches
+    dw, db = bb.wgrad(a, b, stats, lnp)
+    torch.cuda.synchronize()
+    assert bb.wgrad.launches == before + 1
+    assert dw.shape == (N1, N2) and db.shape == (N1,) and dw.dtype == torch.bfloat16
+    bl = b if lnp is None else ((b.float() - stats[:, :1]) * stats[:, 1:] * lnp[0]
+                                + lnp[1]).to(torch.bfloat16)
+    _wgrad_check(dw, a.float().t() @ bl.float())
+    _wgrad_check(db, a.float().sum(0))
+    dw32, db32 = bb.wgrad(a, b, stats, lnp, dtype=torch.float32)
+    _wgrad_check(dw32, a.float().t() @ bl.float())
+    again = bb.wgrad(a, b, stats, lnp, dtype=torch.float32)  # fixed-order partial sums
+    assert torch.equal(again[0], dw32) and torch.equal(again[1], db32)
+
+
+def test_wgrad_raises_before_launch_on_what_it_does_not_take(cuda):
+    a, b, _, _ = _wgrad_operands(64, 768, 768, 51, cuda, False)
+    with pytest.raises(ValueError, match="N1 = 12"):
+        bb.wgrad(a[:, :12].contiguous(), b)
+    lib = bk.library()
+    with pytest.raises(ValueError, match="lda = 772"):
+        bb._wgrad(lib, torch.empty(64, 772, device=cuda, dtype=torch.bfloat16)[:, :768], b)
+    off = torch.empty(64 * 768 + 8, device=cuda, dtype=torch.bfloat16)[1:1 + 64 * 768]
+    with pytest.raises(ValueError, match="a at .* not 16-byte aligned"):
+        bb._wgrad(lib, off.view(64, 768), b)
+
+
+# ---------------------------------------------------------------------------
+# the backward time core on its own, against autograd of the plain core
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("N", [49, 76, 98, 196])
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("T", [1, 12, 32])
+def test_time_core_backward_matches_autograd_of_plain(cuda, T, d, N):
+    """dq, dk, dv of every row (the CLS row from the groups' partials after
+    the combine) within the bf16 store of autograd's f32 value, plus 1e-4 *
+    max|ref| where a sum nearly cancels; two runs bit-equal."""
+    H = 12 if d == 64 else 16
+    B, S, D = 2 if T * N < 3000 else 1, 1 + T * N, H * d
+    rng = np.random.default_rng(52)
+    qkv = torch.tensor(rng.standard_normal((B, S, 3 * D)), dtype=torch.bfloat16, device=cuda)
+    dO = torch.tensor(rng.standard_normal((B, S, D)), dtype=torch.bfloat16, device=cuda)
+    q32 = qkv.float().requires_grad_()
+    out, lse = bb.time_core_plain(q32, T, H)
+    (want,) = torch.autograd.grad(out, q32, dO.float())
+    out = out.detach()
+    delta = (dO.float() * out).reshape(B, S, H, d).sum(-1).transpose(1, 2).contiguous()
+    lse = lse.detach().contiguous()
+    before = bb.time_core_backward.launches
+    got = bb.time_core_backward(qkv, dO, lse, delta, T, H)
+    torch.cuda.synchronize()
+    assert bb.time_core_backward.launches == before + 1
+    assert got.shape == qkv.shape and got.dtype == torch.bfloat16
+    diff = (got.float() - want).abs()
+    bound = 2.0 ** -8 * want.abs() + 1e-4 * want.abs().max()
+    assert (diff <= bound).all(), (diff.max().item(), (diff > bound).sum().item())
+    assert torch.equal(bb.time_core_backward(qkv, dO, lse, delta, T, H), got)
+
+
+def test_time_core_backward_raises_before_launch(cuda):
+    T, N, H, d = 33, 4, 2, 64
+    qkv = torch.zeros(1, 1 + T * N, 3 * H * d, device=cuda, dtype=torch.bfloat16)
+    dO = torch.zeros(1, 1 + T * N, H * d, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(1, H, 1 + T * N, device=cuda)
+    with pytest.raises(ValueError, match="33 frames"):
+        bb.time_core_backward(qkv, dO, lse, lse, T, H)
+    with pytest.raises(TypeError):
+        bb.time_core_backward(qkv[:, :1 + 12 * N].contiguous(), dO[:, :1 + 12 * N].float(),
+                              lse[:, :, :1 + 12 * N].contiguous(),
+                              lse[:, :, :1 + 12 * N].contiguous(), 12, H)

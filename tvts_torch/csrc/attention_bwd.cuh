@@ -32,11 +32,14 @@
 // time and space cores move bytes (qkv, dO and dqkv rows, ~10.7 KB a token at
 // D = 768: 0.075 ms at B=20 against ~0.02 ms of their tensor-core work); the
 // text core at the sort head's S = 1181 is bound by its 10 * D * S^2 flops per
-// sequence. This first version recomputes QK^T and dO V^T in both flash
-// kernels and runs the time core on SIMT lanes (13 of 32 busy at T = 12).
+// sequence. The flash kernels recompute QK^T and dO V^T in both passes (dq;
+// dk and dv); the time core (its own section below) runs on SIMT lanes, a
+// thread per (element, head) of a group.
 #pragma once
 
 #include <math.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -343,128 +346,226 @@ inline cudaError_t launch_flash_bwd(const FlashBwdArgs& a, int B, cudaStream_t s
 }
 
 // ---------------------------------------------------------------------------
-// Time core backward. The time group of location n is [CLS, (0, n), (1, n),
-// .., (T-1, n)]: T + 1 <= 33 elements, too small for the tensor cores. As in
-// the forward one warp owns a (b, n, h) group; the rows go to shared memory
-// in f32, then (1) lane i computes row i of P and dS and dq_i, (2) lane j
-// computes dk_j and dv_j from column j of P and dS. 16 head dims at a time,
-// so the accumulators stay in registers.
+// Time core backward (H6). The time group of location n is [CLS, (0, n), (1,
+// n), .., (T-1, n)]: G = T + 1 <= 33 elements, too small for the tensor cores,
+// and bound by bytes on the H100 (q, k, v and dO read once, dqkv written once:
+// 253 MB, 0.075 ms at B/16's B=20). Design, by the forward time core's pattern
+// (attention.cuh): one block per (b, n, head group), a group of at most
+// TB_MAX_THREADS / G heads; small blocks (about 50 KB of shared memory and
+// 100 threads at T = 12), several on an SM, so that one block's loads overlap
+// another's arithmetic. 16-byte cp.async copies, neighbouring threads on
+// neighbouring addresses, bring q, k, v and dO of the group's G tokens into
+// shared memory as bf16 (the CLS rows once a block, not once a head; rows
+// padded by 16 bytes so that neighbouring rows start on other banks), and
+// the group's lse and delta once. Thread (h, i) then:
+// (1) keeps q_i and dO_i in f32 registers and builds row i of P and dS,
+//     each logit and each dP one f32 chain over d in order, p =
+//     __expf(qk * scale - lse_i), dS = p * (dP - delta_i), both into shared
+//     memory in f32;
+// (2) after a barrier, dq_i = scale * sum_j dS_ij k_j over j in order;
+// (3) dk_j = scale * sum_i dS_ij q_i and dv_j = sum_i P_ij dO_i over i in
+//     order for the column j = i it owns.
+// This is the first version's order of operations in every output element
+// (one warp a group and SIMT lanes then), so dqkv and the CLS partials are bit
+// for bit the same; the H/14 step-0 gates sit near their limit (PERF.md).
+// The outputs are staged in shared memory over the rows no longer read (dq
+// over v, dk over k, dv over q) and leave in 16-byte stores; the CLS token's
+// dq, dk and dv go out as the group's f32 partial.
 // ---------------------------------------------------------------------------
-constexpr int TB_WARPS = 4;
+constexpr int TB_MAX_THREADS = 128;
 
-inline size_t time_bwd_smem(int T, int DH) {
+// Heads a block takes: at most TB_MAX_THREADS / (T + 1), the H heads split as
+// evenly as that allows.
+inline int time_bwd_heads(int T, int H) {
+  const int cap = std::max(1, TB_MAX_THREADS / (T + 1));
+  const int groups = (H + cap - 1) / cap;
+  return (H + groups - 1) / groups;
+}
+
+// q, k, v and dO of the G elements ([G][HG * DH + 8] bf16 each), then P and
+// dS ([HG][G][G | 1] f32, an odd row stride), then lse and delta ([HG][G]).
+inline size_t time_bwd_smem(int T, int HG, int DH) {
   const int G = T + 1;
-  return sizeof(float) * TB_WARPS * (4 * G * (DH + 1) + 2 * G * (G + 1));
+  return (size_t)4 * G * (HG * DH + 8) * 2 + (size_t)2 * HG * G * (G | 1) * 4 +
+         (size_t)2 * HG * G * 4;
 }
 
 template <int DH>
-__global__ void __launch_bounds__(TB_WARPS * 32)
+__global__ void __launch_bounds__(TB_MAX_THREADS)
     time_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     bf16* __restrict__ dqkv, float* __restrict__ cls_partial, int T, int N,
-                    int H, float scale) {
-  extern __shared__ float tbs[];
-  constexpr int LD = DH + 1;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n = blockIdx.x, b = blockIdx.y;
-  const int G = T + 1, D = H * DH, S = 1 + T * N;
-  float* sq = tbs + warp * (4 * G * LD + 2 * G * (G + 1));
-  float* sk = sq + G * LD;
-  float* sv = sk + G * LD;
-  float* sdo = sv + G * LD;
-  float* sp = sdo + G * LD;  // [G][G + 1]
-  float* sds = sp + G * (G + 1);
+                    int H, int HG, float scale) {
+  extern __shared__ __align__(16) uint8_t tbs[];
+  constexpr int VPR = DH / 8;  // 16-byte vectors per head row
+  const int n = blockIdx.x, b = blockIdx.y, h0 = blockIdx.z * HG;
+  const int hg = min(HG, H - h0);
+  const int G = T + 1, GP = G | 1, D = H * DH, S = 1 + T * N, LD = HG * DH + 8;
+  bf16* sq = reinterpret_cast<bf16*>(tbs);  // element e: 0 the CLS token, else frame e - 1
+  bf16* sk = sq + G * LD;
+  bf16* sv = sk + G * LD;
+  bf16* sdo = sv + G * LD;
+  float* sp = reinterpret_cast<float*>(sdo + G * LD);  // [HG][G][GP]
+  float* sds = sp + HG * G * GP;
+  float* slse = sds + HG * G * GP;  // [HG][G]
+  float* sdel = slse + HG * G;
   const bf16* qb = qkv + (i64)b * S * 3 * D;
   const bf16* ob = dO + (i64)b * S * D;
 
-  for (int h = warp; h < H; h += TB_WARPS) {
-    for (int r = 0; r < 4 * G; ++r) {
-      const int e = r % G, which = r / G;  // 0 q, 1 k, 2 v, 3 dO
-      const i64 tok = e == 0 ? 0 : 1 + (i64)(e - 1) * N + n;
-      const bf16* src = which == 3 ? ob + tok * D + h * DH : qb + tok * 3 * D + which * D + h * DH;
-      float* dst = sq + which * G * LD + e * LD;
-      for (int i = lane; i < DH; i += 32) dst[i] = __bfloat162float(src[i]);
-    }
-    __syncwarp();
-    const float* lse_bh = lse + ((i64)b * H + h) * S;
-    const float* delta_bh = delta + ((i64)b * H + h) * S;
+  const int per_row = hg * VPR;
+  for (int e = threadIdx.x; e < 4 * G * per_row; e += blockDim.x) {
+    const int r = e / per_row, rem = e - r * per_row;
+    const int hh = rem / VPR, c = rem - hh * VPR;
+    const int which = r / G, el = r - which * G;  // 0 q, 1 k, 2 v, 3 dO
+    const i64 tok = el == 0 ? 0 : 1 + (i64)(el - 1) * N + n;
+    const bf16* src = which == 3 ? ob + tok * D : qb + tok * 3 * D + which * D;
+    cp_async16(sq + (which * G + el) * LD + hh * DH + c * 8, src + (h0 + hh) * DH + c * 8);
+  }
+  for (int e = threadIdx.x; e < hg * G; e += blockDim.x) {
+    const int hh = e / G, el = e - hh * G;
+    const i64 at = ((i64)b * H + h0 + hh) * S + (el == 0 ? 0 : 1 + (i64)(el - 1) * N + n);
+    slse[e] = lse[at];
+    sdel[e] = delta[at];
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
 
-    // (1) lane i: row i of P and dS, then dq_i
-    if (lane < G) {
-      const int i = lane;
-      const i64 tok = i == 0 ? 0 : 1 + (i64)(i - 1) * N + n;
-      const float l_i = lse_bh[tok], d_i = delta_bh[tok];
+  // thread (hh, i): neighbouring threads share a head, so their k / v (pass
+  // 1) and q / dO (pass 3) reads are broadcasts
+  const int tid = threadIdx.x;
+  const bool live = tid < G * hg;
+  const int tc = live ? tid : 0;
+  const int hh = tc / G, i = tc - hh * G;
+  const int col = hh * DH;
+  float* prow = sp + (hh * G + i) * GP;
+  float* dsrow = sds + (hh * G + i) * GP;
+
+  // (1) row i of P and dS
+  if (live) {
+    float qf[DH], of[DH];
+#pragma unroll
+    for (int c = 0; c < DH; c += 8) {
+      float f[8], g[8];
+      unpack_bf16x8(*reinterpret_cast<const uint4*>(sq + i * LD + col + c), f);
+      unpack_bf16x8(*reinterpret_cast<const uint4*>(sdo + i * LD + col + c), g);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        qf[c + e] = f[e];
+        of[c + e] = g[e];
+      }
+    }
+    const float l_i = slse[hh * G + i], d_i = sdel[hh * G + i];
+    for (int j = 0; j < G; ++j) {
+      float qk = 0.f, dv = 0.f;
+#pragma unroll
+      for (int c = 0; c < DH; c += 8) {
+        float kf[8], vf[8];
+        unpack_bf16x8(*reinterpret_cast<const uint4*>(sk + j * LD + col + c), kf);
+        unpack_bf16x8(*reinterpret_cast<const uint4*>(sv + j * LD + col + c), vf);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          qk += qf[c + e] * kf[e];
+          dv += of[c + e] * vf[e];
+        }
+      }
+      const bool masked = i == 0 && j == 0 && n != 0;  // CLS-CLS belongs to group 0
+      const float p = masked ? 0.f : __expf(qk * scale - l_i);
+      prow[j] = p;
+      dsrow[j] = p * (dv - d_i);
+    }
+  }
+  __syncthreads();  // P and dS complete; v is read no more
+
+  if (live) {
+    // (2) dq_i = scale * sum_j dS_ij k_j
+    {
+      float acc[DH];
+#pragma unroll
+      for (int d = 0; d < DH; ++d) acc[d] = 0.f;
       for (int j = 0; j < G; ++j) {
-        float qk = 0.f, dv = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < DH; ++d) {
-          qk += sq[i * LD + d] * sk[j * LD + d];
-          dv += sdo[i * LD + d] * sv[j * LD + d];
+        const float w = dsrow[j];
+#pragma unroll
+        for (int c = 0; c < DH; c += 8) {
+          float kf[8];
+          unpack_bf16x8(*reinterpret_cast<const uint4*>(sk + j * LD + col + c), kf);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[c + e] += w * kf[e];
         }
-        const bool masked = i == 0 && j == 0 && n != 0;  // CLS-CLS belongs to group 0
-        const float p = masked ? 0.f : __expf(qk * scale - l_i);
-        sp[i * (G + 1) + j] = p;
-        sds[i * (G + 1) + j] = p * (dv - d_i);
       }
-      for (int d0 = 0; d0 < DH; d0 += 16) {
-        float acc[16];
+      if (i == 0) {
+        float4* dst = reinterpret_cast<float4*>(
+            cls_partial + ((((i64)b * N + n) * H + h0 + hh) * 3 + 0) * DH);
 #pragma unroll
-        for (int d = 0; d < 16; ++d) acc[d] = 0.f;
-        for (int j = 0; j < G; ++j) {
-          const float w = sds[i * (G + 1) + j];
+        for (int d = 0; d < DH; d += 4)
+          dst[d / 4] = make_float4(acc[d] * scale, acc[d + 1] * scale, acc[d + 2] * scale,
+                                   acc[d + 3] * scale);
+      } else {
 #pragma unroll
-          for (int d = 0; d < 16; ++d) acc[d] += w * sk[j * LD + d0 + d];
-        }
-        if (i == 0) {
-          float* dst = cls_partial + ((((i64)b * N + n) * H + h) * 3 + 0) * DH + d0;
+        for (int c = 0; c < DH; c += 8) {
+          float o[8];
 #pragma unroll
-          for (int d = 0; d < 16; ++d) dst[d] = acc[d] * scale;
-        } else {
-          bf16* dst = dqkv + tok * 3 * D + (i64)b * S * 3 * D + h * DH + d0;
-#pragma unroll
-          for (int d = 0; d < 16; d += 2)
-            *reinterpret_cast<__nv_bfloat162*>(dst + d) =
-                __floats2bfloat162_rn(acc[d] * scale, acc[d + 1] * scale);
+          for (int e = 0; e < 8; ++e) o[e] = acc[c + e] * scale;
+          *reinterpret_cast<uint4*>(sv + i * LD + col + c) = pack_bf16x8(o);  // dq over v
         }
       }
     }
-    __syncwarp();
-    // (2) lane j: dk_j = scale * sum_i dS_ij q_i, dv_j = sum_i P_ij dO_i
-    if (lane < G) {
-      const int j = lane;
-      const i64 tok = j == 0 ? 0 : 1 + (i64)(j - 1) * N + n;
-      for (int d0 = 0; d0 < DH; d0 += 16) {
-        float ak[16], av[16];
+  }
+  // (3) column j = i: dk_j = scale * sum_i dS_ij q_i, dv_j = sum_i P_ij dO_i
+  const int j = i;
+  float ak[DH], av[DH];
 #pragma unroll
-        for (int d = 0; d < 16; ++d) ak[d] = av[d] = 0.f;
-        for (int i = 0; i < G; ++i) {
-          const float w = sds[i * (G + 1) + j], p = sp[i * (G + 1) + j];
+  for (int d = 0; d < DH; ++d) ak[d] = av[d] = 0.f;
+  if (live) {
+    for (int r = 0; r < G; ++r) {
+      const float w = sds[(hh * G + r) * GP + j], p = sp[(hh * G + r) * GP + j];
 #pragma unroll
-          for (int d = 0; d < 16; ++d) {
-            ak[d] += w * sq[i * LD + d0 + d];
-            av[d] += p * sdo[i * LD + d0 + d];
-          }
-        }
-        if (j == 0) {
-          float* dst = cls_partial + (((i64)b * N + n) * H + h) * 3 * DH + d0;
+      for (int c = 0; c < DH; c += 8) {
+        float qf[8], of[8];
+        unpack_bf16x8(*reinterpret_cast<const uint4*>(sq + r * LD + col + c), qf);
+        unpack_bf16x8(*reinterpret_cast<const uint4*>(sdo + r * LD + col + c), of);
 #pragma unroll
-          for (int d = 0; d < 16; ++d) {
-            dst[DH + d] = ak[d] * scale;
-            dst[2 * DH + d] = av[d];
-          }
-        } else {
-          bf16* dst = dqkv + tok * 3 * D + (i64)b * S * 3 * D + h * DH + d0;
-#pragma unroll
-          for (int d = 0; d < 16; d += 2) {
-            *reinterpret_cast<__nv_bfloat162*>(dst + D + d) =
-                __floats2bfloat162_rn(ak[d] * scale, ak[d + 1] * scale);
-            *reinterpret_cast<__nv_bfloat162*>(dst + 2 * D + d) =
-                __floats2bfloat162_rn(av[d], av[d + 1]);
-          }
+        for (int e = 0; e < 8; ++e) {
+          ak[c + e] += w * qf[e];
+          av[c + e] += p * of[e];
         }
       }
     }
-    __syncwarp();
+  }
+  __syncthreads();  // q, k and dO are read no more
+  if (live) {
+    if (j == 0) {
+      float4* dst = reinterpret_cast<float4*>(
+          cls_partial + (((i64)b * N + n) * H + h0 + hh) * 3 * DH);
+#pragma unroll
+      for (int d = 0; d < DH; d += 4) {
+        dst[DH / 4 + d / 4] = make_float4(ak[d] * scale, ak[d + 1] * scale, ak[d + 2] * scale,
+                                          ak[d + 3] * scale);
+        dst[2 * DH / 4 + d / 4] = make_float4(av[d], av[d + 1], av[d + 2], av[d + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < DH; c += 8) {
+        float ok[8], ov[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          ok[e] = ak[c + e] * scale;
+          ov[e] = av[c + e];
+        }
+        *reinterpret_cast<uint4*>(sk + j * LD + col + c) = pack_bf16x8(ok);  // dk over k
+        *reinterpret_cast<uint4*>(sq + j * LD + col + c) = pack_bf16x8(ov);  // dv over q
+      }
+    }
+  }
+  __syncthreads();
+  // the patch rows of dq (staged in v), dk (in k) and dv (in q) in 16-byte stores
+  for (int e = threadIdx.x; e < T * 3 * per_row; e += blockDim.x) {
+    const int r = e / (3 * per_row), rem = e - r * 3 * per_row;
+    const int which = rem / per_row, rem2 = rem - which * per_row;
+    const int h = rem2 / VPR, c = rem2 - h * VPR;
+    const bf16* src = (which == 0 ? sv : which == 1 ? sk : sq) + (r + 1) * LD + h * DH + c * 8;
+    const i64 tok = 1 + (i64)r * N + n;
+    *reinterpret_cast<uint4*>(dqkv + ((i64)b * S + tok) * 3 * D + which * D + (h0 + h) * DH +
+                              c * 8) = *reinterpret_cast<const uint4*>(src);
   }
 }
 

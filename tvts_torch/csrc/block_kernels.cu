@@ -321,32 +321,7 @@ int tvts_cls_only(const void* x, int B, int S, int H, int dh, const void* ln_w,
 // training backward (weight_grad.cuh, attention_bwd.cuh)
 // ---------------------------------------------------------------------------
 
-// partial[z] = A[rows of split z]^T B[same rows] (f32 [N1, N2] each), B optionally
-// LN(x) from the row stats; colsum != NULL: colsum[z] = column sums of A's rows.
-int tvts_wgrad(const void* A, i64 lda, const void* Bm, i64 ldb, const void* stats,
-               const void* ln_w, const void* ln_b, void* partial, void* colsum, int M, int N1,
-               int N2, int splits, int rows_per_split, void* stream) {
-  if (N1 % 8 || N2 % 8 || lda % 8 || ldb % 8 || rows_per_split % tvts::WG_BK ||
-      (i64)splits * rows_per_split < M)
-    return (int)cudaErrorInvalidValue;
-  tvts::WgradArgs a;
-  a.A = (const bf16*)A;
-  a.lda = lda;
-  a.Bm = (const bf16*)Bm;
-  a.ldb = ldb;
-  a.stats = (const float2*)stats;
-  a.ln_w = (const float*)ln_w;
-  a.ln_b = (const float*)ln_b;
-  a.partial = (float*)partial;
-  a.colsum = (float*)colsum;
-  a.M = M;
-  a.N1 = N1;
-  a.N2 = N2;
-  a.rows_per_split = rows_per_split;
-  dim3 grid((N2 + tvts::WG_BN - 1) / tvts::WG_BN, (N1 + tvts::WG_BM - 1) / tvts::WG_BM, splits);
-  tvts::wgrad_kernel<<<grid, tvts::WG_THREADS, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
-}
+// tvts_wgrad: weight_grad.cu.
 
 // out[i] = sum over p < P of partial[p * n + i], in order; out_f32 / out_bf16 may be NULL.
 int tvts_reduce(const void* partial, int P, i64 n, void* out_f32, void* out_bf16,
@@ -419,33 +394,26 @@ int tvts_flash_bwd(const void* qkv, const void* dO, const void* lse, const void*
   return (int)cudaErrorInvalidValue;
 }
 
-// dqkv of the H6 time core (S = 1 + T*N rows), the CLS token's dq, dk, dv as
-// f32 partials into cls_partial [B, N, H, 3, dh].
+// dqkv of the H6 time core (S = 1 + T*N rows, T <= 32), the CLS token's dq,
+// dk, dv as f32 partials into cls_partial [B, N, H, 3, dh].
 int tvts_time_bwd(const void* qkv, const void* dO, const void* lse, const void* delta,
                   void* dqkv, void* cls_partial, int B, int T, int N, int H, int dh,
                   float scale, void* stream) {
-  if (T < 1 || T > 31) return (int)cudaErrorInvalidValue;
-  const size_t smem = tvts::time_bwd_smem(T, dh);
-  dim3 grid(N, B);
+  if (T < 1 || T > 32 || N < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  const int HG = tvts::time_bwd_heads(T, H);
+  const size_t smem = tvts::time_bwd_smem(T, HG, dh);
+  const dim3 grid(N, B, (H + HG - 1) / HG);
+  const int threads = ((T + 1) * HG + 31) / 32 * 32;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (dh == 64) {
-    err = cudaFuncSetAttribute(tvts::time_bwd_kernel<64>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    tvts::time_bwd_kernel<64><<<grid, tvts::TB_WARPS * 32, smem, s>>>(
-        (const bf16*)qkv, (const bf16*)dO, (const float*)lse, (const float*)delta,
-        (bf16*)dqkv, (float*)cls_partial, T, N, H, scale);
-  } else if (dh == 80) {
-    err = cudaFuncSetAttribute(tvts::time_bwd_kernel<80>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    tvts::time_bwd_kernel<80><<<grid, tvts::TB_WARPS * 32, smem, s>>>(
-        (const bf16*)qkv, (const bf16*)dO, (const float*)lse, (const float*)delta,
-        (bf16*)dqkv, (float*)cls_partial, T, N, H, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  auto kernel = dh == 64 ? tvts::time_bwd_kernel<64> : dh == 80 ? tvts::time_bwd_kernel<80>
+                                                                 : nullptr;
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, threads, smem, s>>>((const bf16*)qkv, (const bf16*)dO, (const float*)lse,
+                                     (const float*)delta, (bf16*)dqkv, (float*)cls_partial, T,
+                                     N, H, HG, scale);
   return (int)cudaGetLastError();
 }
 

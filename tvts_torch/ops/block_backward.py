@@ -39,7 +39,19 @@ and the row passes are a small share at B/16 (see PERF.md). Dispatch as in
 block_kernels: the plain version on a CPU tensor, the kernels (bf16) on a CUDA
 tensor, or raise. `.launches` counts calls that ran the kernels on the card:
 `time_subpath` / `space_subpath` their forwards, `time_subpath_backward` /
-`space_subpath_backward` their backwards.
+`space_subpath_backward` their backwards, `wgrad` each weight-gradient product
+(two a sub-path backward that is not frozen) and `time_core_backward` each
+backward time core (one an H6 backward).
+
+`wgrad` (csrc/weight_grad.cuh) carries every weight gradient of H5-H8 on the
+card: ln_gemm's TMA ring and wgmma mainloop over the token rows (both operands
+MN-major), the LayerNorm of B applied by a producer warpgroup, colsum(A), and
+split-M f32 partials summed in split order; `wgrad_plan` sizes the splits
+from the shapes and the SM count alone and checks what the kernel takes.
+`time_core_backward` (csrc/attention_bwd.cuh) is H6's core: a block per (b, n,
+head group) with the group's q, k, v and dO in shared memory, a thread per
+(row, head), in the first version's order of operations (dqkv bit for bit the
+same).
 
 `mlp_subpath` (H8) replaces tvts_tpu/ops/pallas_block_attention.py::
 make_mlp_subpath (:1066; backward fused_mlp_block_bwd, :1021, which recomputes
@@ -60,14 +72,16 @@ product, accumulation f32; act' comes from the bf16 h when it was saved and
 from the f32 h when it is recomputed. dbfc sums the bf16 dh (wgrad's column
 sum), where the TPU kernel sums dh before rounding: within the gradient band.
 Bound on the H100: the products (forward 4 * M * D * 4D flops, backward twice
-that plus the recompute). wgrad's f32 split-M partials are bounded by its
-split rule (at most 2 * SMs output tiles in flight: 2 splits of 9.4 MB at
-D = 768, 1 of 26 MB at D = 1280). `mlp_subpath.launches` counts the forwards,
-`mlp_subpath_backward.launches` the backwards (`.saved_launches` of each those
-that wrote or read a saved hidden).
+that plus the recompute). wgrad's f32 split-M partials follow wgrad_plan (3
+splits of 9.4 MB each for the B/16 MLP products at B=20).
+`mlp_subpath.launches` counts the forwards, `mlp_subpath_backward.launches`
+the backwards (`.saved_launches` of each those that wrote or read a saved
+hidden).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -79,7 +93,13 @@ from tvts_torch.ops import block_kernels as bk
 def _sms(t: torch.Tensor) -> int:
     """Streaming multiprocessors of t's card (132 on the H100): sizes the row
     splits of the reductions."""
-    return torch.cuda.get_device_properties(t.device).multi_processor_count
+    return _device_sms(t.device.index if t.device.index is not None
+                       else torch.cuda.current_device())
+
+
+@functools.cache
+def _device_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _reduce(lib, partial, P: int, n: int, out: torch.Tensor) -> torch.Tensor:
@@ -90,30 +110,130 @@ def _reduce(lib, partial, P: int, n: int, out: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# a block's tile: 128 features of the operand that is wgmma's A (A itself, or
+# with the LayerNorm B), 256 of the other, 64 rows a stage (weight_grad.cuh)
+WGRAD_TILE = (128, 256, 64)
+WGRAD_STAGES = 4
+# the split rule's costs, in k steps (one 64-row stage of every block on the
+# card): a block's ring fill and epilogue, and the bytes the card moves in one
+# k step's time (~0.8 us at ~700 TFLOP/s: 2.5 MB at 3.35 TB/s), which prices
+# the f32 partials (written once, read once by the reduction)
+WGRAD_BLOCK_STEPS = 12
+WGRAD_STEP_BYTES = 2.5e6
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_splits(M: int, outputs: int, tiles: int, sms: int) -> tuple[int, int]:
+    """(splits, rows a split) of wgrad_plan's rule for M rows, an output of
+    `outputs` elements in `tiles` tiles, on `sms` SMs."""
+    BK = WGRAD_TILE[2]
+    best = None
+    for s in range(1, min(-(-M // BK), 64) + 1):
+        rows = -(-(-(-M // s)) // BK) * BK
+        if -(-M // rows) != s:  # no other split count gives these rows
+            continue
+        cost = (-(-tiles * s // sms) * (rows // BK + WGRAD_BLOCK_STEPS)
+                + 8 * s * outputs / WGRAD_STEP_BYTES)
+        if best is None or cost < best[0]:
+            best = (cost, s, rows)
+    return best[1], best[2]
+
+
+def wgrad_plan(M: int, N1: int, N2: int, lda: int, ldb: int, sms: int, ln: bool = False,
+               pointers: dict[str, int] | None = None) -> dict:
+    """The launch of wgrad for C [N1, N2] = A [M, N1 at row stride lda]^T B [M,
+    N2 at row stride ldb], B normalised when `ln`: the tile grid (256-wide
+    tiles, 128-wide tiles, splits; without the LayerNorm 128 of N1 by 256 of
+    N2, with it 256 of N1 by 128 of N2), the splits and the rows a split (a
+    multiple of the 64-row stage; the last split takes the rest), the rows of
+    the column-sum partials (splits times the tiles of B), the TMA boxes (64
+    columns by 64 rows of A and of B), the k steps of a full split, the threads
+    and the shared memory of a block. The split count depends on the shapes
+    and `sms` (the card's SM count) only, so the sum order is fixed: it
+    minimises waves * (k steps a block + WGRAD_BLOCK_STEPS) + the partials'
+    bytes (8 * splits * N1 * N2) / WGRAD_STEP_BYTES. Raises
+    ValueError, naming the argument, on what the kernel does not take: an empty
+    product, N1 or N2 not a multiple of 8, a row stride shorter than its row or
+    not a multiple of 16 bytes, a base address (`pointers`: name -> address)
+    that is not 16-byte aligned."""
+    BM, BN, BK = WGRAD_TILE
+    if M < 1:
+        raise ValueError(f"M = {M}: wgrad takes at least one row")
+    for name, n in (("N1", N1), ("N2", N2)):
+        if n < 8 or n % 8:
+            raise ValueError(f"{name} = {n}: wgrad takes a multiple of 8")
+    for name, ld, n in (("lda", lda, N1), ("ldb", ldb, N2)):
+        if ld < n:
+            raise ValueError(f"{name} = {ld} is shorter than the row it strides ({n})")
+        if ld * 2 % 16:
+            raise ValueError(f"{name} = {ld} elements ({ld * 2} bytes): wgrad takes row strides "
+                             f"of a multiple of 16 bytes")
+    for name, ptr in (pointers or {}).items():
+        if ptr is not None and ptr % 16:
+            raise ValueError(f"{name} at {ptr:#x} is not 16-byte aligned")
+    grid = (-(-N1 // BN), -(-N2 // BM)) if ln else (-(-N2 // BN), -(-N1 // BM))
+    splits, rows = _wgrad_splits(M, N1 * N2, grid[0] * grid[1], sms)
+    return dict(grid=(*grid, splits), splits=splits, rows_per_split=rows,
+                colsum_parts=splits * (grid[1] if ln else grid[0]), box_a=(64, BK),
+                box_b=(64, BK), k_steps=rows // BK, threads=384 if ln else 288,
+                smem=WGRAD_STAGES * 6 * 64 * BK * 2 + 1024 + 24 * WGRAD_STAGES + 4 * 1024)
+
+
 def _wgrad(lib, a, b, stats=None, ln=None, dtype=torch.bfloat16):
     """(a^T b [N1, N2], colsum(a) [N1]) over the rows of a [M, N1], b [M, N2],
     with b -> LN(b) from `stats` and `ln` = (w, bias) when given; accumulated
-    in f32, returned in `dtype`. The rows are split across blocks so the
-    output tiles fill the card; the split depends on the shapes and the
-    card only, so the sum order is fixed."""
+    in f32, returned in `dtype`, on the card (weight_grad.cuh). The rows are
+    split as wgrad_plan says; each split's f32 partial is summed in split
+    order, so the result does not vary run to run."""
     M, N1 = a.shape
     N2 = b.shape[1]
-    tiles = -(-N1 // 128) * -(-N2 // 128)
-    splits = max(1, min(-(-2 * _sms(a) // tiles), M // 512))
-    rows = -(-M // splits)
-    rows = -(-rows // 32) * 32
-    splits = -(-M // rows)
+    ln_w, ln_b = ln if ln else (None, None)
+    plan = wgrad_plan(M, N1, N2, a.stride(0), b.stride(0), _sms(a), ln is not None,
+                      {"a": bk._ptr(a), "b": bk._ptr(b), "stats": bk._ptr(stats),
+                       "ln_w": bk._ptr(ln_w), "ln_b": bk._ptr(ln_b)})
+    splits, parts = plan["splits"], plan["colsum_parts"]
     f32 = dict(dtype=torch.float32, device=a.device)
     partial = torch.empty(splits, N1, N2, **f32)
-    colsum = torch.empty(splits, N1, **f32)
-    ln_w, ln_b = ln if ln else (None, None)
+    colsum = torch.empty(parts, N1, **f32)
     bk._check(lib, lib.tvts_wgrad(bk._ptr(a), a.stride(0), bk._ptr(b), b.stride(0),
                                   bk._ptr(stats), bk._ptr(ln_w), bk._ptr(ln_b),
-                                  bk._ptr(partial), bk._ptr(colsum), M, N1, N2, splits, rows,
-                                  bk._stream(a)))
+                                  bk._ptr(partial), bk._ptr(colsum), M, N1, N2, splits,
+                                  plan["rows_per_split"], bk._stream(a)))
+    wgrad.launches += 1
     dw = _reduce(lib, partial, splits, N1 * N2, torch.empty(N1, N2, dtype=dtype, device=a.device))
-    db = _reduce(lib, colsum, splits, N1, torch.empty(N1, dtype=dtype, device=a.device))
+    db = _reduce(lib, colsum, parts, N1, torch.empty(N1, dtype=dtype, device=a.device))
     return dw, db
+
+
+def wgrad_plain(a, b, stats=None, ln=None, dtype=None):
+    """wgrad in f32 from the same operands: b -> LN(b) from the row `stats`
+    [M, 2] (mean, rstd) and `ln` = (w, bias), rounded to b's dtype as the
+    kernel (and the forward's product) rounds it: t = (b - mean) * rstd in
+    f32, then t * w + bias in one rounding (the kernels' fused multiply-add,
+    exact in f64 before the one rounding to f32); returns (a^T b, colsum(a))
+    in `dtype` (a's by default)."""
+    bf = b.float()
+    if ln is not None:
+        st = stats.float()
+        t = (bf - st[:, :1]) * st[:, 1:]
+        bf = (t.double() * ln[0].double() + ln[1].double()).float().to(b.dtype).float()
+    dtype = dtype or a.dtype
+    return (a.float().t() @ bf).to(dtype), a.float().sum(0).to(dtype)
+
+
+def wgrad(a, b, stats=None, ln=None, dtype=None):
+    """The weight gradient of a product (module notes): (a^T LN?(b), colsum(a))
+    over the rows of a [M, N1] and b [M, N2], in `dtype` (a's by default). On
+    a CPU tensor wgrad_plain; on a CUDA tensor the kernel (bf16 a and b)."""
+    if not bk._dispatch(a):
+        return wgrad_plain(a, b, stats, ln, dtype)
+    M, N1 = a.shape
+    bk._expect("a", a, a, torch.bfloat16, (M, N1))
+    bk._expect("b", b, a, torch.bfloat16, (M, b.shape[1]))
+    if ln is not None:
+        bk._expect("stats", stats, a, torch.float32, (M, 2))
+    with torch.cuda.device(a.device):
+        return _wgrad(bk.library(), a, b, stats, ln, dtype or a.dtype)
 
 
 def _ln_backward(lib, x2d, stats, dxln, ln_w, res, weight_grads: bool):
@@ -157,26 +277,22 @@ def attention_backward(core: str, g, x, saves, ln_w, ln_b, wqkv, wproj, num_head
         delta = torch.empty(B, num_heads, S, dtype=torch.float32, device=x.device)
         bk._check(lib, lib.tvts_attn_delta(bk._ptr(dattn), bk._ptr(attn), B, S, num_heads, d,
                                            bk._ptr(delta), stream))
-        dqkv = torch.empty(B, S, 3 * D, dtype=x.dtype, device=x.device)
-        if core == "text":
+        if core == "time":
+            dqkv, _ = _time_core_backward(lib, qkv, dattn, lse, delta, num_frames, num_heads)
+        elif core == "text":
+            dqkv = torch.empty(B, S, 3 * D, dtype=x.dtype, device=x.device)
             bk._check(lib, lib.tvts_flash_bwd(bk._ptr(qkv), bk._ptr(dattn), bk._ptr(lse),
                                               bk._ptr(delta), bk._ptr(dqkv), None, B, 1, 0, S,
                                               num_heads, d, d ** -0.5, int(causal), 0, stream))
         else:
             T = num_frames
             N = bk._patches_per_frame(S, T)
-            G = N if core == "time" else T  # groups holding the CLS token
-            partial = torch.empty(B, G, num_heads, 3, d, dtype=torch.float32, device=x.device)
-            if core == "time":
-                bk._check(lib, lib.tvts_time_bwd(bk._ptr(qkv), bk._ptr(dattn), bk._ptr(lse),
-                                                 bk._ptr(delta), bk._ptr(dqkv), bk._ptr(partial),
-                                                 B, T, N, num_heads, d, d ** -0.5, stream))
-            else:
-                bk._check(lib, lib.tvts_flash_bwd(bk._ptr(qkv), bk._ptr(dattn), bk._ptr(lse),
-                                                  bk._ptr(delta), bk._ptr(dqkv),
-                                                  bk._ptr(partial), B, T, N, S, num_heads, d,
-                                                  d ** -0.5, 0, 1, stream))
-            bk._check(lib, lib.tvts_cls_grad_combine(bk._ptr(partial), G, B, num_heads, d, S,
+            dqkv = torch.empty(B, S, 3 * D, dtype=x.dtype, device=x.device)
+            partial = torch.empty(B, T, num_heads, 3, d, dtype=torch.float32, device=x.device)
+            bk._check(lib, lib.tvts_flash_bwd(bk._ptr(qkv), bk._ptr(dattn), bk._ptr(lse),
+                                              bk._ptr(delta), bk._ptr(dqkv), bk._ptr(partial), B,
+                                              T, N, S, num_heads, d, d ** -0.5, 0, 1, stream))
+            bk._check(lib, lib.tvts_cls_grad_combine(bk._ptr(partial), T, B, num_heads, d, S,
                                                      bk._ptr(dqkv), stream))
         dqkv2 = dqkv.view(M, 3 * D)
         x2 = x.view(M, D)
@@ -207,6 +323,141 @@ def vjp(fn, g, inputs, wrt=None):
 # ---------------------------------------------------------------------------
 # H6: time sub-path (training)
 # ---------------------------------------------------------------------------
+def time_core_plain(qkv, num_frames, num_heads):
+    """Every row of the time attention on packed rows qkv [B, S, 3D] (q not
+    pre-scaled), in f32: patch (t, n) over the CLS key and location n in every
+    frame, the CLS query over every token. -> (out [B, S, D], lse [B, H, S])."""
+    B, S, D3 = qkv.shape
+    T, H = num_frames, num_heads
+    N = bk._patches_per_frame(S, T)
+    d = D3 // 3 // H
+    q, k, v = (t.float().reshape(B, S, H, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    q = q * d ** -0.5
+    qp, kp, vp = (t[:, :, 1:].reshape(B, H, T, N, d).transpose(2, 3) for t in (q, k, v))
+    keys = torch.cat([k[:, :, None, :1].expand(B, H, N, 1, d), kp], dim=3)  # [B, H, N, 1+T, d]
+    vals = torch.cat([v[:, :, None, :1].expand(B, H, N, 1, d), vp], dim=3)
+    logits = qp @ keys.transpose(-1, -2)  # [B, H, N, T, 1 + T]
+    out_p = (torch.softmax(logits, -1) @ vals).transpose(2, 3).reshape(B, H, T * N, d)
+    cls_logits = q[:, :, :1] @ k.transpose(-1, -2)  # [B, H, 1, S]
+    out_c = torch.softmax(cls_logits, -1) @ v
+    out = torch.cat([out_c, out_p], dim=2).transpose(1, 2).reshape(B, S, H * d)
+    lse = torch.cat([torch.logsumexp(cls_logits, -1),
+                     torch.logsumexp(logits, -1).transpose(2, 3).reshape(B, H, T * N)], dim=2)
+    return out, lse
+
+
+def time_core_backward_plain(qkv, dO, lse, delta, num_frames, num_heads):
+    """dqkv [B, S, 3D] (f32) of time_core_plain's output against dO [B, S, D],
+    by the delta identity the kernel uses, from the forward's lse [B, H, S]
+    and delta = rowsum(dO * O) per head [B, H, S]: P = exp(scale q.k - lse),
+    dS = P * (dO.v - delta), dq = scale dS k, dk = scale dS^T q, dv = P^T dO,
+    the patch rows within their time groups and the CLS row over every token."""
+    B, S, D3 = qkv.shape
+    T, H = num_frames, num_heads
+    N = bk._patches_per_frame(S, T)
+    d = D3 // 3 // H
+    scale = d ** -0.5
+    q, k, v = (t.float().reshape(B, S, H, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    o = dO.float().reshape(B, S, H, d).transpose(1, 2)
+    lse, delta = lse.float(), delta.float()
+
+    def groups(t):  # [B, H, S, ...] patch rows -> [B, H, N, T, ...]
+        return t[:, :, 1:].reshape(B, H, T, N, *t.shape[3:]).transpose(2, 3)
+
+    def ungroup(t):  # [B, H, N, T, ...] -> [B, H, T * N, ...]
+        return t.transpose(2, 3).reshape(B, H, T * N, *t.shape[4:])
+
+    qp, kp, vp, op = (groups(t) for t in (q, k, v, o))
+    keys = torch.cat([k[:, :, None, :1].expand(B, H, N, 1, d), kp], dim=3)  # [B, H, N, G, d]
+    vals = torch.cat([v[:, :, None, :1].expand(B, H, N, 1, d), vp], dim=3)
+    p = torch.exp(scale * (qp @ keys.transpose(-1, -2)) - groups(lse)[..., None])
+    ds = p * (op @ vals.transpose(-1, -2) - groups(delta)[..., None])  # [B, H, N, T, G]
+    dq_p = scale * (ds @ keys)
+    dkeys = scale * (ds.transpose(-1, -2) @ qp)  # [B, H, N, G, d]
+    dvals = p.transpose(-1, -2) @ op
+    p0 = torch.exp(scale * (q[:, :, :1] @ k.transpose(-1, -2)) - lse[:, :, :1, None])
+    ds0 = p0 * (o[:, :, :1] @ v.transpose(-1, -2) - delta[:, :, :1, None])  # [B, H, 1, S]
+    dq = torch.cat([scale * (ds0 @ k), ungroup(dq_p)], dim=2)
+    dk = scale * (ds0.transpose(-1, -2) @ q[:, :, :1])
+    dv = p0.transpose(-1, -2) @ o[:, :, :1]
+    dk = dk + torch.cat([dkeys[:, :, :, :1].sum(2), ungroup(dkeys[:, :, :, 1:])], dim=2)
+    dv = dv + torch.cat([dvals[:, :, :, :1].sum(2), ungroup(dvals[:, :, :, 1:])], dim=2)
+    return torch.cat([t.transpose(1, 2).reshape(B, S, H * d) for t in (dq, dk, dv)], dim=-1)
+
+
+TIME_BWD_THREADS = 128  # a block's threads at most (csrc/attention_bwd.cuh)
+
+
+def time_bwd_heads(T: int, H: int) -> int:
+    """Heads a backward time-core block takes (csrc/attention_bwd.cuh): at
+    most TIME_BWD_THREADS / (T + 1), the H heads split as evenly as that
+    allows."""
+    cap = max(1, TIME_BWD_THREADS // (T + 1))
+    groups = -(-H // cap)
+    return -(-H // groups)
+
+
+def time_bwd_smem(T: int, heads: int, d: int) -> int:
+    """Shared memory of a backward time-core block: q, k, v and dO of the
+    T + 1 elements in bf16 (rows padded by 16 bytes), P and dS in f32, and the
+    lse and delta."""
+    G = T + 1
+    return 4 * G * (heads * d + 8) * 2 + 2 * heads * G * (G | 1) * 4 + 2 * heads * G * 4
+
+
+def _check_time_bwd(T: int, H: int, d: int) -> None:
+    """Raise ValueError on a time group the backward core does not take."""
+    if not 1 <= T <= 32:
+        raise ValueError(f"{T} frames: the backward time core takes 1..32")
+    if d not in (64, 80):
+        raise ValueError(f"head dim {d}: the backward time core takes 64 or 80")
+    smem = time_bwd_smem(T, time_bwd_heads(T, H), d)
+    if smem > bk.SMEM_OPTIN:
+        raise ValueError(f"{T} frames of {H} heads of dim {d}: a backward time-core block "
+                         f"needs {smem} bytes of shared memory, more than the "
+                         f"{bk.SMEM_OPTIN} a block may take")
+
+
+def _time_core_backward(lib, qkv, dO, lse, delta, num_frames, num_heads):
+    """The backward time core on the card (csrc/attention_bwd.cuh), then the
+    fixed-order combine of the CLS token's partials into row 0. -> (dqkv
+    [B, S, 3D] bf16, the groups' CLS partials [B, N, H, 3, d] f32)."""
+    B, S, D3 = qkv.shape
+    T, H = num_frames, num_heads
+    N = bk._patches_per_frame(S, T)
+    d = D3 // 3 // H
+    _check_time_bwd(T, H, d)
+    dqkv = torch.empty_like(qkv)
+    partial = torch.empty(B, N, H, 3, d, dtype=torch.float32, device=qkv.device)
+    stream = bk._stream(qkv)
+    bk._check(lib, lib.tvts_time_bwd(bk._ptr(qkv), bk._ptr(dO), bk._ptr(lse), bk._ptr(delta),
+                                     bk._ptr(dqkv), bk._ptr(partial), B, T, N, H, d, d ** -0.5,
+                                     stream))
+    time_core_backward.launches += 1
+    bk._check(lib, lib.tvts_cls_grad_combine(bk._ptr(partial), N, B, H, d, S, bk._ptr(dqkv),
+                                             stream))
+    return dqkv, partial
+
+
+def time_core_backward(qkv, dO, lse, delta, num_frames: int, num_heads: int) -> torch.Tensor:
+    """H6's time-core backward alone: dqkv [B, S, 3D] of the time attention
+    from the saved qkv [B, S, 3D] (q not pre-scaled), dO [B, S, D], the
+    forward's lse [B, H, S] and delta = rowsum(dO * O) per head [B, H, S]. On a
+    CPU tensor time_core_backward_plain rounded to qkv's dtype; on a CUDA
+    tensor the kernel and the CLS combine (bf16)."""
+    if not bk._dispatch(qkv):
+        return time_core_backward_plain(qkv, dO, lse, delta, num_frames,
+                                        num_heads).to(qkv.dtype)
+    B, S, D3 = qkv.shape
+    H = num_heads
+    bk._expect("qkv", qkv, qkv, torch.bfloat16, (B, S, D3))
+    bk._expect("dO", dO, qkv, torch.bfloat16, (B, S, D3 // 3))
+    bk._expect("lse", lse, qkv, torch.float32, (B, H, S))
+    bk._expect("delta", delta, qkv, torch.float32, (B, H, S))
+    with torch.cuda.device(qkv.device):
+        return _time_core_backward(bk.library(), qkv, dO, lse, delta, num_frames, H)[0]
+
+
 def time_subpath_backward_plain(g, x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_frames,
                                 num_heads):
     """(dx, dln_w, dln_b, dwqkv, dbqkv, dwproj, dbproj) of time_block_plain."""
@@ -383,7 +634,7 @@ def mlp_subpath(x, ln_w, ln_b, wfc, bfc, wproj, bproj, act: str = "quick_gelu",
 
 
 KERNELS = (time_subpath, time_subpath_backward, space_subpath, space_subpath_backward,
-           mlp_subpath, mlp_subpath_backward)
+           mlp_subpath, mlp_subpath_backward, wgrad, time_core_backward)
 for _fn in KERNELS:
     _fn.launches = 0
 mlp_subpath.saved_launches = mlp_subpath_backward.saved_launches = 0

@@ -102,12 +102,13 @@ def _nvcc() -> str:
 
 
 def _units() -> list[tuple[str, list[str]]]:
-    """(source, defines) of each translation unit: block_kernels.cu, and
-    ln_gemm.cu once for each GEMM variant that ln_gemm.cuh lists."""
+    """(source, defines) of each translation unit: block_kernels.cu,
+    weight_grad.cu, and ln_gemm.cu once for each GEMM variant that ln_gemm.cuh
+    lists."""
     header = (_CSRC / "ln_gemm.cuh").read_text()
     n = sum(line.startswith("#define TVTS_GEMM_VARIANT_") for line in header.splitlines())
-    return [("block_kernels.cu", [])] + [("ln_gemm.cu", [f"-DTVTS_GEMM_PART={i}"])
-                                         for i in range(n)]
+    return [("block_kernels.cu", []), ("weight_grad.cu", [])] + [
+        ("ln_gemm.cu", [f"-DTVTS_GEMM_PART={i}"]) for i in range(n)]
 
 
 def build() -> tuple[Path, str]:
