@@ -69,13 +69,24 @@ times):
    against wgrad_plain), printed as {"wgrad": [...]}; the backward time core
    alone at B=20 against its byte bound and plain backward, and the sha256 of
    its dqkv and CLS partials at the B/16 (N=98, d=64) and H/14 (N=76, d=80)
-   train shapes (equal digests in two trees: bit-identical outputs); the train
+   train shapes (equal digests in two trees: bit-identical outputs); the
+   backward space core alone at the B/16 (B=20) and H/14 (B=8) train shapes
+   against its byte bound, the plain backward, the flash pair and one masked
+   scaled_dot_product_attention backward (library_ms), and the sha256 of its
+   dqkv and CLS partials (bit for bit the pair's: printed); the LayerNorm
+   backward alone (row pass and column sums) at the same shapes against its
+   byte bound, plain and one aten native_layer_norm_backward (library_ms),
+   split by kernel, and the sha256 of its dx; the H7 cores alone (text and
+   sort, forward and backward) against their bound and one
+   scaled_dot_product_attention; the train
    step at B=20 (ms, clips/s, peak memory; kernels, kernels with
    mlp_mode="pallas", eager), each backward kernel, the saving forwards, H8
    and H9 against their plain versions at the B=20 shapes (H9 also against
    the one library call that computes it, a masked
    scaled_dot_product_attention: `library_ms`), and the
-   device-time breakdown of one kernel-path train step from torch.profiler;
+   device-time breakdown of one kernel-path train step from torch.profiler,
+   which fails if the step's LayerNorm column sums take more than
+   LN_SUMS_MS;
 9. B/32: extraction at B=8 through the kernels (counts 12/11/11/1, cosine
    gates), clips/s at B=64 (kernels, eager);
 8. H/14 at full width and depth (32 blocks of 1280, text 24 blocks of 1024):
@@ -89,14 +100,19 @@ times):
    "pallas": per step 32 H5, H6 and H8 forwards and backwards, 24 H7
    forwards and backwards, 18 of them frozen); the step at B=8 (preset, every
    kernel, eager) and the profile of one preset step.
-The step profiles also print the device time and launches of every wgrad and
-backward time-core kernel.
+The step profiles also print the device time and launches of every backward
+kernel (STEP_KERNELS), the LayerNorm's column sums apart from wgrad's. Every
+train step's launch counts (phases 7 and 8) include one backward space core a
+space backward and no flash pair (`space_core_backward (pair)`).
 `python3 chip_smoke.py --profile` runs phases 1 and 2 and then only the
 numbers an A/B compares (`profile_phase`): the space core's patch-row digest
-and CLS row against plain, the backward time core's digests, the B/16
-profiles, the space core alone, H1-H4, the ln_gemm and wgrad tables, the
-backward time core alone, the step at B=20 with its profile, the saving
-forwards, and the B/16, B/32 and H/14 extraction rates.
+and CLS row against plain, the backward time core's, backward space core's
+and LayerNorm backward's digests, the B/16 profiles, the space core alone,
+H1-H4, the ln_gemm and wgrad tables, the backward time and space cores and
+the LayerNorm backward alone, the H5 and H7 backwards split by kernel, the
+step at B=20 (also with mlp_mode="pallas") with its profile, the saving
+forwards, the B/16, B/32 and H/14 extraction rates and the H/14 step with
+every kernel at B=8 with its profile.
 The line before the last is {"kernels": [...]}, each with its bound (the
 larger of its bytes over 3.35 TB/s and its flops over 989 TFLOP/s, from the
 shapes timed); the last is {"ok": true, "device": {...}}.
@@ -142,6 +158,10 @@ REPLACES = {
     "wgrad": "tvts_tpu/ops/pallas_block_backward.py:3106",
     # the attention-core part of fused_time_attention_block_v2_bwd (:736)
     "time_core_backward": "tvts_tpu/ops/pallas_block_backward.py:501",
+    # the attention-core part of fused_space_attention_block_v10_bwd (:3106)
+    "space_core_backward": "tvts_tpu/ops/pallas_block_backward.py:2722",
+    # the LayerNorm part of the backward kernels (_ln_bwd and the dln sums)
+    "ln_backward": "tvts_tpu/ops/pallas_block_backward.py:46",
 }
 SOURCE = "tvts_torch/csrc/block_kernels.cu"
 PEAK_FLOPS, HBM_BYTES_S = 989e12, 3.35e12  # H100 SXM: dense bf16, HBM3
@@ -297,13 +317,20 @@ def core_library_call(qkv, T, N, mode):
     bool [S, S] mask of the divided pattern (the CLS row sees every token; a
     patch row sees the CLS key and its own frame (space) or its own location
     across frames (time)). Timed as `library_ms`; the port never calls it."""
-    q = qkv[0]
-    idx = torch.arange(T * N, device=q.device)
-    group = idx // N if mode == "space" else idx % N
-    mask = torch.ones(1 + T * N, 1 + T * N, dtype=torch.bool, device=q.device)
-    mask[1:, 1:] = group[:, None] == group[None, :]
+    mask = divided_mask(T, N, mode, qkv[0].device)
     return lambda: torch.nn.functional.scaled_dot_product_attention(*qkv, attn_mask=mask,
                                                                     scale=1.0)
+
+
+def divided_mask(T: int, N: int, mode: str, device) -> torch.Tensor:
+    """The bool [S, S] mask of divided attention: the CLS row sees every token;
+    a patch row sees the CLS key and its own frame (space) or its own location
+    across frames (time)."""
+    idx = torch.arange(T * N, device=device)
+    group = idx // N if mode == "space" else idx % N
+    mask = torch.ones(1 + T * N, 1 + T * N, dtype=torch.bool, device=device)
+    mask[1:, 1:] = group[:, None] == group[None, :]
+    return mask
 
 
 def core_band_check(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, float]:
@@ -498,6 +525,7 @@ def launch_counts(bk, bb, ta) -> dict[str, int]:
     counts["text_subpath_backward (frozen)"] = ta.text_subpath_backward.frozen_launches
     counts["mlp_subpath (saved hidden)"] = bb.mlp_subpath.saved_launches
     counts["mlp_subpath_backward (saved hidden)"] = bb.mlp_subpath_backward.saved_launches
+    counts["space_core_backward (pair)"] = bb.space_core_backward.pair_launches
     return counts
 
 
@@ -506,6 +534,7 @@ def reset_launch_counts(bk, bb, ta) -> None:
         fn.launches = 0
     ta.text_subpath_backward.frozen_launches = 0
     bb.mlp_subpath.saved_launches = bb.mlp_subpath_backward.saved_launches = 0
+    bb.space_core_backward.pair_launches = 0
 
 
 def expect_launches(tag: str, got: dict, want: dict) -> None:
@@ -633,12 +662,15 @@ def step_launches(layers: int, text_layers: int, frozen: int, n_steps: int = 1, 
     """The launches of n train steps: per step `layers` H5 (and H6, H8)
     forwards and backwards, text_layers - 1 text and one sort H7 forwards and
     as many backwards, `frozen` of them dx-only; two wgrad products each
-    backward that is not frozen, one backward time core each H6 backward."""
+    backward that is not frozen, one LayerNorm backward each backward, one
+    backward space core (the one-pass kernel, never the pair) each H5
+    backward, one backward time core each H6 backward."""
     text = text_layers - 1 + sort
     want = {"space_subpath": layers, "space_subpath_backward": layers,
             "fused_text_attention_block": text, "text_subpath_backward": text,
             "text_subpath_backward (frozen)": frozen,
-            "wgrad": 2 * (layers * (1 + time + mlp) + text - frozen)}
+            "wgrad": 2 * (layers * (1 + time + mlp) + text - frozen),
+            "space_core_backward": layers, "ln_backward": layers * (1 + time + mlp) + text}
     if time:
         want.update({"time_subpath": layers, "time_subpath_backward": layers,
                      "time_core_backward": layers})
@@ -697,24 +729,97 @@ def time_steps(tag: str, label: str, train: dict, apply_fn, batch, card: str,
     return ms
 
 
+# sessions of torch.profiler that may record no device activity (seen on the
+# card now and then, twice in a row once) before a measurement gives up
+PROFILE_ATTEMPTS = 4
+
+
+def _profile(fn, iters: int = 1):
+    """fn under torch.profiler: (the profile, wall ms on the host clock to the
+    synchronise), or (None, wall) when PROFILE_ATTEMPTS sessions in a row
+    recorded no device activity or lost kernels (a kernel counted a number of
+    times that `iters` calls of fn cannot give); fn runs again each time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_ATTEMPTS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        host = _host_keys(prof)
+        counts = [e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in host]
+        if counts and all(c % iters == 0 for c in counts):
+            return prof, wall
+        time.sleep(0.5)
+    return None, wall
+
+
+def _profile_or_raise(fn, iters: int = 1):
+    prof, wall = _profile(fn, iters)
+    if prof is None:
+        raise AssertionError(f"torch.profiler recorded no device activity in "
+                             f"{PROFILE_ATTEMPTS} sessions")
+    return prof, wall
+
+
+def _host_keys(prof) -> set:
+    """Names of the host ranges (a host range such as the optimizer's step also
+    shows on the device timeline, over its kernels)."""
+    return {e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU}
+
+
 def profiled(fn) -> tuple[list, float]:
     """One call of fn under torch.profiler: ([(device us, kernel name, count)],
     wall ms on the host clock to the synchronise)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    host = {e.key for e in events if e.device_type == torch.autograd.DeviceType.CPU}
-    # device rows that are kernels (a host range such as the optimizer's step
-    # also shows on the device timeline, over its kernels)
+    prof, wall = _profile_or_raise(fn)
+    host = _host_keys(prof)
     return [(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0),
-             e.key, e.count) for e in events
+             e.key, e.count) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in host], wall
+
+
+def kernel_timeline(fn, iters: int = 1) -> tuple[list, float]:
+    """One call of fn (itself `iters` calls of something) under
+    torch.profiler: ([(device us, kernel label)] in launch order, wall ms).
+    The label is the kernel's name without its arguments; a
+    reduce_partials_kernel is labelled by the kernel whose partials it sums
+    (wgrad's, or the LayerNorm backward's column partials)."""
+    prof, wall = _profile_or_raise(fn, iters)
+    host = _host_keys(prof)
+    events = sorted((e.time_range.start, e.self_device_time_total, e.name)
+                    for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in host)
+    rows, previous = [], ""
+    for _, us, name in events:
+        label = name[:name.rfind(">(") + 1] if ">(" in name else name.split("(")[0]
+        label = label.replace("void ", "")
+        if label.startswith("tvts::reduce_partials_kernel"):
+            label += " (LayerNorm sums)" if "ln_bwd" in previous else " (wgrad sums)"
+        else:
+            previous = label
+        rows.append((us, label))
+    return rows, wall
+
+
+def kernel_split(tag: str, label: str, fn, card: str, iters: int = 3) -> dict:
+    """Device time and launches by kernel label (kernel_timeline) of one call
+    of fn, averaged over `iters` calls after a warm-up call. Returns label ->
+    (ms a call, launches a call)."""
+    fn()
+    rows, _ = kernel_timeline(lambda: [fn() for _ in range(iters)], iters)
+    split = {}
+    for us, name in rows:
+        ms, n = split.get(name, (0.0, 0))
+        split[name] = (ms + us / 1e3 / iters, n + 1)
+    split = {k: (ms, n // iters) for k, (ms, n) in split.items()}
+    busy = sum(ms for ms, _ in split.values())
+    print(f"[{tag}] split {label}: device busy {busy:.3f} ms a call [{card}]")
+    for name, (ms, n) in sorted(split.items(), key=lambda kv: -kv[1][0]):
+        print(f"[{tag}]   {ms:8.4f} ms {n:4d}x {name[:110]}")
+    return split
 
 
 def profile_kernels(tag: str, label: str, fn, card: str, top: int = 12) -> list:
@@ -729,33 +834,87 @@ def profile_kernels(tag: str, label: str, fn, card: str, top: int = 12) -> list:
     return rows
 
 
-def profile_step(tag: str, train: dict, apply_fn, batch, card: str) -> None:
-    """Device-time breakdown of one kernel-path train step (torch.profiler)."""
+# the LayerNorm backward's column sums in a step profile (kernel_timeline
+# labels: the sums kernel, or the first version's reduction of its partials),
+# and the most they may take in the B/16 step at B=20
+LN_SUM_LABELS = ("tvts::ln_colsum_kernel", "tvts::reduce_partials_kernel (LayerNorm sums)")
+LN_SUMS_MS = 0.5
+# the backward kernels a step profile sums (every kernel_timeline label that
+# starts with the name)
+STEP_KERNELS = ("wgrad_kernel", "time_bwd_kernel", "space_bwd_kernel",
+                "flash_bwd_dq_kernel<64, true>", "flash_bwd_dkv_kernel<64, true>",
+                "flash_bwd_dq_kernel<80, true>", "flash_bwd_dkv_kernel<80, true>",
+                "cls_grad_combine_kernel", "ln_bwd_kernel", "ln_colsum_kernel",
+                "reduce_partials_kernel (LayerNorm sums)", "reduce_partials_kernel (wgrad sums)")
+
+
+def profile_step(tag: str, train: dict, apply_fn, batch, card: str) -> dict:
+    """Device-time breakdown of one kernel-path train step (torch.profiler).
+    Returns label -> (ms, launches) of the step's kernels."""
     from tvts_torch.train.step import make_train_step
 
     B = batch["video"].shape[0]
     step = make_train_step(train["model"], train["optimizer"], train["ocfg"], apply_fn=apply_fn)
-    rows, wall = profiled(lambda: step(batch))
+    rows, wall = kernel_timeline(lambda: step(batch))
     busy = sum(r[0] for r in rows) / 1e3
     print(f"[{tag}] profiled {train['cfg'].name} kernel-path step B={B}: wall {wall:.2f} ms, "
           f"device busy {busy:.2f} ms (idle share {max(0.0, 1 - busy / wall):.3f}) [{card}]")
-    groups = {}
-    for us, key, count in rows:
+    groups, by_label = {}, {}
+    for us, key in rows:
         group = ("hand-written (tvts::)" if "tvts::" in key
                  else "optimizer (multi_tensor_apply)" if "multi_tensor_apply" in key
                  else "library GEMM (cuBLAS / CUTLASS)"
                  if any(k in key for k in ("nvjet", "gemm", "cutlass", "sm90_xmma"))
                  else "other PyTorch kernels (elementwise, reductions, copies, conv)")
         groups[group] = groups.get(group, 0.0) + us / 1e3
+        ms, n = by_label.get(key, (0.0, 0))
+        by_label[key] = (ms + us / 1e3, n + 1)
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"[{tag}]   {ms:9.3f} ms ({ms / busy:.3f}) {group}")
-    for name in ("wgrad_kernel", "time_bwd_kernel"):
-        us = sum(r[0] for r in rows if name in r[1])
-        n = sum(r[2] for r in rows if name in r[1])
-        print(f"[{tag}]   {us / 1e3:9.3f} ms in {n} launches: every {name}")
+    for name in STEP_KERNELS:
+        rows = [v for k, v in by_label.items() if k.startswith("tvts::" + name)]
+        print(f"[{tag}]   {sum(r[0] for r in rows):9.3f} ms in {sum(r[1] for r in rows)} "
+              f"launches: every {name}")
     print(f"[{tag}]   top device time by kernel:")
-    for us, key, count in sorted(rows, reverse=True)[:24]:
-        print(f"[{tag}]   {us / 1e3:9.3f} ms {count:5d}x {key[:100]}")
+    for key, (ms, n) in sorted(by_label.items(), key=lambda kv: -kv[1][0])[:24]:
+        print(f"[{tag}]   {ms:9.3f} ms {n:5d}x {key[:100]}")
+    return by_label
+
+
+def backward_splits(dev, card: str, bb, ta) -> dict:
+    """Each training backward that runs the LayerNorm backward or the space
+    core, alone, split by kernel (kernel_split): H5 at the B/16 train shape
+    (B=20, S=1177) and at the H/14 train shape (B=8, S=913, d=80), H7 at the
+    B/16 text shape (B=80, S=77; full and frozen) and at the sort head's (B=20,
+    S=1181). Returns label -> the split."""
+    bk = bb.bk
+    out = {}
+    for label, (B, T, N, D, H) in (("H5 B/16 B=20", (20, 12, 98, 768, 12)),
+                                   ("H5 H/14 B=8", (8, 12, 76, 1280, 16))):
+        a = seeded_inputs(B, T, N, D, seed=14, device=dev)
+        g = seeded_inputs(B, T, N, D, seed=15, device=dev)["x"]
+        w = (a["ln_w"], a["ln_b"], a["wqkv"], a["bqkv"], a["wproj"], a["bproj"])
+        _, *saves = bk._attention_sub_path("tvts_space_core", a["x"], a["base"], *w, T, H,
+                                           save=True)
+        out[label] = kernel_split("6", f"{label} backward (space_subpath_backward)",
+                                  lambda: bb.space_subpath_backward(
+                                      g, a["x"], saves, a["ln_w"], a["ln_b"], a["wqkv"],
+                                      a["wproj"], T, H), card)
+        del a, g, saves
+    for label, (B, S, D, H, causal, eps, frozen) in (
+            ("H7 text B=80", (80, 77, 512, 8, True, 1e-5, False)),
+            ("H7 text frozen B=80", (80, 77, 512, 8, True, 1e-5, True)),
+            ("H7 sort B=20", (20, 1181, 512, 8, False, 1e-6, False))):
+        t = text_inputs(B, S, D, seed=16, device=dev)
+        tg = text_inputs(B, S, D, seed=17, device=dev)["x"]
+        tw = (t["ln_w"], t["ln_b"], t["wqkv"], t["bqkv"], t["wproj"], t["bproj"])
+        _, *saves = ta._text_sub_path(t["x"], *tw, H, causal, eps, save=True)
+        out[label] = kernel_split("6", f"{label} backward (text_subpath_backward)",
+                                  lambda: ta.text_subpath_backward(
+                                      tg, t["x"], saves, t["ln_w"], t["ln_b"], t["wqkv"],
+                                      t["wproj"], H, causal, frozen), card)
+        del t, tg, saves
+    return out
 
 
 def train_times(dev, card, bk, bb, ta, ac, train: dict, times: dict, library: dict) -> None:
@@ -770,7 +929,14 @@ def train_times(dev, card, bk, bb, ta, ac, train: dict, times: dict, library: di
                             ('kernels mlp_mode="pallas"', train["mlp_apply"]),
                             ("eager", None)):
         time_steps("6", label, train, apply_fn, batch, card)
-    profile_step("6", train, train["kernel_apply"], batch, card)
+    step = profile_step("6", train, train["kernel_apply"], batch, card)
+    sums = [v for k, v in step.items() if k.startswith(LN_SUM_LABELS)]
+    sums_ms = sum(ms for ms, _ in sums)
+    print(f"[6] the LayerNorm column sums of the B/16 step B={B}: {sums_ms:.3f} ms in "
+          f"{sum(n for _, n in sums)} launches (target <= {LN_SUMS_MS} ms) [{card}]")
+    if sums_ms > LN_SUMS_MS:
+        raise AssertionError(f"the LayerNorm sums of a B/16 step take {sums_ms:.3f} ms, more "
+                             f"than {LN_SUMS_MS}")
 
     S = 1 + v.num_frames * v.n_keep
     T, N, D, H = v.num_frames, v.n_keep, v.width, v.heads
@@ -1004,8 +1170,15 @@ def device_ms(fn, iters: int = 10) -> float:
     function would count, left out."""
     for _ in range(2):
         fn()
-    rows, _ = profiled(lambda: [fn() for _ in range(iters)])
-    return sum(r[0] for r in rows) / 1e3 / iters
+    prof, _ = _profile(lambda: [fn() for _ in range(iters)], iters)
+    if prof is None:
+        print(f"[6] torch.profiler recorded no device activity in {PROFILE_ATTEMPTS} sessions: "
+              f"CUDA events around {iters} calls instead (launch gaps included)")
+        return cuda_ms(fn, iters)
+    host = _host_keys(prof)
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in host) / 1e3 / iters
 
 
 def wgrad_operands(M: int, N1: int, N2: int, ln, gen, dev) -> tuple:
@@ -1126,6 +1299,271 @@ def time_core_bwd_times(dev, card: str, bb, B: int = 20) -> dict:
           f"{p_ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}), {ms / bnd[0]:.2f}x the bound, "
           f"max|diff| to plain {diff.max().item():.3e} [{card}]")
     return dict(ms=ms, plain_ms=p_ms, bound=bnd, max_abs_err=diff.max().item())
+
+
+def space_bwd_work(B: int, T: int, N: int, H: int, d: int) -> tuple[float, float]:
+    """(flops, bytes) of the backward space core: per (clip, frame, head)
+    L = N + 1 elements, 10 * d * L^2 flops (the logits and dP, dq, dk and dv);
+    qkv and dO read once with the lse and delta, dqkv written once."""
+    S, D, L = 1 + T * N, H * d, N + 1
+    return 10 * d * L * L * B * T * H, 2 * B * S * (3 * D + D + 3 * D) + 8 * B * H * S
+
+
+# the space core's backward at the train shapes: (B, T, N, H, d)
+SPACE_BWD_SHAPES = {"B/16 train": (20, 12, 98, 12, 64), "H/14 train": (8, 12, 76, 16, 80)}
+
+
+def space_core_bwd_inputs(B, T, N, H, d, seed, dev, bb):
+    """Seeded qkv and dO (bf16) and the lse and delta of the plain space core."""
+    rng = np.random.default_rng(seed)
+    S, D = 1 + T * N, H * d
+    qkv = torch.tensor(rng.standard_normal((B, S, 3 * D)), dtype=torch.bfloat16, device=dev)
+    dO = torch.tensor(rng.standard_normal((B, S, D)), dtype=torch.bfloat16, device=dev)
+    out, lse = bb.bk.space_core_plain(qkv, T, H)
+    delta = (dO.float() * out).reshape(B, S, H, d).sum(-1).transpose(1, 2).contiguous()
+    return qkv, dO, lse.contiguous(), delta
+
+
+def space_core_bwd_pair(bb, qkv, dO, lse, delta, T: int, H: int) -> tuple:
+    """The flash pair (flash_bwd_dq_kernel, flash_bwd_dkv_kernel with SPACE)
+    and the CLS combine on the same inputs: the space core's first backward,
+    which the port keeps for groups larger than one block. -> (dqkv, the
+    frames' CLS partials)."""
+    bk = bb.bk
+    B, S, D3 = qkv.shape
+    N, d = (S - 1) // T, D3 // 3 // H
+    lib = bk.library()
+    dqkv = torch.empty_like(qkv)
+    partial = torch.empty(B, T, H, 3, d, dtype=torch.float32, device=qkv.device)
+    stream = bk._stream(qkv)
+    with torch.cuda.device(qkv.device):
+        bk._check(lib, lib.tvts_flash_bwd(bk._ptr(qkv), bk._ptr(dO), bk._ptr(lse),
+                                          bk._ptr(delta), bk._ptr(dqkv), bk._ptr(partial), B, T,
+                                          N, S, H, d, d ** -0.5, 0, 1, stream))
+        bk._check(lib, lib.tvts_cls_grad_combine(bk._ptr(partial), T, B, H, d, S, bk._ptr(dqkv),
+                                                 stream))
+    return dqkv, partial
+
+
+def space_core_bwd_digests(dev, bb) -> None:
+    """The backward space core at the B/16 (N = 98, d = 64) and H/14 (N = 76,
+    d = 80) train shapes (B = 2, 1): the sha256 of its dqkv and of the frames'
+    CLS partials (equal digests in two trees: bit-identical outputs), and
+    whether they are bit for bit the flash pair's in this tree."""
+    import hashlib
+
+    for label, (B, T, N, H, d) in zip(SPACE_BWD_SHAPES, ((2, 12, 98, 12, 64),
+                                                         (1, 12, 76, 16, 80))):
+        inputs = space_core_bwd_inputs(B, T, N, H, d, 55, dev, bb)
+        with torch.cuda.device(dev):
+            dqkv, partial = bb._space_core_backward(bb.bk.library(), *inputs, T, H)
+        pair = space_core_bwd_pair(bb, *inputs, T, H)
+        torch.cuda.synchronize()
+        for name, t in (("dqkv", dqkv.view(torch.int16)), ("CLS partials", partial)):
+            digest = hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+            print(f"[6] space core backward {label} N={N} d={d}: {name} sha256 {digest}")
+        same = torch.equal(dqkv, pair[0]) and torch.equal(partial, pair[1])
+        print(f"[6] space core backward {label}: bit for bit the flash pair's: {same}")
+
+
+def space_bwd_check(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Holds the backward space core's dqkv against the plain backward (f32):
+    each element within 2^-8 * |ref| + 0.01 * max|ref|. The kernel rounds P
+    and dS to bf16 for its tensor-core products, as the flash pair before it
+    and the TPU kernel's bf16 products do, so a sum keeps the rounding of its
+    largest terms, a share of max|ref| rather than of the element (2^-9 of
+    each term). Returns max|diff|."""
+    diff = (got.float() - want.float()).abs()
+    bound = 2.0 ** -8 * want.abs() + 0.01 * want.abs().max()
+    if not torch.isfinite(got.float()).all() or (diff > bound).any():
+        raise AssertionError(f"the backward space core disagrees with plain: max|diff| "
+                             f"{diff.max().item()}, {(diff > bound).sum().item()} elements over")
+    return diff.max().item()
+
+
+def core_backward_library_call(qkv, dO, T: int, H: int, mode: str):
+    """A divided core's backward as one library call: the backward of a
+    masked scaled_dot_product_attention (divided_mask) over the same q, k, v
+    and dO, its forward run once beforehand. Timed as `library_ms`; the port
+    never calls it."""
+    from tvts_torch.ops.attention import split_heads
+
+    B, S, D3 = qkv.shape
+    d = D3 // 3 // H
+    q, k, v = (split_heads(t, H).contiguous().requires_grad_() for t in qkv.chunk(3, dim=-1))
+    mask = divided_mask(T, (S - 1) // T, mode, qkv.device)
+    with torch.enable_grad():
+        out = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                               scale=d ** -0.5)
+    g = split_heads(dO, H).contiguous()
+    return lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+
+
+def space_core_bwd_times(dev, card: str, bb) -> dict:
+    """The backward space core alone at the B/16 (B=20) and H/14 (B=8) train
+    shapes, the CLS combine included (device time, device_ms), against its
+    byte bound, the plain backward, the flash pair on the same inputs and one
+    masked scaled_dot_product_attention backward (library_ms); held against
+    the plain backward (each element within the bf16 store plus 1e-4 *
+    max|ref|). Returns label -> the kernel line's numbers."""
+    out = {}
+    for label, (B, T, N, H, d) in SPACE_BWD_SHAPES.items():
+        qkv, dO, lse, delta = space_core_bwd_inputs(B, T, N, H, d, 56, dev, bb)
+        ms = device_ms(lambda: bb.space_core_backward(qkv, dO, lse, delta, T, H))
+        pair_ms = device_ms(lambda: space_core_bwd_pair(bb, qkv, dO, lse, delta, T, H))
+        p_ms = device_ms(lambda: bb.space_core_backward_plain(qkv, dO, lse, delta, T, H),
+                         iters=3)
+        l_ms = device_ms(core_backward_library_call(qkv, dO, T, H, "space"), iters=3)
+        diff = space_bwd_check(bb.space_core_backward(qkv, dO, lse, delta, T, H),
+                               bb.space_core_backward_plain(qkv, dO, lse, delta, T, H))
+        bnd = bound_ms(*space_bwd_work(B, T, N, H, d))
+        print(f"[6] space core backward alone {label} B={B} S={1 + T * N} d={d}: {ms:.3f} ms "
+              f"(flash pair {pair_ms:.3f} ms), plain {p_ms:.3f} ms, masked "
+              f"scaled_dot_product_attention backward {l_ms:.3f} ms, bound {bnd[0]:.3f} ms "
+              f"({bnd[1]}), {ms / bnd[0]:.2f}x the bound, max|diff| to plain "
+              f"{diff:.3e} [{card}]")
+        out[label] = dict(ms=ms, plain_ms=p_ms, bound=bnd, library_ms=l_ms, max_abs_err=diff)
+        del qkv, dO, lse, delta
+    return out
+
+
+def ln_bwd_work(M: int, K: int, res: bool, weight_grads: bool = True) -> tuple[float, float]:
+    """(flops, bytes) of the LayerNorm backward over M rows of width K: x
+    (bf16), dxln (f32), the row stats and res (bf16) read once, dx (bf16) and
+    dln_w, dln_b (f32) written once; ~12 flops an element."""
+    return 12 * M * K, M * K * (2 + 4 + 2 * res + 2) + 8 * M + 4 * K + 8 * K * weight_grads
+
+
+# the LayerNorm backward at the train shapes: (M, K), with the residual
+LN_BWD_SHAPES = {"B/16 train": (20 * (1 + 12 * 98), 768), "H/14 train": (8 * (1 + 12 * 76), 1280)}
+
+
+def ln_bwd_inputs(M: int, K: int, seed: int, dev) -> tuple:
+    """Seeded x, res (bf16), dxln (f32), ln_w (f32) and x's row stats."""
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.standard_normal((M, K)) + 0.3, dtype=torch.bfloat16, device=dev)
+    xf = x.float()
+    stats = torch.stack([xf.mean(-1), torch.rsqrt(xf.var(-1, unbiased=False) + 1e-5)], -1)
+    dxln = torch.tensor(rng.standard_normal((M, K)), dtype=torch.float32, device=dev)
+    ln_w = torch.tensor(1 + 0.1 * rng.standard_normal(K), dtype=torch.float32, device=dev)
+    res = torch.tensor(rng.standard_normal((M, K)), dtype=torch.bfloat16, device=dev)
+    return x, stats.contiguous(), dxln, ln_w, res
+
+
+def ln_bwd_check(bb, got: tuple, args: tuple) -> float:
+    """Holds the LayerNorm backward (dx, dln_w, dln_b) against plain in f64:
+    dx within one bf16 unit of it plus 1e-5 * max|ref| (the f32 row sums),
+    dln_w and dln_b within 1e-4 * max|ref|. Returns the largest |diff|."""
+    x, stats, dxln, ln_w, res = args
+    dx, dw, db = bb.ln_backward_plain(x.double(), stats.double(), dxln.double(), ln_w.double(),
+                          None if res is None else res.double())
+    diff = (got[0].double() - dx).abs()
+    unit = torch.exp2(torch.floor(torch.log2(dx.abs().clamp_min(1e-30))) - 7)
+    if (diff > unit + 1e-5 * dx.abs().max()).any():
+        raise AssertionError(f"LayerNorm backward dx off plain by more than one bf16 unit: "
+                             f"{diff.max().item()}")
+    worst = diff.max().item()
+    for name, g, w in (("dln_w", got[1], dw), ("dln_b", got[2], db)):
+        if g is None:
+            continue
+        err = (g.double() - w).abs().max().item()
+        if err > 1e-4 * w.abs().max().item():
+            raise AssertionError(f"LayerNorm backward {name} off an f64 sum: {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def ln_bwd_times(dev, card: str, bb) -> dict:
+    """The LayerNorm backward alone (row pass and column sums, with the
+    residual) at the B/16 (M = 23,540, K = 768) and H/14 (M = 7,304, K = 1280)
+    train shapes: device time (device_ms), split by kernel at B/16, and the
+    frozen form (dx only), against its byte bound, the plain version and one
+    torch.ops.aten.native_layer_norm_backward on the same shapes (x and dxln in
+    f32, all three outputs: library_ms); held against plain (ln_bwd_check).
+    Returns label -> the kernel line's numbers."""
+    out = {}
+    for label, (M, K) in LN_BWD_SHAPES.items():
+        args = ln_bwd_inputs(M, K, 57, dev)
+        x, stats, dxln, ln_w, res = args
+        ms = device_ms(lambda: bb.ln_backward(x, stats, dxln, ln_w, res))
+        frozen_ms = device_ms(lambda: bb.ln_backward(x, stats, dxln, ln_w, res,
+                                                     weight_grads=False))
+        p_ms = device_ms(lambda: bb.ln_backward_plain(x, stats, dxln, ln_w, res), iters=3)
+        xf, bias = x.float(), torch.zeros_like(ln_w)
+        mean, rstd = stats[:, :1].contiguous(), stats[:, 1:].contiguous()
+        l_ms = device_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+            dxln, xf, [K], mean, rstd, ln_w, bias, [True, True, True]))
+        err = ln_bwd_check(bb, bb.ln_backward(x, stats, dxln, ln_w, res), args)
+        ln_bwd_check(bb, bb.ln_backward(x, stats, dxln, ln_w, None, weight_grads=False),
+                     (x, stats, dxln, ln_w, None))
+        bnd = bound_ms(*ln_bwd_work(M, K, True))
+        print(f"[6] LayerNorm backward alone {label} M={M} K={K} (with res): {ms:.4f} ms, "
+              f"frozen (dx only) {frozen_ms:.4f} ms, plain {p_ms:.3f} ms, "
+              f"native_layer_norm_backward {l_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
+              f"{ms / bnd[0]:.2f}x the bound, max|diff| to plain {err:.3e} [{card}]")
+        if label.startswith("B/16"):
+            kernel_split("6", f"LayerNorm backward {label}",
+                         lambda: bb.ln_backward(x, stats, dxln, ln_w, res), card)
+        out[label] = dict(ms=ms, plain_ms=p_ms, bound=bnd, library_ms=l_ms, max_abs_err=err)
+        del args, x, stats, dxln, ln_w, res, xf
+    return out
+
+
+def ln_bwd_digests(dev, bb) -> None:
+    """The sha256 of the LayerNorm backward's dx at the B/16 and H/14 train
+    shapes, with the residual and frozen (equal digests in two trees:
+    bit-identical rows)."""
+    import hashlib
+
+    for label, (M, K) in LN_BWD_SHAPES.items():
+        x, stats, dxln, ln_w, res = ln_bwd_inputs(M, K, 58, dev)
+        for form, r, wg in (("with res", res, True), ("frozen", None, False)):
+            dx = bb.ln_backward(x, stats, dxln, ln_w, r, weight_grads=wg)[0]
+            torch.cuda.synchronize()
+            digest = hashlib.sha256(dx.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+            print(f"[6] LayerNorm backward {label} M={M} K={K} {form}: dx sha256 {digest}")
+
+
+def text_core_times(dev, card: str, ta) -> None:
+    """The H7 cores alone at the B/16 text (B=80, causal) and sort (B=20, S =
+    1181) train shapes, forward and backward, split out of the sub-path by
+    kernel (kernel_split), against their operations bound and one
+    scaled_dot_product_attention (causal for the text) forward and backward."""
+    for label, (B, S, D, H, causal, eps) in (("text", (80, 77, 512, 8, True, 1e-5)),
+                                            ("sort", (20, 1181, 512, 8, False, 1e-6))):
+        d = D // H
+        t = text_inputs(B, S, D, seed=16, device=dev)
+        tg = text_inputs(B, S, D, seed=17, device=dev)["x"]
+        tw = (t["ln_w"], t["ln_b"], t["wqkv"], t["bqkv"], t["wproj"], t["bproj"])
+        with torch.inference_mode():
+            fwd = kernel_split("6", f"H7 forward {label} B={B} S={S}",
+                               lambda: ta.fused_text_attention_block(
+                                   t["x"], *tw, num_heads=H, causal=causal, eps=eps), card)
+        _, *saves = ta._text_sub_path(t["x"], *tw, H, causal, eps, save=True)
+        bwd = kernel_split("6", f"H7 backward {label} B={B} S={S}",
+                           lambda: ta.text_subpath_backward(tg, t["x"], saves, t["ln_w"],
+                                                            t["ln_b"], t["wqkv"], t["wproj"], H,
+                                                            causal, False), card)
+        core_f = sum(ms for k, (ms, _) in fwd.items() if "text_core_kernel" in k)
+        core_b = sum(ms for k, (ms, _) in bwd.items() if "flash_bwd_d" in k)
+        qkv = torch.randn(B, H, S, 3 * d, device=dev, dtype=torch.bfloat16)
+        q, k, v = (x.contiguous().requires_grad_() for x in qkv.chunk(3, dim=-1))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        with torch.inference_mode():
+            lf_ms = device_ms(lambda: sdpa(q.detach(), k.detach(), v.detach(), is_causal=causal))
+        with torch.enable_grad():
+            o = sdpa(q, k, v, is_causal=causal)
+        go = torch.randn_like(o)
+        lb_ms = device_ms(lambda: torch.autograd.grad(o, (q, k, v), go, retain_graph=True))
+        pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+        for name, ms, flops, lib_ms in (("forward", core_f, 4 * d * pairs, lf_ms),
+                                        ("backward", core_b, 10 * d * pairs, lb_ms)):
+            nbytes = 2 * B * S * H * d * (4 if name == "forward" else 7) + 8 * B * H * S
+            bnd = bound_ms(flops, nbytes)
+            print(f"[6] H7 {name} core alone {label} B={B} S={S}: {ms:.4f} ms, bound "
+                  f"{bnd[0]:.4f} ms ({bnd[1]}), scaled_dot_product_attention"
+                  f"{' causal' if causal else ''} {name} {lib_ms:.4f} ms [{card}]")
+        del t, tg, saves, qkv, q, k, v, o, go
 
 
 def forward_profile(cfg, model, B: int, dev, card: str, bk) -> dict:
@@ -1611,6 +2049,8 @@ def profile_phase(dev, card: str, bk, bb, ta) -> None:
 
     space_core_rows(dev, bk)
     time_core_bwd_digests(dev, bb)
+    space_core_bwd_digests(dev, bb)
+    ln_bwd_digests(dev, bb)
     cfg, model = build_model("TVTSv2_B_16", dtype=torch.bfloat16, device=dev, seed=0)
     add_noise_(model, 1, dev)
     v = cfg.vision
@@ -1622,12 +2062,18 @@ def profile_phase(dev, card: str, bk, bb, ta) -> None:
     print(json.dumps({"ln_gemm": ln_gemm_table(dev, card, bk)}))
     print(json.dumps({"wgrad": wgrad_table(dev, card, bb)[0]}))
     time_core_bwd_times(dev, card, bb)
+    space_core_bwd_times(dev, card, bb)
+    ln_bwd_times(dev, card, bb)
+    backward_splits(dev, card, bb, ta)
     train = build_train("TVTSv2_B_16", dev, noise_seed=11, text_tune_layers=3, tag="6")
     B = 20
     batch = train_batch(train["cfg"], B, seed=13, device=dev)
     best = kernel_apply(train, "6")
     time_steps("6", "kernels", train, best, batch, card)
     profile_step("6", train, best, batch, card)
+    mlp = kernel_apply(train, "6", mlp_mode="pallas")
+    time_steps("6", 'kernels mlp_mode="pallas"', train, mlp, batch, card)
+    profile_step("6", train, mlp, batch, card)
     v = train["cfg"].vision  # the pretraining config: n_keep patches a frame
     S, T, N, D, H = 1 + v.num_frames * v.n_keep, v.num_frames, v.n_keep, v.width, v.heads
     a = seeded_inputs(1, 1, 1, D, seed=14, device=dev)
@@ -1651,6 +2097,11 @@ def profile_phase(dev, card: str, bk, bb, ta) -> None:
         extraction_rate("6", cfg, model, B, dev, card, iters=3)
         del model
         torch.cuda.empty_cache()
+    train = build_train("TVTSv2_H_14", dev, noise_seed=23, text_tune_layers=6, tag="8")
+    every = kernel_apply(train, "8", time_mode="pallas", mlp_mode="pallas", sort_mode="pallas")
+    batch = train_batch(train["cfg"], 8, seed=25, device=dev)
+    time_steps("6", "every kernel", train, every, batch, card, iters=2)
+    profile_step("6", train, every, batch, card)
 
 
 def main() -> int:
@@ -1796,6 +2247,13 @@ def main() -> int:
     times["time_core_backward"] = (line["ms"], line["plain_ms"], line["bound"])
     max_err["time_core_backward"] = line["max_abs_err"]
     time_core_bwd_digests(dev, bb)
+    for name, lines in (("space_core_backward", space_core_bwd_times(dev, card, bb)),
+                        ("ln_backward", ln_bwd_times(dev, card, bb))):
+        line = lines["B/16 train"]
+        times[name] = (line["ms"], line["plain_ms"], line["bound"])
+        library[name], max_err[name] = line["library_ms"], line["max_abs_err"]
+    space_core_bwd_digests(dev, bb)
+    ln_bwd_digests(dev, bb)
 
     TB = 256
     ids = torch.from_numpy(tokenize_openclip(
@@ -1823,6 +2281,7 @@ def main() -> int:
             print(f"[6] fused_text_attention_block {label} B={B} S={S} D={D}: kernel "
                   f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}) "
                   f"[{card}]")
+    text_core_times(dev, card, ta)
     del model
     train_times(dev, card, bk, bb, ta, ac, train, times, library)
     del train

@@ -34,8 +34,13 @@ from chip_smoke import (
     core_inputs,
     grad_band_check,
     kernel_calls,
+    ln_bwd_check,
+    ln_bwd_inputs,
     mlp_calls,
     seeded_inputs,
+    space_bwd_check,
+    space_core_bwd_inputs,
+    space_core_bwd_pair,
     text_backward_calls,
     text_calls,
     text_inputs,
@@ -687,3 +692,105 @@ def test_time_core_backward_raises_before_launch(cuda):
         bb.time_core_backward(qkv[:, :1 + 12 * N].contiguous(), dO[:, :1 + 12 * N].float(),
                               lse[:, :, :1 + 12 * N].contiguous(),
                               lse[:, :, :1 + 12 * N].contiguous(), 12, H)
+
+
+# ---------------------------------------------------------------------------
+# the LayerNorm backward (row pass and column sums) against plain in f64
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("M", [1, 37, 1001, 23540])
+@pytest.mark.parametrize("K", [512, 768, 1280])
+def test_ln_backward_matches_plain(cuda, K, M):
+    """dx within one bf16 unit of plain (f64) plus 1e-5 * max|ref|, dln_w and
+    dln_b within 1e-4 * max|ref| of f64 sums (ln_bwd_check), with and without
+    the residual and frozen (dx only); two runs bit-equal."""
+    x, stats, dxln, ln_w, res = ln_bwd_inputs(M, K, 59, cuda)
+    for r, wg in ((res, True), (None, True), (res, False), (None, False)):
+        before = bb.ln_backward.launches
+        got = bb.ln_backward(x, stats, dxln, ln_w, r, weight_grads=wg)
+        torch.cuda.synchronize()
+        assert bb.ln_backward.launches == before + 1
+        assert got[0].shape == (M, K) and got[0].dtype == torch.bfloat16
+        assert (got[1] is None) == (not wg) and (got[2] is None) == (not wg)
+        ln_bwd_check(bb, got, (x, stats, dxln, ln_w, r))
+        again = bb.ln_backward(x, stats, dxln, ln_w, r, weight_grads=wg)
+        for a, b in zip(got, again):
+            assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_ln_backward_raises_before_launch(cuda):
+    x, stats, dxln, ln_w, _ = ln_bwd_inputs(4, 1288, 60, cuda)
+    before = bb.ln_backward.launches
+    with pytest.raises(ValueError, match="K = 1288"):
+        bb.ln_backward(x, stats, dxln, ln_w)
+    with pytest.raises(TypeError):
+        bb.ln_backward(x[:, :768].contiguous().float(), stats, dxln[:, :768].contiguous(),
+                       ln_w[:768].contiguous())
+    lib = bk.library()
+    off = torch.empty(4 * 768 + 4, device=cuda)[1:1 + 4 * 768].view(4, 768)
+    with pytest.raises(ValueError, match="dxln at .* not 16-byte aligned"):
+        bb._ln_backward(lib, x[:, :768].contiguous(), stats, off, ln_w[:768].contiguous(), None,
+                        True)
+    assert bb.ln_backward.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the backward space core: one pass, against autograd of plain and the pair
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("N", [1, 49, 76, 98, 196])
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("T", [1, 8, 12])
+def test_space_core_backward_matches_plain_and_the_pair(cuda, T, d, N):
+    """dq, dk, dv of every row (the CLS row from the frames' partials after
+    the combine) against autograd's f32 value within space_bwd_check's band
+    (P and dS rounded to bf16 for the products, as in the flash pair); dqkv
+    and the CLS partials bit for bit the flash pair's; two runs bit-equal."""
+    H = 12 if d == 64 else 16
+    B, S, D = 2, 1 + T * N, H * d
+    rng = np.random.default_rng(53)
+    qkv = torch.tensor(rng.standard_normal((B, S, 3 * D)), dtype=torch.bfloat16, device=cuda)
+    dO = torch.tensor(rng.standard_normal((B, S, D)), dtype=torch.bfloat16, device=cuda)
+    q32 = qkv.float().requires_grad_()
+    out, lse = bk.space_core_plain(q32, T, H)
+    (want,) = torch.autograd.grad(out, q32, dO.float())
+    out = out.detach()
+    delta = (dO.float() * out).reshape(B, S, H, d).sum(-1).transpose(1, 2).contiguous()
+    lse = lse.detach().contiguous()
+    before = bb.space_core_backward.launches, bb.space_core_backward.pair_launches
+    got = bb.space_core_backward(qkv, dO, lse, delta, T, H)
+    torch.cuda.synchronize()
+    assert (bb.space_core_backward.launches, bb.space_core_backward.pair_launches) == (
+        before[0] + 1, before[1])
+    assert got.shape == qkv.shape and got.dtype == torch.bfloat16
+    space_bwd_check(got, want)
+    with torch.cuda.device(cuda):
+        dqkv, partial = bb._space_core_backward(bk.library(), qkv, dO, lse, delta, T, H)
+    pair = space_core_bwd_pair(bb, qkv, dO, lse, delta, T, H)
+    assert torch.equal(dqkv, pair[0]) and torch.equal(partial, pair[1])
+    assert torch.equal(dqkv, got)  # and run to run
+
+
+def test_space_core_backward_takes_the_pair_above_one_block(cuda):
+    """A group over one block's shared memory (N = 400 at d = 64: 416 rows)
+    takes the flash pair, counted apart, and still matches plain."""
+    T, N, H, d = 1, 400, 2, 64
+    assert not bb._check_space_bwd(T, N, H, d)
+    qkv, dO, lse, delta = space_core_bwd_inputs(1, T, N, H, d, 61, cuda, bb)
+    before = bb.space_core_backward.launches, bb.space_core_backward.pair_launches
+    got = bb.space_core_backward(qkv, dO, lse, delta, T, H)
+    torch.cuda.synchronize()
+    assert (bb.space_core_backward.launches, bb.space_core_backward.pair_launches) == (
+        before[0], before[1] + 1)
+    space_bwd_check(got, bb.space_core_backward_plain(qkv, dO, lse, delta, T, H))
+
+
+def test_space_core_backward_raises_before_launch(cuda):
+    T, N, H = 2, 5, 4
+    qkv = torch.zeros(1, 1 + T * N, 3 * H * 32, device=cuda, dtype=torch.bfloat16)
+    dO = torch.zeros(1, 1 + T * N, H * 32, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(1, H, 1 + T * N, device=cuda)
+    before = bb.space_core_backward.launches, bb.space_core_backward.pair_launches
+    with pytest.raises(ValueError, match="head dim 32"):
+        bb.space_core_backward(qkv, dO, lse, lse, T, H)
+    with pytest.raises(TypeError):
+        bb.space_core_backward(qkv, dO.float(), lse, lse, T, H)
+    assert (bb.space_core_backward.launches, bb.space_core_backward.pair_launches) == before

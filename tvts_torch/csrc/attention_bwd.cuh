@@ -32,9 +32,11 @@
 // time and space cores move bytes (qkv, dO and dqkv rows, ~10.7 KB a token at
 // D = 768: 0.075 ms at B=20 against ~0.02 ms of their tensor-core work); the
 // text core at the sort head's S = 1181 is bound by its 10 * D * S^2 flops per
-// sequence. The flash kernels recompute QK^T and dO V^T in both passes (dq;
-// dk and dv); the time core (its own section below) runs on SIMT lanes, a
-// thread per (element, head) of a group.
+// sequence. The flash kernels (the text core; the space core of a group too
+// large for one block) recompute QK^T and dO V^T in both passes (dq; dk and
+// dv); the one-pass space core stages its group once and computes both; the
+// time core runs on SIMT lanes, a thread per (element, head) of a group. Each
+// has its own section below.
 #pragma once
 
 #include <math.h>
@@ -342,6 +344,368 @@ inline cudaError_t launch_flash_bwd(const FlashBwdArgs& a, int B, cudaStream_t s
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bwd_dkv_kernel<DH, SPACE><<<dim3((L + FB_BK - 1) / FB_BK, a.H, z), 128, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Space core backward (H5), one pass. It replaces the attention-core part of
+// tvts_tpu/ops/pallas_block_backward.py::fused_space_attention_block_v10_bwd
+// (:3106, kernel :2722) for the groups that fit one block: group (b, t) =
+// [CLS, the N patches of frame t], L = N + 1 elements. Bound on the H100:
+// bytes (qkv and dO read once, dqkv written once: 253 MB, 0.076 ms at B/16's
+// B=20 against ~0.02 ms of tensor-core work). The flash pair above reads a
+// group's k and v (dq kernel) or q and dO (dkv kernel) again for every 64-row
+// tile and rounds L = 99 up to two tiles. Design, by the forward space core's
+// pattern (attention.cuh): one block per (t, h, b) stages the group's q, k, v
+// and dO rows in shared memory once (16-byte cp.async; L padded with zero rows
+// to a multiple of 16: 64 KB at L = 99, d = 64, three blocks an SM), with the
+// group's lse (log2 domain) and delta. Its warps (space_bwd_warps: 4 at d =
+// 64, 5 at d = 80) then take 16-row slabs: a dq task walks
+// the 16-key chunks of the group for its query slab, a dkv task the 16-query
+// chunks for its key slab, both on mma.sync m16n8k16 from the staged rows.
+// The first round of dq tasks starts as soon as its slabs' q and dO and the
+// first key chunk have landed and walks the later key chunks as they arrive
+// (a cp.async group each), so the loads overlap the arithmetic. The arithmetic is the pair's, in its order: S = Q K^T
+// and dP = dO V^T in query-row layout for dq, K Q^T and V dO^T in key-row
+// layout for dk and dv (both layouts computed, as the pair does; the core is
+// bound by bytes), the same exp2 and masks, P and dS rounded to bf16 for the
+// products, each accumulator summed chunk by chunk in key (query) order. A
+// 16-wide chunk past L would only add exact zeros, so only the chunks that
+// hold an element run (7 at L = 99, where the pair runs 8), and dqkv and the
+// CLS partials are bit for bit the pair's. Groups too large for one block's
+// shared memory (space_bwd_smem) take the pair (ops/block_backward.py::
+// space_core_backward dispatches on L and d before the launch).
+// ---------------------------------------------------------------------------
+// warps a block, and blocks an SM: at d = 64 four warps, three blocks (168
+// registers; seven warps, one per slab of L = 99, spilled at two blocks an SM
+// and ran 9% slower); at d = 80 five warps, one per slab of L = 77, two blocks
+// (8% faster than four warps)
+template <int DH>
+__host__ __device__ constexpr int space_bwd_warps() { return DH == 64 ? 4 : 5; }
+template <int DH>
+__host__ __device__ constexpr int space_bwd_blocks_per_sm() { return DH == 64 ? 3 : 2; }
+
+// rows of a staged group: L = N + 1 padded to a multiple of 16
+inline int space_bwd_rows(int N) { return (N + 1 + 15) / 16 * 16; }
+
+// q, k, v and dO of the group ([Lp][DH + 8] bf16 each), then lse and delta ([Lp] f32)
+inline size_t space_bwd_smem(int N, int DH) {
+  const int Lp = space_bwd_rows(N);
+  return (size_t)4 * Lp * (DH + 8) * 2 + (size_t)2 * Lp * 4;
+}
+
+// The staged group a space_bwd_kernel block works on: q, k, v and dO rows
+// ([Lp][DH + 8] bf16), the lse in the log2 domain and delta ([Lp] f32).
+template <int DH>
+struct SpaceGroup {
+  bf16 (*q)[DH + 8];
+  bf16 (*k)[DH + 8];
+  bf16 (*v)[DH + 8];
+  bf16 (*dO)[DH + 8];
+  const float* lse2;
+  const float* delta;
+  int L, t, b, h;
+};
+
+// dq of query slab [r0, r0 + 16) of the staged group: flash_bwd_dq_kernel's
+// arithmetic, 16 keys a step (start, then step for k0 = 0, 16, .. < L, then
+// store), the slab's q and dO fragments and its dq accumulators in registers
+template <int DH>
+struct SpaceBwdDq {
+  uint32_t qf[DH / 16][4], of[DH / 16][4];
+  float dq[DH / 8][4];
+  float lse2[2], dl[2];
+  int qe[2];
+
+  __device__ __forceinline__ void start(const SpaceGroup<DH>& g, int r0, int lane) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      qe[r] = r0 + (lane >> 2) + r * 8;
+      lse2[r] = g.lse2[qe[r]];
+      dl[r] = g.delta[qe[r]];
+    }
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      ldmatrix_x4(qf[kk], &g.q[r0 + (lane & 15)][kk * 16 + (lane >> 4) * 8]);
+      ldmatrix_x4(of[kk], &g.dO[r0 + (lane & 15)][kk * 16 + (lane >> 4) * 8]);
+    }
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
+  }
+
+  __device__ __forceinline__ void step(const SpaceGroup<DH>& g, int k0, int lane,
+                                       float scale_log2) {
+    const int t4 = lane & 3, j = lane >> 3;
+    float s[2][4], dp[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = dp[n][0] = dp[n][1] =
+        dp[n][2] = dp[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      uint32_t bk[4], bv[4];
+      ldmatrix_x4(bk, &g.k[k0 + (lane & 7) + (j >> 1) * 8][kk * 16 + (j & 1) * 8]);
+      ldmatrix_x4(bv, &g.v[k0 + (lane & 7) + (j >> 1) * 8][kk * 16 + (j & 1) * 8]);
+      mma_bf16_16816(s[0], qf[kk], bk[0], bk[1]);
+      mma_bf16_16816(s[1], qf[kk], bk[2], bk[3]);
+      mma_bf16_16816(dp[0], of[kk], bv[0], bv[1]);
+      mma_bf16_16816(dp[1], of[kk], bv[2], bv[3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int key = k0 + nt * 8 + t4 * 2 + (c & 1), r = c >> 1;
+        const bool masked = key >= g.L || (g.t != 0 && key == 0 && qe[r] == 0);
+        const float p = masked ? 0.f : exp2f(s[nt][c] * scale_log2 - lse2[r]);
+        s[nt][c] = p * (dp[nt][c] - dl[r]);  // dS
+      }
+    uint32_t pa[4];
+    pa[0] = pack_bf16x2(s[0][0], s[0][1]);
+    pa[1] = pack_bf16x2(s[0][2], s[0][3]);
+    pa[2] = pack_bf16x2(s[1][0], s[1][1]);
+    pa[3] = pack_bf16x2(s[1][2], s[1][3]);
+#pragma unroll
+    for (int d2 = 0; d2 < DH / 16; ++d2) {
+      uint32_t kf[4];
+      ldmatrix_x4_trans(kf, &g.k[k0 + (lane & 7) + ((lane >> 3) & 1) * 8]
+                                [d2 * 16 + ((lane >> 4) & 1) * 8]);
+      mma_bf16_16816(dq[2 * d2], pa, kf[0], kf[1]);
+      mma_bf16_16816(dq[2 * d2 + 1], pa, kf[2], kf[3]);
+    }
+  }
+
+  __device__ __forceinline__ void store(const FlashBwdArgs& a, const SpaceGroup<DH>& g,
+                                        int lane) const {
+    const int t4 = lane & 3, D = a.H * DH;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (qe[r] >= g.L) continue;
+      if (qe[r] == 0) {
+        float* dst = a.cls_partial + ((((i64)g.b * a.T + g.t) * a.H + g.h) * 3 + 0) * DH;
+#pragma unroll
+        for (int i = 0; i < DH / 8; ++i)
+          *reinterpret_cast<float2*>(dst + i * 8 + t4 * 2) =
+              make_float2(dq[i][2 * r] * a.scale, dq[i][2 * r + 1] * a.scale);
+        continue;
+      }
+      bf16* dst = a.dqkv + ((i64)g.b * a.S + group_token<true>(qe[r], g.t, a.N)) * 3 * D +
+                  g.h * DH;
+#pragma unroll
+      for (int i = 0; i < DH / 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(dst + i * 8 + t4 * 2) =
+            __floats2bfloat162_rn(dq[i][2 * r] * a.scale, dq[i][2 * r + 1] * a.scale);
+    }
+  }
+};
+
+// dk and dv of key slab [k0, k0 + 16) of the staged group:
+// flash_bwd_dkv_kernel's arithmetic, 16 queries a step
+template <int DH>
+__device__ __forceinline__ void space_bwd_dkv(const FlashBwdArgs& a, const SpaceGroup<DH>& sg,
+                                              int k0, int lane, float scale_log2) {
+  bf16 (*sQ)[DH + 8] = sg.q;
+  bf16 (*sK)[DH + 8] = sg.k;
+  bf16 (*sV)[DH + 8] = sg.v;
+  bf16 (*sdO)[DH + 8] = sg.dO;
+  const float* s_lse2 = sg.lse2;
+  const float* s_delta = sg.delta;
+  const int L = sg.L, t = sg.t, b = sg.b, h = sg.h;
+  const int g = lane >> 2, t4 = lane & 3, j = lane >> 3;
+  const int D = a.H * DH;
+  const int ke[2] = {k0 + g, k0 + g + 8};
+  uint32_t kf[DH / 16][4], vf[DH / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    ldmatrix_x4(kf[kk], &sK[k0 + (lane & 15)][kk * 16 + (lane >> 4) * 8]);
+    ldmatrix_x4(vf[kk], &sV[k0 + (lane & 15)][kk * 16 + (lane >> 4) * 8]);
+  }
+  float dk[DH / 8][4], dv[DH / 8][4];
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk[i][c] = dv[i][c] = 0.f;
+
+  for (int q0 = 0; q0 < L; q0 += 16) {
+    // transposed tiles: rows are this slab's 16 keys, columns 16 queries
+    float p[2][4], ds[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) p[n][0] = p[n][1] = p[n][2] = p[n][3] = ds[n][0] = ds[n][1] =
+        ds[n][2] = ds[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      uint32_t bq[4], bo[4];
+      ldmatrix_x4(bq, &sQ[q0 + (lane & 7) + (j >> 1) * 8][kk * 16 + (j & 1) * 8]);
+      ldmatrix_x4(bo, &sdO[q0 + (lane & 7) + (j >> 1) * 8][kk * 16 + (j & 1) * 8]);
+      mma_bf16_16816(p[0], kf[kk], bq[0], bq[1]);
+      mma_bf16_16816(p[1], kf[kk], bq[2], bq[3]);
+      mma_bf16_16816(ds[0], vf[kk], bo[0], bo[1]);
+      mma_bf16_16816(ds[1], vf[kk], bo[2], bo[3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int query = q0 + nt * 8 + t4 * 2 + (c & 1), key = ke[c >> 1];
+        const bool masked = query >= L || key >= L || (t != 0 && key == 0 && query == 0);
+        const float pv = masked ? 0.f : exp2f(p[nt][c] * scale_log2 - s_lse2[query]);
+        p[nt][c] = pv;
+        ds[nt][c] = pv * (ds[nt][c] - s_delta[query]);
+      }
+    uint32_t pp[4], pd[4];
+    pp[0] = pack_bf16x2(p[0][0], p[0][1]);
+    pp[1] = pack_bf16x2(p[0][2], p[0][3]);
+    pp[2] = pack_bf16x2(p[1][0], p[1][1]);
+    pp[3] = pack_bf16x2(p[1][2], p[1][3]);
+    pd[0] = pack_bf16x2(ds[0][0], ds[0][1]);
+    pd[1] = pack_bf16x2(ds[0][2], ds[0][3]);
+    pd[2] = pack_bf16x2(ds[1][0], ds[1][1]);
+    pd[3] = pack_bf16x2(ds[1][2], ds[1][3]);
+#pragma unroll
+    for (int d2 = 0; d2 < DH / 16; ++d2) {
+      uint32_t o4[4], q4[4];
+      const int row = q0 + (lane & 7) + ((lane >> 3) & 1) * 8, col = d2 * 16 + ((lane >> 4) & 1) * 8;
+      ldmatrix_x4_trans(o4, &sdO[row][col]);
+      mma_bf16_16816(dv[2 * d2], pp, o4[0], o4[1]);
+      mma_bf16_16816(dv[2 * d2 + 1], pp, o4[2], o4[3]);
+      ldmatrix_x4_trans(q4, &sQ[row][col]);
+      mma_bf16_16816(dk[2 * d2], pd, q4[0], q4[1]);
+      mma_bf16_16816(dk[2 * d2 + 1], pd, q4[2], q4[3]);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (ke[r] >= L) continue;
+    if (ke[r] == 0) {
+      float* dst = a.cls_partial + (((i64)b * a.T + t) * a.H + h) * 3 * DH;
+#pragma unroll
+      for (int i = 0; i < DH / 8; ++i) {
+        *reinterpret_cast<float2*>(dst + DH + i * 8 + t4 * 2) =
+            make_float2(dk[i][2 * r] * a.scale, dk[i][2 * r + 1] * a.scale);
+        *reinterpret_cast<float2*>(dst + 2 * DH + i * 8 + t4 * 2) =
+            make_float2(dv[i][2 * r], dv[i][2 * r + 1]);
+      }
+      continue;
+    }
+    bf16* dst = a.dqkv + ((i64)b * a.S + group_token<true>(ke[r], t, a.N)) * 3 * D + h * DH;
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i) {
+      *reinterpret_cast<__nv_bfloat162*>(dst + D + i * 8 + t4 * 2) =
+          __floats2bfloat162_rn(dk[i][2 * r] * a.scale, dk[i][2 * r + 1] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dst + 2 * D + i * 8 + t4 * 2) =
+          __floats2bfloat162_rn(dv[i][2 * r], dv[i][2 * r + 1]);
+    }
+  }
+}
+
+// rows [r0, r1) of the staged arrays `which` (bit 0 q, 1 k, 2 v, 3 dO) by
+// 16-byte cp.async; rows past L are zero-filled with plain stores
+template <int DH>
+__device__ __forceinline__ void space_bwd_stage(const FlashBwdArgs& a, const SpaceGroup<DH>& g,
+                                                int which, int r0, int r1) {
+  constexpr int VPR = DH / 8;
+  const int D = a.H * DH, n = r1 - r0, per = n * VPR;
+  bf16 (*dst_of[4])[DH + 8] = {g.q, g.k, g.v, g.dO};
+  const bf16* qkv = a.qkv + (i64)g.b * a.S * 3 * D;
+  const bf16* dO = a.dO + (i64)g.b * a.S * D;
+#pragma unroll
+  for (int arr = 0; arr < 4; ++arr) {
+    if (!(which >> arr & 1)) continue;
+    for (int i = threadIdx.x; i < per; i += blockDim.x) {
+      const int r = r0 + i / VPR, c = (i % VPR) * 8;
+      bf16* dst = &dst_of[arr][r][c];
+      if (r < g.L) {
+        const i64 tok = group_token<true>(r, g.t, a.N);
+        cp_async16(dst, arr == 3 ? dO + tok * D + g.h * DH + c
+                                 : qkv + tok * 3 * D + arr * D + g.h * DH + c);
+      } else {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+      }
+    }
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(space_bwd_warps<DH>() * 32, space_bwd_blocks_per_sm<DH>())
+    space_bwd_kernel(const FlashBwdArgs a) {
+  constexpr int W = space_bwd_warps<DH>();
+  extern __shared__ __align__(16) uint8_t sbs[];
+  constexpr int LD = DH + 8;
+  const int L = a.N + 1, Lp = (L + 15) / 16 * 16;
+  SpaceGroup<DH> g;
+  g.q = reinterpret_cast<bf16 (*)[LD]>(sbs);
+  g.k = g.q + Lp;
+  g.v = g.k + Lp;
+  g.dO = g.v + Lp;
+  float* s_lse2 = reinterpret_cast<float*>(g.dO + Lp);
+  float* s_delta = s_lse2 + Lp;
+  g.lse2 = s_lse2;
+  g.delta = s_delta;
+  g.L = L;
+  g.t = blockIdx.x;
+  g.h = blockIdx.y;
+  g.b = blockIdx.z;
+
+  // The loads in the order the first round needs them, a commit group each:
+  // q and dO of the first W slabs with k and v of key chunk 0, then k and v
+  // of each further chunk, then q and dO of the other slabs. The first round
+  // (a dq task on each warp) walks the key chunks as they arrive.
+  const int slabs = Lp / 16, first = min(slabs, W);
+  space_bwd_stage<DH>(a, g, 0b1001, 0, 16 * first);
+  space_bwd_stage<DH>(a, g, 0b0110, 0, 16);
+  cp_async_commit();
+  for (int c = 1; c < slabs; ++c) {
+    space_bwd_stage<DH>(a, g, 0b0110, 16 * c, 16 * c + 16);
+    cp_async_commit();
+  }
+  space_bwd_stage<DH>(a, g, 0b1001, 16 * first, Lp);
+  cp_async_commit();
+  const float* lse = a.lse + ((i64)g.b * a.H + g.h) * a.S;
+  const float* delta = a.delta + ((i64)g.b * a.H + g.h) * a.S;
+  for (int e = threadIdx.x; e < Lp; e += blockDim.x) {
+    const int tok = e < L ? group_token<true>(e, g.t, a.N) : 0;
+    s_lse2[e] = e < L ? lse[tok] * LOG2E_F : INFINITY;
+    s_delta[e] = e < L ? delta[tok] : 0.f;
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float scale_log2 = a.scale * LOG2E_F;
+  {  // first round: dq of slab `warp`, key chunk c once its group has landed
+    SpaceBwdDq<DH> dq;
+    for (int c = 0; c < slabs; ++c) {
+      cp_async_wait_pending(slabs - c);  // groups 0 .. c of this thread's copies
+      __syncthreads();                   // and everyone's
+      if (warp < first) {
+        if (c == 0) dq.start(g, 16 * warp, lane);
+        dq.step(g, 16 * c, lane, scale_log2);
+      }
+    }
+    if (warp < first) dq.store(a, g, lane);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  // then the other dq slabs and every dk, dv slab, in turn over the warps
+  // (task r on warp (first + r) % W, so the warps without a first-round task
+  // come first)
+  for (int task = (warp - first % W + W) % W; task < 2 * slabs - first; task += W) {
+    if (task < slabs - first) {
+      SpaceBwdDq<DH> dq;
+      dq.start(g, 16 * (first + task), lane);
+      for (int k0 = 0; k0 < L; k0 += 16) dq.step(g, k0, lane, scale_log2);
+      dq.store(a, g, lane);
+    } else {
+      space_bwd_dkv<DH>(a, g, 16 * (task - (slabs - first)), lane, scale_log2);
+    }
+  }
+}
+
+template <int DH>
+inline cudaError_t launch_space_bwd(const FlashBwdArgs& a, int B, cudaStream_t s) {
+  const size_t smem = space_bwd_smem(a.N, DH);
+  cudaError_t err = cudaFuncSetAttribute(space_bwd_kernel<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  space_bwd_kernel<DH><<<dim3(a.T, a.H, B), space_bwd_warps<DH>() * 32, smem, s>>>(a);
   return cudaGetLastError();
 }
 

@@ -333,16 +333,38 @@ int tvts_reduce(const void* partial, int P, i64 n, void* out_f32, void* out_bf16
   return (int)cudaGetLastError();
 }
 
-// dx = res + LN_bwd(dxln) over M rows of width K; part_w / part_b: f32 [blocks*8, K]
-// column partials (NULL: dx only). rows_per_warp rows per warp, 8 warps a block.
+// dx = res + LN_bwd(dxln) over M rows of width K (res may be NULL), in
+// `blocks` blocks of 8 warps, the rows split evenly over the warps; with part
+// != NULL (f32 [2][blocks][K] scratch) also dln_w = sum dxln * xhat and dln_b
+// = sum dxln (f32 [K] each). ops/block_backward.py::ln_bwd_plan sizes the
+// launch and checks what is checked here again.
 int tvts_ln_bwd(const void* X, const void* stats, const void* dxln, const void* ln_w,
-                const void* res, void* dx, void* part_w, void* part_b, int M, int K,
-                int rows_per_warp, int blocks, void* stream) {
-  if (K % 8 || K > 256 * tvts::LNB_MAXC || (i64)blocks * 8 * rows_per_warp < M)
+                const void* res, void* dx, void* part, void* dln_w, void* dln_b, int M, int K,
+                int blocks, void* stream) {
+  const void* ptrs[] = {X, dxln, ln_w, res, dx, part, dln_w, dln_b};
+  for (const void* ptr : ptrs)
+    if ((uintptr_t)ptr % 16) return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)stats % 8 || M < 1 || K < 8 || K % 8 || K > 256 * tvts::LNB_MAXC ||
+      blocks < 1 || (part && (!dln_w || !dln_b)))
     return (int)cudaErrorInvalidValue;
-  tvts::ln_bwd_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+  const size_t smem = tvts::ln_bwd_smem(K, part != nullptr);
+  cudaStream_t s = (cudaStream_t)stream;
+  void (*kernels[])(const bf16*, const float2*, const float*, const float*, const bf16*, bf16*,
+                    float*, int, int) = {tvts::ln_bwd_kernel<1>, tvts::ln_bwd_kernel<2>,
+                                              tvts::ln_bwd_kernel<3>, tvts::ln_bwd_kernel<4>,
+                                              tvts::ln_bwd_kernel<5>};
+  auto kernel = kernels[(K + 255) / 256 - 1];
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, tvts::LNB_WARPS * 32, smem, s>>>(
       (const bf16*)X, (const float2*)stats, (const float*)dxln, (const float*)ln_w,
-      (const bf16*)res, (bf16*)dx, (float*)part_w, (float*)part_b, M, K, rows_per_warp);
+      (const bf16*)res, (bf16*)dx, (float*)part, M, K);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !part) return (int)err;
+  tvts::ln_colsum_kernel<<<dim3((K + tvts::LNC_COLS - 1) / tvts::LNC_COLS, 2),
+                           tvts::LNC_WARPS * 32, 0, s>>>(
+      (const float*)part, blocks, K, (float*)dln_w, (float*)dln_b);
   return (int)cudaGetLastError();
 }
 
@@ -392,6 +414,35 @@ int tvts_flash_bwd(const void* qkv, const void* dO, const void* lse, const void*
     return (int)(space ? tvts::launch_flash_bwd<80, true>(a, B, s)
                  : tvts::launch_flash_bwd<80, false>(a, B, s));
   return (int)cudaErrorInvalidValue;
+}
+
+// dqkv [B, S, 3*H*dh] of the H5 space core in one pass (S = 1 + T*N rows), a
+// block per (frame, head, clip); the CLS token's dq, dk, dv as f32 partials
+// into cls_partial [B, T, H, 3, dh] (combined by tvts_cls_grad_combine). A
+// group too large for one block's shared memory returns cudaErrorInvalidValue
+// (ops/block_backward.py sends it to tvts_flash_bwd before the launch).
+int tvts_space_bwd(const void* qkv, const void* dO, const void* lse, const void* delta,
+                   void* dqkv, void* cls_partial, int B, int T, int N, int H, int dh,
+                   float scale, void* stream) {
+  if (B < 1 || T < 1 || N < 1 || H < 1 || (dh != 64 && dh != 80) ||
+      tvts::space_bwd_smem(N, dh) > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  tvts::FlashBwdArgs a;
+  a.qkv = (const bf16*)qkv;
+  a.dO = (const bf16*)dO;
+  a.lse = (const float*)lse;
+  a.delta = (const float*)delta;
+  a.dqkv = (bf16*)dqkv;
+  a.cls_partial = (float*)cls_partial;
+  a.T = T;
+  a.N = N;
+  a.S = 1 + T * N;
+  a.H = H;
+  a.scale = scale;
+  a.causal = 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(dh == 64 ? tvts::launch_space_bwd<64>(a, B, s)
+                        : tvts::launch_space_bwd<80>(a, B, s));
 }
 
 // dqkv of the H6 time core (S = 1 + T*N rows, T <= 32), the CLS token's dq,

@@ -28,7 +28,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 // 16-byte asynchronous copy global -> shared (L2 only), and its groups:
 // commit the copies issued so far as one group; wait until at most `n`
-// groups are still in flight (n is clamped to 3: waiting for more is safe).
+// groups are still in flight (n is clamped to 7: waiting for more is safe).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
@@ -39,14 +39,16 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 
 __device__ __forceinline__ void cp_async_wait_pending(int n) {
-  if (n >= 3)
-    asm volatile("cp.async.wait_group 3;\n" ::: "memory");
-  else if (n == 2)
-    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
-  else if (n == 1)
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  else
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  switch (n < 0 ? 0 : n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
+  }
 }
 
 // Four 8x8 b16 matrices from shared memory; lane l gives the row address of

@@ -47,9 +47,8 @@
 // (54 tiles) takes 2 splits (14.2 MB), dWproj (18 tiles) 7 (16.5 MB), the MLP
 // products (72 tiles) 3 (28.3 MB).
 //
-// ln_bwd_kernel: dx = res + LN_bwd(dxln) row by row (one warp per row, two
-// passes over the row), plus per-warp column partials of dxln * xhat and
-// dxln (the LayerNorm weight and bias gradients). Bound by bytes.
+// ln_bwd_kernel and ln_colsum_kernel: the LayerNorm backward (its own section
+// below).
 #pragma once
 
 #include "hopper.cuh"
@@ -337,44 +336,91 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial, int P,
   if (out_bf16) out_bf16[i] = __float2bfloat16(s);
 }
 
-// LayerNorm backward. Row r: xhat = (x - mean) * rstd, dxhat = dxln * w,
-// dx = res + (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)) * rstd.
-// Warp `wg` (global index) owns rows [wg * rpw, (wg + 1) * rpw) and writes its
-// column partials part_w[wg] = sum dxln * xhat, part_b[wg] = sum dxln (unless
-// part_w is null: the frozen backward needs dx only). K % 8 == 0, K <= 1280.
-constexpr int LNB_MAXC = 5;  // 256-column chunks per lane: K <= 1280
+// LayerNorm backward (H5-H8): the part of the TPU backward kernels after
+// _ln_bwd (tvts_tpu/ops/pallas_block_backward.py:46), which sums dln_w and
+// dln_b inside the Pallas kernel (e.g. :809). Row r: xhat = (x - mean) * rstd,
+// dxhat = dxln * w, dx = res + (dxhat - mean(dxhat) - xhat * mean(dxhat *
+// xhat)) * rstd in bf16; dln_w = sum_r dxln * xhat and dln_b = sum_r dxln in
+// f32. Bound on the H100: bytes (x 2, dxln 4, res 2 and dx 2 bytes an
+// element: 181 MB, 0.054 ms at B/16's B=20, M = 23,540, K = 768).
+// ln_bwd_kernel is one pass over the rows in one wave (ops/block_backward.py::
+// ln_bwd_plan: a block of 8 warps an SM, or one block per 8 rows when M is
+// smaller; up to 255 registers a thread, so the lane's column partials stay in
+// registers at K = 1280). Of the W warps, warp w owns rows [w * M / W, (w + 1)
+// * M / W), so every warp has the same number of rows to one; for each row it
+// loads x, dxln and res once (16-byte vectors,
+// every chunk of the row in flight together) and computes dx in the first
+// version's arithmetic and order (lane l owns columns c * 256 + 8 l .. + 7;
+// m1, m2 summed per lane in column order, then across the warp), so dx is
+// bit for bit the first version's. Each lane sums its columns of dxln * xhat
+// and dxln over its rows in registers; at the end the block sums its 8 warps'
+// partials in warp order (through shared memory) into one row: part
+// [2][blocks][K] f32, one row an SM (the first version wrote a row a warp,
+// ~3,900 rows at B/16, and summed each column on one thread; partials summed
+// in shared memory row by row, at 2 blocks an SM, took 7% longer at K = 768
+// and at 1280; PERF.md). ln_colsum_kernel then sums the partial rows: a block a slab of
+// 32 columns, each of its 16 warps a sixteenth of the rows in order (their
+// loads in flight at once), then the warp sums in warp order. No atomics:
+// dln_w and dln_b do not vary from run to run.
+constexpr int LNB_WARPS = 8;
+constexpr int LNB_MAXC = 5;  // 256-column chunks a row: K <= 1280
+constexpr int LNC_COLS = 32;  // columns a ln_colsum_kernel block
 
-__global__ void __launch_bounds__(256)
+// shared memory of an ln_bwd_kernel block: the warps' column partials
+inline size_t ln_bwd_smem(int K, bool weight_grads) {
+  return weight_grads ? (size_t)2 * LNB_WARPS * K * sizeof(float) : 0;
+}
+
+// eight f32 from a 16-byte aligned address, in two 16-byte loads
+__device__ __forceinline__ void load_f32x8(const float* p, float (&f)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p), b = *reinterpret_cast<const float4*>(p + 4);
+  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w, f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+}
+
+template <int C>  // chunks of 256 columns: K <= 256 * C
+__global__ void __launch_bounds__(LNB_WARPS * 32, 1)
     ln_bwd_kernel(const bf16* __restrict__ X, const float2* __restrict__ stats,
                   const float* __restrict__ dxln, const float* __restrict__ ln_w,
                   const bf16* __restrict__ res, bf16* __restrict__ dx,
-                  float* __restrict__ part_w, float* __restrict__ part_b, int M, int K,
-                  int rpw) {
-  const int lane = threadIdx.x & 31;
-  const int wg = blockIdx.x * 8 + (threadIdx.x >> 5);
-  float aw[LNB_MAXC][8], ab[LNB_MAXC][8];
+                  float* __restrict__ part, int M, int K) {
+  extern __shared__ __align__(16) float lnb_acc[];  // [2][LNB_WARPS][K]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float aw[C][8], ab[C][8];  // this lane's column partials of dxln * xhat and dxln
 #pragma unroll
-  for (int c = 0; c < LNB_MAXC; ++c)
+  for (int c = 0; c < C; ++c)
 #pragma unroll
     for (int i = 0; i < 8; ++i) aw[c][i] = ab[c][i] = 0.f;
   const float inv_k = 1.f / K;
+  const i64 warps = (i64)gridDim.x * LNB_WARPS, wg = (i64)blockIdx.x * LNB_WARPS + warp;
+  const int r0 = (int)(wg * M / warps), r1 = (int)((wg + 1) * M / warps);
 
-  for (int row = wg * rpw; row < min(M, (wg + 1) * rpw); ++row) {
+  for (int row = r0; row < r1; ++row) {
     const float2 st = stats[row];
     const bf16* xr = X + (i64)row * K;
     const float* gr = dxln + (i64)row * K;
+    uint4 xv[C], rv[C];
+    float g[C][8];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {  // the whole row in flight at once
+      const int k = c * 256 + lane * 8;
+      xv[c] = rv[c] = make_uint4(0, 0, 0, 0);
+      if (k >= K) continue;
+      xv[c] = *reinterpret_cast<const uint4*>(xr + k);
+      load_f32x8(gr + k, g[c]);
+      if (res) rv[c] = *reinterpret_cast<const uint4*>(res + (i64)row * K + k);
+    }
     float m1 = 0.f, m2 = 0.f;
 #pragma unroll
-    for (int c = 0; c < LNB_MAXC; ++c) {
+    for (int c = 0; c < C; ++c) {
       const int k = c * 256 + lane * 8;
       if (k >= K) continue;
-      uint4 u = *reinterpret_cast<const uint4*>(xr + k);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+      float xf[8], w[8];
+      unpack_bf16x8(xv[c], xf);
+      load_f32x8(ln_w + k, w);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        const float xv = i & 1 ? __bfloat1622float2(h[i / 2]).y : __bfloat1622float2(h[i / 2]).x;
-        const float xhat = (xv - st.x) * st.y;
-        const float dxh = gr[k + i] * ln_w[k + i];
+        const float xhat = (xf[i] - st.x) * st.y;
+        const float dxh = g[c][i] * w[i];
         m1 += dxh;
         m2 += dxh * xhat;
       }
@@ -382,42 +428,80 @@ __global__ void __launch_bounds__(256)
     m1 = warp_sum(m1) * inv_k;
     m2 = warp_sum(m2) * inv_k;
 #pragma unroll
-    for (int c = 0; c < LNB_MAXC; ++c) {
+    for (int c = 0; c < C; ++c) {
       const int k = c * 256 + lane * 8;
       if (k >= K) continue;
-      uint4 u = *reinterpret_cast<const uint4*>(xr + k);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-      uint4 rv = make_uint4(0, 0, 0, 0);
-      if (res) rv = *reinterpret_cast<const uint4*>(res + (i64)row * K + k);
-      const __nv_bfloat162* rh = reinterpret_cast<const __nv_bfloat162*>(&rv);
-      uint4 o;
-      __nv_bfloat162* oh = reinterpret_cast<__nv_bfloat162*>(&o);
-      float v[8];
+      float xf[8], rf[8], w[8], v[8];
+      unpack_bf16x8(xv[c], xf);
+      unpack_bf16x8(rv[c], rf);
+      load_f32x8(ln_w + k, w);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        const float xv = i & 1 ? __bfloat1622float2(h[i / 2]).y : __bfloat1622float2(h[i / 2]).x;
-        const float rr = i & 1 ? __bfloat1622float2(rh[i / 2]).y : __bfloat1622float2(rh[i / 2]).x;
-        const float xhat = (xv - st.x) * st.y;
-        const float g = gr[k + i];
-        aw[c][i] += g * xhat;
-        ab[c][i] += g;
-        v[i] = rr + (g * ln_w[k + i] - m1 - xhat * m2) * st.y;
+        const float xhat = (xf[i] - st.x) * st.y;
+        aw[c][i] += g[c][i] * xhat;
+        ab[c][i] += g[c][i];
+        v[i] = rf[i] + (g[c][i] * w[i] - m1 - xhat * m2) * st.y;
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) oh[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-      *reinterpret_cast<uint4*>(dx + (i64)row * K + k) = o;
+      *reinterpret_cast<uint4*>(dx + (i64)row * K + k) = pack_bf16x8(v);
     }
   }
-  if (!part_w) return;
+  if (!part) return;
+  // one row of partials a block: the warps' sums in warp order
 #pragma unroll
-  for (int c = 0; c < LNB_MAXC; ++c) {
+  for (int c = 0; c < C; ++c) {
     const int k = c * 256 + lane * 8;
     if (k >= K) continue;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      part_w[(i64)wg * K + k + i] = aw[c][i];
-      part_b[(i64)wg * K + k + i] = ab[c][i];
+    for (int i = 0; i < 8; i += 4) {
+      *reinterpret_cast<float4*>(lnb_acc + warp * K + k + i) =
+          make_float4(aw[c][i], aw[c][i + 1], aw[c][i + 2], aw[c][i + 3]);
+      *reinterpret_cast<float4*>(lnb_acc + (LNB_WARPS + warp) * K + k + i) =
+          make_float4(ab[c][i], ab[c][i + 1], ab[c][i + 2], ab[c][i + 3]);
     }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < 2 * K; e += blockDim.x) {
+    const int which = e / K, k = e - which * K;
+    const float* src = lnb_acc + which * LNB_WARPS * K + k;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < LNB_WARPS; ++w) s += src[w * K];
+    part[((i64)which * gridDim.x + blockIdx.x) * K + k] = s;
+  }
+}
+
+// out_w[k] = sum_p part[0][p][k], out_b[k] = sum_p part[1][p][k]: block
+// (slab, which) sums LNC_COLS columns of one of the two; warp w of the
+// LNC_WARPS takes the rows [w * P / LNC_WARPS, (w + 1) * P / LNC_WARPS) in
+// order, all of its loads in flight at once (up to LNC_BATCH rows), then the
+// warps' sums are added in warp order.
+constexpr int LNC_WARPS = 16, LNC_BATCH = 24;
+
+__global__ void __launch_bounds__(LNC_WARPS * 32)
+    ln_colsum_kernel(const float* __restrict__ part, int P, int K, float* __restrict__ out_w,
+                     float* __restrict__ out_b) {
+  __shared__ float red[LNC_WARPS][LNC_COLS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int k = blockIdx.x * LNC_COLS + lane;
+  const float* src = part + (i64)blockIdx.y * P * K + k;
+  float s = 0.f;
+  if (k < K) {
+    const int p1 = (warp + 1) * P / LNC_WARPS;
+    for (int p0 = warp * P / LNC_WARPS; p0 < p1; p0 += LNC_BATCH) {
+      float v[LNC_BATCH];
+#pragma unroll
+      for (int i = 0; i < LNC_BATCH; ++i) v[i] = p0 + i < p1 ? src[(i64)(p0 + i) * K] : 0.f;
+#pragma unroll
+      for (int i = 0; i < LNC_BATCH; ++i) s += v[i];
+    }
+  }
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && k < K) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < LNC_WARPS; ++w) t += red[w][lane];
+    (blockIdx.y ? out_b : out_w)[k] = t;
   }
 }
 

@@ -26,7 +26,7 @@ csrc/attention_bwd.cuh, csrc/ln_gemm.cuh), for g = dL/d(out):
   dqkv                                    core backward (time / space / text)
   dWqkv = dqkv^T LN(x), dbqkv             wgrad with the LN prologue (recomputed)
   dxln = dqkv @ Wqkv                      ln_gemm on Wqkv^T, f32 out
-  dx = [g] + LN_bwd(dxln), dln_w, dln_b   ln_bwd + fixed-order sums
+  dx = [g] + LN_bwd(dxln), dln_w, dln_b   ln_backward: row pass + column sums
 Weight and bias gradients are accumulated in f32 and returned in the weight's
 dtype (the JAX wrappers' `.astype(wqkv.dtype)`, :3232-3234); the LayerNorm
 gradients stay f32. H6 folds the residual (o = x + ..., so dx = g + LN path);
@@ -40,8 +40,11 @@ block_kernels: the plain version on a CPU tensor, the kernels (bf16) on a CUDA
 tensor, or raise. `.launches` counts calls that ran the kernels on the card:
 `time_subpath` / `space_subpath` their forwards, `time_subpath_backward` /
 `space_subpath_backward` their backwards, `wgrad` each weight-gradient product
-(two a sub-path backward that is not frozen) and `time_core_backward` each
-backward time core (one an H6 backward).
+(two a sub-path backward that is not frozen), `time_core_backward` each
+backward time core (one an H6 backward), `space_core_backward` each one-pass
+backward space core (one an H5 backward; `.pair_launches` the flash pair that
+takes a group larger than one block) and `ln_backward` each LayerNorm backward
+(one every sub-path backward, frozen ones included).
 
 `wgrad` (csrc/weight_grad.cuh) carries every weight gradient of H5-H8 on the
 card: ln_gemm's TMA ring and wgmma mainloop over the token rows (both operands
@@ -51,7 +54,12 @@ from the shapes and the SM count alone and checks what the kernel takes.
 `time_core_backward` (csrc/attention_bwd.cuh) is H6's core: a block per (b, n,
 head group) with the group's q, k, v and dO in shared memory, a thread per
 (row, head), in the first version's order of operations (dqkv bit for bit the
-same).
+same). `space_core_backward` is H5's: a block per (b, t, head) with the
+group's q, k, v and dO in shared memory, warps on 16-row slabs in the flash
+pair's arithmetic and order (bit for bit the pair, which it keeps for groups
+larger than one block). `ln_backward` (csrc/weight_grad.cuh) is the LayerNorm
+gradient of every backward: one wave of row blocks, each writing one row of
+column partials, then a column-sum kernel; `ln_bwd_plan` sizes it.
 
 `mlp_subpath` (H8) replaces tvts_tpu/ops/pallas_block_attention.py::
 make_mlp_subpath (:1066; backward fused_mlp_block_bwd, :1021, which recomputes
@@ -236,23 +244,97 @@ def wgrad(a, b, stats=None, ln=None, dtype=None):
         return _wgrad(bk.library(), a, b, stats, ln, dtype or a.dtype)
 
 
+LN_BWD_WARPS = 8  # warps of a LayerNorm-backward block (csrc/weight_grad.cuh)
+LN_BWD_MAX_K = 1280  # the widest row it takes: 5 chunks of 256 columns a lane row
+
+
+def ln_bwd_plan(M: int, K: int, sms: int, pointers: dict[str, int] | None = None) -> dict:
+    """The launch of the LayerNorm backward over M rows of width K on `sms`
+    SMs: one wave of one block of LN_BWD_WARPS warps an SM (one block per
+    LN_BWD_WARPS rows when M is smaller); of the W warps, warp w takes the
+    rows [w * M // W, (w + 1) * M // W), so every warp's count of rows is the
+    same to one (`rows_per_warp`: the least and the most); each block writes
+    one row of column partials (so at most sms partial rows), then the column
+    sums (blocks of 32 columns, 2 sums). The shapes and `sms` alone decide
+    it, so the sum order is fixed.
+    Raises ValueError, naming the argument, on what the kernel does not take:
+    no rows, K not a multiple of 8 or over LN_BWD_MAX_K, a base address
+    (`pointers`: name -> address) that is not 16-byte aligned."""
+    if M < 1:
+        raise ValueError(f"M = {M}: the LayerNorm backward takes at least one row")
+    if K < 8 or K % 8:
+        raise ValueError(f"K = {K}: the LayerNorm backward takes a multiple of 8")
+    if K > LN_BWD_MAX_K:
+        raise ValueError(f"K = {K}: the LayerNorm backward takes at most {LN_BWD_MAX_K} columns")
+    for name, ptr in (pointers or {}).items():
+        if ptr is not None and ptr % 16:
+            raise ValueError(f"{name} at {ptr:#x} is not 16-byte aligned")
+    blocks = min(sms, -(-M // LN_BWD_WARPS))
+    warps = blocks * LN_BWD_WARPS
+    return dict(blocks=blocks, warps=warps, rows_per_warp=(M // warps, -(-M // warps)),
+                partial_rows=blocks, chunks=-(-K // 256),
+                threads=32 * LN_BWD_WARPS, smem=2 * LN_BWD_WARPS * K * 4,
+                colsum_grid=(-(-K // 32), 2))
+
+
 def _ln_backward(lib, x2d, stats, dxln, ln_w, res, weight_grads: bool):
-    """(dx = res + LN_bwd(dxln) [M, K] bf16, dln_w, dln_b f32 or None)."""
+    """(dx = res + LN_bwd(dxln) [M, K] bf16, dln_w, dln_b f32 or None) on the
+    card: the row pass and, with weight_grads, the column sums
+    (csrc/weight_grad.cuh), as ln_bwd_plan sizes them."""
     M, K = x2d.shape
-    rpw = max(1, -(-M // (_sms(x2d) * 4 * 8)))  # rows per warp: ~4 blocks of 8 warps per SM
-    blocks = -(-M // (8 * rpw))
+    plan = ln_bwd_plan(M, K, _sms(x2d), {"x": bk._ptr(x2d), "dxln": bk._ptr(dxln),
+                                         "ln_w": bk._ptr(ln_w), "res": bk._ptr(res)})
     dx = torch.empty_like(x2d)
-    part = (torch.empty(2, blocks * 8, K, dtype=torch.float32, device=x2d.device)
-            if weight_grads else None)
+    f32 = dict(dtype=torch.float32, device=x2d.device)
+    part = dln_w = dln_b = None
+    if weight_grads:
+        part = torch.empty(2, plan["blocks"], K, **f32)
+        dln_w, dln_b = torch.empty(K, **f32), torch.empty(K, **f32)
     bk._check(lib, lib.tvts_ln_bwd(
         bk._ptr(x2d), bk._ptr(stats), bk._ptr(dxln), bk._ptr(ln_w), bk._ptr(res), bk._ptr(dx),
-        None if part is None else bk._ptr(part[0]), None if part is None else bk._ptr(part[1]),
-        M, K, rpw, blocks, bk._stream(x2d)))
-    if part is None:
-        return dx, None, None
-    f32 = dict(dtype=torch.float32, device=x2d.device)
-    return (dx, _reduce(lib, part[0], blocks * 8, K, torch.empty(K, **f32)),
-            _reduce(lib, part[1], blocks * 8, K, torch.empty(K, **f32)))
+        bk._ptr(part), bk._ptr(dln_w), bk._ptr(dln_b), M, K, plan["blocks"], bk._stream(x2d)))
+    ln_backward.launches += 1
+    return dx, dln_w, dln_b
+
+
+def ln_backward_plain(x, stats, dxln, ln_w, res=None, weight_grads: bool = True):
+    """The LayerNorm backward in f32 (tvts_tpu/ops/pallas_block_backward.py::
+    _ln_bwd plus the column sums): xhat = (x - mean) * rstd from the row
+    `stats` [M, 2], dxhat = dxln * w, dx = res + (dxhat - mean(dxhat) - xhat *
+    mean(dxhat * xhat)) * rstd rounded to x's dtype, dln_w = sum_rows dxln *
+    xhat, dln_b = sum_rows dxln (f32; None without weight_grads)."""
+    st = stats.float()
+    xhat = (x.float() - st[:, :1]) * st[:, 1:]
+    g = dxln.float()
+    dxhat = g * ln_w.float()
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    dx = (dxhat - m1 - xhat * m2) * st[:, 1:]
+    if res is not None:
+        dx = dx + res.float()
+    if not weight_grads:
+        return dx.to(x.dtype), None, None
+    return dx.to(x.dtype), (g * xhat).sum(0), g.sum(0)
+
+
+def ln_backward(x, stats, dxln, ln_w, res=None, weight_grads: bool = True):
+    """The LayerNorm backward of H5-H8 alone, over the rows of x [M, K]: (dx
+    [M, K] in x's dtype, dln_w [K], dln_b [K] f32, or None for both without
+    weight_grads, the frozen backward). stats: the forward's row (mean, rstd)
+    [M, 2] f32; dxln: dL/dLN(x) [M, K] f32; ln_w [K] f32; res: a residual
+    gradient added to dx. On a CPU tensor ln_backward_plain; on a CUDA tensor
+    the kernels (bf16 x and res)."""
+    if not bk._dispatch(x):
+        return ln_backward_plain(x, stats, dxln, ln_w, res, weight_grads)
+    M, K = x.shape
+    bk._expect("x", x, x, torch.bfloat16, (M, K))
+    bk._expect("stats", stats, x, torch.float32, (M, 2))
+    bk._expect("dxln", dxln, x, torch.float32, (M, K))
+    bk._expect("ln_w", ln_w, x, torch.float32, (K,))
+    if res is not None:
+        bk._expect("res", res, x, torch.bfloat16, (M, K))
+    with torch.cuda.device(x.device):
+        return _ln_backward(bk.library(), x, stats, dxln, ln_w, res, weight_grads)
 
 
 def attention_backward(core: str, g, x, saves, ln_w, ln_b, wqkv, wproj, num_heads: int, *,
@@ -285,15 +367,7 @@ def attention_backward(core: str, g, x, saves, ln_w, ln_b, wqkv, wproj, num_head
                                               bk._ptr(delta), bk._ptr(dqkv), None, B, 1, 0, S,
                                               num_heads, d, d ** -0.5, int(causal), 0, stream))
         else:
-            T = num_frames
-            N = bk._patches_per_frame(S, T)
-            dqkv = torch.empty(B, S, 3 * D, dtype=x.dtype, device=x.device)
-            partial = torch.empty(B, T, num_heads, 3, d, dtype=torch.float32, device=x.device)
-            bk._check(lib, lib.tvts_flash_bwd(bk._ptr(qkv), bk._ptr(dattn), bk._ptr(lse),
-                                              bk._ptr(delta), bk._ptr(dqkv), bk._ptr(partial), B,
-                                              T, N, S, num_heads, d, d ** -0.5, 0, 1, stream))
-            bk._check(lib, lib.tvts_cls_grad_combine(bk._ptr(partial), T, B, num_heads, d, S,
-                                                     bk._ptr(dqkv), stream))
+            dqkv, _ = _space_core_backward(lib, qkv, dattn, lse, delta, num_frames, num_heads)
         dqkv2 = dqkv.view(M, 3 * D)
         x2 = x.view(M, D)
         if not frozen:
@@ -346,12 +420,15 @@ def time_core_plain(qkv, num_frames, num_heads):
     return out, lse
 
 
-def time_core_backward_plain(qkv, dO, lse, delta, num_frames, num_heads):
-    """dqkv [B, S, 3D] (f32) of time_core_plain's output against dO [B, S, D],
-    by the delta identity the kernel uses, from the forward's lse [B, H, S]
-    and delta = rowsum(dO * O) per head [B, H, S]: P = exp(scale q.k - lse),
-    dS = P * (dO.v - delta), dq = scale dS k, dk = scale dS^T q, dv = P^T dO,
-    the patch rows within their time groups and the CLS row over every token."""
+def divided_core_backward_plain(qkv, dO, lse, delta, num_frames, num_heads, mode: str):
+    """dqkv [B, S, 3D] (f32) of a divided attention core on packed rows qkv
+    [B, S, 3D] (q not pre-scaled) against dO [B, S, D], by the delta identity
+    the kernels use, from the forward's lse [B, H, S] and delta = rowsum(dO *
+    O) per head [B, H, S]: P = exp(scale q.k - lse), dS = P * (dO.v - delta),
+    dq = scale dS k, dk = scale dS^T q, dv = P^T dO, the patch rows within
+    their groups (mode "time": the CLS token and location n in every frame;
+    "space": the CLS token and frame t's patches) and the CLS row over every
+    token."""
     B, S, D3 = qkv.shape
     T, H = num_frames, num_heads
     N = bk._patches_per_frame(S, T)
@@ -360,20 +437,23 @@ def time_core_backward_plain(qkv, dO, lse, delta, num_frames, num_heads):
     q, k, v = (t.float().reshape(B, S, H, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
     o = dO.float().reshape(B, S, H, d).transpose(1, 2)
     lse, delta = lse.float(), delta.float()
+    G = N if mode == "time" else T  # groups a (clip, head)
 
-    def groups(t):  # [B, H, S, ...] patch rows -> [B, H, N, T, ...]
-        return t[:, :, 1:].reshape(B, H, T, N, *t.shape[3:]).transpose(2, 3)
+    def groups(t):  # [B, H, S, ...] patch rows -> [B, H, G, elements, ...]
+        t = t[:, :, 1:].reshape(B, H, T, N, *t.shape[3:])
+        return t.transpose(2, 3) if mode == "time" else t
 
-    def ungroup(t):  # [B, H, N, T, ...] -> [B, H, T * N, ...]
-        return t.transpose(2, 3).reshape(B, H, T * N, *t.shape[4:])
+    def ungroup(t):  # [B, H, G, elements, ...] -> [B, H, T * N, ...]
+        t = t.transpose(2, 3) if mode == "time" else t
+        return t.reshape(B, H, T * N, *t.shape[4:])
 
     qp, kp, vp, op = (groups(t) for t in (q, k, v, o))
-    keys = torch.cat([k[:, :, None, :1].expand(B, H, N, 1, d), kp], dim=3)  # [B, H, N, G, d]
-    vals = torch.cat([v[:, :, None, :1].expand(B, H, N, 1, d), vp], dim=3)
+    keys = torch.cat([k[:, :, None, :1].expand(B, H, G, 1, d), kp], dim=3)  # [B, H, G, 1+, d]
+    vals = torch.cat([v[:, :, None, :1].expand(B, H, G, 1, d), vp], dim=3)
     p = torch.exp(scale * (qp @ keys.transpose(-1, -2)) - groups(lse)[..., None])
-    ds = p * (op @ vals.transpose(-1, -2) - groups(delta)[..., None])  # [B, H, N, T, G]
+    ds = p * (op @ vals.transpose(-1, -2) - groups(delta)[..., None])
     dq_p = scale * (ds @ keys)
-    dkeys = scale * (ds.transpose(-1, -2) @ qp)  # [B, H, N, G, d]
+    dkeys = scale * (ds.transpose(-1, -2) @ qp)  # [B, H, G, 1+, d]
     dvals = p.transpose(-1, -2) @ op
     p0 = torch.exp(scale * (q[:, :, :1] @ k.transpose(-1, -2)) - lse[:, :, :1, None])
     ds0 = p0 * (o[:, :, :1] @ v.transpose(-1, -2) - delta[:, :, :1, None])  # [B, H, 1, S]
@@ -383,6 +463,12 @@ def time_core_backward_plain(qkv, dO, lse, delta, num_frames, num_heads):
     dk = dk + torch.cat([dkeys[:, :, :, :1].sum(2), ungroup(dkeys[:, :, :, 1:])], dim=2)
     dv = dv + torch.cat([dvals[:, :, :, :1].sum(2), ungroup(dvals[:, :, :, 1:])], dim=2)
     return torch.cat([t.transpose(1, 2).reshape(B, S, H * d) for t in (dq, dk, dv)], dim=-1)
+
+
+def time_core_backward_plain(qkv, dO, lse, delta, num_frames, num_heads):
+    """dqkv [B, S, 3D] (f32) of time_core_plain's output against dO [B, S, D]
+    (divided_core_backward_plain over the time groups)."""
+    return divided_core_backward_plain(qkv, dO, lse, delta, num_frames, num_heads, "time")
 
 
 TIME_BWD_THREADS = 128  # a block's threads at most (csrc/attention_bwd.cuh)
@@ -507,6 +593,79 @@ def time_subpath(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_frames: int,
 # ---------------------------------------------------------------------------
 # H5: space sub-path (training)
 # ---------------------------------------------------------------------------
+def space_core_backward_plain(qkv, dO, lse, delta, num_frames, num_heads):
+    """dqkv [B, S, 3D] (f32) of block_kernels.space_core_plain's output against
+    dO [B, S, D] (divided_core_backward_plain over the space groups)."""
+    return divided_core_backward_plain(qkv, dO, lse, delta, num_frames, num_heads, "space")
+
+
+def space_bwd_smem(N: int, d: int) -> int:
+    """Shared memory of a one-pass backward space-core block
+    (csrc/attention_bwd.cuh): q, k, v and dO of the group's N + 1 elements in
+    bf16, rows padded to a multiple of 16 and to d + 8 columns, then the lse
+    and delta."""
+    rows = -(-(N + 1) // 16) * 16
+    return 4 * rows * (d + 8) * 2 + 2 * rows * 4
+
+
+def _check_space_bwd(T: int, N: int, H: int, d: int) -> bool:
+    """Raise ValueError on a space group that neither backward core takes;
+    True when the group fits one block of the one-pass kernel, False when it
+    takes the flash pair (decided on N and d before any launch)."""
+    if T < 1 or N < 1 or H < 1:
+        raise ValueError(f"{T} frames of {N} patches, {H} heads: the backward space core "
+                         f"takes at least one of each")
+    if d not in (64, 80):
+        raise ValueError(f"head dim {d}: the backward space core takes 64 or 80")
+    return space_bwd_smem(N, d) <= bk.SMEM_OPTIN
+
+
+def _space_core_backward(lib, qkv, dO, lse, delta, num_frames, num_heads):
+    """The backward space core on the card (csrc/attention_bwd.cuh): the
+    one-pass kernel when a group fits one block, else the flash pair; then
+    the fixed-order combine of the CLS token's partials into row 0. -> (dqkv
+    [B, S, 3D] bf16, the frames' CLS partials [B, T, H, 3, d] f32)."""
+    B, S, D3 = qkv.shape
+    T, H = num_frames, num_heads
+    N = bk._patches_per_frame(S, T)
+    d = D3 // 3 // H
+    one_block = _check_space_bwd(T, N, H, d)
+    dqkv = torch.empty_like(qkv)
+    partial = torch.empty(B, T, H, 3, d, dtype=torch.float32, device=qkv.device)
+    stream = bk._stream(qkv)
+    args = (bk._ptr(qkv), bk._ptr(dO), bk._ptr(lse), bk._ptr(delta), bk._ptr(dqkv),
+            bk._ptr(partial))
+    if one_block:
+        bk._check(lib, lib.tvts_space_bwd(*args, B, T, N, H, d, d ** -0.5, stream))
+        space_core_backward.launches += 1
+    else:
+        bk._check(lib, lib.tvts_flash_bwd(*args, B, T, N, S, H, d, d ** -0.5, 0, 1, stream))
+        space_core_backward.pair_launches += 1
+    bk._check(lib, lib.tvts_cls_grad_combine(bk._ptr(partial), T, B, H, d, S, bk._ptr(dqkv),
+                                             stream))
+    return dqkv, partial
+
+
+def space_core_backward(qkv, dO, lse, delta, num_frames: int, num_heads: int) -> torch.Tensor:
+    """H5's space-core backward alone: dqkv [B, S, 3D] of the space attention
+    from the saved qkv [B, S, 3D] (q not pre-scaled), dO [B, S, D], the
+    forward's lse [B, H, S] and delta = rowsum(dO * O) per head [B, H, S]. On a
+    CPU tensor space_core_backward_plain rounded to qkv's dtype; on a CUDA
+    tensor the kernel (the flash pair for a group larger than one block) and
+    the CLS combine (bf16)."""
+    if not bk._dispatch(qkv):
+        return space_core_backward_plain(qkv, dO, lse, delta, num_frames,
+                                         num_heads).to(qkv.dtype)
+    B, S, D3 = qkv.shape
+    H = num_heads
+    bk._expect("qkv", qkv, qkv, torch.bfloat16, (B, S, D3))
+    bk._expect("dO", dO, qkv, torch.bfloat16, (B, S, D3 // 3))
+    bk._expect("lse", lse, qkv, torch.float32, (B, H, S))
+    bk._expect("delta", delta, qkv, torch.float32, (B, H, S))
+    with torch.cuda.device(qkv.device):
+        return _space_core_backward(bk.library(), qkv, dO, lse, delta, num_frames, H)[0]
+
+
 def space_subpath_backward_plain(g, x, base, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
                                  num_frames, num_heads):
     """(dx, dbase, dln_w, dln_b, dwqkv, dbqkv, dwproj, dbproj) of space_block_plain."""
@@ -634,7 +793,9 @@ def mlp_subpath(x, ln_w, ln_b, wfc, bfc, wproj, bproj, act: str = "quick_gelu",
 
 
 KERNELS = (time_subpath, time_subpath_backward, space_subpath, space_subpath_backward,
-           mlp_subpath, mlp_subpath_backward, wgrad, time_core_backward)
+           mlp_subpath, mlp_subpath_backward, wgrad, time_core_backward, space_core_backward,
+           ln_backward)
 for _fn in KERNELS:
     _fn.launches = 0
 mlp_subpath.saved_launches = mlp_subpath_backward.saved_launches = 0
+space_core_backward.pair_launches = 0

@@ -167,9 +167,10 @@ def library() -> ctypes.CDLL:
         # training backward
         "tvts_wgrad": [p, i64, p, i64, p, p, p, p, p, i, i, i, i, i, p],
         "tvts_reduce": [p, i, i64, p, p, p],
-        "tvts_ln_bwd": [p, p, p, p, p, p, p, p, i, i, i, i, p],
+        "tvts_ln_bwd": [p, p, p, p, p, p, p, p, p, i, i, i, p],
         "tvts_attn_delta": [p, p, i, i, i, i, p, p],
         "tvts_flash_bwd": [p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, p],
+        "tvts_space_bwd": [p, p, p, p, p, p, i, i, i, i, i, f, p],
         "tvts_time_bwd": [p, p, p, p, p, p, i, i, i, i, i, f, p],
         "tvts_cls_grad_combine": [p, i, i, i, i, i64, p, p],
     }
