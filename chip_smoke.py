@@ -731,7 +731,7 @@ def time_steps(tag: str, label: str, train: dict, apply_fn, batch, card: str,
 
 # sessions of torch.profiler that may record no device activity (seen on the
 # card now and then, twice in a row once) before a measurement gives up
-PROFILE_ATTEMPTS = 4
+PROFILE_ATTEMPTS = 6
 
 
 def _profile(fn, iters: int = 1):
@@ -1167,14 +1167,11 @@ def ln_gemm_table(dev, card: str, bk) -> list[dict]:
 def device_ms(fn, iters: int = 10) -> float:
     """Device time of fn's CUDA kernels per call (torch.profiler), after a
     warm-up: the host's launch overhead, which CUDA events around a short
-    function would count, left out."""
+    function would count, left out. Fails when the profiler cannot read it
+    (_profile_or_raise): a kernel line's times are all of this one kind."""
     for _ in range(2):
         fn()
-    prof, _ = _profile(lambda: [fn() for _ in range(iters)], iters)
-    if prof is None:
-        print(f"[6] torch.profiler recorded no device activity in {PROFILE_ATTEMPTS} sessions: "
-              f"CUDA events around {iters} calls instead (launch gaps included)")
-        return cuda_ms(fn, iters)
+    prof, _ = _profile_or_raise(lambda: [fn() for _ in range(iters)], iters)
     host = _host_keys(prof)
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
@@ -1282,13 +1279,15 @@ def time_core_bwd_digests(dev, bb) -> None:
 def time_core_bwd_times(dev, card: str, bb, B: int = 20) -> dict:
     """The backward time core alone at the B/16 step shape (B clips, S =
     1177, d = 64), the CLS combine included (device time, device_ms), against
-    its byte bound and the
-    plain backward; held against the plain backward (each element within the
-    bf16 store plus 1e-4 * max|ref|). Returns the kernel line's numbers."""
+    its byte bound, the plain backward and one masked
+    scaled_dot_product_attention backward (library_ms); held against the
+    plain backward (each element within the bf16 store plus 1e-4 *
+    max|ref|). Returns the kernel line's numbers."""
     T, N, H, d = 12, 98, 12, 64
     qkv, dO, lse, delta = time_core_bwd_inputs(B, T, N, H, d, 54, dev, bb)
     ms = device_ms(lambda: bb.time_core_backward(qkv, dO, lse, delta, T, H))
     p_ms = device_ms(lambda: bb.time_core_backward_plain(qkv, dO, lse, delta, T, H), iters=3)
+    l_ms = device_ms(core_backward_library_call(qkv, dO, T, H, "time"), iters=3)
     got = bb.time_core_backward(qkv, dO, lse, delta, T, H).float()
     want = bb.time_core_backward_plain(qkv, dO, lse, delta, T, H)
     diff = (got - want).abs()
@@ -1296,9 +1295,10 @@ def time_core_bwd_times(dev, card: str, bb, B: int = 20) -> dict:
         raise AssertionError(f"the backward time core disagrees with plain: {diff.max().item()}")
     bnd = bound_ms(*time_bwd_work(B, T, N, H, d))
     print(f"[6] time core backward alone B={B} S={1 + T * N} d={d}: {ms:.3f} ms, plain "
-          f"{p_ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}), {ms / bnd[0]:.2f}x the bound, "
+          f"{p_ms:.3f} ms, masked scaled_dot_product_attention backward {l_ms:.3f} ms, "
+          f"bound {bnd[0]:.3f} ms ({bnd[1]}), {ms / bnd[0]:.2f}x the bound, "
           f"max|diff| to plain {diff.max().item():.3e} [{card}]")
-    return dict(ms=ms, plain_ms=p_ms, bound=bnd, max_abs_err=diff.max().item())
+    return dict(ms=ms, plain_ms=p_ms, bound=bnd, library_ms=l_ms, max_abs_err=diff.max().item())
 
 
 def space_bwd_work(B: int, T: int, N: int, H: int, d: int) -> tuple[float, float]:
@@ -1348,8 +1348,8 @@ def space_core_bwd_pair(bb, qkv, dO, lse, delta, T: int, H: int) -> tuple:
 def space_core_bwd_digests(dev, bb) -> None:
     """The backward space core at the B/16 (N = 98, d = 64) and H/14 (N = 76,
     d = 80) train shapes (B = 2, 1): the sha256 of its dqkv and of the frames'
-    CLS partials (equal digests in two trees: bit-identical outputs), and
-    whether they are bit for bit the flash pair's in this tree."""
+    CLS partials (equal digests in two trees: bit-identical outputs); fails
+    unless both are bit for bit the flash pair's on the same inputs."""
     import hashlib
 
     for label, (B, T, N, H, d) in zip(SPACE_BWD_SHAPES, ((2, 12, 98, 12, 64),
@@ -1362,19 +1362,33 @@ def space_core_bwd_digests(dev, bb) -> None:
         for name, t in (("dqkv", dqkv.view(torch.int16)), ("CLS partials", partial)):
             digest = hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
             print(f"[6] space core backward {label} N={N} d={d}: {name} sha256 {digest}")
-        same = torch.equal(dqkv, pair[0]) and torch.equal(partial, pair[1])
-        print(f"[6] space core backward {label}: bit for bit the flash pair's: {same}")
+        if not (torch.equal(dqkv, pair[0]) and torch.equal(partial, pair[1])):
+            raise AssertionError(f"the backward space core {label}: dqkv or the CLS partials "
+                                 f"differ from the flash pair's")
+        print(f"[6] space core backward {label}: bit for bit the flash pair's")
 
 
-def space_bwd_check(got: torch.Tensor, want: torch.Tensor) -> float:
-    """Holds the backward space core's dqkv against the plain backward (f32):
-    each element within 2^-8 * |ref| + 0.01 * max|ref|. The kernel rounds P
+def space_bwd_check(got: torch.Tensor, want: torch.Tensor, T: int, H: int) -> float:
+    """Holds the backward space core's dqkv [B, S, 3D] against the plain
+    backward (f32): each element within 2^-8 * |ref| + 2^-7 * the largest
+    |ref| of its group. A patch row's group is its (frame, q/k/v, head) over
+    the frame's N patches; the CLS row's is its (q/k/v, head), so the CLS
+    row is held to its own scale, not to the patch rows'. The kernel rounds P
     and dS to bf16 for its tensor-core products, as the flash pair before it
-    and the TPU kernel's bf16 products do, so a sum keeps the rounding of its
-    largest terms, a share of max|ref| rather than of the element (2^-9 of
-    each term). Returns max|diff|."""
-    diff = (got.float() - want.float()).abs()
-    bound = 2.0 ** -8 * want.abs() + 0.01 * want.abs().max()
+    and the TPU kernel's bf16 products do, so an element keeps the rounding
+    of its group's largest terms (2^-9 of each): a bf16-rounding model of the
+    kernel, stored in bf16, reaches half of this band at the train groups,
+    and the CLS query's logit on the CLS key counted in every frame exceeds
+    it 14 to 66 times over (tests/test_torch_space_ln_backward.py). Returns
+    max|diff|."""
+    B, S, D3 = want.shape
+    N, d = (S - 1) // T, D3 // 3 // H
+    diff, ref = (got.float() - want.float()).abs(), want.float().abs()
+    patch = ref[:, 1:].reshape(B, T, N, 3, H, d).amax(dim=(2, 5), keepdim=True)
+    cls = ref[:, :1].reshape(B, 1, 3, H, d).amax(dim=-1, keepdim=True)
+    group = torch.cat([cls.expand(B, 1, 3, H, d).reshape(B, 1, D3),
+                       patch.expand(B, T, N, 3, H, d).reshape(B, T * N, D3)], dim=1)
+    bound = 2.0 ** -8 * ref + 2.0 ** -7 * group
     if not torch.isfinite(got.float()).all() or (diff > bound).any():
         raise AssertionError(f"the backward space core disagrees with plain: max|diff| "
                              f"{diff.max().item()}, {(diff > bound).sum().item()} elements over")
@@ -1404,8 +1418,8 @@ def space_core_bwd_times(dev, card: str, bb) -> dict:
     shapes, the CLS combine included (device time, device_ms), against its
     byte bound, the plain backward, the flash pair on the same inputs and one
     masked scaled_dot_product_attention backward (library_ms); held against
-    the plain backward (each element within the bf16 store plus 1e-4 *
-    max|ref|). Returns label -> the kernel line's numbers."""
+    the plain backward (space_bwd_check). Returns label -> the kernel line's
+    numbers."""
     out = {}
     for label, (B, T, N, H, d) in SPACE_BWD_SHAPES.items():
         qkv, dO, lse, delta = space_core_bwd_inputs(B, T, N, H, d, 56, dev, bb)
@@ -1415,7 +1429,7 @@ def space_core_bwd_times(dev, card: str, bb) -> dict:
                          iters=3)
         l_ms = device_ms(core_backward_library_call(qkv, dO, T, H, "space"), iters=3)
         diff = space_bwd_check(bb.space_core_backward(qkv, dO, lse, delta, T, H),
-                               bb.space_core_backward_plain(qkv, dO, lse, delta, T, H))
+                               bb.space_core_backward_plain(qkv, dO, lse, delta, T, H), T, H)
         bnd = bound_ms(*space_bwd_work(B, T, N, H, d))
         print(f"[6] space core backward alone {label} B={B} S={1 + T * N} d={d}: {ms:.3f} ms "
               f"(flash pair {pair_ms:.3f} ms), plain {p_ms:.3f} ms, masked "
@@ -2245,6 +2259,7 @@ def main() -> int:
     library["wgrad"], max_err["wgrad"] = line["library_ms"], line["max_abs_err"]
     line = time_core_bwd_times(dev, card, bb)
     times["time_core_backward"] = (line["ms"], line["plain_ms"], line["bound"])
+    library["time_core_backward"] = line["library_ms"]
     max_err["time_core_backward"] = line["max_abs_err"]
     time_core_bwd_digests(dev, bb)
     for name, lines in (("space_core_backward", space_core_bwd_times(dev, card, bb)),
@@ -2301,9 +2316,13 @@ def main() -> int:
     print(json.dumps({"space_core": core}))
     # library_ms: no single PyTorch call computes a whole sub-path (LayerNorm,
     # the products, divided or causal attention, activation and residual, or
-    # their gradients) or the backward time core; the H9 cores alone are one
-    # masked scaled_dot_product_attention call (core_library_call), wgrad's
-    # product one torch.matmul(a.t(), b) (wgrad_table)
+    # their gradients), so those rows are null. A row of one kernel has its
+    # one call: the H9 cores one masked scaled_dot_product_attention
+    # (core_library_call); wgrad's product one torch.matmul(a.t(), b)
+    # (wgrad_table); the backward time and space cores one masked
+    # scaled_dot_product_attention backward over their divided_mask
+    # (core_backward_library_call: time_core_bwd_times, space_core_bwd_times);
+    # ln_backward one native_layer_norm_backward (ln_bwd_times)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": max_err[name],

@@ -761,7 +761,7 @@ def test_space_core_backward_matches_plain_and_the_pair(cuda, T, d, N):
     assert (bb.space_core_backward.launches, bb.space_core_backward.pair_launches) == (
         before[0] + 1, before[1])
     assert got.shape == qkv.shape and got.dtype == torch.bfloat16
-    space_bwd_check(got, want)
+    space_bwd_check(got, want, T, H)
     with torch.cuda.device(cuda):
         dqkv, partial = bb._space_core_backward(bk.library(), qkv, dO, lse, delta, T, H)
     pair = space_core_bwd_pair(bb, qkv, dO, lse, delta, T, H)
@@ -780,7 +780,18 @@ def test_space_core_backward_takes_the_pair_above_one_block(cuda):
     torch.cuda.synchronize()
     assert (bb.space_core_backward.launches, bb.space_core_backward.pair_launches) == (
         before[0], before[1] + 1)
-    space_bwd_check(got, bb.space_core_backward_plain(qkv, dO, lse, delta, T, H))
+    space_bwd_check(got, bb.space_core_backward_plain(qkv, dO, lse, delta, T, H), T, H)
+
+
+def test_space_core_backward_dispatch_rule_is_the_librarys(cuda):
+    """_check_space_bwd (the rule planned on any device) and the library's
+    tvts_space_bwd_one_block (the rule the card dispatches on and the launch
+    refuses by) agree on every group size up to past the limit."""
+    lib = bk.library()
+    for d in (64, 80):
+        for N in range(1, 1200):
+            assert bb._check_space_bwd(1, N, 1, d) == bool(lib.tvts_space_bwd_one_block(N, d)), (
+                N, d)
 
 
 def test_space_core_backward_raises_before_launch(cuda):

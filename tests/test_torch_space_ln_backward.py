@@ -8,7 +8,9 @@ plain space core and, through the gradients it feeds, against the JAX
 package's make_space_subpath_v10 custom VJP with the Pallas kernels in
 interpret mode at head dims 64 and 80 (float32, loss sum(sin(f)), gradients
 atol 5e-4 / rtol 2e-3, as tests/test_torch_backward.py holds the sub-paths);
-and which space groups the one-pass kernel takes."""
+which space groups the one-pass kernel takes; and the band chip_smoke.py
+holds the card's backward space core to (space_bwd_check), against a
+bf16-rounding model of the kernel and a mask fault."""
 
 import jax
 import jax.numpy as jnp
@@ -220,3 +222,70 @@ def test_space_core_backward_smem_at_the_b16_step():
 def test_space_core_backward_raises_on_what_it_does_not_take(T, N, d, match):
     with pytest.raises(ValueError, match=match):
         bb._check_space_bwd(T, N, 12, d)
+
+
+def _rounded_space_backward(qkv, dO, lse, delta, T, H, cls_in_every_frame=False):
+    """A model of the one-pass kernel's arithmetic: the plain backward space
+    core (block_backward.divided_core_backward_plain) with P and dS rounded to
+    bf16 before their products, f32 otherwise. With cls_in_every_frame, the
+    CLS query's logit on the CLS key is counted in each of the T frames, not
+    in frame 0 only (a mask fault)."""
+    B, S, D3 = qkv.shape
+    N, d = (S - 1) // T, D3 // 3 // H
+    scale = d ** -0.5
+    q, k, v = (t.float().reshape(B, S, H, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    o = dO.float().reshape(B, S, H, d).transpose(1, 2)
+    qp, kp, vp, op = (t[:, :, 1:].reshape(B, H, T, N, d) for t in (q, k, v, o))
+    keys = torch.cat([k[:, :, None, :1].expand(B, H, T, 1, d), kp], dim=3)
+    vals = torch.cat([v[:, :, None, :1].expand(B, H, T, 1, d), vp], dim=3)
+    lse_p, delta_p = (t[:, :, 1:].reshape(B, H, T, N, 1) for t in (lse, delta))
+    p = torch.exp(scale * (qp @ keys.transpose(-1, -2)) - lse_p)
+    ds = p * (op @ vals.transpose(-1, -2) - delta_p)
+    p, ds = p.bfloat16().float(), ds.bfloat16().float()
+    dq_p = scale * (ds @ keys)
+    dkeys = scale * (ds.transpose(-1, -2) @ qp)
+    dvals = p.transpose(-1, -2) @ op
+    p0 = torch.exp(scale * (q[:, :, :1] @ k.transpose(-1, -2)) - lse[:, :, :1, None])
+    ds0 = p0 * (o[:, :, :1] @ v.transpose(-1, -2) - delta[:, :, :1, None])
+    if cls_in_every_frame:
+        p0[..., 0] *= T
+        ds0[..., 0] *= T
+    p0, ds0 = p0.bfloat16().float(), ds0.bfloat16().float()
+    dq = torch.cat([scale * (ds0 @ k), dq_p.reshape(B, H, T * N, d)], dim=2)
+    dk = scale * (ds0.transpose(-1, -2) @ q[:, :, :1]) + torch.cat(
+        [dkeys[:, :, :, :1].sum(2), dkeys[:, :, :, 1:].reshape(B, H, T * N, d)], dim=2)
+    dv = p0.transpose(-1, -2) @ o[:, :, :1] + torch.cat(
+        [dvals[:, :, :, :1].sum(2), dvals[:, :, :, 1:].reshape(B, H, T * N, d)], dim=2)
+    return torch.cat([t.transpose(1, 2).reshape(B, S, H * d) for t in (dq, dk, dv)], dim=-1)
+
+
+@pytest.mark.parametrize("N, d", [(98, 64), (76, 80)])
+def test_space_bwd_check_takes_rounding_and_refuses_a_mask_fault(N, d):
+    """chip_smoke.space_bwd_check, the band the card's backward space core is
+    held to at the B/16 (N = 98, d = 64) and H/14 (N = 76, d = 80) train
+    groups: it takes the bf16-rounding model of the kernel, bf16-stored (half
+    of the band at most), and twice the model's arithmetic error; it refuses
+    the same model with the CLS query's logit on the CLS key counted in every
+    frame, and the plain backward with one CLS dk value off by 2% of its
+    group's largest."""
+    from chip_smoke import space_bwd_check
+
+    T, H, B = 12, 2, 2
+    rng = np.random.default_rng(55)
+    S, D = 1 + T * N, H * d
+    qkv = torch.tensor(rng.standard_normal((B, S, 3 * D)), dtype=torch.bfloat16)
+    dO = torch.tensor(rng.standard_normal((B, S, D)), dtype=torch.bfloat16)
+    out, lse = bk.space_core_plain(qkv, T, H)
+    delta = _delta(dO.float(), out, H).contiguous()
+    want = bb.space_core_backward_plain(qkv, dO, lse, delta, T, H)
+    model = _rounded_space_backward(qkv, dO, lse, delta, T, H)
+    space_bwd_check(model.bfloat16(), want, T, H)
+    space_bwd_check(want + 2 * (model - want), want, T, H)
+    with pytest.raises(AssertionError, match="disagrees"):
+        space_bwd_check(_rounded_space_backward(qkv, dO, lse, delta, T, H, True).bfloat16(),
+                        want, T, H)
+    off = want.clone()
+    cls_dk = off[:, 0, D:2 * D]
+    cls_dk[0, 0] += 0.02 * cls_dk[0, :d].abs().max()
+    with pytest.raises(AssertionError, match="disagrees"):
+        space_bwd_check(off, want, T, H)

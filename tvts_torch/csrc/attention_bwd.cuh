@@ -394,6 +394,13 @@ inline size_t space_bwd_smem(int N, int DH) {
   return (size_t)4 * Lp * (DH + 8) * 2 + (size_t)2 * Lp * 4;
 }
 
+// whether a space group of N patches at head dim DH fits one space_bwd_kernel
+// block: the rule the launch refuses by and ops/block_backward.py dispatches on
+// (through tvts_space_bwd_one_block)
+inline bool space_bwd_one_block(int N, int DH) {
+  return (DH == 64 || DH == 80) && N >= 1 && space_bwd_smem(N, DH) <= (size_t)SMEM_OPTIN;
+}
+
 // The staged group a space_bwd_kernel block works on: q, k, v and dO rows
 // ([Lp][DH + 8] bf16), the lse in the log2 domain and delta ([Lp] f32).
 template <int DH>

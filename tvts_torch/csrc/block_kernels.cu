@@ -420,12 +420,12 @@ int tvts_flash_bwd(const void* qkv, const void* dO, const void* lse, const void*
 // block per (frame, head, clip); the CLS token's dq, dk, dv as f32 partials
 // into cls_partial [B, T, H, 3, dh] (combined by tvts_cls_grad_combine). A
 // group too large for one block's shared memory returns cudaErrorInvalidValue
-// (ops/block_backward.py sends it to tvts_flash_bwd before the launch).
+// (ops/block_backward.py sends it to tvts_flash_bwd before the launch, by
+// tvts_space_bwd_one_block).
 int tvts_space_bwd(const void* qkv, const void* dO, const void* lse, const void* delta,
                    void* dqkv, void* cls_partial, int B, int T, int N, int H, int dh,
                    float scale, void* stream) {
-  if (B < 1 || T < 1 || N < 1 || H < 1 || (dh != 64 && dh != 80) ||
-      tvts::space_bwd_smem(N, dh) > 227 * 1024)
+  if (B < 1 || T < 1 || H < 1 || !tvts::space_bwd_one_block(N, dh))
     return (int)cudaErrorInvalidValue;
   tvts::FlashBwdArgs a;
   a.qkv = (const bf16*)qkv;
@@ -444,6 +444,10 @@ int tvts_space_bwd(const void* qkv, const void* dO, const void* lse, const void*
   return (int)(dh == 64 ? tvts::launch_space_bwd<64>(a, B, s)
                         : tvts::launch_space_bwd<80>(a, B, s));
 }
+
+// 1 when a space group of N patches at head dim dh fits one tvts_space_bwd
+// block, else 0 (the group takes tvts_flash_bwd).
+int tvts_space_bwd_one_block(int N, int dh) { return tvts::space_bwd_one_block(N, dh); }
 
 // dqkv of the H6 time core (S = 1 + T*N rows, T <= 32), the CLS token's dq,
 // dk, dv as f32 partials into cls_partial [B, N, H, 3, dh].

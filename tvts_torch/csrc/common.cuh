@@ -10,6 +10,10 @@ namespace tvts {
 typedef __nv_bfloat16 bf16;
 typedef long long i64;
 
+// shared memory one block may take on the H100 (sm_90); ops/block_kernels.py
+// SMEM_OPTIN is the same number
+constexpr int SMEM_OPTIN = 227 * 1024;
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -611,7 +611,9 @@ def space_bwd_smem(N: int, d: int) -> int:
 def _check_space_bwd(T: int, N: int, H: int, d: int) -> bool:
     """Raise ValueError on a space group that neither backward core takes;
     True when the group fits one block of the one-pass kernel, False when it
-    takes the flash pair (decided on N and d before any launch)."""
+    takes the flash pair. The library's tvts_space_bwd_one_block is the rule
+    the card dispatches on (the rule its launch refuses by); this is its copy
+    for planning on any device, held equal to it on the card."""
     if T < 1 or N < 1 or H < 1:
         raise ValueError(f"{T} frames of {N} patches, {H} heads: the backward space core "
                          f"takes at least one of each")
@@ -629,7 +631,8 @@ def _space_core_backward(lib, qkv, dO, lse, delta, num_frames, num_heads):
     T, H = num_frames, num_heads
     N = bk._patches_per_frame(S, T)
     d = D3 // 3 // H
-    one_block = _check_space_bwd(T, N, H, d)
+    _check_space_bwd(T, N, H, d)
+    one_block = bool(lib.tvts_space_bwd_one_block(N, d))  # decided before any launch
     dqkv = torch.empty_like(qkv)
     partial = torch.empty(B, T, H, 3, d, dtype=torch.float32, device=qkv.device)
     stream = bk._stream(qkv)

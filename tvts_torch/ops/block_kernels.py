@@ -171,6 +171,7 @@ def library() -> ctypes.CDLL:
         "tvts_attn_delta": [p, p, i, i, i, i, p, p],
         "tvts_flash_bwd": [p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, p],
         "tvts_space_bwd": [p, p, p, p, p, p, i, i, i, i, i, f, p],
+        "tvts_space_bwd_one_block": [i, i],
         "tvts_time_bwd": [p, p, p, p, p, p, i, i, i, i, i, f, p],
         "tvts_cls_grad_combine": [p, i, i, i, i, i64, p, p],
     }
@@ -256,7 +257,7 @@ def _ln_gemm(lib, x, rows, lda, ln, w, b, out, act="none", res=None, ldres=0,
     return stats
 
 
-SMEM_OPTIN = 227 * 1024  # shared memory one block may take on the H100 (sm_90)
+SMEM_OPTIN = 227 * 1024  # shared memory one block may take on the H100 (csrc/common.cuh)
 
 
 def space_core_smem(N: int, d: int) -> int:
