@@ -76,9 +76,12 @@ times):
    dqkv and CLS partials (bit for bit the pair's: printed); the LayerNorm
    backward alone (row pass and column sums) at the same shapes against its
    byte bound, plain and one aten native_layer_norm_backward (library_ms),
-   split by kernel, and the sha256 of its dx; the H7 cores alone (text and
-   sort, forward and backward) against their bound and one
-   scaled_dot_product_attention; the train
+   split by kernel, and the sha256 of its dx; the H7 cores alone
+   (`text_core`, `text_core_backward`) at the B/16 and H/14 sort and text
+   shapes, each held against its plain version (out, lse, dq, dk, dv) and
+   bit-equal over two runs, with the sha256 of out, lse and dqkv, against
+   their bound and one scaled_dot_product_attention forward or backward
+   (`library_ms`); the train
    step at B=20 (ms, clips/s, peak memory; kernels, kernels with
    mlp_mode="pallas", eager), each backward kernel, the saving forwards, H8
    and H9 against their plain versions at the B=20 shapes (H9 also against
@@ -101,15 +104,18 @@ times):
    forwards and backwards, 18 of them frozen); the step at B=8 (preset, every
    kernel, eager) and the profile of one preset step.
 The step profiles also print the device time and launches of every backward
-kernel (STEP_KERNELS), the LayerNorm's column sums apart from wgrad's. Every
+kernel and the H7 cores (STEP_KERNELS), the LayerNorm's column sums apart
+from wgrad's, and fail if a step launches the H7 cores of the first design
+(OLD_H7_KERNELS). Every
 train step's launch counts (phases 7 and 8) include one backward space core a
 space backward and no flash pair (`space_core_backward (pair)`).
 `python3 chip_smoke.py --profile` runs phases 1 and 2 and then only the
 numbers an A/B compares (`profile_phase`): the space core's patch-row digest
 and CLS row against plain, the backward time core's, backward space core's
 and LayerNorm backward's digests, the B/16 profiles, the space core alone,
-H1-H4, the ln_gemm and wgrad tables, the backward time and space cores and
-the LayerNorm backward alone, the H5 and H7 backwards split by kernel, the
+H1-H4, the ln_gemm and wgrad tables, the backward time and space cores, the
+LayerNorm backward and the H7 cores alone (with their digests), the H5 and
+H7 backwards split by kernel, the
 step at B=20 (also with mlp_mode="pallas") with its profile, the saving
 forwards, the B/16, B/32 and H/14 extraction rates and the H/14 step with
 every kernel at B=8 with its profile.
@@ -162,6 +168,10 @@ REPLACES = {
     "space_core_backward": "tvts_tpu/ops/pallas_block_backward.py:2722",
     # the LayerNorm part of the backward kernels (_ln_bwd and the dln sums)
     "ln_backward": "tvts_tpu/ops/pallas_block_backward.py:46",
+    # H7's attention core alone: the core of fused_text_attention_block (:102)
+    # and of fused_text_attention_block_bwd (:264)
+    "text_core": "tvts_tpu/ops/pallas_text_attention.py:43",
+    "text_core_backward": "tvts_tpu/ops/pallas_text_attention.py:134",
 }
 SOURCE = "tvts_torch/csrc/block_kernels.cu"
 PEAK_FLOPS, HBM_BYTES_S = 989e12, 3.35e12  # H100 SXM: dense bf16, HBM3
@@ -517,7 +527,7 @@ def counted(bk, bb, ta) -> list:
     from tvts_torch.ops import attention_cores as ac
 
     return [*bk.KERNELS, ta.fused_text_attention_block, *bb.KERNELS, ta.text_subpath_backward,
-            ac.divided_space_time_attention_fused]
+            ta.text_core, ta.text_core_backward, ac.divided_space_time_attention_fused]
 
 
 def launch_counts(bk, bb, ta) -> dict[str, int]:
@@ -664,10 +674,12 @@ def step_launches(layers: int, text_layers: int, frozen: int, n_steps: int = 1, 
     as many backwards, `frozen` of them dx-only; two wgrad products each
     backward that is not frozen, one LayerNorm backward each backward, one
     backward space core (the one-pass kernel, never the pair) each H5
-    backward, one backward time core each H6 backward."""
+    backward, one backward time core each H6 backward, one H7 core forward
+    and backward each H7 forward and backward."""
     text = text_layers - 1 + sort
     want = {"space_subpath": layers, "space_subpath_backward": layers,
             "fused_text_attention_block": text, "text_subpath_backward": text,
+            "text_core": text, "text_core_backward": text,
             "text_subpath_backward (frozen)": frozen,
             "wgrad": 2 * (layers * (1 + time + mlp) + text - frozen),
             "space_core_backward": layers, "ln_backward": layers * (1 + time + mlp) + text}
@@ -845,7 +857,13 @@ STEP_KERNELS = ("wgrad_kernel", "time_bwd_kernel", "space_bwd_kernel",
                 "flash_bwd_dq_kernel<64, true>", "flash_bwd_dkv_kernel<64, true>",
                 "flash_bwd_dq_kernel<80, true>", "flash_bwd_dkv_kernel<80, true>",
                 "cls_grad_combine_kernel", "ln_bwd_kernel", "ln_colsum_kernel",
-                "reduce_partials_kernel (LayerNorm sums)", "reduce_partials_kernel (wgrad sums)")
+                "reduce_partials_kernel (LayerNorm sums)", "reduce_partials_kernel (wgrad sums)",
+                "text_attn_fwd_kernel", "text_attn_fwd_small_kernel", "text_bwd_dq_kernel",
+                "text_bwd_dkv_kernel", "text_bwd_small_kernel")
+# the H7 cores before their redesign: a train step's profile may show none
+OLD_H7_KERNELS = ("tvts::text_core_kernel", "tvts::flash_bwd_dq_kernel<64, false>",
+                  "tvts::flash_bwd_dkv_kernel<64, false>", "tvts::flash_bwd_dq_kernel<80, false>",
+                  "tvts::flash_bwd_dkv_kernel<80, false>")
 
 
 def profile_step(tag: str, train: dict, apply_fn, batch, card: str) -> dict:
@@ -871,6 +889,9 @@ def profile_step(tag: str, train: dict, apply_fn, batch, card: str) -> dict:
         by_label[key] = (ms + us / 1e3, n + 1)
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"[{tag}]   {ms:9.3f} ms ({ms / busy:.3f}) {group}")
+    stale = [k for k in by_label if k.startswith(OLD_H7_KERNELS)]
+    if stale:
+        raise AssertionError(f"the step launched the H7 cores of the first design: {stale}")
     for name in STEP_KERNELS:
         rows = [v for k, v in by_label.items() if k.startswith("tvts::" + name)]
         print(f"[{tag}]   {sum(r[0] for r in rows):9.3f} ms in {sum(r[1] for r in rows)} "
@@ -1339,7 +1360,7 @@ def space_core_bwd_pair(bb, qkv, dO, lse, delta, T: int, H: int) -> tuple:
     with torch.cuda.device(qkv.device):
         bk._check(lib, lib.tvts_flash_bwd(bk._ptr(qkv), bk._ptr(dO), bk._ptr(lse),
                                           bk._ptr(delta), bk._ptr(dqkv), bk._ptr(partial), B, T,
-                                          N, S, H, d, d ** -0.5, 0, 1, stream))
+                                          N, S, H, d, d ** -0.5, stream))
         bk._check(lib, lib.tvts_cls_grad_combine(bk._ptr(partial), T, B, H, d, S, bk._ptr(dqkv),
                                                  stream))
     return dqkv, partial
@@ -1538,46 +1559,116 @@ def ln_bwd_digests(dev, bb) -> None:
             print(f"[6] LayerNorm backward {label} M={M} K={K} {form}: dx sha256 {digest}")
 
 
-def text_core_times(dev, card: str, ta) -> None:
-    """The H7 cores alone at the B/16 text (B=80, causal) and sort (B=20, S =
-    1181) train shapes, forward and backward, split out of the sub-path by
-    kernel (kernel_split), against their operations bound and one
-    scaled_dot_product_attention (causal for the text) forward and backward."""
-    for label, (B, S, D, H, causal, eps) in (("text", (80, 77, 512, 8, True, 1e-5)),
-                                            ("sort", (20, 1181, 512, 8, False, 1e-6))):
-        d = D // H
-        t = text_inputs(B, S, D, seed=16, device=dev)
-        tg = text_inputs(B, S, D, seed=17, device=dev)["x"]
-        tw = (t["ln_w"], t["ln_b"], t["wqkv"], t["bqkv"], t["wproj"], t["bproj"])
-        with torch.inference_mode():
-            fwd = kernel_split("6", f"H7 forward {label} B={B} S={S}",
-                               lambda: ta.fused_text_attention_block(
-                                   t["x"], *tw, num_heads=H, causal=causal, eps=eps), card)
-        _, *saves = ta._text_sub_path(t["x"], *tw, H, causal, eps, save=True)
-        bwd = kernel_split("6", f"H7 backward {label} B={B} S={S}",
-                           lambda: ta.text_subpath_backward(tg, t["x"], saves, t["ln_w"],
-                                                            t["ln_b"], t["wqkv"], t["wproj"], H,
-                                                            causal, False), card)
-        core_f = sum(ms for k, (ms, _) in fwd.items() if "text_core_kernel" in k)
-        core_b = sum(ms for k, (ms, _) in bwd.items() if "flash_bwd_d" in k)
-        qkv = torch.randn(B, H, S, 3 * d, device=dev, dtype=torch.bfloat16)
-        q, k, v = (x.contiguous().requires_grad_() for x in qkv.chunk(3, dim=-1))
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        with torch.inference_mode():
-            lf_ms = device_ms(lambda: sdpa(q.detach(), k.detach(), v.detach(), is_causal=causal))
+# the H7 cores alone at the train steps' shapes: (B, S, H, causal), head dim 64
+TEXT_CORE_SHAPES = {"B/16 sort": (20, 1181, 8, False), "B/16 text": (80, 77, 8, True),
+                    "H/14 sort": (8, 917, 16, False), "H/14 text": (32, 77, 16, True)}
+TEXT_LSE_TOL = 1e-3  # the H7 core's lse against plain (f32 sums in another order)
+
+
+def text_core_inputs(B: int, S: int, H: int, seed: int, dev) -> tuple:
+    """Seeded qkv [B, S, 3 * H * 64] and dO [B, S, H * 64] (bf16): logits of
+    unit variance at d = 64."""
+    rng = np.random.default_rng(seed)
+    qkv = torch.tensor(rng.standard_normal((B, S, 3 * H * 64)), dtype=torch.bfloat16,
+                       device=dev)
+    dO = torch.tensor(rng.standard_normal((B, S, H * 64)), dtype=torch.bfloat16, device=dev)
+    return qkv, dO
+
+
+def text_core_work(B: int, S: int, H: int, causal: bool, backward: bool) -> tuple:
+    """(flops, bytes) of the H7 core: 4 d (forward: logits, P V) or 10 d
+    (backward: logits, dP, dq, dk, dv) flops a (query, key) pair of every
+    head; forward qkv read and out and lse written, backward qkv, out, lse
+    and dO read and dqkv written, each once. The backward kernels recompute
+    the logits and dP in both passes: 14 d a pair."""
+    d, D = 64, H * 64
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    if backward:
+        return 10 * d * pairs, 2 * B * S * (3 * D + D + D + 3 * D) + 4 * B * H * S
+    return 4 * d * pairs, 2 * B * S * (3 * D + D) + 4 * B * H * S
+
+
+def text_core_check(tag: str, ta, qkv, dO, H: int, causal: bool) -> tuple:
+    """Holds the H7 cores against their plain versions on the same inputs: out
+    within BAND * max(1, mean|ref| / 0.8) (band_check), lse within
+    TEXT_LSE_TOL, each of dq, dk and dv within GRAD_BAND * max|ref| of the
+    plain backward from the kernel's own out and lse (what the training
+    backward gets); two runs of each kernel bit-equal. -> (out, lse, dqkv,
+    max|diff| of out, the largest max|diff| of dq, dk, dv)."""
+    out, lse = ta.text_core(qkv, H, causal, with_lse=True)
+    again = ta.text_core(qkv, H, causal, with_lse=True)
+    dqkv = ta.text_core_backward(qkv, out, lse, dO, H, causal)
+    dqkv2 = ta.text_core_backward(qkv, out, lse, dO, H, causal)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])
+            and torch.equal(dqkv, dqkv2)):
+        raise AssertionError(f"H7 cores {tag}: two runs are not bit-equal")
+    ref, ref_lse = ta.text_core_plain(qkv, H, causal)
+    diff, mean, tol = band_check(out, ref)
+    if not torch.isfinite(lse).all():
+        raise AssertionError(f"H7 core {tag}: non-finite lse")
+    lse_err = (lse - ref_lse).abs().max().item()
+    print(f"[6] text_core {tag}: out max|diff| {diff:.5f} mean|ref| {mean:.4f} (tol {tol:.4f}), "
+          f"lse max|diff| {lse_err:.3e} (<= {TEXT_LSE_TOL}); two runs bit-equal")
+    if diff > tol or lse_err > TEXT_LSE_TOL:
+        raise AssertionError(f"H7 core {tag}: out {diff} > {tol} or lse {lse_err}")
+    del ref, ref_lse
+    want = ta.text_core_backward_plain(qkv, out, lse, dO, H, causal)
+    D = H * 64
+    worst = grad_band_check(f"text_core_backward {tag}", ("dq", "dk", "dv"),
+                            dqkv.split(D, dim=-1), want.split(D, dim=-1))
+    return out, lse, dqkv, diff, worst
+
+
+def text_core_times(dev, card: str, ta) -> dict:
+    """The H7 cores alone at the B/16 and H/14 train shapes (sort head, text
+    tower: TEXT_CORE_SHAPES), forward (with the lse, as training runs it) and
+    backward, held to text_core_check, with the sha256 of out, lse and dqkv
+    (equal digests in two trees: bit-identical outputs); device time
+    (device_ms) against their bound, the plain versions and one
+    scaled_dot_product_attention forward / backward over the same q, k, v
+    (causal for the text: `library_ms`). Returns label -> {"text_core":
+    numbers, "text_core_backward": numbers} for the kernel line."""
+    import hashlib
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out_lines = {}
+    for label, (B, S, H, causal) in TEXT_CORE_SHAPES.items():
+        qkv, dO = text_core_inputs(B, S, H, 61, dev)
+        out, lse, dqkv, f_err, b_err = text_core_check(label, ta, qkv, dO, H, causal)
+        for name, t in (("out", out.view(torch.int16)), ("lse", lse),
+                        ("dqkv", dqkv.view(torch.int16))):
+            digest = hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+            print(f"[6] text core {label} B={B} S={S} H={H}: {name} sha256 {digest}")
+        f_ms = device_ms(lambda: ta.text_core(qkv, H, causal, with_lse=True))
+        b_ms = device_ms(lambda: ta.text_core_backward(qkv, out, lse, dO, H, causal))
+        fp_ms = device_ms(lambda: ta.text_core_plain(qkv, H, causal), iters=3)
+        bp_ms = device_ms(lambda: ta.text_core_backward_plain(qkv, out, lse, dO, H, causal),
+                          iters=3)
+        q, k, v = (t.reshape(B, S, H, 64).transpose(1, 2).contiguous().requires_grad_()
+                   for t in qkv.chunk(3, dim=-1))
+        with torch.no_grad():
+            lf_ms = device_ms(lambda: sdpa(q, k, v, is_causal=causal))
         with torch.enable_grad():
             o = sdpa(q, k, v, is_causal=causal)
-        go = torch.randn_like(o)
+        go = dO.reshape(B, S, H, 64).transpose(1, 2).contiguous()
         lb_ms = device_ms(lambda: torch.autograd.grad(o, (q, k, v), go, retain_graph=True))
-        pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
-        for name, ms, flops, lib_ms in (("forward", core_f, 4 * d * pairs, lf_ms),
-                                        ("backward", core_b, 10 * d * pairs, lb_ms)):
-            nbytes = 2 * B * S * H * d * (4 if name == "forward" else 7) + 8 * B * H * S
-            bnd = bound_ms(flops, nbytes)
-            print(f"[6] H7 {name} core alone {label} B={B} S={S}: {ms:.4f} ms, bound "
-                  f"{bnd[0]:.4f} ms ({bnd[1]}), scaled_dot_product_attention"
-                  f"{' causal' if causal else ''} {name} {lib_ms:.4f} ms [{card}]")
-        del t, tg, saves, qkv, q, k, v, o, go
+        lines = {}
+        for name, ms, p_ms, l_ms, err, bwd in (("text_core", f_ms, fp_ms, lf_ms, f_err, False),
+                                               ("text_core_backward", b_ms, bp_ms, lb_ms, b_err,
+                                                True)):
+            bnd = bound_ms(*text_core_work(B, S, H, causal, bwd))
+            extra = "; the kernels do 14 d flops a pair" if bwd else ""
+            print(f"[6] {name} alone {label} B={B} S={S} H={H}{' causal' if causal else ''}: "
+                  f"{ms:.4f} ms, plain {p_ms:.3f} ms, scaled_dot_product_attention "
+                  f"{'backward ' if bwd else ''}{l_ms:.4f} ms, bound {bnd[0]:.4f} ms "
+                  f"({bnd[1]}{extra}), {ms / bnd[0]:.2f}x the bound, {ms / l_ms:.2f}x the "
+                  f"library call [{card}]")
+            lines[name] = dict(ms=ms, plain_ms=p_ms, bound=bnd, library_ms=l_ms, max_abs_err=err)
+        out_lines[label] = lines
+        del qkv, dO, out, lse, dqkv, q, k, v, o, go
+        torch.cuda.empty_cache()
+    return out_lines
 
 
 def forward_profile(cfg, model, B: int, dev, card: str, bk) -> dict:
@@ -1865,7 +1956,7 @@ def h14_phase(dev, card, bk, bb, ta) -> None:
     print(f"[8] zero-shot launches over {n} text and {n} video forwards: "
           f"{ {k: c for k, c in launches.items() if c} }")
     want = {name: c * n for name, c in ext["per_forward"].items()}
-    want["fused_text_attention_block"] = (cfg.text.layers - 1) * n
+    want["fused_text_attention_block"] = want["text_core"] = (cfg.text.layers - 1) * n
     expect_launches("H/14 zero-shot", launches, want)
     ret_eager, sims_eager = run_retrieval(model, loader, use_fused=False)
     for path, res in (("kernels", ret), ("eager", ret_eager)):
@@ -2078,6 +2169,7 @@ def profile_phase(dev, card: str, bk, bb, ta) -> None:
     time_core_bwd_times(dev, card, bb)
     space_core_bwd_times(dev, card, bb)
     ln_bwd_times(dev, card, bb)
+    text_core_times(dev, card, ta)
     backward_splits(dev, card, bb, ta)
     train = build_train("TVTSv2_B_16", dev, noise_seed=11, text_tune_layers=3, tag="6")
     B = 20
@@ -2201,9 +2293,10 @@ def main() -> int:
     print(f"[5] launches over {text_forwards} text and {video_forwards} video forwards: "
           f"{ {k: n for k, n in zs_launches.items() if n} }")
     want = {name: n * video_forwards for name, n in per_forward.items()}
-    want["fused_text_attention_block"] = (tc.layers - 1) * text_forwards
+    want["fused_text_attention_block"] = want["text_core"] = (tc.layers - 1) * text_forwards
     expect_launches("zero-shot", zs_launches, want)
-    launches["fused_text_attention_block"] = zs_launches["fused_text_attention_block"]
+    for name in ("fused_text_attention_block", "text_core"):
+        launches[name] = zs_launches[name]
     ret_eager, sims_eager = run_retrieval(model, ret_loader, use_fused=False)
     for path, res in (("kernels", ret), ("eager", ret_eager)):
         print(f"[5] retrieval {path:7s}: " + json.dumps(res))
@@ -2296,7 +2389,9 @@ def main() -> int:
             print(f"[6] fused_text_attention_block {label} B={B} S={S} D={D}: kernel "
                   f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}) "
                   f"[{card}]")
-    text_core_times(dev, card, ta)
+    for name, line in text_core_times(dev, card, ta)["B/16 sort"].items():
+        times[name] = (line["ms"], line["plain_ms"], line["bound"])
+        library[name], max_err[name] = line["library_ms"], line["max_abs_err"]
     del model
     train_times(dev, card, bk, bb, ta, ac, train, times, library)
     del train
@@ -2322,7 +2417,8 @@ def main() -> int:
     # (wgrad_table); the backward time and space cores one masked
     # scaled_dot_product_attention backward over their divided_mask
     # (core_backward_library_call: time_core_bwd_times, space_core_bwd_times);
-    # ln_backward one native_layer_norm_backward (ln_bwd_times)
+    # ln_backward one native_layer_norm_backward (ln_bwd_times); the H7 cores
+    # one scaled_dot_product_attention forward or backward (text_core_times)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": max_err[name],

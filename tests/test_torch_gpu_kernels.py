@@ -25,6 +25,7 @@ from chip_smoke import (
     MLP_GRAD_NAMES,
     MLP_SHAPES,
     TEXT_BWD_SHAPES,
+    TEXT_CORE_SHAPES,
     TEXT_SHAPES,
     backward_calls,
     band_check,
@@ -43,6 +44,8 @@ from chip_smoke import (
     space_core_bwd_pair,
     text_backward_calls,
     text_calls,
+    text_core_check,
+    text_core_inputs,
     text_inputs,
 )
 from tvts_torch.ops import attention_cores as ac
@@ -805,3 +808,72 @@ def test_space_core_backward_raises_before_launch(cuda):
     with pytest.raises(TypeError):
         bb.space_core_backward(qkv, dO.float(), lse, lse, T, H)
     assert (bb.space_core_backward.launches, bb.space_core_backward.pair_launches) == before
+
+
+# the H7 cores alone: the train steps' shapes, then ragged and short sequences
+# of both kernels (the one-block kernel up to S = 128, the TMA + wgmma ones above)
+TEXT_CORE_CASES = {**TEXT_CORE_SHAPES, "S=131 causal": (3, 131, 4, True),
+                   "S=131": (3, 131, 4, False), "S=300 causal": (2, 300, 2, True),
+                   "S=129": (1, 129, 2, False), "S=5 causal": (2, 5, 2, True),
+                   "S=128": (2, 128, 2, False)}
+
+
+@pytest.mark.parametrize("label", list(TEXT_CORE_CASES))
+def test_text_core_matches_plain_and_is_deterministic(cuda, label):
+    """out, lse and dq, dk, dv of the H7 cores against their plain versions
+    (chip_smoke.text_core_check: out in the H7 band, lse within 1e-3, each
+    gradient within 0.06 * max|ref|), two runs bit-equal, each launch
+    counted."""
+    B, S, H, causal = TEXT_CORE_CASES[label]
+    qkv, dO = text_core_inputs(B, S, H, 62, cuda)
+    before = ta.text_core.launches, ta.text_core_backward.launches
+    text_core_check(label, ta, qkv, dO, H, causal)
+    assert (ta.text_core.launches, ta.text_core_backward.launches) == (before[0] + 2,
+                                                                       before[1] + 2)
+
+
+@pytest.mark.parametrize("S", [77, 300])
+def test_text_core_is_causal_and_raises_before_launch(cuda, S):
+    """Rows after 39 reach no earlier row's out, lse or dq; what the cores do
+    not take raises before any launch."""
+    qkv, dO = text_core_inputs(2, S, 4, 63, cuda)
+    out, lse = ta.text_core(qkv, 4, True, with_lse=True)
+    dq = ta.text_core_backward(qkv, out, lse, dO, 4, True)[..., :256]
+    cut = qkv.clone()
+    cut[:, 40:] = 0
+    out2, lse2 = ta.text_core(cut, 4, True, with_lse=True)
+    dq2 = ta.text_core_backward(cut, out2, lse2, dO, 4, True)[..., :256]
+    assert torch.equal(out[:, :40], out2[:, :40]) and torch.equal(lse[..., :40], lse2[..., :40])
+    assert torch.equal(dq[:, :40], dq2[:, :40])
+    before = ta.text_core.launches, ta.text_core_backward.launches
+    with pytest.raises(ValueError, match="head dim 32"):
+        ta.text_core(qkv, 8, True)
+    with pytest.raises(TypeError):
+        ta.text_core(qkv.float(), 4, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        ta.text_core(qkv[:, :, 8:-8], 4, True)
+    with pytest.raises(ValueError, match="head dim 32"):
+        ta.text_core_backward(qkv, out, torch.zeros(2, 8, S, device=cuda), dO, 8, True)
+    assert (ta.text_core.launches, ta.text_core_backward.launches) == before
+
+
+# the sha256 of the flash pair's dqkv (SPACE = true) on the inputs of
+# chip_smoke.space_core_bwd_digests (seed 55) at the B/16 and H/14 train
+# shapes, as the tree before the H7 cores' redesign printed them on an H100:
+# the pair is the one-pass space core's oracle, and the redesign left it as it
+# was
+SPACE_PAIR_DQKV_SHA256 = {
+    (2, 12, 98, 12, 64): "2f030726f0dd4f28ff518eaa40029db50667a41b7c358aff3a3dd97c36eef441",
+    (1, 12, 76, 16, 80): "b9a88f467d7ed14ccc4b099343824972aa5688bbcae75c737f1ef533ba21be51"}
+
+
+@pytest.mark.parametrize("shape", list(SPACE_PAIR_DQKV_SHA256), ids=["B/16", "H/14"])
+def test_space_flash_pair_digests_unchanged(cuda, shape):
+    import hashlib
+
+    B, T, N, H, d = shape
+    inputs = space_core_bwd_inputs(B, T, N, H, d, 55, cuda, bb)  # space_core_bwd_digests' seed
+    dqkv, _ = space_core_bwd_pair(bb, *inputs, T, H)
+    torch.cuda.synchronize()
+    digest = hashlib.sha256(dqkv.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+    assert digest == SPACE_PAIR_DQKV_SHA256[shape]

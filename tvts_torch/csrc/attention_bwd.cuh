@@ -1,8 +1,9 @@
-// Attention-core backward kernels of the training sub-paths: H5 (space), H6
-// (time) and H7 (text / sort head). Inputs are the forward's saves: the qkv
-// rows [B, S, 3D] (q not pre-scaled), the pre-projection attention output O
-// [B, S, D], the natural-log lse [B, H, S] of every row's scaled logits, and
-// dO = dL/dO [B, S, D] from the proj backward. Output: dqkv [B, S, 3D] bf16.
+// Attention-core backward kernels of the training sub-paths H5 (space) and H6
+// (time); H7's (text / sort head) are in text_attention_bwd.cuh. Inputs are
+// the forward's saves: the qkv rows [B, S, 3D] (q not pre-scaled), the
+// pre-projection attention output O [B, S, D], the natural-log lse [B, H, S]
+// of every row's scaled logits, and dO = dL/dO [B, S, D] from the proj
+// backward. Output: dqkv [B, S, 3D] bf16.
 //
 // Every core uses the delta identity of flash attention: with
 // P = exp(scale q.k - lse), dP = dO.v and delta = rowsum(dO * O),
@@ -26,14 +27,11 @@
 // Replaces the attention-core part of tvts_tpu/ops/pallas_block_backward.py::
 // fused_time_attention_block_v2_bwd (:736, kernel :501; the TPU carries the
 // CLS row's dq, dk, dv in scratch across its sequential grid),
-// fused_space_attention_block_v10_bwd (:3106, kernel :2722) and
-// pallas_text_attention.py::fused_text_attention_block_bwd (:264, kernel
-// :134; whole [S, S] probabilities per head in VMEM). Bound on the H100: the
-// time and space cores move bytes (qkv, dO and dqkv rows, ~10.7 KB a token at
-// D = 768: 0.075 ms at B=20 against ~0.02 ms of their tensor-core work); the
-// text core at the sort head's S = 1181 is bound by its 10 * D * S^2 flops per
-// sequence. The flash kernels (the text core; the space core of a group too
-// large for one block) recompute QK^T and dO V^T in both passes (dq; dk and
+// and fused_space_attention_block_v10_bwd (:3106, kernel :2722). Bound on the
+// H100: the time and space cores move bytes (qkv, dO and dqkv rows, ~10.7 KB
+// a token at D = 768: 0.075 ms at B=20 against ~0.02 ms of their tensor-core
+// work). The flash kernels (the space core of a group too large for one
+// block) recompute QK^T and dO V^T in both passes (dq; dk and
 // dv); the one-pass space core stages its group once and computes both; the
 // time core runs on SIMT lanes, a thread per (element, head) of a group. Each
 // has its own section below.
@@ -78,10 +76,12 @@ __global__ void attn_delta_kernel(const bf16* __restrict__ dO, const bf16* __res
 
 // ---------------------------------------------------------------------------
 // Flash backward on the tensor cores (mma.sync m16n8k16, bf16 in, f32
-// accumulate), for plain self-attention (SPACE = false: one group per
+// accumulate), written for plain self-attention (SPACE = false: one group per
 // sequence, element e = token e, causal or not) and for the space core
 // (SPACE = true: one group per (b, t), element 0 the CLS token, element
-// e >= 1 patch e - 1 of frame t). Two kernels, as in flash-attention 2:
+// e >= 1 patch e - 1 of frame t); only SPACE = true is built (tvts_flash_bwd:
+// the space groups over one space_bwd_kernel block, and the oracle that
+// space_bwd_kernel is bit for bit). Two kernels, as in flash-attention 2:
 // - flash_bwd_dq_kernel: a block owns 64 query elements (4 warps x 16) and
 //   walks the 64-key tiles: dq = scale * sum dS k;
 // - flash_bwd_dkv_kernel: a block owns 64 key elements and walks the query

@@ -7,6 +7,7 @@
 #include "cls_pool.cuh"
 #include "ln_gemm.cuh"
 #include "text_attention.cuh"
+#include "text_attention_bwd.cuh"
 #include "weight_grad.cuh"
 
 using tvts::bf16;
@@ -216,15 +217,27 @@ int tvts_cls_attention(const void* q, i64 q_bstride, const void* k, const void* 
 }
 
 // Self-attention of out [B, S, H*dh] from qkv [B, S, 3*H*dh] (H7 core), causal
-// or not; q is scaled by `scale` (and rounded to bf16) before the products.
-// lse != NULL: also each row's log-sum-exp into lse [B, H, S] (training save).
+// or not; the logits scaled by `scale`. lse != NULL: also each row's
+// log-sum-exp into lse [B, H, S] (training save). small: the one-block kernel
+// (S <= 128), else the TMA + wgmma one (ops/text_attention.py::text_core_plan).
 int tvts_text_core(const void* qkv, void* out, void* lse, int B, int S, int H, int dh,
-                   float scale, int causal, void* stream) {
-  if (dh != 64 || S < 1) return (int)cudaErrorInvalidValue;
-  dim3 grid((S + tvts::TX_BQ - 1) / tvts::TX_BQ, H, B);
-  tvts::text_core_kernel<64><<<grid, 128, 0, (cudaStream_t)stream>>>(
-      (const bf16*)qkv, (bf16*)out, (float*)lse, S, H, scale, causal);
-  return (int)cudaGetLastError();
+                   float scale, int causal, int small, void* stream) {
+  if (dh != 64 || S < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  tvts::TextFwdArgs a{(bf16*)out, (float*)lse, S, H, scale, causal};
+  return (int)tvts::launch_text_fwd((const bf16*)qkv, a, B, small, (cudaStream_t)stream);
+}
+
+// dqkv [B, S, 3*H*dh] of the H7 core from its saves (qkv, the attention output
+// O, lse) and dO. small: the one-block kernel (S <= 128); else lse2p and
+// deltap [B, H, Sp] f32 are scratch, Sp = S rounded up to 64.
+int tvts_text_core_bwd(const void* qkv, const void* O, const void* dO, const void* lse,
+                       void* lse2p, void* deltap, void* dqkv, int B, int S, int Sp, int H,
+                       int dh, float scale, int causal, int small, void* stream) {
+  if (dh != 64 || S < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  tvts::TextBwdArgs a{(const bf16*)qkv, (const bf16*)O,  (const bf16*)dO, (const float*)lse,
+                      (float*)lse2p,    (float*)deltap,  (bf16*)dqkv,     S,
+                      Sp,               H,               scale,           causal};
+  return (int)tvts::launch_text_bwd(a, B, small, (cudaStream_t)stream);
 }
 
 // H4, the CLS-only space tail (cls_pool.cuh): out [B, D] = basecls +
@@ -385,13 +398,13 @@ int tvts_attn_delta(const void* dO, const void* O, int B, int S, int H, int dh, 
   return (int)cudaGetLastError();
 }
 
-// dqkv [B, S, 3*H*dh] of a flash-attention core. space == 0: self-attention of
-// S rows (causal or not; the H7 text core). space == 1: the H5 space core over
-// S = 1 + T*N rows, with the CLS token's dq, dk, dv as f32 partials into
-// cls_partial [B, T, H, 3, dh] (combined by tvts_cls_grad_combine).
+// dqkv [B, S, 3*H*dh] of the H5 space core by the flash pair, over S = 1 + T*N
+// rows, with the CLS token's dq, dk, dv as f32 partials into cls_partial [B, T,
+// H, 3, dh] (combined by tvts_cls_grad_combine): the groups over one
+// tvts_space_bwd block.
 int tvts_flash_bwd(const void* qkv, const void* dO, const void* lse, const void* delta,
                    void* dqkv, void* cls_partial, int B, int T, int N, int S, int H, int dh,
-                   float scale, int causal, int space, void* stream) {
+                   float scale, void* stream) {
   tvts::FlashBwdArgs a;
   a.qkv = (const bf16*)qkv;
   a.dO = (const bf16*)dO;
@@ -404,15 +417,11 @@ int tvts_flash_bwd(const void* qkv, const void* dO, const void* lse, const void*
   a.S = S;
   a.H = H;
   a.scale = scale;
-  a.causal = causal;
+  a.causal = 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (space && (causal || S != 1 + T * N)) return (int)cudaErrorInvalidValue;
-  if (dh == 64)
-    return (int)(space ? tvts::launch_flash_bwd<64, true>(a, B, s)
-                 : tvts::launch_flash_bwd<64, false>(a, B, s));
-  if (dh == 80)
-    return (int)(space ? tvts::launch_flash_bwd<80, true>(a, B, s)
-                 : tvts::launch_flash_bwd<80, false>(a, B, s));
+  if (S != 1 + T * N) return (int)cudaErrorInvalidValue;
+  if (dh == 64) return (int)tvts::launch_flash_bwd<64, true>(a, B, s);
+  if (dh == 80) return (int)tvts::launch_flash_bwd<80, true>(a, B, s);
   return (int)cudaErrorInvalidValue;
 }
 

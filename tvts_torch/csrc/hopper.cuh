@@ -1,8 +1,10 @@
 // Hopper (sm_90a) primitives shared by the TMA + wgmma kernels (ln_gemm.cuh,
-// weight_grad.cuh): mbarriers, TMA box loads and their tensor maps, named
-// barriers, and wgmma m64n256k16 with both operands in shared memory under the
-// 128-byte swizzle, K-major (ln_gemm's X and W) or MN-major (wgrad's token-row
-// tiles, whose contraction runs over the rows).
+// weight_grad.cuh, the H7 attention cores): mbarriers, TMA box loads and their
+// tensor maps, bulk copies, named barriers, and wgmma under the 128-byte
+// swizzle with both operands in shared memory (m64n256k16, m64n64k16),
+// K-major (ln_gemm's X and W) or MN-major (wgrad's token-row tiles, whose
+// contraction runs over the rows), or with A from registers (m64n64k16: the
+// attention cores' fixed operand and their probabilities).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: the driver is reached at run time)
@@ -77,6 +79,17 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// Keeps the A fragments of a register-A wgmma in their registers up to here
+// (its wait): the compiler sees them read, so it gives their registers to no
+// other value while the asynchronous product may still read them.
+template <int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
 // Descriptor of a K-major bf16 tile in shared memory under the 128-byte
 // swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO), the
 // leading offset unused; a k16 step within the atom adds 32 bytes to the
@@ -133,6 +146,71 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t da, uint64_t 
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], both from shared memory by
+// descriptor (TA / TB as wgmma_ss).
+template <int TA = 0, int TB = 0>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64] with A from registers: on each warp's
+// 16 rows the mma.sync m16n8k16 A fragment ({row g, cols 2t, 2t + 1}, {row
+// g + 8, the same}, {row g, cols 2t + 8, 2t + 9}, {row g + 8, the same}; g =
+// lane / 4, t = lane % 4), which is the accumulator layout of two 8-column
+// chunks packed to bf16 pairs; B from shared memory by descriptor (TB as
+// wgmma_ss). The registers of A stay untouched until the wgmma is waited for.
+template <int TB = 0>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// The A fragments (four k16 steps) of the 16 rows of warp `warp` in a [rows x
+// 64] bf16 tile that TMA wrote under the 128-byte swizzle at `tile` (1 KB
+// aligned): row r's 16-byte chunk c sits at chunk c ^ (r % 8).
+__device__ __forceinline__ void load_a_frags(uint32_t (&f)[4][4], uint32_t tile, int warp,
+                                             int lane) {
+  const int r = 16 * warp + (lane & 15);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t at = tile + r * 128 + (((2 * kk + (lane >> 4)) ^ (r & 7)) << 4);
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(f[kk][0]), "=r"(f[kk][1]), "=r"(f[kk][2]), "=r"(f[kk][3])
+                 : "r"(at));
+  }
+}
+
+// `bytes` (a multiple of 16) from a 16-byte aligned global address into
+// shared memory, one bulk copy; completes on `bar`, as a TMA box load does.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -22,7 +22,7 @@ Backward chain, all hand-written kernels (csrc/weight_grad.cuh,
 csrc/attention_bwd.cuh, csrc/ln_gemm.cuh), for g = dL/d(out):
   dattn = g @ Wproj                       ln_gemm on Wproj^T
   dWproj = g^T attn, dbproj = colsum(g)   wgrad, fixed-order split-M sums
-  delta = rowsum(dattn * attn)            per head
+  delta = rowsum(dattn * attn)            per head (the H7 core computes its own)
   dqkv                                    core backward (time / space / text)
   dWqkv = dqkv^T LN(x), dbqkv             wgrad with the LN prologue (recomputed)
   dxln = dqkv @ Wqkv                      ln_gemm on Wqkv^T, f32 out
@@ -356,18 +356,16 @@ def attention_backward(core: str, g, x, saves, ln_w, ln_b, wqkv, wproj, num_head
         bk._ln_gemm(lib, g2, M, D, None, wproj.t().contiguous(), None, dattn)
         if not frozen:
             dwproj, dbproj = _wgrad(lib, g2, attn.view(M, D), dtype=wproj.dtype)
-        delta = torch.empty(B, num_heads, S, dtype=torch.float32, device=x.device)
-        bk._check(lib, lib.tvts_attn_delta(bk._ptr(dattn), bk._ptr(attn), B, S, num_heads, d,
-                                           bk._ptr(delta), stream))
-        if core == "time":
-            dqkv, _ = _time_core_backward(lib, qkv, dattn, lse, delta, num_frames, num_heads)
-        elif core == "text":
-            dqkv = torch.empty(B, S, 3 * D, dtype=x.dtype, device=x.device)
-            bk._check(lib, lib.tvts_flash_bwd(bk._ptr(qkv), bk._ptr(dattn), bk._ptr(lse),
-                                              bk._ptr(delta), bk._ptr(dqkv), None, B, 1, 0, S,
-                                              num_heads, d, d ** -0.5, int(causal), 0, stream))
+        if core == "text":  # the H7 core computes its own delta
+            from tvts_torch.ops.text_attention import _text_core_backward  # imports this module
+
+            dqkv = _text_core_backward(lib, qkv, attn, lse, dattn, num_heads, causal)
         else:
-            dqkv, _ = _space_core_backward(lib, qkv, dattn, lse, delta, num_frames, num_heads)
+            delta = torch.empty(B, num_heads, S, dtype=torch.float32, device=x.device)
+            bk._check(lib, lib.tvts_attn_delta(bk._ptr(dattn), bk._ptr(attn), B, S, num_heads,
+                                               d, bk._ptr(delta), stream))
+            core_backward = _time_core_backward if core == "time" else _space_core_backward
+            dqkv, _ = core_backward(lib, qkv, dattn, lse, delta, num_frames, num_heads)
         dqkv2 = dqkv.view(M, 3 * D)
         x2 = x.view(M, D)
         if not frozen:
@@ -642,7 +640,7 @@ def _space_core_backward(lib, qkv, dO, lse, delta, num_frames, num_heads):
         bk._check(lib, lib.tvts_space_bwd(*args, B, T, N, H, d, d ** -0.5, stream))
         space_core_backward.launches += 1
     else:
-        bk._check(lib, lib.tvts_flash_bwd(*args, B, T, N, S, H, d, d ** -0.5, 0, 1, stream))
+        bk._check(lib, lib.tvts_flash_bwd(*args, B, T, N, S, H, d, d ** -0.5, stream))
         space_core_backward.pair_launches += 1
     bk._check(lib, lib.tvts_cls_grad_combine(bk._ptr(partial), T, B, H, d, S, bk._ptr(dqkv),
                                              stream))

@@ -1,7 +1,7 @@
 """The four sub-path kernels of the B/16 extraction tower, hand-written in CUDA
 C++ for Hopper (sources in tvts_torch/csrc/), each beside its plain PyTorch
 version; and the build and load of the one kernel library, which also carries
-the text-attention kernel of ops/text_attention.py and the training backward
+the text-attention kernels of ops/text_attention.py and the training backward
 kernels of ops/block_backward.py.
 
 Layout: tokens [B, S, D] with S = 1 + T*N, CLS first, frame-major patches
@@ -163,13 +163,14 @@ def library() -> ctypes.CDLL:
                           p],
         "tvts_attention_core_strided": [p, p, p, p, ctypes.POINTER(i64), i, i, i, i, i, f, i, p],
         "tvts_cls_attention": [p, i64, p, p, i64, i64, i, p, i64, p, p, i, i, i, f, p],
-        "tvts_text_core": [p, p, p, i, i, i, i, f, i, p],
+        "tvts_text_core": [p, p, p, i, i, i, i, f, i, i, p],
+        "tvts_text_core_bwd": [p, p, p, p, p, p, p, i, i, i, i, i, f, i, i, p],
         # training backward
         "tvts_wgrad": [p, i64, p, i64, p, p, p, p, p, i, i, i, i, i, p],
         "tvts_reduce": [p, i, i64, p, p, p],
         "tvts_ln_bwd": [p, p, p, p, p, p, p, p, p, i, i, i, p],
         "tvts_attn_delta": [p, p, i, i, i, i, p, p],
-        "tvts_flash_bwd": [p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, p],
+        "tvts_flash_bwd": [p, p, p, p, p, p, i, i, i, i, i, i, f, p],
         "tvts_space_bwd": [p, p, p, p, p, p, i, i, i, i, i, f, p],
         "tvts_space_bwd_one_block": [i, i],
         "tvts_time_bwd": [p, p, p, p, p, p, i, i, i, i, i, f, p],
