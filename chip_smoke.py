@@ -7,7 +7,7 @@ hand-written Hopper kernels, for B/16, B/32 and H/14 -- on one CUDA card.
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure raises and exits non-zero; they
-run in the order 1-5, 7, 6 for B/16, then 9 (B/32) and 8 (H/14) with their
+run in the order 1-5, 10, 7, 6 for B/16, then 9 (B/32) and 8 (H/14) with their
 times):
 1. refuse to run without CUDA; print the card's name and power limit;
 2. build the kernels from tvts_torch/csrc with nvcc (sm_90a, one nvcc per
@@ -43,6 +43,28 @@ times):
    forward; per-caption text cosine against the eager tower in bf16 and f32;
    t2v / v2t metrics of the kernel and eager paths and the max |diff| of
    their similarity matrices;
+10. the data path, from a config file and video files through the CLIs, at
+   full B/16 width and depth with phase 4's seeded weights saved as a
+   reference .pth: under a temporary directory, the MSRVTT (96 clips of
+   320x240 at 30 fps, 8 s, 20 captions each, the jsfusion caption index
+   pickled as a plain dict), UCF101 (48 clips, label2id.json) and SSV2-MC (48
+   clips of 427x240, 5 options each) layouts, read through the repo's
+   tvts_tpu/configs/zero-{msrvtt,ucf101,ssv2-mc}-vit-b-16.json with data_dir,
+   meta_root and num_workers (the machine's cores) overridden; the clips are
+   written with cv2 and decoded through video_reader (the native decoder is
+   built where pkg-config finds FFmpeg, and a failed build fails the run;
+   with no backend at all, seeded frames are injected at
+   video_reader.read_frames_at and the line says so). tvts_torch.cli.zero_ret
+   with --fused: launches 12/11/11/1 (H1-H4) a video forward and 11 H7 a text
+   forward; its embeddings bit for bit make_embed_fns(use_fused=True) on the
+   batches the loader yielded, cosine >= 0.999 to the eager towers by row;
+   the metrics of both; clips/s from files inside extract_embeddings, the
+   seconds waiting on the loader (host share), in embed_video and embed_text,
+   beside phase 6's device-resident rate. tvts_torch.cli.feature_extraction
+   --fused: the saved .npy bit for bit the array entry on the same clip (and
+   --fast_pipeline's cosine to it). tvts_torch.cli.zero_recognition and
+   zero_ssv2_mc (eager towers, as the JAX scripts): their results equal to
+   the in-memory run_recognition / run_ssv2_mc on the same batches;
 7. train main path: build_model("TVTSv2_B_16", eval_mode=False) with f32
    masters, bf16 compute and seeded noise on every leaf, the optimizer of
    tools/train_bench.py (blocks 0-8 of the text tower frozen), a B=8 batch of
@@ -126,10 +148,14 @@ shapes timed); the last is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -174,6 +200,7 @@ REPLACES = {
     "text_core_backward": "tvts_tpu/ops/pallas_text_attention.py:134",
 }
 SOURCE = "tvts_torch/csrc/block_kernels.cu"
+REPO = Path(__file__).resolve().parent
 PEAK_FLOPS, HBM_BYTES_S = 989e12, 3.35e12  # H100 SXM: dense bf16, HBM3
 # the TPU's measured real-shape gradient band (5.8e-2, PERF.md before the port)
 GRAD_BAND = 0.06
@@ -1882,7 +1909,7 @@ def extraction_phase(tag: str, arch: str, dev, bk, bb, ta, n_clips: int, batch_s
                 launches=launches, per_forward=per_forward, n_forwards=n_forwards)
 
 
-def extraction_rate(tag: str, cfg, model, B: int, dev, card: str, iters: int) -> None:
+def extraction_rate(tag: str, cfg, model, B: int, dev, card: str, iters: int) -> dict:
     """clips/s of embed_video on B device-resident clips, kernels and eager."""
     from tvts_torch.eval.embed import make_embed_fns
 
@@ -1900,6 +1927,7 @@ def extraction_rate(tag: str, cfg, model, B: int, dev, card: str, iters: int) ->
               f"{rates[path]:.2f} clips/s [{card}]")
     print(f"[{tag}] {cfg.name} extraction kernels / eager: "
           f"{rates['kernels'] / rates['eager']:.3f} [{card}]")
+    return rates
 
 
 def use_pallas_phase(tag: str, ext: dict, dev, bk, bb, ta) -> int:
@@ -2210,6 +2238,427 @@ def profile_phase(dev, card: str, bk, bb, ta) -> None:
     profile_step("6", train, every, batch, card)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the data path, from a config file and video files through the CLIs
+# ---------------------------------------------------------------------------
+# the three trees: (config, clips, frames a second, seconds, (height, width)),
+# MSRVTT's frames 320x240 at 30 fps, UCF101's at 25 fps, SSV2's 427x240 at 12;
+# 48 clips fill one batch of the configs' own batch size
+DATA_TREES = {"msrvtt": ("zero-msrvtt-vit-b-16.json", 96, 30, 8, (240, 320)),
+              "ucf101": ("zero-ucf101-vit-b-16.json", 48, 25, 7, (240, 320)),
+              "ssv2": ("zero-ssv2-mc-vit-b-16.json", 48, 12, 4, (240, 427))}
+UCF_CLASSES = ["ApplyEyeMakeup", "Archery", "BabyCrawling", "Basketball", "BenchPress",
+               "Biking", "Bowling", "BoxingPunchingBag", "CliffDiving", "Drumming"]
+FRAME_SEED = 10
+
+
+def clip_frames(seed: int, idxs, shape: tuple[int, int]) -> np.ndarray:
+    """Frames idxs of the seeded synthetic clip `seed`: uint8 [len, H, W, 3], a
+    blocky colour field that scrolls two pixels a frame and a bright square
+    that moves across it (content a video encoder keeps)."""
+    h, w = shape
+    rng = np.random.default_rng((FRAME_SEED, seed))
+    field = np.kron(rng.integers(0, 256, (h // 20 + 1, w // 20 + 1, 3), dtype=np.uint8),
+                    np.ones((20, 20, 1), np.uint8))[:h, :w]
+    out = np.empty((len(idxs), h, w, 3), np.uint8)
+    for k, t in enumerate(idxs):
+        frame = np.roll(field, 2 * int(t), axis=1)
+        y, x = (3 * int(t)) % (h - 40), (5 * int(t)) % (w - 40)
+        frame[y:y + 40, x:x + 40] = 255
+        out[k] = frame
+    return out
+
+
+def write_clip(path: str, seed: int, n_frames: int, fps: int, shape: tuple[int, int]) -> None:
+    """An mp4v file of clip_frames (cv2 writes BGR)."""
+    import cv2
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    h, w = shape
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), float(fps), (w, h))
+    if not writer.isOpened():
+        raise RuntimeError(f"cv2 cannot write {path}")
+    try:
+        for frame in clip_frames(seed, range(n_frames), shape)[..., ::-1]:
+            writer.write(np.ascontiguousarray(frame))
+    finally:
+        writer.release()
+
+
+def data_trees(root: str, workers: int) -> tuple[dict, dict]:
+    """Write the MSRVTT, UCF101 and SSV2-MC layouts under root: metadata, the
+    repo's configs with data_dir, meta_root and num_workers overridden, and
+    the clips' specs ({path: (seed, frames, fps, (H, W))}). Returns
+    (config path by tree, clip specs)."""
+    import pickle
+
+    meta, specs, configs = os.path.join(root, "meta"), {}, {}
+
+    def clip(path, name):
+        _, _, fps, seconds, shape = DATA_TREES[name]
+        specs[path] = (len(specs), fps * seconds, fps, shape)
+
+    # MSRVTT: jsfusion's 1k-A test ids are video7010 and up; 20 captions a video
+    _, n, *_ = DATA_TREES["msrvtt"]
+    data = os.path.join(root, "msrvtt")
+    ids = [f"video{7010 + i}" for i in range(n)]
+    captions = synthetic_captions(20 * n, seed=11)
+    split = os.path.join(data, "high-quality", "structured-symlinks")
+    os.makedirs(split)
+    os.makedirs(os.path.join(meta, "msrvtt"))
+    with open(os.path.join(meta, "msrvtt", "MSR_VTT.json"), "w") as f:
+        json.dump({"annotations": [{"image_id": vid, "caption": captions[20 * i + j]}
+                                   for j in range(20) for i, vid in enumerate(ids)]}, f)
+    with open(os.path.join(split, "train_list_jsfusion.txt"), "w") as f:
+        f.write("".join(f"video{i}\n" for i in range(10)))
+    with open(os.path.join(split, "val_list_jsfusion.txt"), "w") as f:
+        f.write("".join(f"{vid}\n" for vid in ids))
+    with open(os.path.join(split, "jsfusion_val_caption_idx.pkl"), "wb") as f:
+        pickle.dump({vid: (7 * i) % 20 for i, vid in enumerate(ids)}, f)
+    for vid in ids:
+        clip(os.path.join(data, "videos", "all", f"{vid}.mp4"), "msrvtt")
+    configs["msrvtt"] = data
+
+    # UCF101: testlist01 rows (relative path, label) and prompt/label2id.json
+    _, n, *_ = DATA_TREES["ucf101"]
+    data = os.path.join(root, "ucf101")
+    os.makedirs(os.path.join(meta, "ucf101", "prompt"))
+    rows = [(f"{UCF_CLASSES[i % len(UCF_CLASSES)]}/v_{UCF_CLASSES[i % len(UCF_CLASSES)]}"
+             f"_g{i // len(UCF_CLASSES) + 1:02d}_c01.avi", i % len(UCF_CLASSES)) for i in range(n)]
+    with open(os.path.join(meta, "ucf101", "prompt", "testlist01_new.tsv"), "w") as f:
+        f.write("path\tlabel\n" + "".join(f"{rel}\t{label}\n" for rel, label in rows))
+    with open(os.path.join(meta, "ucf101", "prompt", "label2id.json"), "w") as f:
+        json.dump({name: i for i, name in enumerate(UCF_CLASSES)}, f)
+    for rel, _ in rows:
+        clip(os.path.join(data, rel), "ucf101")
+    configs["ucf101"] = data
+
+    # SSV2-MC: val.jsonl, 5 options a clip (the true label among them)
+    _, n, *_ = DATA_TREES["ssv2"]
+    data = os.path.join(root, "ssv2")
+    os.makedirs(os.path.join(meta, "ssv2", "mc"))
+    rng = np.random.default_rng(12)
+    with open(os.path.join(meta, "ssv2", "mc", "val.jsonl"), "w") as f:
+        for i in range(n):
+            f.write(json.dumps({"clip_name": f"{100000 + i}.mp4", "answer": int(rng.integers(5)),
+                                "options": synthetic_captions(5, seed=100 + i)}) + "\n")
+            clip(os.path.join(data, "videos", f"{100000 + i}.mp4"), "ssv2")
+    configs["ssv2"] = data
+
+    for name, data in configs.items():
+        with open(REPO / "tvts_tpu" / "configs" / DATA_TREES[name][0]) as f:
+            config = json.load(f)
+        config["data_loader"]["args"].update(data_dir=data, meta_root=meta, num_workers=workers)
+        configs[name] = os.path.join(root, DATA_TREES[name][0])
+        with open(configs[name], "w") as f:
+            json.dump(config, f, indent=2)
+    return configs, specs
+
+
+class RecordingLoader:
+    """Wraps a loader: keeps each batch it yields and the seconds the
+    consumer waited in next()."""
+
+    def __init__(self, loader):
+        self.loader, self.batch_size = loader, loader.batch_size
+        self.batches, self.wait_s = [], 0.0
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            self.wait_s += time.perf_counter() - t0
+            self.batches.append(batch)
+            yield batch
+
+
+class ListLoader:
+    """The recorded batches again, as a loader."""
+
+    def __init__(self, batches, batch_size):
+        self.batches, self.batch_size = batches, batch_size
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def recorded(module, name: str, record: dict):
+    """Context: module.<name>(model, loader, ...) runs on a RecordingLoader,
+    and record gets its model, loader, arguments, result and seconds."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        original = getattr(module, name)
+
+        def wrapper(model, loader, *args, **kwargs):
+            rec = RecordingLoader(loader)
+            t0 = time.perf_counter()
+            out = original(model, rec, *args, **kwargs)
+            record.update(model=model, loader=rec, args=args, kwargs=kwargs, out=out,
+                          seconds=time.perf_counter() - t0)
+            return out
+
+        setattr(module, name, wrapper)
+        try:
+            yield original
+        finally:
+            setattr(module, name, original)
+
+    return ctx()
+
+
+def timed_embed_fns(embed_mod, record: dict):
+    """Context: the embed functions make_embed_fns returns add their seconds
+    (synchronised) to record['video_s'] and record['text_s']."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        original = embed_mod.make_embed_fns
+
+        def timed(fn, key):
+            def call(*args):
+                t0 = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                record[key] = record.get(key, 0.0) + time.perf_counter() - t0
+                return out
+            return call
+
+        def make(model, use_fused=False, **knobs):
+            embed_text, embed_video = original(model, use_fused=use_fused, **knobs)
+            return timed(embed_text, "text_s"), timed(embed_video, "video_s")
+
+        embed_mod.make_embed_fns = make
+        try:
+            yield
+        finally:
+            embed_mod.make_embed_fns = original
+
+    return ctx()
+
+
+def injected_decode(video_reader, specs: dict):
+    """Context: video_reader.get_video_len and read_frames_at serve the
+    seeded clips of `specs` without decoding (for a machine with neither
+    decode backend)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = video_reader.get_video_len, video_reader.read_frames_at
+
+        def get_video_len(path, backend="auto"):
+            return specs[path][1]
+
+        def read_frames_at(path, frame_idxs, backend="auto", resize=None):
+            seed, n, _, shape = specs[path]
+            frames = clip_frames(seed, [min(int(i), n - 1) for i in frame_idxs], shape)
+            if resize is not None:
+                from tvts_torch.data.transforms import resize_bilinear
+
+                frames = resize_bilinear(frames, resize)
+            return frames
+
+        video_reader.get_video_len, video_reader.read_frames_at = get_video_len, read_frames_at
+        try:
+            yield
+        finally:
+            video_reader.get_video_len, video_reader.read_frames_at = saved
+
+    return ctx()
+
+
+def decode_backend(native_decoder, video_reader) -> str | None:
+    """The backend the data path decodes with; the native decoder is built
+    where pkg-config finds FFmpeg, and a build failure raises. None where
+    neither backend exists, or where OpenCV, which writes the clips, is
+    missing."""
+    pkg_config = shutil.which("pkg-config")
+    if pkg_config and subprocess.run([pkg_config, "--exists", *native_decoder._FFMPEG]
+                                     ).returncode == 0:
+        native_decoder.build()
+    if video_reader._cv2() is None:
+        return None
+    return video_reader.pick_backend("auto")
+
+
+def host_split(config_path: str, video_reader, card: str, n: int = 8) -> None:
+    """Where a clip's host time goes: decode (read_frames_sampled, uniform)
+    and transform (video_transform) of the first n clips of the config's test
+    set, one at a time on this thread."""
+    from tvts_torch.data.transforms import video_transform
+    from tvts_torch.utils.config import ConfigParser, read_json
+
+    config = ConfigParser(read_json(config_path), test=True)
+    ds, _ = config.initialize_dataset_loader(config["data_loader"], {"split": "test"})
+    vp = ds.video_params
+    decode = transform = 0.0
+    for row in ds.metadata[:n]:
+        t0 = time.perf_counter()
+        frames, _ = video_reader.read_frames_sampled(ds._get_video_path(row)[0],
+                                                     vp["num_frames"], "uniform")
+        t1 = time.perf_counter()
+        video_transform(frames, vp["input_res"])
+        t2 = time.perf_counter()
+        decode, transform = decode + t1 - t0, transform + t2 - t1
+    print(f"[10] host time a clip, one thread ({n} clips): decode {1e3 * decode / n:.2f} ms, "
+          f"transform {1e3 * transform / n:.2f} ms [{card}]")
+
+
+def data_phase(dev, card: str, ext: dict, bk, bb, ta) -> dict:
+    """Phase 10 (module notes). Returns the retrieval CLI's rates."""
+    import tempfile
+
+    from tvts_torch.cli import feature_extraction as fe_cli
+    from tvts_torch.cli import zero_recognition as rec_cli
+    from tvts_torch.cli import zero_ret as ret_cli
+    from tvts_torch.cli import zero_ssv2_mc as mc_cli
+    from tvts_torch.data import native_decoder, video_reader
+    from tvts_torch.eval import embed as embed_mod
+    from tvts_torch.eval import zero_ret as ret_eval
+    from tvts_torch.eval.embed import _pad_to, embed_texts, make_embed_fns
+    from tvts_torch.eval.feature_extraction import extract_video_feature, load_clip_for_extraction
+    from tvts_torch.ops import metrics as metrics_mod
+    from tvts_torch.ops.sim import sim_matrix
+
+    cfg, model32 = ext["cfg"], ext["model32"]
+    v, tc = cfg.vision, cfg.text
+    workers = len(os.sched_getaffinity(0))
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tvts_data_phase_") as root:
+        configs, specs = data_trees(root, workers)
+        backend = decode_backend(native_decoder, video_reader)
+        t0 = time.perf_counter()
+        if backend is None:
+            print("[10] " + json.dumps({"decode_backend": None, "frames": f"from seed {FRAME_SEED}, "
+                                        "injected at video_reader.read_frames_at"}))
+            decode = injected_decode(video_reader, specs)
+        else:
+            with cf.ThreadPoolExecutor(workers) as pool:
+                list(pool.map(lambda item: write_clip(item[0], item[1][0], item[1][1], item[1][2],
+                                                      item[1][3]), specs.items()))
+            import cv2
+
+            print("[10] " + json.dumps({
+                "decode_backend": backend, "cv2": cv2.__version__,
+                "native_decoder": "built" if native_decoder.available() else
+                native_decoder.unavailable_reason(),
+                "clips_written": len(specs), "frames_written": sum(s[1] for s in specs.values()),
+                "write_s": round(time.perf_counter() - t0, 3)}))
+            import contextlib
+
+            decode = contextlib.nullcontext()
+        ckpt = os.path.join(root, "TVTSv2_B_16_seeded.pth")
+        torch.save({k: t.cpu() for k, t in model32.state_dict().items()}, ckpt)
+        common = ["--load_checkpoint", ckpt, "--bf16"]
+        with decode:
+            # retrieval: from the config and the clips through H1-H4 and H7
+            record: dict = {}
+            reset_launch_counts(bk, bb, ta)
+            t0 = time.perf_counter()
+            with recorded(ret_eval, "extract_embeddings", record), \
+                    timed_embed_fns(embed_mod, record):
+                metrics, _ = ret_cli.main(["-c", configs["msrvtt"], "--fused", *common])
+            cli_s = time.perf_counter() - t0
+            launches = launch_counts(bk, bb, ta)
+            out, batches, bsz = record["out"], record["loader"].batches, record["loader"].batch_size
+            n_clips, n_fwd = len(out["video"]), len(batches)
+            print(f"[10] retrieval CLI: {n_clips} clips in {n_fwd} batches of {bsz}; launches "
+                  f"{ {k: n for k, n in launches.items() if n} }")
+            want = {name: n * n_fwd for name, n in ext["per_forward"].items()}
+            want["fused_text_attention_block"] = want["text_core"] = (tc.layers - 1) * n_fwd
+            expect_launches("retrieval CLI", launches, want)
+            model = record["model"]
+            paths = {}
+            for path, use_fused in (("kernels", True), ("eager", False)):
+                embed_text, embed_video = make_embed_fns(model, use_fused=use_fused)
+                vids, txts = [], []
+                for batch in batches:
+                    n = len(batch["video"])
+                    vids.append(embed_video(
+                        torch.from_numpy(_pad_to(batch["video"], bsz)).to(dev),
+                        torch.from_numpy(_pad_to(batch["keep_ind"].astype(np.int64), bsz)).to(dev)
+                    ).float().cpu().numpy()[:n])
+                    txts.append(embed_texts(embed_text, batch["text"], dev, tc.context_length, bsz))
+                paths[path] = np.concatenate(vids), np.concatenate(txts)
+            same = (np.array_equal(paths["kernels"][0], out["video"])
+                    and np.array_equal(paths["kernels"][1], out["text"]))
+            cv = cos_rows(out["video"], paths["eager"][0]).min()
+            ct = cos_rows(out["text"], paths["eager"][1]).min()
+            print(f"[10] retrieval CLI embeddings: bit for bit make_embed_fns(use_fused=True) on "
+                  f"the loader's batches: {same}; cosine to eager (bf16) min video {cv:.6f}, "
+                  f"text {ct:.6f} (>= {COS_BF16})")
+            if not same or cv < COS_BF16 or ct < COS_BF16 \
+                    or not np.isfinite(out["video"]).all():
+                raise AssertionError("retrieval CLI: embeddings disagree")
+            sims = sim_matrix(torch.from_numpy(paths["eager"][1]),
+                              torch.from_numpy(paths["eager"][0])).numpy()
+            eager_metrics = {name: getattr(metrics_mod, name)(sims)
+                             for name in ("t2v_metrics", "v2t_metrics")}
+            for label, res in (("kernels (CLI)", metrics), ("eager", eager_metrics)):
+                print(f"[10] retrieval {label}: " + json.dumps(res))
+            loader_s, video_s, text_s = (record["loader"].wait_s, record.get("video_s", 0.0),
+                                         record.get("text_s", 0.0))
+            rates = {"clips_s": n_clips / record["seconds"], "host_share":
+                     loader_s / record["seconds"], "workers": workers}
+            print(f"[10] retrieval CLI from files: {n_clips} clips in {record['seconds']:.3f} s "
+                  f"inside extract_embeddings = {rates['clips_s']:.2f} clips/s; waiting on the "
+                  f"loader {loader_s:.3f} s (host share {rates['host_share']:.3f}), embed_video "
+                  f"{video_s:.3f} s, embed_text {text_s:.3f} s; the whole CLI {cli_s:.3f} s "
+                  f"(model build and checkpoint load included); {workers} workers, decode "
+                  f"{backend or 'injected'} [{card}]")
+            del model, record, batches
+            host_split(configs["msrvtt"], video_reader, card)
+
+            # feature extraction from a file, against the array entry
+            path = next(iter(specs))
+            out_npy = os.path.join(root, "embedding.npy")
+            reset_launch_counts(bk, bb, ta)
+            fe_cli.main(["--arch", cfg.name, "--video_path", path, "--fused", "--out",
+                         out_npy, *common])
+            expect_launches("feature extraction CLI", launch_counts(bk, bb, ta),
+                            ext["per_forward"])
+            saved = np.load(out_npy)
+            want = extract_video_feature(ext["model"], load_clip_for_extraction(path),
+                                         use_fused=True)
+            fast = extract_video_feature(ext["model"], path, use_fused=True, fast_pipeline=True)
+            print(f"[10] feature extraction CLI: {saved.shape}, bit for bit the array entry on "
+                  f"the same clip: {np.array_equal(saved, want)}; --fast_pipeline cosine to it "
+                  f"{cos_rows(fast, want)[0]:.6f}")
+            if not np.array_equal(saved, want) or not np.isfinite(fast).all():
+                raise AssertionError("feature extraction CLI disagrees with the array entry")
+
+            # recognition and SSV2-MC, against the in-memory calls on the same batches
+            for label, cli, name, keys in (
+                    ("recognition", rec_cli, "run_recognition", ("top1", "top5")),
+                    ("SSV2-MC", mc_cli, "run_ssv2_mc", ("accuracy", "correct", "total"))):
+                record = {}
+                config = configs["ucf101" if cli is rec_cli else "ssv2"]
+                argv = ["-c", config, *common]
+                if cli is rec_cli:
+                    argv += ["--meta_root", os.path.join(root, "meta")]
+                with recorded(cli, name, record) as original:
+                    got = cli.main(argv)
+                    again = original(record["model"], ListLoader(record["loader"].batches,
+                                                                 record["loader"].batch_size),
+                                     *record["args"], **record["kwargs"])
+                print(f"[10] {label} CLI over {len(record['loader'].batches)} batch(es): "
+                      + ", ".join(f"{k} {got[k]}" for k in keys) + "; in memory on the same "
+                      "batches: " + ", ".join(f"{k} {again[k]}" for k in keys))
+                if any(got[k] != again[k] for k in keys):
+                    raise AssertionError(f"{label} CLI disagrees with the in-memory call")
+                del record
+            torch.cuda.empty_cache()
+    print(f"[10] data phase {time.perf_counter() - t_phase:.1f} s")
+    return rates
+
+
 def main() -> int:
     # ---- phase 1: the card --------------------------------------------------
     if not torch.cuda.is_available():
@@ -2330,6 +2779,9 @@ def main() -> int:
           f"min {t32:.6f} (f32, >= {COS_F32})")
     if t16 < COS_BF16 or t32 < COS_F32:
         raise AssertionError("text kernel path disagrees with the eager tower")
+
+    # ---- phase 10: the data path, from a config file and video files --------
+    data_rates = data_phase(dev, card, ext, bk, bb, ta)
     del model32, ext
 
     # ---- phase 7: train main path -------------------------------------------
@@ -2339,7 +2791,10 @@ def main() -> int:
 
     # ---- phase 6: times -----------------------------------------------------
     B = 64
-    extraction_rate("6", cfg, model, B, dev, card, iters=5)
+    resident = extraction_rate("6", cfg, model, B, dev, card, iters=5)["kernels"]
+    print(f"[10] B/16 retrieval from files {data_rates['clips_s']:.2f} clips/s (host share "
+          f"{data_rates['host_share']:.3f}, {data_rates['workers']} workers) against "
+          f"{resident:.2f} clips/s device-resident (phase 6, B={B}) [{card}]")
     expect_profiles(forward_profile(cfg, model, B, dev, card, bk))
     ln_gemm_rows = ln_gemm_table(dev, card, bk)
     times = block_times(bk, v, B, dev, card)

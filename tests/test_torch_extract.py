@@ -152,14 +152,16 @@ def test_extract_video_feature_full_keep_set():
 
 def test_tvts_torch_imports_no_jax():
     """Every tvts_torch module, and chip_smoke.py, imports without pulling in
-    jax, flax, tvts_tpu, regex or pandas, none of which the card's machine has
-    (a subprocess: this test process already holds jax through conftest)."""
+    jax, flax, tvts_tpu, regex or pandas, none of which the card's machine has,
+    nor cv2 or PIL: the data layer imports cv2 only when its cv2 backend runs,
+    and PIL never (a subprocess: this test process already holds jax through
+    conftest)."""
     code = (
         "import importlib, pkgutil, sys, tvts_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(tvts_torch.__path__, 'tvts_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] "
-        "       in ('jax', 'flax', 'tvts_tpu', 'regex', 'pandas'))\n"
+        "       in ('jax', 'flax', 'tvts_tpu', 'regex', 'pandas', 'cv2', 'PIL'))\n"
         "assert not bad, bad\n"
         "print(' '.join(n for n in sys.modules if n.startswith('tvts_torch')))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -170,3 +172,9 @@ def test_tvts_torch_imports_no_jax():
     assert {"tvts_torch.train.optim", "tvts_torch.train.step", "tvts_torch.ops.losses",
             "tvts_torch.ops.kernel_config", "tvts_torch.ops.block_backward",
             "tvts_torch.models.sort"} <= imported
+    assert {"tvts_torch.data", "tvts_torch.data.datasets", "tvts_torch.data.loader",
+            "tvts_torch.data.transforms", "tvts_torch.data.video_reader",
+            "tvts_torch.data.native_decoder", "tvts_torch.ops.sampling",
+            "tvts_torch.utils.config", "tvts_torch.cli.feature_extraction",
+            "tvts_torch.cli.zero_ret", "tvts_torch.cli.zero_recognition",
+            "tvts_torch.cli.zero_ssv2_mc", "tvts_torch.cli.zero_ret_ViT_H_14"} <= imported

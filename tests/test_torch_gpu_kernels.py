@@ -303,7 +303,8 @@ def test_small_train_step_kernels_match_eager_on_card(cuda):
     batch = {"video": torch.tensor(rng.standard_normal((B, 4, 3, 64, 64)), dtype=torch.float32,
                                    device=cuda),
              "text_ids": torch.from_numpy(ids).to(cuda),
-             "keep_ind": torch.stack([torch.randperm(16)[:8] for _ in range(B)]).to(cuda),
+             "keep_ind": torch.from_numpy(np.stack([rng.permutation(16)[:8]
+                                                    for _ in range(B)])).to(cuda),
              "labels": torch.arange(cfg.num_clips).repeat(B, 1).to(cuda)}
     params = list(model.parameters())
     lk, _ = make_loss_fn(apply_fn=lambda m, b: train_apply(m, b, text_tune_from=1,

@@ -1,0 +1,194 @@
+"""Sharded, prefetching batch loader (counterpart of tvts_tpu/data/loader.py).
+
+The reference's `MultiDistBaseDataLoaderExplicitSplit`
+(v2/base/base_data_loader.py:117-138): each process takes its own slice of
+the (epoch-seeded, shuffled) indices, world size replicas, drop_last. The
+rank and world size come from the arguments, else from torch.distributed
+where a process group is initialised, else 0 and 1. Batches are numpy arrays.
+
+Collation is torch's default collate for the shapes used here: arrays stack
+along a new batch axis; a per-sample list of strings turns clip-major
+([clip][batch]), which is what the reference trainer's text concatenation
+expects (trainer.py:465-472).
+"""
+
+from __future__ import annotations
+
+import collections
+import concurrent.futures as cf
+import multiprocessing as mp
+import os
+import random
+
+import numpy as np
+
+
+def default_collate(samples: list[dict]) -> dict:
+    batch: dict = {}
+    first = samples[0]
+    for key, val in first.items():
+        vals = [s[key] for s in samples]
+        if isinstance(val, np.ndarray):
+            batch[key] = np.stack(vals)
+        elif isinstance(val, (int, np.integer)):
+            batch[key] = np.asarray(vals)
+        elif isinstance(val, (list, tuple)) and val and isinstance(val[0], str):
+            # a per-sample list of n strings -> clip-major [clip][batch]
+            batch[key] = [[v[c] for v in vals] for c in range(len(val))]
+        else:  # strings, meta dicts and the rest: a list over the batch
+            batch[key] = vals
+    return batch
+
+
+class SubsetDataset:
+    """Index-subset view of a dataset (for random train / val splits)."""
+
+    def __init__(self, dataset, indices):
+        self.dataset = dataset
+        self.indices = np.asarray(indices)
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __getitem__(self, i):
+        return self.dataset[int(self.indices[i % len(self.indices)])]
+
+    def __getattr__(self, name):  # dataset_name and the rest pass through
+        return getattr(self.dataset, name)
+
+
+def make_val_split(dataset, val_fraction: float = 0.1, seed: int = 0):
+    """Random train / val split of one dataset (the reference BaseDataLoader's
+    validation_split, base_data_loader.py:8-68). Returns (train_ds, val_ds)."""
+    n = len(dataset)
+    n_val = int(n * val_fraction) if val_fraction < 1 else int(val_fraction)
+    idx = np.random.default_rng(seed).permutation(n)
+    return SubsetDataset(dataset, idx[n_val:]), SubsetDataset(dataset, idx[:n_val])
+
+
+def _distributed_rank() -> tuple[int, int]:
+    """(rank, world size) of torch.distributed's default group, or (0, 1)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+class ShardedLoader:
+    def __init__(self,
+                 dataset,
+                 batch_size: int,
+                 shuffle: bool = True,
+                 drop_last: bool = True,
+                 num_workers: int = 8,
+                 seed: int = 0,
+                 process_index: int | None = None,
+                 num_processes: int | None = None,
+                 collate=default_collate,
+                 prefetch: int = 2,
+                 use_processes: bool = False):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.num_workers = num_workers
+        self.seed = seed
+        self.collate = collate
+        self.prefetch = prefetch
+        self.use_processes = use_processes
+        self.epoch = 0
+        if process_index is None or num_processes is None:
+            process_index, num_processes = _distributed_rank()
+        self.process_index = process_index
+        self.num_processes = num_processes
+
+    @property
+    def n_samples(self) -> int:
+        return len(self.dataset)
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def _local_indices(self) -> np.ndarray:
+        n = len(self.dataset)
+        if self.shuffle:
+            idx = np.random.default_rng((self.seed, self.epoch)).permutation(n)
+        else:
+            idx = np.arange(n)
+        per_proc = n // self.num_processes
+        if per_proc == 0:
+            return idx  # fewer samples than processes: every process sees them all
+        idx = idx[: per_proc * self.num_processes]
+        return idx[self.process_index:: self.num_processes]
+
+    def __len__(self) -> int:
+        local = len(self.dataset) // max(1, self.num_processes)
+        if self.drop_last:
+            return local // self.batch_size
+        return (local + self.batch_size - 1) // self.batch_size
+
+    def __iter__(self):
+        idx = self._local_indices()
+        batches = [idx[i * self.batch_size:(i + 1) * self.batch_size] for i in range(len(self))]
+        if not batches:
+            return
+
+        def load(batch_idx):
+            return self.collate([self.dataset[int(i)] for i in batch_idx])
+
+        if self.num_workers <= 0:
+            for b in batches:
+                yield load(b)
+            return
+
+        if self.use_processes:
+            yield from self._iter_processes(batches)
+            return
+
+        # a batch a task: at most `prefetch` batches load ahead of the consumer
+        with cf.ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+            pending = collections.deque()
+            it = iter(batches)
+            for _ in range(min(self.prefetch, len(batches))):
+                pending.append(pool.submit(load, next(it)))
+            for b in it:
+                done = pending.popleft()
+                pending.append(pool.submit(load, b))
+                yield done.result()
+            while pending:
+                yield pending.popleft().result()
+
+    def _iter_processes(self, batches):
+        """A pool of forked worker processes (the JAX package's, for decode and
+        transforms that hold the interpreter lock): workers inherit the dataset,
+        a task is a batch's items, collation stays here."""
+        ctx = mp.get_context("fork")
+        with ctx.Pool(processes=self.num_workers, initializer=_proc_init,
+                      initargs=(self.dataset,)) as pool:
+            pending = collections.deque()
+            it = iter(batches)
+            for _ in range(min(self.prefetch + 1, len(batches))):
+                pending.append(pool.apply_async(_proc_load, (next(it),)))
+            for b in it:
+                done = pending.popleft()
+                pending.append(pool.apply_async(_proc_load, (b,)))
+                yield self.collate(done.get())
+            while pending:
+                yield self.collate(pending.popleft().get())
+
+
+_PROC_DATASET = None
+
+
+def _proc_init(dataset):
+    global _PROC_DATASET
+    _PROC_DATASET = dataset
+    # forked workers inherit one random state: reseed each, so the items'
+    # augmentation streams differ
+    random.seed(int.from_bytes(os.urandom(8), "little"))
+    np.random.seed(int.from_bytes(os.urandom(4), "little"))
+
+
+def _proc_load(batch_idx):
+    return [_PROC_DATASET[int(i)] for i in batch_idx]

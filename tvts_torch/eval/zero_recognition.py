@@ -9,6 +9,8 @@ Unlike the JAX package, whose classifier always runs the eager text tower,
 
 from __future__ import annotations
 
+import json
+
 import numpy as np
 
 from tvts_torch.eval.embed import _device, embed_texts, extract_embeddings, make_embed_fns
@@ -30,6 +32,13 @@ def build_zero_shot_classifier(model, classnames, templates=PROMPT_TEMPLATES,
         mean = emb.mean(axis=0)
         weights.append(mean / np.linalg.norm(mean))
     return np.stack(weights, axis=1)
+
+
+def load_label2id(path: str) -> dict:
+    """Class name -> id of meta_data/<dataset>/prompt/label2id.json; its keys
+    in the file's order are the classifier's columns."""
+    with open(path) as f:
+        return json.load(f)
 
 
 def run_recognition(model, loader, classnames, templates=PROMPT_TEMPLATES,

@@ -36,10 +36,10 @@ def build_model(arch_type: str,
     CPU). eval_mode=True gives the downstream config (no tube masking) in
     eval mode; eval_mode=False the masked training config in train mode.
     Weights come from `load_checkpoint` (a reference `.pth`, `module.`
-    stripped, every key loaded strictly, the sort head included) or, without
-    one, from the JAX package's initializers drawn from a generator seeded
-    with `seed`, on the CPU, so one seed gives the same weights on every
-    device. `dtype` is the parameters' dtype (LayerNorms stay float32);
+    stripped, every key loaded strictly, the sort head included; nothing is
+    drawn) or, without one, from the JAX package's initializers drawn from a
+    generator seeded with `seed`, on the CPU, so one seed gives the same
+    weights on every device. `dtype` is the parameters' dtype (LayerNorms stay float32);
     `compute_dtype` the activations' (bf16 over f32 masters for training).
     `remat` checkpoints every tower block in training; `use_pallas` runs the
     eager video tower's space attention core on the H9 kernel (forward only)."""
@@ -50,9 +50,10 @@ def build_model(arch_type: str,
     if eval_mode:
         cfg = cfg.eval_config()
     model = TVTSv2(cfg, remat=remat, use_pallas=use_pallas)
-    model.reset_parameters(torch.Generator().manual_seed(seed))
-    if load_checkpoint:
+    if load_checkpoint:  # strict: the checkpoint sets every parameter, so none is drawn
         model.load_state_dict(load_reference_state_dict(load_checkpoint), strict=True)
+    else:
+        model.reset_parameters(torch.Generator().manual_seed(seed))
     cast_tower_(model, dtype).to(device)
     model.set_compute_dtype(compute_dtype)
     model.train(not eval_mode)
