@@ -7,8 +7,8 @@ hand-written Hopper kernels, for B/16, B/32 and H/14 -- on one CUDA card.
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure raises and exits non-zero; they
-run in the order 1-5, 10, 7, 6 for B/16, then 9 (B/32) and 8 (H/14) with their
-times):
+run in the order 1-5, 10, 7, 6, 11 for B/16, then 9 (B/32) and 8 (H/14) with
+their times):
 1. refuse to run without CUDA; print the card's name and power limit;
 2. build the kernels from tvts_torch/csrc with nvcc (sm_90a, one nvcc per
    translation unit, all at once); print the build seconds, the -Xptxas -v
@@ -26,9 +26,10 @@ times):
    and every backward gradient, recomputing and saving, at the B/16 train
    shape (quick_gelu) and the H/14 train shape (B=1, S=913, D=1280, exact
    gelu); H9 (the attention cores on q, k, v) space and time at (N=196,
-   d=64), (N=49, d=64), (N=256, d=80). Forwards within BAND (H9 within
-   min(BAND, 0.02 * max|ref|), and no farther from plain in f32 than plain in
-   bf16 is), each gradient tensor within 0.06 * max|ref| of the plain backward;
+   d=64), (N=49, d=64), (N=256, d=80), in bf16 and in f32 (the f32 kernels
+   against plain f32). Forwards within BAND (H9 within min(BAND, 0.02 *
+   max|ref|), and no farther from plain in f32 than plain in bf16 is), each
+   gradient tensor within 0.06 * max|ref| of the plain backward;
    the space core's CLS row (f32 P V) within half a bf16 unit of plain;
 4. extraction main path: build_model("TVTSv2_B_16") with seeded weights (noise
    on every leaf of both towers), extract_embeddings over 3 batches of 8
@@ -36,7 +37,8 @@ times):
    12/11/11/1 per forward; pooled cosine against the eager tower in bf16 and
    in f32; extract_video_feature; then the eager tower built with
    use_pallas=True (12 H9 space launches a forward) against the same tower
-   without it;
+   without it, in bf16 and in f32 (cosine >= 0.995 and max|diff| to the f32
+   tower; 12 f32 H9 launches a forward);
 5. zero-shot main path, kernels on both towers: run_retrieval over 21
    clip-caption pairs in batches of 8, run_recognition over a few class
    names, run_ssv2_mc with a few options per clip; 11 H7 launches per text
@@ -60,7 +62,9 @@ times):
    batches the loader yielded, cosine >= 0.999 to the eager towers by row;
    the metrics of both; clips/s from files inside extract_embeddings, the
    seconds waiting on the loader (host share), in embed_video and embed_text,
-   beside phase 6's device-resident rate. tvts_torch.cli.feature_extraction
+   beside phase 6's device-resident rate, and the same at 2, 4 and 8 loader
+   workers, threads and the fork pool (a fork that crashes or deadlocks
+   fails the phase). tvts_torch.cli.feature_extraction
    --fused: the saved .npy bit for bit the array entry on the same clip (and
    --fast_pipeline's cosine to it). tvts_torch.cli.zero_recognition and
    zero_ssv2_mc (eager towers, as the JAX scripts): their results equal to
@@ -111,7 +115,25 @@ times):
    scaled_dot_product_attention: `library_ms`), and the
    device-time breakdown of one kernel-path train step from torch.profiler,
    which fails if the step's LayerNorm column sums take more than
-   LN_SUMS_MS;
+   LN_SUMS_MS; H9 in f32 at phase 4's tower shape (B=8, N=196) against plain
+   f32, one masked f32 scaled_dot_product_attention and its bound (f32 bytes,
+   the f32 FMA rate);
+11. pretraining from files: under a temporary directory, the YT-Temporal
+   layout (48 videos of 30 s at 30 fps, 320x240, ASR annotations of ~2.5
+   words a second with junk words and a denoised text the DTW aligns) and the
+   WebVid one (48 clips of 10 s at 25 fps, 596x336), read through the repo's
+   tvts_tpu/configs/dist-yt-web-pt-vit-b-16-fused.json (data_dir, meta_root
+   and num_workers overridden) by its two loaders in turn, prepare_batch and
+   prefetch_to_device into the B/16 step (full width and depth, f32 masters,
+   bf16 compute, phase 7's optimizer) under the file's trainer.kernels: the
+   first YT-Temporal batch's shapes (video [12, 12, 3, 224, 224] f32, 48
+   text rows, labels arange(4), keep_ind [12, 98]), the step-0 gate on it, 8
+   steps with finite losses and per-step launches as phase 7 (no sort head
+   without labels), frozen blocks unchanged, every prefetched batch bit for
+   bit its host batch; clips/s from files over steps 3-8 and the host share
+   beside the device-resident step at B=12; a YT-Temporal item's host time
+   split (caption and DTW, decode, transform) and get_caption_multi on a
+   600-word annotation;
 9. B/32: extraction at B=8 through the kernels (counts 12/11/11/1, cosine
    gates), clips/s at B=64 (kernels, eager);
 8. H/14 at full width and depth (32 blocks of 1280, text 24 blocks of 1024):
@@ -185,6 +207,9 @@ REPLACES = {
     "mlp_subpath_backward": "tvts_tpu/ops/pallas_block_attention.py:1021",
     "mlp_subpath_backward (saved hidden)": "tvts_tpu/ops/pallas_block_backward.py:2637",
     "divided_space_time_attention_fused": "tvts_tpu/ops/pallas_attention.py:107",
+    # H9 on f32 q, k, v: the f32 instances of the time core and the CLS row,
+    # and the f32 space core (space_core_f32_kernel)
+    "divided_space_time_attention_fused (f32)": "tvts_tpu/ops/pallas_attention.py:107",
     # the weight-gradient half of the backward kernels (also :736, :2637;
     # pallas_block_attention.py:1021; pallas_text_attention.py:264)
     "wgrad": "tvts_tpu/ops/pallas_block_backward.py:3106",
@@ -202,6 +227,7 @@ REPLACES = {
 SOURCE = "tvts_torch/csrc/block_kernels.cu"
 REPO = Path(__file__).resolve().parent
 PEAK_FLOPS, HBM_BYTES_S = 989e12, 3.35e12  # H100 SXM: dense bf16, HBM3
+PEAK_F32_FLOPS = 67e12  # H100 SXM: float32 outside the tensor cores (the f32 H9 kernels)
 # the TPU's measured real-shape gradient band (5.8e-2, PERF.md before the port)
 GRAD_BAND = 0.06
 # H5 / H6 backward parity shapes: (B, T, N, D, H)
@@ -329,13 +355,14 @@ def mlp_calls(bk, bb, a, g, act, save):
             lambda: bb.mlp_subpath_backward_plain(g, a["x"], *w, act))
 
 
-def core_inputs(B, T, N, H, d, seed, device):
+def core_inputs(B, T, N, H, d, seed, device, dtype=torch.bfloat16):
     """q (pre-scaled), k, v [B, H, S, d] as the tower hands them to H9: the
-    head-split views of a [B, S, 3D] qkv product (logits of unit variance)."""
+    head-split views of a [B, S, 3D] qkv product (logits of unit variance),
+    in bf16 or f32."""
     from tvts_torch.ops.attention import split_heads
 
     rng = np.random.default_rng(seed)
-    qkv = torch.tensor(rng.standard_normal((B, 1 + T * N, 3 * H * d)), dtype=torch.bfloat16,
+    qkv = torch.tensor(rng.standard_normal((B, 1 + T * N, 3 * H * d)), dtype=dtype,
                        device=device)
     q, k, v = qkv.chunk(3, dim=-1)
     return split_heads(q * d ** -0.5, H), split_heads(k, H), split_heads(v, H)
@@ -368,6 +395,23 @@ def divided_mask(T: int, N: int, mode: str, device) -> torch.Tensor:
     mask = torch.ones(1 + T * N, 1 + T * N, dtype=torch.bool, device=device)
     mask[1:, 1:] = group[:, None] == group[None, :]
     return mask
+
+
+def core_f32_check(ac, qkv32, T: int, N: int, mode: str) -> tuple[float, float, float, float]:
+    """H9 on f32 q, k, v against plain f32 (full-f32 products): (max|diff|,
+    max|ref|, the band min(BAND, CORE_BAND * max|ref|), and how far plain on
+    the bf16-rounded inputs lies from plain f32, which the kernel may not
+    pass)."""
+    from tvts_torch.ops.attention import divided_space_time_attention
+
+    with no_tf32():
+        got = ac.divided_space_time_attention_fused(*qkv32, T, N, mode)
+        want = divided_space_time_attention(*qkv32, T, N, mode)
+        plain16 = divided_space_time_attention(*(t.bfloat16() for t in qkv32), T, N, mode)
+    if got.dtype != torch.float32:
+        raise AssertionError(f"H9 f32 returned {got.dtype}")
+    diff, ref, tol = core_band_check(got, want)
+    return diff, ref, tol, (plain16.float() - want).abs().max().item()
 
 
 def core_band_check(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, float]:
@@ -454,17 +498,19 @@ def mlp_work(M: int, D: int, backward: bool, save: bool):
     return 2 * product, 2 * 2 * M * D + weights + hidden
 
 
-def core_work(mode: str, B: int, T: int, N: int, H: int, d: int):
+def core_work(mode: str, B: int, T: int, N: int, H: int, d: int, elem: int = 2):
     """(flops, bytes) of H9: QK^T and PV over the (query, key) pairs of every
-    head (the CLS row over every token); q, k, v read and the output written."""
+    head (the CLS row over every token); q, k, v read and the output written,
+    `elem` bytes an element."""
     S = 1 + T * N
     keys = T + 1 if mode == "time" else N + 1
-    return 4 * H * d * B * (T * N * keys + S), 4 * 2 * B * H * S * d
+    return 4 * H * d * B * (T * N * keys + S), 4 * elem * B * H * S * d
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    """The least time the card could take: max(bytes / HBM rate, flops / peak)."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FLOPS) -> tuple[float, str]:
+    """The least time the card could take: max(bytes / HBM rate, flops / peak),
+    the peak of the operations' type (bf16 tensor cores unless given)."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -558,20 +604,27 @@ def counted(bk, bb, ta) -> list:
 
 
 def launch_counts(bk, bb, ta) -> dict[str, int]:
+    from tvts_torch.ops import attention_cores as ac
+
     counts = {fn.__name__: fn.launches for fn in counted(bk, bb, ta)}
     counts["text_subpath_backward (frozen)"] = ta.text_subpath_backward.frozen_launches
     counts["mlp_subpath (saved hidden)"] = bb.mlp_subpath.saved_launches
     counts["mlp_subpath_backward (saved hidden)"] = bb.mlp_subpath_backward.saved_launches
     counts["space_core_backward (pair)"] = bb.space_core_backward.pair_launches
+    counts["divided_space_time_attention_fused (f32)"] = \
+        ac.divided_space_time_attention_fused.f32_launches
     return counts
 
 
 def reset_launch_counts(bk, bb, ta) -> None:
+    from tvts_torch.ops import attention_cores as ac
+
     for fn in counted(bk, bb, ta):
         fn.launches = 0
     ta.text_subpath_backward.frozen_launches = 0
     bb.mlp_subpath.saved_launches = bb.mlp_subpath_backward.saved_launches = 0
     bb.space_core_backward.pair_launches = 0
+    ac.divided_space_time_attention_fused.f32_launches = 0
 
 
 def expect_launches(tag: str, got: dict, want: dict) -> None:
@@ -769,7 +822,8 @@ def time_steps(tag: str, label: str, train: dict, apply_fn, batch, card: str,
 
 
 # sessions of torch.profiler that may record no device activity (seen on the
-# card now and then, twice in a row once) before a measurement gives up
+# card now and then, twice in a row once, six in a row once) before a
+# measurement gives up; the waits between them double from 0.5 s
 PROFILE_ATTEMPTS = 6
 
 
@@ -777,10 +831,12 @@ def _profile(fn, iters: int = 1):
     """fn under torch.profiler: (the profile, wall ms on the host clock to the
     synchronise), or (None, wall) when PROFILE_ATTEMPTS sessions in a row
     recorded no device activity or lost kernels (a kernel counted a number of
-    times that `iters` calls of fn cannot give); fn runs again each time."""
+    times that `iters` calls of fn cannot give), each printed; fn runs again
+    each time."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(PROFILE_ATTEMPTS):
+    unread = []
+    for attempt in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -788,11 +844,14 @@ def _profile(fn, iters: int = 1):
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         host = _host_keys(prof)
-        counts = [e.count for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in host]
-        if counts and all(c % iters == 0 for c in counts):
+        counts = {e.key: e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in host}
+        if counts and all(c % iters == 0 for c in counts.values()):
             return prof, wall
-        time.sleep(0.5)
+        unread.append("no device activity" if not counts else
+                      f"lost kernels {({k: c for k, c in counts.items() if c % iters})}")
+        time.sleep(0.5 * 2 ** attempt)
+    print(f"torch.profiler: {PROFILE_ATTEMPTS} sessions unread: {unread}")
     return None, wall
 
 
@@ -1061,6 +1120,35 @@ def train_times(dev, card, bk, bb, ta, ac, train: dict, times: dict, library: di
               f"{bnd[0]:.3f} ms ({bnd[1]}) [{card}]")
 
 
+# H9 in f32 at the shape of phase 4's f32 use_pallas tower: (B, T, N, H, d)
+CORE_F32_SHAPE = (8, 12, 196, 12, 64)
+
+
+def core_f32_times(dev, card: str, ac, times: dict, library: dict) -> None:
+    """H9 on f32 q, k, v against plain f32 and one masked f32
+    scaled_dot_product_attention (`library_ms`); its bound from the f32
+    bytes and the f32 FMA rate outside the tensor cores."""
+    B, T, N, H, d = CORE_F32_SHAPE
+    name = "divided_space_time_attention_fused (f32)"
+    qkv = core_inputs(B, T, N, H, d, 19, dev, dtype=torch.float32)
+    for mode in ("space", "time"):
+        kernel, plain = core_calls(ac, qkv, T, N, mode)
+        one_call = core_library_call(qkv, T, N, mode)
+        with torch.inference_mode(), no_tf32():
+            k_ms, p_ms = cuda_ms(kernel, iters=10), cuda_ms(plain, iters=3)
+            l_ms = cuda_ms(one_call, iters=10)
+            diff, ref, tol = core_band_check(one_call(), plain())
+        if diff > tol:
+            raise AssertionError(f"the masked f32 library call is not H9 {mode}: max|diff| {diff}")
+        bnd = bound_ms(*core_work(mode, B, T, N, H, d, elem=4), peak=PEAK_F32_FLOPS)
+        if mode == "space":  # the mode the towers run
+            times[name], library[name] = (k_ms, p_ms, bnd), l_ms
+        print(f"[6] {name} {mode} B={B} N={N} d={d}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} "
+              f"ms, masked f32 scaled_dot_product_attention {l_ms:.3f} ms (max|diff| to plain "
+              f"{diff:.2e}), bound {bnd[0]:.3f} ms ({bnd[1]}: f32 at {PEAK_F32_FLOPS / 1e12:.0f} "
+              f"TFLOP/s, 4 bytes an element) [{card}]")
+
+
 def mlp_times(tag: str, card: str, bk, bb, a: dict, g, act: str, times: dict | None) -> None:
     """H8 forward and backward, recomputing and saving, against plain, on the
     inputs a["x"] and the output gradient g."""
@@ -1215,11 +1303,15 @@ def ln_gemm_table(dev, card: str, bk) -> list[dict]:
 def device_ms(fn, iters: int = 10) -> float:
     """Device time of fn's CUDA kernels per call (torch.profiler), after a
     warm-up: the host's launch overhead, which CUDA events around a short
-    function would count, left out. Fails when the profiler cannot read it
-    (_profile_or_raise): a kernel line's times are all of this one kind."""
+    function would count, left out. Where the profiler cannot read it
+    (_profile), CUDA events around `iters` calls instead, said in a line."""
     for _ in range(2):
         fn()
-    prof, _ = _profile_or_raise(lambda: [fn() for _ in range(iters)], iters)
+    prof, _ = _profile(lambda: [fn() for _ in range(iters)], iters)
+    if prof is None:
+        ms = cuda_ms(fn, iters=iters)
+        print(f"device_ms: timed with CUDA events instead, launch gaps included: {ms:.4f} ms")
+        return ms
     host = _host_keys(prof)
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
@@ -1906,7 +1998,8 @@ def extraction_phase(tag: str, arch: str, dev, bk, bb, ta, n_clips: int, batch_s
     if c16 < COS_BF16 or c32 < COS_F32:
         raise AssertionError(f"{cfg.name}: kernel path disagrees with the eager tower")
     return dict(cfg=cfg, model=model, model32=model32, clips=clips, fused=fused, eager=eager,
-                launches=launches, per_forward=per_forward, n_forwards=n_forwards)
+                eager32=eager32, launches=launches, per_forward=per_forward,
+                n_forwards=n_forwards)
 
 
 def extraction_rate(tag: str, cfg, model, B: int, dev, card: str, iters: int) -> dict:
@@ -1930,33 +2023,47 @@ def extraction_rate(tag: str, cfg, model, B: int, dev, card: str, iters: int) ->
     return rates
 
 
-def use_pallas_phase(tag: str, ext: dict, dev, bk, bb, ta) -> int:
+def use_pallas_phase(tag: str, ext: dict, dev, bk, bb, ta) -> dict:
     """Extraction through the eager tower built with use_pallas=True (the
-    space core of every block on H9) against the same tower without it.
-    Returns the H9 launches."""
+    space core of every block on H9) against the same tower without it, in
+    bf16 and in f32 (H9's f32 kernels; the f32 towers with full-f32
+    products). Returns the H9 launches, bf16 and f32."""
     from tvts_torch.eval.embed import extract_embeddings
     from tvts_torch.models.factory import build_model
 
-    cfg = ext["cfg"]
-    _, model = build_model(cfg.name, dtype=torch.bfloat16, device=dev, seed=0, use_pallas=True)
-    model.load_state_dict(ext["model32"].state_dict())
+    cfg, name = ext["cfg"], "divided_space_time_attention_fused"
+    want = cfg.vision.layers * ext["n_forwards"]
     loader = SyntheticLoader(ext["clips"], cfg.vision.patches_per_frame, batch_size=8)
-    reset_launch_counts(bk, bb, ta)
-    got = extract_embeddings(model, loader, use_fused=False)["video"]
-    launches = launch_counts(bk, bb, ta)
-    name = "divided_space_time_attention_fused"
-    print(f"[{tag}] use_pallas=True eager tower: launches over {ext['n_forwards']} forwards: "
-          f"{ {k: n for k, n in launches.items() if n} }")
-    expect_launches("use_pallas extraction", launches,
-                    {name: cfg.vision.layers * ext["n_forwards"]})
-    with no_tf32():
-        eager32 = extract_embeddings(ext["model32"], loader, use_fused=False)["video"]
-    c16, c32 = cos_rows(got, ext["eager"]).min(), cos_rows(got, eager32).min()
-    print(f"[{tag}] pooled cosine, use_pallas=True vs use_pallas=False: min {c16:.6f} (bf16, >= "
-          f"{COS_BF16}), min {c32:.6f} (f32, >= {COS_F32})")
-    if not np.isfinite(got).all() or c16 < COS_BF16 or c32 < COS_F32:
-        raise AssertionError("the use_pallas tower disagrees with the plain eager tower")
-    return launches[name]
+    out = {}
+    for dtype, ref, cos_min in ((torch.bfloat16, "eager", COS_BF16),
+                                (torch.float32, "eager32", COS_F32)):
+        label = "bf16" if dtype == torch.bfloat16 else "f32"
+        _, model = build_model(cfg.name, dtype=dtype, device=dev, seed=0, use_pallas=True)
+        model.load_state_dict(ext["model32"].state_dict())
+        reset_launch_counts(bk, bb, ta)
+        with no_tf32():
+            got = extract_embeddings(model, loader, use_fused=False)["video"]
+        launches = launch_counts(bk, bb, ta)
+        print(f"[{tag}] use_pallas=True eager tower ({label}): launches over "
+              f"{ext['n_forwards']} forwards: { {k: n for k, n in launches.items() if n} }")
+        expect_launches(f"use_pallas extraction ({label})", launches,
+                        {name: want, f"{name} (f32)": want * (label == "f32")})
+        cos = cos_rows(got, ext[ref]).min()
+        diff = float(np.abs(got - ext[ref]).max())
+        print(f"[{tag}] pooled, use_pallas=True vs use_pallas=False ({label}): min cosine "
+              f"{cos:.6f} (>= {cos_min}), max|diff| {diff:.3e}")
+        ok = np.isfinite(got).all() and cos >= cos_min
+        if label == "bf16":
+            c32 = cos_rows(got, ext["eager32"]).min()
+            print(f"[{tag}] use_pallas=True (bf16) vs the f32 tower: min cosine {c32:.6f} "
+                  f"(>= {COS_F32})")
+            ok = ok and c32 >= COS_F32
+        if not ok:
+            raise AssertionError(f"the use_pallas tower ({label}) disagrees with the plain "
+                                 "eager tower")
+        out[name if label == "bf16" else f"{name} (f32)"] = launches[name]
+        del model
+    return out
 
 
 def b32_phase(dev, card, bk, bb, ta) -> None:
@@ -2168,6 +2275,23 @@ def parity_phase(dev, bk, bb, ta, ac) -> dict:
                                      f"{diff32} > {tol32} against f32")
             if label == "N=196 d=64" and mode == "space":
                 max_err["divided_space_time_attention_fused"] = diff
+        # H9 in f32: its own space core, the f32 time core and CLS row
+        qkv32 = core_inputs(B, T, N, H, d, seed=3, device=dev, dtype=torch.float32)
+        for mode in ("space", "time"):
+            before = ac.divided_space_time_attention_fused.f32_launches
+            diff, ref, tol, tol16 = core_f32_check(ac, qkv32, T, N, mode)
+            torch.cuda.synchronize()
+            if ac.divided_space_time_attention_fused.f32_launches != before + 1:
+                raise AssertionError("divided_space_time_attention_fused did not count its f32 "
+                                     "launch")
+            print(f"[3] divided_space_time_attention_fused (f32) {mode:5s} {label}: max|diff| "
+                  f"to plain f32 {diff:.3e} max|ref| {ref:.4f} (tol {tol:.4f} = min({BAND}, "
+                  f"{CORE_BAND} * max|ref|); <= plain bf16's own {tol16:.5f})")
+            if diff > tol or diff > tol16:
+                raise AssertionError(f"H9 f32 {mode} {label}: max|diff| {diff} > {tol} or "
+                                     f"> {tol16}")
+            if label == "N=196 d=64" and mode == "space":
+                max_err["divided_space_time_attention_fused (f32)"] = diff
     return max_err
 
 
@@ -2511,6 +2635,48 @@ def host_split(config_path: str, video_reader, card: str, n: int = 8) -> None:
           f"transform {1e3 * transform / n:.2f} ms [{card}]")
 
 
+# the loader sweep of phase 10: worker counts, threads and the fork pool; and
+# the seconds a forked worker may take for one item before the run fails (a
+# crashed or deadlocked worker)
+SWEEP_WORKERS = (2, 4, 8)
+FORK_ITEM_TIMEOUT_S = 60
+
+
+def loader_sweep(tag: str, config_path: str, ret_eval, model, card: str) -> list[dict]:
+    """clips/s from files inside extract_embeddings (the retrieval CLI's
+    loader, test split, both towers on the kernels) and the host share, at
+    each worker count, threads and the fork pool. The fork pool forks this
+    process, which holds a CUDA context: its workers run the dataset alone
+    (numpy and cv2 with its own threads off), and a fork that crashes or
+    deadlocks fails the phase."""
+    from tvts_torch.data import loader as loader_mod
+    from tvts_torch.utils.config import ConfigParser, read_json
+
+    config = ConfigParser(read_json(config_path), test=True)
+    rows, saved = [], loader_mod.PROC_ITEM_TIMEOUT_S
+    loader_mod.PROC_ITEM_TIMEOUT_S = FORK_ITEM_TIMEOUT_S
+    try:
+        for pool in ("threads", "fork"):
+            for workers in SWEEP_WORKERS:
+                _, loader = config.initialize_dataset_loader(
+                    config["data_loader"], {"split": "test", "shuffle": False,
+                                            "num_workers": workers})
+                loader.use_processes = pool == "fork"
+                rec = RecordingLoader(loader)
+                t0 = time.perf_counter()
+                n = len(ret_eval.extract_embeddings(model, rec, use_fused=True)["video"])
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+                rows.append({"pool": pool, "workers": workers, "clips": n,
+                             "clips_s": n / sec, "host_share": rec.wait_s / sec})
+                print(f"[{tag}] loader sweep: {pool:7s} {workers} workers: {n} clips in "
+                      f"{sec:.3f} s = {n / sec:.2f} clips/s from files, host share "
+                      f"{rec.wait_s / sec:.3f} [{card}]")
+    finally:
+        loader_mod.PROC_ITEM_TIMEOUT_S = saved
+    return rows
+
+
 def data_phase(dev, card: str, ext: dict, bk, bb, ta) -> dict:
     """Phase 10 (module notes). Returns the retrieval CLI's rates."""
     import tempfile
@@ -2613,6 +2779,7 @@ def data_phase(dev, card: str, ext: dict, bk, bb, ta) -> dict:
                   f"{video_s:.3f} s, embed_text {text_s:.3f} s; the whole CLI {cli_s:.3f} s "
                   f"(model build and checkpoint load included); {workers} workers, decode "
                   f"{backend or 'injected'} [{card}]")
+            rates["sweep"] = loader_sweep("10", configs["msrvtt"], ret_eval, model, card)
             del model, record, batches
             host_split(configs["msrvtt"], video_reader, card)
 
@@ -2656,6 +2823,303 @@ def data_phase(dev, card: str, ext: dict, bk, bb, ta) -> dict:
                 del record
             torch.cuda.empty_cache()
     print(f"[10] data phase {time.perf_counter() - t_phase:.1f} s")
+    return rates
+
+
+# ---------------------------------------------------------------------------
+# phase 11: pretraining from files, the config's two loaders into the B/16 step
+# ---------------------------------------------------------------------------
+PRETRAIN_CONFIG = "dist-yt-web-pt-vit-b-16-fused.json"
+# (videos, seconds, frames a second, (height, width)): YT-Temporal's 320x240
+# at 30 fps, 30 s, so that every window of randint(3, 6) * 4 + 3 s fits with
+# a random start; WebVid's 596x336 at 25 fps, 10 s
+YTT_TREE = (48, 30, 30, (240, 320))
+WEBVID_TREE = (48, 10, 25, (336, 596))
+ASR_WORDS_S = 2.5  # words a second of the synthetic ASR
+JUNK_WORDS = ("&amp;", "&gt;", "&#39;", "amp;")
+
+
+def asr_annotation(seed: int, duration: float, words_s: float = ASR_WORDS_S) -> dict:
+    """A YT-Temporal annotation: `subtitles` (word and time, with a few
+    HTML-entity junk words that clean_subtitles drops), `denoised` (cleanasr
+    sentences of the same words with other case and punctuation and a few
+    words dropped or inserted, so the DTW has real work) and info.duration."""
+    rng = np.random.default_rng((13, seed))
+    n = int(duration * words_s)
+    times = np.sort(rng.uniform(0.0, duration, n))
+    words = [str(w) for w in rng.choice(WORDS, n)]
+    subtitles = [{"word": w, "time": round(float(t), 2)} for w, t in zip(words, times)]
+    for k in sorted(rng.choice(n, max(1, n // 30), replace=False), reverse=True):
+        subtitles.insert(int(k), {"word": str(rng.choice(JUNK_WORDS)),
+                                  "time": subtitles[k]["time"]})
+    denoised = []
+    for w in words:
+        r = rng.random()
+        if r < 0.04:
+            continue  # dropped
+        if r < 0.2:
+            w = w.capitalize()
+        if rng.random() < 0.1:
+            w += str(rng.choice([",", ".", "?", "!"]))
+        denoised.append(w)
+        if rng.random() < 0.04:
+            denoised.append(str(rng.choice(WORDS)))  # inserted
+    sentences = [" ".join(denoised[i:i + 12]) for i in range(0, len(denoised), 12)]
+    return {"subtitles": subtitles, "denoised": [{"cleanasr": s} for s in sentences],
+            "info": {"duration": duration}}
+
+
+def pretrain_trees(root: str, args: dict, video_params: dict | None = None,
+                   ytt=YTT_TREE, webvid=WEBVID_TREE) -> tuple[str, dict]:
+    """Write the YT-Temporal layout (meta/yttemporal_train.csv, a tsv with a
+    Name column; ytt/videos/<channel>/<id>.mp4 and their
+    annotations/<id>.json) and the WebVid one (meta/webvid_train.tsv,
+    webvid/train/<id>.mp4) under root, and the repo's pretraining config with
+    data_dir and meta_root set and `args` (and `video_params`) merged into
+    both loaders. Returns (config path, clip specs {path: (seed, frames,
+    fps, (H, W))}); the clips themselves are written by write_clip."""
+    meta, specs = os.path.join(root, "meta"), {}
+    os.makedirs(meta)
+    n, seconds, fps, shape = ytt
+    names = [f"channel{i % 4}/yt{i:04d}.mp4" for i in range(n)]
+    with open(os.path.join(meta, "yttemporal_train.csv"), "w") as f:
+        f.write("Name\n" + "".join(f"{name}\n" for name in names))
+    ytt_dir = os.path.join(root, "ytt")
+    for i, name in enumerate(names):
+        channel, vid = name.split("/")
+        ann_dir = os.path.join(ytt_dir, "videos", channel, "annotations")
+        os.makedirs(ann_dir, exist_ok=True)
+        with open(os.path.join(ann_dir, vid[:-4] + ".json"), "w") as f:
+            json.dump(asr_annotation(i, seconds), f)
+        specs[os.path.join(ytt_dir, "videos", name)] = (1000 + i, fps * seconds, fps, shape)
+    n, seconds, fps, shape = webvid
+    web_dir = os.path.join(root, "webvid")
+    captions = synthetic_captions(n, seed=14)
+    with open(os.path.join(meta, "webvid_train.tsv"), "w") as f:
+        f.write("name\tvideoid\n" + "".join(f"{c}\t{2000 + i}\n" for i, c in enumerate(captions)))
+    for i in range(n):
+        specs[os.path.join(web_dir, "train", f"{2000 + i}.mp4")] = (2000 + i, fps * seconds, fps,
+                                                                    shape)
+    with open(REPO / "tvts_tpu" / "configs" / PRETRAIN_CONFIG) as f:
+        config = json.load(f)
+    for spec in config["data_loader"]:
+        spec["args"].update(args, meta_root=meta,
+                            data_dir=ytt_dir if spec["args"]["dataset_name"] == "YTTemporal"
+                            else web_dir)
+        spec["args"]["video_params"].update(video_params or {})
+    path = os.path.join(root, PRETRAIN_CONFIG)
+    with open(path, "w") as f:
+        json.dump(config, f, indent=2)
+    return path, specs
+
+
+def write_clips(specs: dict, workers: int) -> None:
+    """write_clip every clip of `specs`, `workers` at a time."""
+    with cf.ThreadPoolExecutor(workers) as pool:
+        list(pool.map(lambda item: write_clip(item[0], *item[1]), specs.items()))
+
+
+def alternating(loaders):
+    """The loaders' batches in turn (one of each, as the Trainer's round
+    robin takes them) while every loader has one."""
+    its = [iter(loader) for loader in loaders]
+    while True:
+        for it in its:
+            batch = next(it, None)
+            if batch is None:
+                return
+            yield batch
+
+
+def ytt_host_split(ds, video_reader, card: str, n: int = 8) -> None:
+    """Where a YT-Temporal item's host time goes, one item at a time on this
+    thread: get_caption_multi (the annotation, its cleaning and the DTW
+    alignment, the DTW apart), the multi-clip decode and the transform, over
+    the first n videos; then get_caption_multi alone on a realistic
+    annotation of 600 ASR words (a 4-minute video at 2.5 words a second)."""
+    import tempfile
+
+    from tvts_torch.data import ytt as ytt_mod
+    from tvts_torch.data.transforms import video_transform
+
+    dtw = [0.0]
+    original = ytt_mod.align_using_dtw
+
+    def timed_dtw(*args):
+        t0 = time.perf_counter()
+        out = original(*args)
+        dtw[0] += time.perf_counter() - t0
+        return out
+
+    ytt_mod.align_using_dtw = timed_dtw
+    try:
+        caption = decode = transform = 0.0
+        rng = np.random.default_rng(0)
+        for name in ds.metadata[:n]:
+            t0 = time.perf_counter()
+            _, _, starts, ends, duration = ds.get_caption_multi(ds.get_caption_path(name), rng)
+            t1 = time.perf_counter()
+            frames = video_reader.read_multi_clip(ds._get_video_path(name)[0], starts, ends,
+                                                  duration, ds.num_frames, ds.num_clips, rng=rng,
+                                                  backend=ds.reader)
+            t2 = time.perf_counter()
+            video_transform(frames, crop_size=ds.input_res, mode="train", rng=rng)
+            t3 = time.perf_counter()
+            caption, decode, transform = caption + t1 - t0, decode + t2 - t1, transform + t3 - t2
+        print(f"[11] host time a YT-Temporal item, one thread ({n} items, "
+              f"{len(asr_annotation(0, YTT_TREE[1])['subtitles'])} subtitle words each): "
+              f"caption and DTW {1e3 * caption / n:.2f} ms (DTW {1e3 * dtw[0] / n:.2f}), decode "
+              f"{1e3 * decode / n:.2f} ms, transform {1e3 * transform / n:.2f} ms [{card}]")
+        with tempfile.TemporaryDirectory(prefix="tvts_asr_") as root:
+            path = os.path.join(root, "long.json")
+            ann = asr_annotation(99, 240.0)
+            with open(path, "w") as f:
+                json.dump(ann, f)
+            dtw[0], reps = 0.0, 3
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                ds.get_caption_multi(path, rng)
+            sec = (time.perf_counter() - t0) / reps
+        print(f"[11] get_caption_multi on a 600-word annotation ({len(ann['subtitles'])} "
+              f"subtitle words, 240 s), one thread: {1e3 * sec:.2f} ms, of which DTW "
+              f"{1e3 * dtw[0] / reps:.2f} ms [{card}]")
+    finally:
+        ytt_mod.align_using_dtw = original
+
+
+def pretrain_phase(dev, card: str, bk, bb, ta) -> dict:
+    """Phase 11 (module notes): pretraining from files. Returns its rates."""
+    import contextlib
+    import tempfile
+    from functools import partial
+
+    from tvts_torch.data import native_decoder, video_reader
+    from tvts_torch.data.prefetch import prefetch_to_device
+    from tvts_torch.ops.fused_forward import train_apply
+    from tvts_torch.ops.kernel_config import resolve_kernel_config, train_apply_kwargs
+    from tvts_torch.train.step import make_train_step
+    from tvts_torch.train.trainer import prepare_batch
+    from tvts_torch.utils.config import ConfigParser, read_json
+
+    workers = len(os.sched_getaffinity(0))
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tvts_pretrain_phase_") as root:
+        config_path, specs = pretrain_trees(root, {"num_workers": workers})
+        backend = decode_backend(native_decoder, video_reader)
+        if backend is None:
+            print("[11] " + json.dumps({"decode_backend": None, "frames": "from their seeds, "
+                                        "injected at video_reader.read_frames_at"}))
+            decode = injected_decode(video_reader, specs)
+        else:
+            t0 = time.perf_counter()
+            write_clips(specs, workers)
+            print("[11] " + json.dumps({
+                "decode_backend": backend, "clips_written": len(specs),
+                "frames_written": sum(spec[1] for spec in specs.values()),
+                "write_s": round(time.perf_counter() - t0, 3)}))
+            decode = contextlib.nullcontext()
+        config = ConfigParser(read_json(config_path), test=True)
+        datasets, loaders = zip(*(config.initialize_dataset_loader(spec)
+                                  for spec in config["data_loader"]))
+        print(f"[11] {PRETRAIN_CONFIG}: " + ", ".join(
+            f"{type(ds).__name__} {len(ds)} videos, batch {ld.batch_size}, {ld.num_workers} "
+            f"workers" for ds, ld in zip(datasets, loaders)))
+        arch = config["arch"]["type"]
+        train = build_train(arch, dev, noise_seed=21, text_tune_layers=3, tag="11")
+        cfg, model = train["cfg"], train["model"]
+        L, TL = cfg.vision.layers, cfg.text.layers
+        kcfg = resolve_kernel_config(arch, config["trainer"]["kernels"])
+        kwargs = train_apply_kwargs(kcfg, train["ocfg"])
+        print(f"[11] trainer.kernels {config['trainer']['kernels']} -> {kwargs}")
+        apply_fn = partial(train_apply, **kwargs)
+        step = make_train_step(model, train["optimizer"], train["ocfg"], apply_fn=apply_fn)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        v, n_clips = cfg.vision, cfg.num_clips
+        B = loaders[0].batch_size
+
+        host, snaps, losses = [], [], []
+
+        def fed():  # the host batches, kept for the bit-for-bit check
+            for batch in alternating(loaders):
+                host.append(prepare_batch(batch))
+                yield host[-1]
+
+        n_steps, window = 8, range(2, 8)  # time steps 3-8
+        with decode:
+            feed = prefetch_to_device(fed(), size=2, device=dev)
+            wait = t_window = 0.0
+            for i in range(n_steps):
+                if i == window[0]:
+                    torch.cuda.synchronize()
+                    t_window = time.perf_counter()
+                t0 = time.perf_counter()
+                batch = next(feed)
+                if i in window:
+                    wait += time.perf_counter() - t0
+                # a copy on this stream, right behind the prefetcher's event: what the step reads
+                snaps.append({k: t.clone() for k, t in batch.items()})
+                ytt = "labels" in batch
+                if i == 0:
+                    hb = host[0]
+                    shapes = {k: tuple(a.shape) for k, a in hb.items()}
+                    print(f"[11] first YT-Temporal batch from files: {shapes}")
+                    want = {"video": (B, v.num_frames, 3, v.input_resolution, v.input_resolution),
+                            "keep_ind": (B, v.n_keep), "text_ids": (n_clips * B, 77),
+                            "labels": (B, n_clips)}
+                    if not ytt or shapes != want or hb["video"].dtype != np.float32 \
+                            or not (hb["labels"] == np.arange(n_clips)).all():
+                        raise AssertionError(f"YT-Temporal batch: {shapes}, expected {want}")
+                    got = step0_gate("11", "step 0 from files", model, batch, apply_fn,
+                                     bk, bb, ta)
+                    expect_launches("step 0 from files", got, step_launches(L, TL, 9))
+                reset_launch_counts(bk, bb, ta)
+                aux = {k: t.item() for k, t in step(batch).items()}
+                launches = launch_counts(bk, bb, ta)
+                expect_launches(f"step {i + 1} from files ({'YT-Temporal' if ytt else 'WebVid'})",
+                                launches, step_launches(L, TL, 9, sort=ytt))
+                losses.append(aux["loss"])
+                print(f"[11] step {i + 1} ({'YT-Temporal' if ytt else 'WebVid'}, "
+                      f"{batch['text_ids'].shape[0]} captions): "
+                      + ", ".join(f"{k} {x:.6f}" for k, x in aux.items())
+                      + f"; launches {sum(launches.values())} (as phase 7, "
+                      f"{'with' if ytt else 'without'} the sort head)")
+                if not all(np.isfinite(list(aux.values()))):
+                    raise AssertionError(f"step {i + 1} from files: non-finite {aux}")
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t_window
+        same = all(torch.equal(snap[k].cpu(), torch.from_numpy(np.ascontiguousarray(hb[k])))
+                   for snap, hb in zip(snaps, host) for k in hb)
+        print(f"[11] prefetched batches bit for bit the host batches ({len(snaps)} batches, "
+              f"every array): {same}")
+        if not same or len(snaps) != n_steps:
+            raise AssertionError("prefetched batches differ from the host batches")
+        changed = [n for n in train["frozen"]
+                   if not torch.equal(dict(model.named_parameters())[n].detach(), before[n])]
+        if changed:
+            raise AssertionError(f"frozen tensors changed: {changed}")
+        print(f"[11] {n_steps} steps from files, finite losses; {len(train['frozen'])} frozen "
+              f"tensors unchanged bit for bit")
+        clips = B * len(window)
+        rates = {"clips_s": clips / sec, "host_share": wait / sec}
+        ytt_host_split(datasets[0], video_reader, card)
+        del snaps, host
+        # the same step on a device-resident batch (the first from files), each loader's kind
+        resident = {}
+        for label, hb in (("YT-Temporal", 0), ("WebVid", 1)):
+            batch = {k: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for k, a in prepare_batch(next(iter(loaders[hb]))).items()}
+            ms = time_steps("11", f"{label} B={B} device-resident", train, apply_fn, batch, card)
+            resident[label] = B / (ms / 1e3)
+        rates["resident_clips_s"] = sum(resident.values()) / len(resident)
+    print(f"[11] pretraining from files (YT-Temporal and WebVid in turn, B={B}): "
+          f"{rates['clips_s']:.2f} clips/s over steps 3-8, host share {rates['host_share']:.3f} "
+          f"(seconds waiting on the prefetcher over that window); device-resident "
+          f"{resident['YT-Temporal']:.2f} (YT-Temporal) / {resident['WebVid']:.2f} (WebVid) "
+          f"clips/s; {loaders[0].num_workers} workers a loader, decode "
+          f"{backend or 'injected'} [{card}]")
+    print(f"[11] pretraining phase {time.perf_counter() - t_phase:.1f} s")
+    del train, model
+    torch.cuda.empty_cache()
     return rates
 
 
@@ -2716,7 +3180,7 @@ def main() -> int:
         raise AssertionError(f"extract_video_feature: shape {feat.shape}")
     print(f"[4] extract_video_feature -> {feat.shape}, cosine to batch row "
           f"{cos_rows(feat, fused[:1])[0]:.6f}")
-    launches["divided_space_time_attention_fused"] = use_pallas_phase("4", ext, dev, bk, bb, ta)
+    launches.update(use_pallas_phase("4", ext, dev, bk, bb, ta))
 
     # ---- phase 5: zero-shot main path ---------------------------------------
     captions = synthetic_captions(len(clips), seed=4)
@@ -2849,8 +3313,12 @@ def main() -> int:
         library[name], max_err[name] = line["library_ms"], line["max_abs_err"]
     del model
     train_times(dev, card, bk, bb, ta, ac, train, times, library)
+    core_f32_times(dev, card, ac, times, library)
     del train
     torch.cuda.empty_cache()
+
+    # ---- phase 11: pretraining from files -----------------------------------
+    pretrain_phase(dev, card, bk, bb, ta)
 
     # ---- phase 9 (B/32) and phase 8 (H/14), with their times -----------------
     b32_phase(dev, card, bk, bb, ta)

@@ -1,6 +1,7 @@
 """H9 (the attention cores on their own) and the extraction forward at every
 kernel_version, on the CPU against the JAX package with its Pallas kernels in
-interpret mode. The port has one kernel set for every geometry, so the JAX
+interpret mode (f32 inputs; H9 also at the head dims 64 and 80 within
+2e-5). The port has one kernel set for every geometry, so the JAX
 package's kernel_version 2, 6, 7 and 8 (row-major, one call per block,
 d-major, d-major with space and MLP fused) all compare with the one H1 -> H2 ->
 H3 chain and its H4 tail. float32, atol 3e-5 / rtol 1e-4
@@ -38,6 +39,50 @@ def test_attention_cores_match_jax_pallas_cores(mode):
     assert divided_space_time_attention_fused.launches == before  # the CPU runs the plain version
     assert got.shape == (B, H, 1 + T * N, d)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("mode", ["space", "time"])
+@pytest.mark.parametrize("d", [64, 80])
+def test_attention_cores_f32_match_jax_at_the_tower_head_dims(mode, d):
+    """H9 in f32 (the dtype of an f32 use_pallas tower) at the head dims the
+    kernels take: the plain path the CPU runs within 2e-5 of the JAX function
+    with its Pallas kernels interpreted in f32."""
+    from tvts_tpu.ops.pallas_attention import divided_space_time_attention_fused as jax_fused
+
+    B, H, T, N = 1, 2, 3, 16
+    q, k, v = _qkv(5 + d, B, H, 1 + T * N, d)
+    q *= d ** -0.5
+    want = jax_fused(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), T, N, mode, interpret=True)
+    got = divided_space_time_attention_fused(torch.from_numpy(q), torch.from_numpy(k),
+                                             torch.from_numpy(v), T, N, mode)
+    assert got.dtype == torch.float32 and np.asarray(want).dtype == np.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
+
+
+def test_attention_cores_take_f32_and_refuse_mixed_dtypes(monkeypatch):
+    """q, k and v all bf16 or all f32; mixed dtypes (or another dtype) raise
+    before any dispatch. With the kernel dispatch forced (no card needed),
+    an f32 frame that does not fit a space-core block raises ValueError,
+    never the plain version."""
+    from tvts_torch.ops import attention_cores, block_kernels
+
+    q, k, v = (torch.from_numpy(a) for a in _qkv(3, 1, 2, 1 + 2 * 3, 8))
+    for args in ((q, k.bfloat16(), v), (q.bfloat16(), k.bfloat16(), v),
+                 (q.double(), k.double(), v.double())):
+        with pytest.raises(TypeError, match="all bf16 or all f32"):
+            divided_space_time_attention_fused(*args, 2, 3, "space")
+    out = divided_space_time_attention_fused(q, k, v, 2, 3, "space")
+    assert out.dtype == torch.float32
+    assert divided_space_time_attention_fused(q.bfloat16(), k.bfloat16(), v.bfloat16(), 2, 3,
+                                              "space").dtype == torch.bfloat16
+    d, n_max = 80, block_kernels.SMEM_OPTIN // (8 * 80) - 1
+    assert attention_cores.space_core_f32_smem(n_max, d) <= block_kernels.SMEM_OPTIN
+    assert attention_cores.space_core_f32_smem(n_max + 1, d) > block_kernels.SMEM_OPTIN
+    assert attention_cores.space_core_f32_smem(256, 80) <= block_kernels.SMEM_OPTIN  # H/14
+    monkeypatch.setattr(block_kernels, "_dispatch", lambda t: True)
+    big = tuple(torch.zeros(1, 1, 1 + (n_max + 1), d) for _ in range(3))
+    with torch.no_grad(), pytest.raises(ValueError, match=f"at most {n_max} patches"):
+        divided_space_time_attention_fused(*big, 1, n_max + 1, "space")
 
 
 def test_attention_cores_check_their_arguments():

@@ -486,9 +486,9 @@ def test_jsfusion_caption_index_dict_and_pandas_pickles(tree, tmp_path, monkeypa
 
 
 def test_dataset_loader_names_what_is_not_ported(tree):
-    for name in ("YTTemporal", "ConceptualCaptions3M"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item M2"):
-            port_ds.dataset_loader(name, {}, VIDEO_PARAMS, tree[0])
+    with pytest.raises(NotImplementedError, match="image_datasets.py; ROADMAP.md item M4"):
+        port_ds.dataset_loader("ConceptualCaptions3M", {}, VIDEO_PARAMS, tree[0])
+    assert port_ds.DATASET_REGISTRY["YTTemporal"].__name__ == "YTTemporal"
     with pytest.raises(NotImplementedError):
         port_ds.dataset_loader("Bogus", {}, VIDEO_PARAMS, tree[0])
 
@@ -558,6 +558,51 @@ def test_loader_process_pool_equals_its_sync_path():
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def _uniform_batches(loader):
+    """What a loader's batches hold where the items do not depend on the
+    scheduling: test-split items sample their frames uniformly; only the keep
+    set draws from the item's generator (seeded from Python's shared state),
+    and at mask ratio 0 it is every patch in some order."""
+    return [(b["video"].tobytes(), b["text"], b["meta"], np.sort(b["keep_ind"], -1).tolist())
+            for b in loader]
+
+
+def test_loader_items_over_workers_equal_sync_and_jax(tree):
+    """Items spread over 2 threads (and the fork pool, in a fresh interpreter:
+    this process holds JAX's threads) give the batches of num_workers=0 and of
+    the JAX ShardedLoader, on the MSRVTT test split (uniform sampling), with a
+    ragged last batch."""
+    args = ("MSRVTT", "msrvtt", dict(split="test", cut="jsfusion"))
+    want = _uniform_batches(jax_module("data.loader").ShardedLoader(
+        _build(jax_module("data.datasets").dataset_loader, tree, *args), batch_size=2,
+        shuffle=True, drop_last=False, num_workers=0, seed=3))
+    assert len(want) == 2 and len(want[-1][1]) == 1
+    for workers in (0, 2):
+        got = port_loader.ShardedLoader(_build(port_ds.dataset_loader, tree, *args),
+                                        batch_size=2, shuffle=True, drop_last=False,
+                                        num_workers=workers, seed=3)
+        assert _uniform_batches(got) == want, workers
+    data, meta = tree
+    code = (
+        "import json, numpy as np, sys\n"
+        "from tvts_torch.data.datasets import dataset_loader\n"
+        "from tvts_torch.data.loader import ShardedLoader\n"
+        "def batches(loader): return [(b['video'].tobytes(), b['text'], b['meta'],\n"
+        "    np.sort(b['keep_ind'], -1).tolist()) for b in loader]\n"
+        "ds = dataset_loader('MSRVTT', {}, json.loads(sys.argv[3]), sys.argv[1],\n"
+        "    meta_root=sys.argv[2], patches_per_frame=16, reader='cv2', split='test',\n"
+        "    cut='jsfusion')\n"
+        "kw = dict(batch_size=2, shuffle=True, drop_last=False, seed=3)\n"
+        "want = batches(ShardedLoader(ds, num_workers=0, **kw))\n"
+        "got = batches(ShardedLoader(ds, num_workers=2, use_processes=True, **kw))\n"
+        "assert len(want) == 2 and got == want\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code, data, meta, json.dumps(VIDEO_PARAMS)],
+                          cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 

@@ -178,3 +178,5 @@ def test_tvts_torch_imports_no_jax():
             "tvts_torch.utils.config", "tvts_torch.cli.feature_extraction",
             "tvts_torch.cli.zero_ret", "tvts_torch.cli.zero_recognition",
             "tvts_torch.cli.zero_ssv2_mc", "tvts_torch.cli.zero_ret_ViT_H_14"} <= imported
+    assert {"tvts_torch.data.asr", "tvts_torch.data.ytt", "tvts_torch.data.collate",
+            "tvts_torch.data.prefetch", "tvts_torch.train.trainer"} <= imported

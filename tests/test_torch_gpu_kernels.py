@@ -1,9 +1,9 @@
 """The Hopper kernels (H1-H4 sub-paths of the video tower, H7 text attention,
 the H5 / H6 / H7 training backwards, the H8 MLP sub-path with its backward and
-the H9 attention cores) against their plain PyTorch versions,
-on the card in bf16, with chip_smoke.py's seeded inputs and bands; and a small
-train step, kernel path against eager. Marked `gpu`: they skip where no CUDA
-device is present.
+the H9 attention cores, also in f32) against their plain PyTorch versions,
+on the card in bf16, with chip_smoke.py's seeded inputs and bands; a small
+train step, kernel path against eager; and prefetch_to_device's copies.
+Marked `gpu`: they skip where no CUDA device is present.
 
 Run on an H100 (tests/conftest.py imports jax, which the port does not need):
     python -m pytest -m gpu --noconftest -p no:cacheprovider tests/test_torch_gpu_kernels.py -q
@@ -32,6 +32,7 @@ from chip_smoke import (
     cls_row_check,
     core_band_check,
     core_calls,
+    core_f32_check,
     core_inputs,
     grad_band_check,
     kernel_calls,
@@ -260,12 +261,75 @@ def test_attention_core_kernel_matches_plain(cuda, label, mode):
     assert dense.is_contiguous() and torch.equal(dense, got)
 
 
+@pytest.mark.parametrize("mode", ["space", "time"])
+@pytest.mark.parametrize("label", list(CORE_SHAPES))
+def test_attention_core_f32_kernel_matches_plain(cuda, label, mode):
+    """H9 on f32 q, k, v: within min(0.05, 0.02 * max|ref|) of plain f32 and
+    no farther from it than plain on the bf16-rounded inputs is; on the
+    head-split views and on contiguous copies alike."""
+    B, T, N, H, d = CORE_SHAPES[label]
+    qkv = core_inputs(B, T, N, H, d, 3, cuda, dtype=torch.float32)
+    before = ac.divided_space_time_attention_fused.f32_launches
+    diff, ref, tol, tol16 = core_f32_check(ac, qkv, T, N, mode)
+    assert ac.divided_space_time_attention_fused.f32_launches == before + 1
+    assert diff <= min(tol, tol16), (diff, ref, tol, tol16)
+    got = ac.divided_space_time_attention_fused(*qkv, T, N, mode)
+    dense = ac.divided_space_time_attention_fused(*(t.contiguous() for t in qkv), T, N, mode)
+    assert got.dtype == dense.dtype == torch.float32 and torch.equal(dense, got)
+
+
+@pytest.mark.parametrize("d", [64, 80])
+def test_attention_core_f32_raises_above_its_shared_memory(cuda, d):
+    """The f32 space core stages a frame's keys and values in f32: a frame
+    that does not fit a block raises ValueError, and is never sent to plain;
+    the largest that fits runs."""
+    n_max = bk.SMEM_OPTIN // (8 * d) - 1
+    for N, ok in ((n_max, True), (n_max + 1, False)):
+        q, k, v = core_inputs(1, 1, N, 1, d, 5, cuda, dtype=torch.float32)
+        if ok:
+            diff, ref, tol, _ = core_f32_check(ac, (q, k, v), 1, N, "space")
+            assert diff <= tol, (diff, ref)
+        else:
+            with pytest.raises(ValueError, match=f"at most {n_max} patches"):
+                ac.divided_space_time_attention_fused(q, k, v, 1, N, "space")
+
+
+def test_prefetch_to_device_is_bit_for_bit_the_host_batches(cuda):
+    """50 host batches (f32, int32, int64, bool arrays and strings) through
+    the pinned, side-stream copies while the consumer's stream is busy: a
+    copy of every array taken on the consumer's stream as each batch arrives
+    is bit for bit its host array."""
+    from tvts_torch.data.prefetch import prefetch_to_device
+
+    def batches():
+        rng = np.random.default_rng(0)
+        for i in range(50):
+            yield {"video": rng.standard_normal((4, 12, 3, 64, 64)).astype(np.float32),
+                   "keep_ind": rng.integers(0, 196, (4, 98)).astype(np.int32),
+                   "text_ids": rng.integers(0, 49408, (16, 77)), "mask": rng.random(7) < 0.5,
+                   "text": [f"caption {i}"], "step": i}
+
+    want = list(batches())
+    busy = torch.randn(2048, 2048, device=cuda)
+    snaps = []
+    for i, batch in enumerate(prefetch_to_device(batches(), size=3)):
+        assert batch["step"] == i and batch["text"] == [f"caption {i}"]
+        busy = busy @ busy.T / 2048  # keep the consumer's stream busy between batches
+        snaps.append({k: batch[k].clone() for k in ("video", "keep_ind", "text_ids", "mask")})
+    torch.cuda.synchronize()
+    assert len(snaps) == 50
+    for snap, host in zip(snaps, want):
+        for key, t in snap.items():
+            assert t.device.type == "cuda"
+            assert torch.equal(t.cpu(), torch.from_numpy(host[key])), key
+
+
 def test_attention_core_kernel_raises_on_what_it_does_not_take(cuda):
     q, k, v = core_inputs(1, 4, 16, 4, 64, 4, cuda)
     with pytest.raises(RuntimeError, match="forward only"):  # no graph: no silent zero gradient
         ac.divided_space_time_attention_fused(q.clone().requires_grad_(), k, v, 4, 16, "space")
-    with pytest.raises(TypeError):
-        ac.divided_space_time_attention_fused(q.float(), k.float(), v.float(), 4, 16, "space")
+    with pytest.raises(TypeError, match="all bf16 or all f32"):  # f32 is taken, mixed is not
+        ac.divided_space_time_attention_fused(q.float(), k, v, 4, 16, "space")
     with pytest.raises(ValueError, match="head dim"):
         ac.divided_space_time_attention_fused(q[..., :32], k[..., :32], v[..., :32], 4, 16,
                                               "space")

@@ -12,7 +12,10 @@
 // [B, H, S, d] tensors of any batch, head and row strides (q pre-scaled: the
 // caller passes scale 1) and write an output laid out likewise. STRIDED is a
 // template parameter, so the packed kernels of H1 / H2 keep their
-// compile-time addressing.
+// compile-time addressing. H9 also takes f32 q, k and v, as the JAX function
+// does: the time core and the CLS row take the element type as a template
+// parameter (f32 loads, the same f32 arithmetic), and the space core has an
+// f32 kernel of its own (space_core_f32_kernel: SIMT, no tensor cores).
 #pragma once
 
 #include <math.h>
@@ -30,17 +33,17 @@ struct CoreStrides {
 };
 
 // Row `tok` of head h of batch b of q (which = 0), k (1) or v (2). Packed: the
-// [B, S, 3D] qkv rows at `q`; strided: three tensors.
-template <int DH, bool STRIDED>
+// [B, S, 3D] qkv rows at `q` (bf16); strided: three tensors of element E.
+template <int DH, bool STRIDED, typename E = bf16>
 struct CoreAddr {
-  const bf16 *q, *k, *v;
-  bf16* o;
+  const E *q, *k, *v;
+  E* o;
   int H, S;
   CoreStrides st;
 
-  __device__ __forceinline__ const bf16* row(int which, int b, int h, i64 tok) const {
+  __device__ __forceinline__ const E* row(int which, int b, int h, i64 tok) const {
     if constexpr (STRIDED) {
-      const bf16* p = which == 0 ? q : which == 1 ? k : v;
+      const E* p = which == 0 ? q : which == 1 ? k : v;
       const i64* s = which == 0 ? st.q : which == 1 ? st.k : st.v;
       return p + b * s[0] + h * s[1] + tok * s[2];
     } else {
@@ -48,7 +51,7 @@ struct CoreAddr {
       return q + ((i64)b * S + tok) * 3 * D + which * D + h * DH;
     }
   }
-  __device__ __forceinline__ bf16* out_row(int b, int h, i64 tok) const {
+  __device__ __forceinline__ E* out_row(int b, int h, i64 tok) const {
     if constexpr (STRIDED)
       return o + b * st.o[0] + h * st.o[1] + tok * st.o[2];
     else
@@ -57,7 +60,7 @@ struct CoreAddr {
 };
 
 // ---------------------------------------------------------------------------
-// Time core (H1 and H6's forward packed; H9 time strided). It replaces the
+// Time core (H1 and H6's forward packed; H9 time strided, bf16 or f32). It replaces the
 // time attention inside tvts_tpu/ops/pallas_block_attention.py::
 // fused_time_attention_block_v7 (:2456) and pallas_attention.py::
 // _time_attention_fused (:69). Patch (t, n) attends over the CLS key plus
@@ -70,8 +73,10 @@ struct CoreAddr {
 // (one block over all 12 heads holds 35 K registers and runs alone on its
 // SM, its loads and then its math). 16-byte cp.async copies,
 // neighbouring threads on neighbouring addresses, bring the T query rows and
-// the 1 + T key and value rows of the group into shared memory as bf16 (the
-// CLS key and value rows once a block, not once a head).
+// the 1 + T key and value rows of the group into shared memory in their own
+// element type (the CLS key and value rows once a block, not once a head;
+// f32 doubles the bytes, 125 KB a block at T = 32, d = 80, and the arithmetic
+// is the same).
 // A thread owns each (t, h) query row, with an exact max-shifted online f32
 // softmax over the 1 + T keys in the first version's order of operations
 // (its training-step gates sit near their limits at H/14: a logit summed in
@@ -82,26 +87,27 @@ struct CoreAddr {
 // ---------------------------------------------------------------------------
 constexpr int TIME_MAX_ROWS = 128;  // query rows (threads) a block
 
-template <int DH, bool STRIDED>
+template <int DH, bool STRIDED, typename E = bf16>
 __global__ void __launch_bounds__(TIME_MAX_ROWS, 2)
-    time_core_kernel(const CoreAddr<DH, STRIDED> view, float* __restrict__ lse, int T, int N,
+    time_core_kernel(const CoreAddr<DH, STRIDED, E> view, float* __restrict__ lse, int T, int N,
                      int HG, float scale) {
-  extern __shared__ __align__(16) bf16 tsm[];
-  constexpr int VPR = DH / 8;   // 16-byte vectors per head row
+  extern __shared__ __align__(16) unsigned char tsm_raw[];
+  constexpr int EPV = 16 / sizeof(E);  // elements a 16-byte vector
+  constexpr int VPR = DH / EPV;        // 16-byte vectors per head row
   const int n = blockIdx.x, b = blockIdx.y, h0 = blockIdx.z * HG;
   const int H = view.H, S = view.S;
   const int hg = min(HG, H - h0);
   const int RW = HG * DH;  // a token's row in shared memory: the group's heads
-  bf16* sq = tsm;                // [T][RW]
-  bf16* sk = sq + T * RW;        // [1 + T][RW], key s: s == 0 the CLS token, else frame s - 1
-  bf16* sv = sk + (T + 1) * RW;  // [1 + T][RW]
+  E* sq = reinterpret_cast<E*>(tsm_raw);  // [T][RW]
+  E* sk = sq + T * RW;        // [1 + T][RW], key s: s == 0 the CLS token, else frame s - 1
+  E* sv = sk + (T + 1) * RW;  // [1 + T][RW]
 
   const int per_row = hg * VPR;
   for (int e = threadIdx.x; e < (3 * T + 2) * per_row; e += blockDim.x) {
     const int r = e / per_row, rem = e - r * per_row;
     const int hh = rem / VPR, c = rem - hh * VPR;
     int which, s;
-    bf16* dst;
+    E* dst;
     if (r < T) {
       which = 0; s = r + 1; dst = sq + r * RW;
     } else if (r < 2 * T + 1) {
@@ -110,7 +116,7 @@ __global__ void __launch_bounds__(TIME_MAX_ROWS, 2)
       which = 2; s = r - 2 * T - 1; dst = sv + s * RW;
     }
     const i64 tok = s == 0 ? 0 : 1 + (i64)(s - 1) * N + n;
-    cp_async16(dst + hh * DH + c * 8, view.row(which, b, h0 + hh, tok) + c * 8);
+    cp_async16(dst + hh * DH + c * EPV, view.row(which, b, h0 + hh, tok) + c * EPV);
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
@@ -127,7 +133,7 @@ __global__ void __launch_bounds__(TIME_MAX_ROWS, 2)
 #pragma unroll
   for (int i = 0; i < DH; i += 8) {
     float f[8];
-    unpack_bf16x8(*reinterpret_cast<const uint4*>(sq + t * RW + hh * DH + i), f);
+    load8(sq + t * RW + hh * DH + i, f);
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       qf[i + e] = f[e] * scale;
@@ -136,12 +142,12 @@ __global__ void __launch_bounds__(TIME_MAX_ROWS, 2)
   }
   float m = -INFINITY, l = 0.f;
   for (int s = 0; s <= T; ++s) {
-    const bf16* kr = sk + s * RW + hh * DH;
+    const E* kr = sk + s * RW + hh * DH;
     float dot = 0.f;
 #pragma unroll
     for (int i = 0; i < DH; i += 8) {
       float f[8];
-      unpack_bf16x8(*reinterpret_cast<const uint4*>(kr + i), f);
+      load8(kr + i, f);
 #pragma unroll
       for (int e = 0; e < 8; ++e) dot += qf[i + e] * f[e];
     }
@@ -149,11 +155,11 @@ __global__ void __launch_bounds__(TIME_MAX_ROWS, 2)
     const float corr = __expf(m - m_new);
     const float p = __expf(dot - m_new);
     l = l * corr + p;
-    const bf16* vr = sv + s * RW + hh * DH;
+    const E* vr = sv + s * RW + hh * DH;
 #pragma unroll
     for (int i = 0; i < DH; i += 8) {
       float f[8];
-      unpack_bf16x8(*reinterpret_cast<const uint4*>(vr + i), f);
+      load8(vr + i, f);
 #pragma unroll
       for (int e = 0; e < 8; ++e) acc[i + e] = acc[i + e] * corr + p * f[e];
     }
@@ -166,7 +172,7 @@ __global__ void __launch_bounds__(TIME_MAX_ROWS, 2)
       float o[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) o[e] = acc[i + e] * inv;
-      *reinterpret_cast<uint4*>(sq + t * RW + hh * DH + i) = pack_bf16x8(o);  // only q read it
+      store8(sq + t * RW + hh * DH + i, o);  // only q read it
     }
     if (lse) lse[((i64)b * H + h0 + hh) * S + 1 + (i64)t * N + n] = m + __logf(l);
   }
@@ -174,8 +180,8 @@ __global__ void __launch_bounds__(TIME_MAX_ROWS, 2)
   for (int e = threadIdx.x; e < T * per_row; e += blockDim.x) {
     const int r = e / per_row, rem = e - r * per_row;
     const int h = rem / VPR, c = rem - h * VPR;
-    *reinterpret_cast<uint4*>(view.out_row(b, h0 + h, 1 + (i64)r * N + n) + c * 8) =
-        *reinterpret_cast<const uint4*>(sq + r * RW + h * DH + c * 8);
+    *reinterpret_cast<uint4*>(view.out_row(b, h0 + h, 1 + (i64)r * N + n) + c * EPV) =
+        *reinterpret_cast<const uint4*>(sq + r * RW + h * DH + c * EPV);
   }
 }
 
@@ -187,7 +193,10 @@ inline int time_core_heads(int T, int H) {
   return (H + groups - 1) / groups;
 }
 
-inline size_t time_core_smem(int T, int HG, int DH) { return (size_t)(3 * T + 2) * HG * DH * 2; }
+// bytes of a block's q, k and v rows at `elem` bytes an element
+inline size_t time_core_smem(int T, int HG, int DH, int elem = 2) {
+  return (size_t)(3 * T + 2) * HG * DH * elem;
+}
 
 // ---------------------------------------------------------------------------
 // Space core (H2 and H5's forward packed; H9 space strided). It replaces the
@@ -501,8 +510,99 @@ __global__ void __launch_bounds__(SP_WARPS * 32, 2)
 }
 
 // ---------------------------------------------------------------------------
+// Space core in f32 (H9 on f32 q, k, v): tvts_tpu/ops/pallas_attention.py::
+// _space_attention_fused (:31) takes f32 as well as bf16, with f32 products;
+// the bf16 core above runs mma.sync on bf16 fragments, and TF32 mma would
+// round the products, so this instance is SIMT FMA. Patch (t, i) attends
+// over the CLS key plus frame t's N patches; patch rows only (the CLS row is
+// the split-KV kernel's). Bound on the H100: the f32 FMA rate (3 d FMAs per
+// (query, key) pair with the rescale, against 4 d bytes of q, k, v and out
+// per query: far above the byte line at 50 to 257 keys a query).
+// Design: one block per (b, t, h) stages the frame's 1 + N key and value
+// rows in f32 in shared memory once (16-byte cp.async; 2 (N + 1) d * 4 bytes:
+// 164 KB at N = 256, d = 80, against the 227 KB a block may take, which
+// bounds N: space_core_f32_smem); a thread per query row (up to 256 a block,
+// rows strided over the threads beyond) keeps its q and output in registers
+// and walks the keys in order with the time core's exact max-shifted online
+// f32 softmax, each logit one f32 chain over the head dim. Every thread of a
+// warp reads the same key row, so the shared-memory reads are broadcasts.
+// ---------------------------------------------------------------------------
+constexpr int SPF_MAX_THREADS = 256;
+
+inline size_t space_core_f32_smem(int N, int DH) { return (size_t)2 * (N + 1) * DH * 4; }
+
+template <int DH>
+__global__ void __launch_bounds__(SPF_MAX_THREADS)
+    space_core_f32_kernel(const CoreAddr<DH, true, float> view, int T, int N, float scale) {
+  extern __shared__ __align__(16) unsigned char sf_raw[];
+  constexpr int VPR = DH / 4;  // 16-byte vectors per head row
+  float* sK = reinterpret_cast<float*>(sf_raw);  // [1 + N][DH], key 0 the CLS token
+  float* sV = sK + (N + 1) * DH;                 // [1 + N][DH]
+  const int b = blockIdx.x / T, t = blockIdx.x % T, h = blockIdx.y;
+  const i64 frame_row0 = 1 + (i64)t * N;
+  for (int e = threadIdx.x; e < (N + 1) * VPR; e += blockDim.x) {
+    const int r = e / VPR, c = (e - r * VPR) * 4;
+    const i64 tok = r == 0 ? 0 : frame_row0 + r - 1;
+    cp_async16(sK + r * DH + c, view.row(1, b, h, tok) + c);
+    cp_async16(sV + r * DH + c, view.row(2, b, h, tok) + c);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  for (int qi = threadIdx.x; qi < N; qi += blockDim.x) {
+    const float* qr = view.row(0, b, h, frame_row0 + qi);
+    float qf[DH], acc[DH];
+#pragma unroll
+    for (int i = 0; i < DH; i += 8) {
+      float f[8];
+      load8(qr + i, f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        qf[i + e] = f[e] * scale;
+        acc[i + e] = 0.f;
+      }
+    }
+    float m = -INFINITY, l = 0.f;
+    for (int s = 0; s <= N; ++s) {
+      const float* kr = sK + s * DH;
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < DH; i += 8) {
+        float f[8];
+        load8(kr + i, f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) dot += qf[i + e] * f[e];
+      }
+      const float m_new = fmaxf(m, dot);
+      const float corr = __expf(m - m_new);
+      const float p = __expf(dot - m_new);
+      l = l * corr + p;
+      const float* vr = sV + s * DH;
+#pragma unroll
+      for (int i = 0; i < DH; i += 8) {
+        float f[8];
+        load8(vr + i, f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[i + e] = acc[i + e] * corr + p * f[e];
+      }
+      m = m_new;
+    }
+    const float inv = 1.f / l;
+    float* dst = view.out_row(b, h, frame_row0 + qi);
+#pragma unroll
+    for (int i = 0; i < DH; i += 8) {
+      float o[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) o[e] = acc[i + e] * inv;
+      store8(dst + i, o);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // CLS global row of H1 and H9 (H2 folds its CLS query into the space core,
-// whose T partials cls_combine_kernel merges too): one query per (b, h) over
+// whose T partials cls_combine_kernel merges too; E: the element type of q,
+// k, v and the output, bf16 or f32 for H9): one query per (b, h) over
 // L keys. The TPU kernels carry the online-softmax state across sequential
 // grid steps; CUDA blocks run in no order, so this is split-KV: each block
 // writes a partial (m, l, acc[DH]) in f32 for its chunk of keys, and
@@ -511,10 +611,10 @@ __global__ void __launch_bounds__(SP_WARPS * 32, 2)
 // ---------------------------------------------------------------------------
 constexpr int CLS_CHUNK = 128;
 
-template <int DH>
+template <int DH, typename E = bf16>
 __global__ void __launch_bounds__(CLS_CHUNK)
-    cls_partial_kernel(const bf16* __restrict__ q, i64 q_bstride, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, i64 kv_bstride, i64 kv_rstride, int L,
+    cls_partial_kernel(const E* __restrict__ q, i64 q_bstride, const E* __restrict__ k,
+                       const E* __restrict__ v, i64 kv_bstride, i64 kv_rstride, int L,
                        int H, float scale, float* __restrict__ partial) {
   __shared__ float sq[DH];
   __shared__ float sp[CLS_CHUNK];
@@ -522,23 +622,21 @@ __global__ void __launch_bounds__(CLS_CHUNK)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, nC = gridDim.x;
   for (int i = tid; i < DH; i += CLS_CHUNK)
-    sq[i] = __bfloat162float(q[(i64)b * q_bstride + h * DH + i]) * scale;
+    sq[i] = to_f32(q[(i64)b * q_bstride + h * DH + i]) * scale;
   __syncthreads();
 
   const int j = c * CLS_CHUNK + tid;
   float logit = -INFINITY;
   if (j < L) {
-    const bf16* kr = k + (i64)b * kv_bstride + (i64)j * kv_rstride + h * DH;
+    const E* kr = k + (i64)b * kv_bstride + (i64)j * kv_rstride + h * DH;
     float dot = 0.f;
 #pragma unroll
     for (int i = 0; i < DH; i += 8) {
-      uint4 u = *reinterpret_cast<const uint4*>(kr + i);
-      const __nv_bfloat162* hv = reinterpret_cast<const __nv_bfloat162*>(&u);
+      float f[8];
+      load8(kr + i, f);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(hv[e]);
-        dot += sq[i + 2 * e] * f.x + sq[i + 2 * e + 1] * f.y;
-      }
+      for (int e = 0; e < 4; ++e)
+        dot += sq[i + 2 * e] * f[2 * e] + sq[i + 2 * e + 1] * f[2 * e + 1];
     }
     logit = dot;
   }
@@ -558,9 +656,9 @@ __global__ void __launch_bounds__(CLS_CHUNK)
   float* out = partial + (((i64)b * H + h) * nC + c) * (DH + 2);
   const int nj = min(CLS_CHUNK, L - c * CLS_CHUNK);
   for (int i = tid; i < DH; i += CLS_CHUNK) {
-    const bf16* vc = v + (i64)b * kv_bstride + (i64)c * CLS_CHUNK * kv_rstride + h * DH + i;
+    const E* vc = v + (i64)b * kv_bstride + (i64)c * CLS_CHUNK * kv_rstride + h * DH + i;
     float acc = 0.f;
-    for (int jj = 0; jj < nj; ++jj) acc += sp[jj] * __bfloat162float(vc[(i64)jj * kv_rstride]);
+    for (int jj = 0; jj < nj; ++jj) acc += sp[jj] * to_f32(vc[(i64)jj * kv_rstride]);
     out[2 + i] = acc;
   }
   if (tid == 0) {
@@ -571,9 +669,9 @@ __global__ void __launch_bounds__(CLS_CHUNK)
   }
 }
 
-template <int DH>
+template <int DH, typename E = bf16>
 __global__ void cls_combine_kernel(const float* __restrict__ partial, int nC, int H,
-                                   bf16* __restrict__ out, i64 out_bstride,
+                                   E* __restrict__ out, i64 out_bstride,
                                    float* __restrict__ lse, int lse_S) {
   const int h = blockIdx.x, b = blockIdx.y, i = threadIdx.x;
   const float* p = partial + ((i64)b * H + h) * nC * (DH + 2);
@@ -585,7 +683,7 @@ __global__ void cls_combine_kernel(const float* __restrict__ partial, int nC, in
     lsum += w * p[c * (DH + 2) + 1];
     acc += w * p[c * (DH + 2) + 2 + i];
   }
-  out[(i64)b * out_bstride + h * DH + i] = __float2bfloat16(acc / lsum);
+  store1(out + (i64)b * out_bstride + h * DH + i, acc / lsum);
   if (lse && i == 0) lse[((i64)b * H + h) * lse_S] = mx + __logf(lsum);
 }
 

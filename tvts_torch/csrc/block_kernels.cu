@@ -16,14 +16,14 @@ using tvts::i64;
 // Launchers of the attention cores, packed (H1 / H2) and strided (H9).
 namespace {
 
-template <int DH, bool STRIDED>
-tvts::CoreAddr<DH, STRIDED> core_view(const void* q, const void* k, const void* v, void* out,
-                                      int H, int S, const i64* strides) {
-  tvts::CoreAddr<DH, STRIDED> view;
-  view.q = (const bf16*)q;
-  view.k = (const bf16*)k;
-  view.v = (const bf16*)v;
-  view.o = (bf16*)out;
+template <int DH, bool STRIDED, typename E = bf16>
+tvts::CoreAddr<DH, STRIDED, E> core_view(const void* q, const void* k, const void* v, void* out,
+                                         int H, int S, const i64* strides) {
+  tvts::CoreAddr<DH, STRIDED, E> view;
+  view.q = (const E*)q;
+  view.k = (const E*)k;
+  view.v = (const E*)v;
+  view.o = (E*)out;
   view.H = H;
   view.S = S;
   for (int i = 0; i < 3; ++i) {
@@ -35,20 +35,36 @@ tvts::CoreAddr<DH, STRIDED> core_view(const void* q, const void* k, const void* 
   return view;
 }
 
-template <int DH, bool STRIDED>
+template <int DH, bool STRIDED, typename E = bf16>
 cudaError_t launch_time_core(const void* q, const void* k, const void* v, void* out, void* lse,
                              const i64* strides, int B, int T, int N, int H, float scale,
                              cudaStream_t s) {
   const int HG = tvts::time_core_heads(T, H);
-  const size_t smem = tvts::time_core_smem(T, HG, DH);
+  const size_t smem = tvts::time_core_smem(T, HG, DH, sizeof(E));
   cudaError_t err =
-      cudaFuncSetAttribute(tvts::time_core_kernel<DH, STRIDED>,
+      cudaFuncSetAttribute(tvts::time_core_kernel<DH, STRIDED, E>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int threads = (T * HG + 31) / 32 * 32;
-  tvts::time_core_kernel<DH, STRIDED><<<dim3(N, B, (H + HG - 1) / HG), threads, smem, s>>>(
-      core_view<DH, STRIDED>(q, k, v, out, H, 1 + T * N, strides), (float*)lse, T, N, HG,
+  tvts::time_core_kernel<DH, STRIDED, E><<<dim3(N, B, (H + HG - 1) / HG), threads, smem, s>>>(
+      core_view<DH, STRIDED, E>(q, k, v, out, H, 1 + T * N, strides), (float*)lse, T, N, HG,
       scale);
+  return cudaGetLastError();
+}
+
+// H9's space core on f32 q, k, v (space_core_f32_kernel): patch rows only
+template <int DH>
+cudaError_t launch_space_core_f32(const void* q, const void* k, const void* v, void* out,
+                                  const i64* strides, int B, int T, int N, int H, float scale,
+                                  cudaStream_t s) {
+  const size_t smem = tvts::space_core_f32_smem(N, DH);
+  if (smem > (size_t)tvts::SMEM_OPTIN) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(tvts::space_core_f32_kernel<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int threads = std::min(tvts::SPF_MAX_THREADS, (N + 31) / 32 * 32);
+  tvts::space_core_f32_kernel<DH><<<dim3(B * T, H), threads, smem, s>>>(
+      core_view<DH, true, float>(q, k, v, out, H, 1 + T * N, strides), T, N, scale);
   return cudaGetLastError();
 }
 
@@ -72,11 +88,42 @@ cudaError_t launch_space_core(const void* q, const void* k, const void* v, void*
   return cudaGetLastError();
 }
 
-// 12 element strides (batch, head, row of q, k, v, out): rows 16-byte aligned
-bool strides_ok(const i64* st) {
+// 12 element strides (batch, head, row of q, k, v, out) of `elem`-byte
+// elements: rows 16-byte aligned
+bool strides_ok(const i64* st, int elem) {
   for (int i = 0; i < 12; ++i)
-    if (st[i] % 8) return false;
+    if (st[i] * elem % 16) return false;
   return true;
+}
+
+template <int DH>
+cudaError_t launch_core_strided(const void* q, const void* k, const void* v, void* out,
+                                const i64* strides, int B, int T, int N, int H, float scale,
+                                int space, int f32, cudaStream_t s) {
+  if (f32)
+    return space ? launch_space_core_f32<DH>(q, k, v, out, strides, B, T, N, H, scale, s)
+                 : launch_time_core<DH, true, float>(q, k, v, out, nullptr, strides, B, T, N,
+                                                     H, scale, s);
+  return space ? launch_space_core<DH, true>(q, k, v, out, nullptr, nullptr, strides, B, T, N,
+                                             H, scale, s)
+               : launch_time_core<DH, true>(q, k, v, out, nullptr, strides, B, T, N, H, scale,
+                                            s);
+}
+
+template <int DH, typename E>
+cudaError_t launch_cls_attention(const void* q, i64 q_bstride, const void* k, const void* v,
+                                 i64 kv_bstride, i64 kv_rstride, int L, void* out,
+                                 i64 out_bstride, void* partial, void* lse, int B, int H,
+                                 float scale, cudaStream_t s) {
+  const int nC = (L + tvts::CLS_CHUNK - 1) / tvts::CLS_CHUNK;
+  tvts::cls_partial_kernel<DH, E><<<dim3(nC, H, B), tvts::CLS_CHUNK, 0, s>>>(
+      (const E*)q, q_bstride, (const E*)k, (const E*)v, kv_bstride, kv_rstride, L, H, scale,
+      (float*)partial);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  tvts::cls_combine_kernel<DH, E><<<dim3(H, B), DH, 0, s>>>((const float*)partial, nC, H,
+                                                             (E*)out, out_bstride, (float*)lse, L);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -163,57 +210,39 @@ int tvts_space_core(const void* qkv, void* out, void* lse, void* cls_partial, in
 // The attention cores on their own (H9): the patch rows of out from separate
 // q, k, v of logical shape [B, H, 1 + T*N, dh], each addressed by its element
 // strides (batch, head, row); strides: 12 values for q, k, v, out in that
-// order, multiples of 8. space != 0: the space core, else the time core. The
-// logits are scaled by `scale` (1 for a pre-scaled q).
+// order, rows 16-byte aligned. space != 0: the space core, else the time
+// core; f32 != 0: f32 elements, else bf16. The logits are scaled by `scale`
+// (1 for a pre-scaled q).
 int tvts_attention_core_strided(const void* q, const void* k, const void* v, void* out,
                                 const i64* strides, int B, int T, int N, int H, int dh,
-                                float scale, int space, void* stream) {
-  if (!strides_ok(strides) || (!space && (T < 1 || T > 32))) return (int)cudaErrorInvalidValue;
+                                float scale, int space, int f32, void* stream) {
+  if (!strides_ok(strides, f32 ? 4 : 2) || (!space && (T < 1 || T > 32)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dh == 64)
-    return (int)(space ? launch_space_core<64, true>(q, k, v, out, nullptr, nullptr, strides, B,
-                                                     T, N, H, scale, s)
-                       : launch_time_core<64, true>(q, k, v, out, nullptr, strides, B, T, N, H,
-                                                    scale, s));
+    return (int)launch_core_strided<64>(q, k, v, out, strides, B, T, N, H, scale, space, f32, s);
   if (dh == 80)
-    return (int)(space ? launch_space_core<80, true>(q, k, v, out, nullptr, nullptr, strides, B,
-                                                     T, N, H, scale, s)
-                       : launch_time_core<80, true>(q, k, v, out, nullptr, strides, B, T, N, H,
-                                                    scale, s));
+    return (int)launch_core_strided<80>(q, k, v, out, strides, B, T, N, H, scale, space, f32, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // CLS global row: out[b, h*dh:(h+1)*dh] = softmax(q_b,h . k_b,h,j * scale) @ v over
 // j < L. Row j of batch b sits at k + b*kv_bstride + j*kv_rstride (v alike).
 // partial: f32 scratch [B, H, ceil(L / 128), dh + 2]. lse != NULL: the row's
-// log-sum-exp into lse[b, h, 0] of an lse [B, H, L] (training save).
+// log-sum-exp into lse[b, h, 0] of an lse [B, H, L] (training save). f32 != 0:
+// q, k, v and out are f32 (H9), else bf16.
 int tvts_cls_attention(const void* q, i64 q_bstride, const void* k, const void* v,
                        i64 kv_bstride, i64 kv_rstride, int L, void* out, i64 out_bstride,
-                       void* partial, void* lse, int B, int H, int dh, float scale,
+                       void* partial, void* lse, int B, int H, int dh, float scale, int f32,
                        void* stream) {
-  const int nC = (L + tvts::CLS_CHUNK - 1) / tvts::CLS_CHUNK;
-  dim3 grid(nC, H, B);
   cudaStream_t s = (cudaStream_t)stream;
-  if (dh == 64) {
-    tvts::cls_partial_kernel<64><<<grid, tvts::CLS_CHUNK, 0, s>>>(
-        (const bf16*)q, q_bstride, (const bf16*)k, (const bf16*)v, kv_bstride, kv_rstride, L,
-        H, scale, (float*)partial);
-  } else if (dh == 80) {
-    tvts::cls_partial_kernel<80><<<grid, tvts::CLS_CHUNK, 0, s>>>(
-        (const bf16*)q, q_bstride, (const bf16*)k, (const bf16*)v, kv_bstride, kv_rstride, L,
-        H, scale, (float*)partial);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (dh == 64)
-    tvts::cls_combine_kernel<64><<<dim3(H, B), 64, 0, s>>>(
-        (const float*)partial, nC, H, (bf16*)out, out_bstride, (float*)lse, L);
-  else
-    tvts::cls_combine_kernel<80><<<dim3(H, B), 80, 0, s>>>(
-        (const float*)partial, nC, H, (bf16*)out, out_bstride, (float*)lse, L);
-  return (int)cudaGetLastError();
+#define TVTS_CLS(D, E)                                                                        \
+  launch_cls_attention<D, E>(q, q_bstride, k, v, kv_bstride, kv_rstride, L, out, out_bstride, \
+                             partial, lse, B, H, scale, s)
+  if (dh == 64) return (int)(f32 ? TVTS_CLS(64, float) : TVTS_CLS(64, bf16));
+  if (dh == 80) return (int)(f32 ? TVTS_CLS(80, float) : TVTS_CLS(80, bf16));
+#undef TVTS_CLS
+  return (int)cudaErrorInvalidValue;
 }
 
 // Self-attention of out [B, S, H*dh] from qkv [B, S, 3*H*dh] (H7 core), causal

@@ -99,4 +99,31 @@ __device__ __forceinline__ uint4 pack_bf16x8(const float (&f)[8]) {
                     pack_bf16x2(f[6], f[7]));
 }
 
+// Kernels that take bf16 or f32 elements (the H9 cores): eight elements at a
+// 16-byte aligned address to f32 (bf16: one vector, exactly; f32: two), and
+// back (bf16 rounded to nearest); one element to and from f32.
+__device__ __forceinline__ void load8(const bf16* p, float (&f)[8]) {
+  unpack_bf16x8(*reinterpret_cast<const uint4*>(p), f);
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+__device__ __forceinline__ void store8(bf16* p, const float (&f)[8]) {
+  *reinterpret_cast<uint4*>(p) = pack_bf16x8(f);
+}
+
+__device__ __forceinline__ void store8(float* p, const float (&f)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(f[0], f[1], f[2], f[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
+}
+
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ void store1(bf16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+
 }  // namespace tvts

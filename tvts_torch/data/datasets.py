@@ -49,6 +49,7 @@ import numpy as np
 
 from tvts_torch.data import video_reader
 from tvts_torch.data.transforms import video_transform
+from tvts_torch.data.ytt import YTTemporal
 
 # read_csv's default missing-value strings
 _NA_VALUES = frozenset({
@@ -496,20 +497,22 @@ DATASET_REGISTRY = {
     "HMDB51": HMDB51,
     "UCF101": UCF101,
     "SSV2_mc": SSV2_mc,
+    "YTTemporal": YTTemporal,
 }
-# datasets of the JAX package's registry that this package does not read yet
+# datasets of the JAX package's registry that this package does not read yet:
+# name -> (the JAX reader, the ROADMAP.md item that ports it)
 NOT_PORTED = {
-    "YTTemporal": "tvts_tpu/data/ytt.py (with data/asr.py)",
-    "ConceptualCaptions3M": "tvts_tpu/data/image_datasets.py",
+    "ConceptualCaptions3M": ("tvts_tpu/data/image_datasets.py", "M4"),
 }
 
 
 def dataset_loader(dataset_name: str, *args, **kwargs):
     """Name -> dataset (reference data_loader.py:15-68)."""
     if dataset_name in NOT_PORTED:
+        reader, item = NOT_PORTED[dataset_name]
         raise NotImplementedError(
-            f"dataset {dataset_name} is not ported yet: its JAX reader is "
-            f"{NOT_PORTED[dataset_name]}; ROADMAP.md item M2 ports it")
+            f"dataset {dataset_name} is not ported yet: its JAX reader is {reader}; "
+            f"ROADMAP.md item {item} ports it")
     if dataset_name not in DATASET_REGISTRY:
         raise NotImplementedError(f"dataset {dataset_name} not implemented")
     return DATASET_REGISTRY[dataset_name](dataset_name, *args, **kwargs)

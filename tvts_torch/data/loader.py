@@ -10,17 +10,29 @@ Collation is torch's default collate for the shapes used here: arrays stack
 along a new batch axis; a per-sample list of strings turns clip-major
 ([clip][batch]), which is what the reference trainer's text concatenation
 expects (trainer.py:465-472).
+
+Scheduling: the JAX package makes a whole batch one worker's task. Here an
+item is a task, for the threads and for the fork pool alike, with up to
+`prefetch` batches' worth of items in flight, and each batch is collated from
+its items in index order: the batches hold the items of `num_workers=0` in
+the same order (an item that draws from Python's shared `random` state
+draws what the scheduling hands it, as across batches in both packages).
 """
 
 from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
+import itertools
 import multiprocessing as mp
 import os
 import random
 
 import numpy as np
+
+# seconds the fork pool waits for one item: a worker that crashed (its task
+# lost) or deadlocked raises here instead of hanging the consumer
+PROC_ITEM_TIMEOUT_S = 600
 
 
 def default_collate(samples: list[dict]) -> dict:
@@ -133,49 +145,44 @@ class ShardedLoader:
         batches = [idx[i * self.batch_size:(i + 1) * self.batch_size] for i in range(len(self))]
         if not batches:
             return
-
-        def load(batch_idx):
-            return self.collate([self.dataset[int(i)] for i in batch_idx])
-
         if self.num_workers <= 0:
             for b in batches:
-                yield load(b)
+                yield self.collate([self.dataset[int(i)] for i in b])
             return
-
         if self.use_processes:
             yield from self._iter_processes(batches)
             return
-
-        # a batch a task: at most `prefetch` batches load ahead of the consumer
         with cf.ThreadPoolExecutor(max_workers=self.num_workers) as pool:
-            pending = collections.deque()
-            it = iter(batches)
-            for _ in range(min(self.prefetch, len(batches))):
-                pending.append(pool.submit(load, next(it)))
-            for b in it:
-                done = pending.popleft()
-                pending.append(pool.submit(load, b))
-                yield done.result()
-            while pending:
-                yield pending.popleft().result()
+            yield from self._pipelined(batches, lambda i: pool.submit(self.dataset.__getitem__, i),
+                                       cf.Future.result)
+
+    def _pipelined(self, batches, submit, result):
+        """The collated batches, from items submitted one a task in index
+        order, at most `prefetch` batches' worth of them in flight: each item
+        taken frees a slot for the next."""
+        items = (int(i) for b in batches for i in b)
+        pending = collections.deque(
+            submit(i) for i in itertools.islice(items, max(1, self.prefetch) * self.batch_size))
+        for b in batches:
+            samples = []
+            for _ in range(len(b)):
+                samples.append(result(pending.popleft()))
+                i = next(items, None)
+                if i is not None:
+                    pending.append(submit(i))
+            yield self.collate(samples)
 
     def _iter_processes(self, batches):
         """A pool of forked worker processes (the JAX package's, for decode and
         transforms that hold the interpreter lock): workers inherit the dataset,
-        a task is a batch's items, collation stays here."""
+        a task is an item, collation stays here. A worker touches nothing of
+        the parent but the dataset (no CUDA, no torch)."""
         ctx = mp.get_context("fork")
         with ctx.Pool(processes=self.num_workers, initializer=_proc_init,
                       initargs=(self.dataset,)) as pool:
-            pending = collections.deque()
-            it = iter(batches)
-            for _ in range(min(self.prefetch + 1, len(batches))):
-                pending.append(pool.apply_async(_proc_load, (next(it),)))
-            for b in it:
-                done = pending.popleft()
-                pending.append(pool.apply_async(_proc_load, (b,)))
-                yield self.collate(done.get())
-            while pending:
-                yield self.collate(pending.popleft().get())
+            yield from self._pipelined(
+                batches, lambda i: pool.apply_async(_proc_item, (i,)),
+                lambda r: r.get(timeout=PROC_ITEM_TIMEOUT_S))
 
 
 _PROC_DATASET = None
@@ -190,5 +197,5 @@ def _proc_init(dataset):
     np.random.seed(int.from_bytes(os.urandom(4), "little"))
 
 
-def _proc_load(batch_idx):
-    return [_PROC_DATASET[int(i)] for i in batch_idx]
+def _proc_item(i):
+    return _PROC_DATASET[i]

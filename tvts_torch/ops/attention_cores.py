@@ -20,9 +20,18 @@ leaves to XLA as `full_attention`. Bound on the H100: bytes (q, k, v read and
 the output written once; 4 * d flops per (query, key) pair is far below the
 tensor-core line at 13 to 257 keys per query).
 
+f32 (as the JAX function takes it): the same time core and CLS row with f32
+loads and the same f32 arithmetic, and a space core of its own
+(csrc/attention.cuh::space_core_f32_kernel: SIMT f32 FMA, since the bf16
+core's mma.sync takes bf16 fragments and TF32 would round the products; the
+frame's keys and values staged in f32, which bounds N: `space_core_f32_smem`).
+Bound on the H100: the f32 FMA rate for the space core (3 d FMAs a (query, key)
+pair at up to 257 keys a query), bytes for the time core.
+
 Dispatch as in block_kernels: the plain version on a CPU tensor, the kernels
-(bf16; d 64 or 80; T <= 32 for the time core) on a CUDA tensor, or raise.
-`.launches` counts the calls that ran the kernels on the card.
+(q, k and v all bf16 or all f32; d 64 or 80; T <= 32 for the time core) on a
+CUDA tensor, or raise. `.launches` counts the calls that ran the kernels on
+the card, `.f32_launches` those of them in f32.
 """
 
 from __future__ import annotations
@@ -33,6 +42,25 @@ import torch
 
 from tvts_torch.ops import block_kernels as bk
 from tvts_torch.ops.attention import divided_space_time_attention
+
+DTYPES = (torch.bfloat16, torch.float32)
+
+
+def space_core_f32_smem(N: int, d: int) -> int:
+    """Shared memory of an f32 space-core block (csrc/attention.cuh): the
+    frame's 1 + N key and value rows in f32."""
+    return 2 * (N + 1) * d * 4
+
+
+def _check_space_frame_f32(N: int, d: int) -> None:
+    """Raise ValueError when a frame of N patches does not fit an f32
+    space-core block."""
+    if space_core_f32_smem(N, d) > bk.SMEM_OPTIN:
+        n_max = bk.SMEM_OPTIN // (8 * d) - 1
+        raise ValueError(f"{N} patches a frame at head dim {d} in f32: the space core stages a "
+                         f"frame's {N + 1} key and value rows in shared memory "
+                         f"({space_core_f32_smem(N, d)} bytes); at most {n_max} patches fit the "
+                         f"{bk.SMEM_OPTIN} bytes a block may take")
 
 
 def _cls_fold(t: torch.Tensor, name: str) -> tuple[bool, int]:
@@ -57,6 +85,9 @@ def divided_space_time_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torc
     q pre-scaled by 1/sqrt(d). Returns [B, H, S, d] (laid out as q is)."""
     if mode not in ("space", "time"):
         raise ValueError(f"unknown mode {mode!r}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k and v must be all bf16 or all f32, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
     if not bk._dispatch(q):
         return divided_space_time_attention(q, k, v, num_frames, patches_per_frame, mode)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -71,13 +102,16 @@ def divided_space_time_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torc
         raise ValueError(f"head dim {d}: the kernels take 64 or 80")
     if mode == "time" and not 1 <= T <= 32:
         raise ValueError(f"{T} frames: the time core takes 1..32")
+    f32 = q.dtype == torch.float32
     if mode == "space":
-        bk._check_space_frame(N, d)
+        (_check_space_frame_f32 if f32 else bk._check_space_frame)(N, d)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != torch.bfloat16 or t.shape != q.shape:
-            raise TypeError(f"{name}: the kernels take bf16 tensors of one shape on one card, "
-                            f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:-1]):
+        if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape:
+            raise TypeError(f"{name}: the kernels take q, k and v of one shape on one card, "
+                            f"got {tuple(t.shape)} on {t.device} beside q {tuple(q.shape)} on "
+                            f"{q.device}")
+        if t.stride(-1) != 1 or t.data_ptr() % 16 or \
+                any(s * t.element_size() % 16 for s in t.stride()[:-1]):
             raise ValueError(f"{name}: rows must be contiguous and 16-byte aligned "
                              f"(strides {t.stride()})")
     if k.stride() != v.stride():
@@ -93,13 +127,15 @@ def divided_space_time_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torc
     with torch.cuda.device(q.device):
         bk._check(lib, lib.tvts_attention_core_strided(
             bk._ptr(q), bk._ptr(k), bk._ptr(v), bk._ptr(out), strides, B, T, N, H, d, 1.0,
-            int(mode == "space"), bk._stream(q)))
+            int(mode == "space"), int(f32), bk._stream(q)))
         # the CLS query over every token (full_attention in the JAX package)
         _, o_bs = _cls_fold(out, "out")
         bk._cls_row(lib, q, q_bs, k, v, kv_bs, k.stride(2), S, out, o_bs,
                     1 if folded else H, d, scale=1.0, batch=B * H if folded else B)
     divided_space_time_attention_fused.launches += 1
+    divided_space_time_attention_fused.f32_launches += f32
     return out
 
 
 divided_space_time_attention_fused.launches = 0
+divided_space_time_attention_fused.f32_launches = 0

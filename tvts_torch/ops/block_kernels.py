@@ -161,8 +161,9 @@ def library() -> ctypes.CDLL:
         "tvts_space_core": [p, p, p, p, i, i, i, i, i, f, p],
         "tvts_cls_only": [p, i, i, i, i, p, p, f, p, p, p, p, p, p, p, p, p, p, p, i, i,
                           p],
-        "tvts_attention_core_strided": [p, p, p, p, ctypes.POINTER(i64), i, i, i, i, i, f, i, p],
-        "tvts_cls_attention": [p, i64, p, p, i64, i64, i, p, i64, p, p, i, i, i, f, p],
+        "tvts_attention_core_strided": [p, p, p, p, ctypes.POINTER(i64), i, i, i, i, i, f, i, i,
+                                        p],
+        "tvts_cls_attention": [p, i64, p, p, i64, i64, i, p, i64, p, p, i, i, i, f, i, p],
         "tvts_text_core": [p, p, p, i, i, i, i, f, i, i, p],
         "tvts_text_core_bwd": [p, p, p, p, p, p, p, i, i, i, i, i, f, i, i, p],
         # training backward
@@ -285,7 +286,8 @@ def _cls_row(lib, q, q_bstride, k, v, kv_bstride, kv_rstride, n_keys, out, out_b
     """Split-KV CLS global row: out[b] = softmax(q[b] k[b]^T * scale) v[b]
     (scale 1/sqrt(d) unless given); head h of a row sits at offset h * d.
     With `lse` [B, H, n_keys] the row's log-sum-exp goes to lse[:, :, 0].
-    `batch` overrides q.shape[0] as the number of batches."""
+    `batch` overrides q.shape[0] as the number of batches. q, k, v and out
+    are bf16, or f32 (H9 in f32)."""
     B = q.shape[0] if batch is None else batch
     n_chunks = -(-n_keys // 128)
     partial = torch.empty(B, num_heads, n_chunks, head_dim + 2, dtype=torch.float32,
@@ -293,7 +295,8 @@ def _cls_row(lib, q, q_bstride, k, v, kv_bstride, kv_rstride, n_keys, out, out_b
     _check(lib, lib.tvts_cls_attention(
         _ptr(q), q_bstride, _ptr(k), _ptr(v), kv_bstride, kv_rstride, n_keys, _ptr(out),
         out_bstride, _ptr(partial), _ptr(lse), B, num_heads, head_dim,
-        head_dim ** -0.5 if scale is None else scale, _stream(q)))
+        head_dim ** -0.5 if scale is None else scale, int(q.dtype == torch.float32),
+        _stream(q)))
 
 
 # ---------------------------------------------------------------------------
