@@ -28,8 +28,10 @@ their times):
    gelu); H9 (the attention cores on q, k, v) space and time at (N=196,
    d=64), (N=49, d=64), (N=256, d=80), in bf16 and in f32 (the f32 kernels
    against plain f32). Forwards within BAND (H9 within min(BAND, 0.02 *
-   max|ref|), and no farther from plain in f32 than plain in bf16 is), each
-   gradient tensor within 0.06 * max|ref| of the plain backward;
+   max|ref|), and no farther from plain in f32 than plain in bf16 is; H9 in
+   f32 within F32_BAND = 1e-4 * max|ref|, which a TF32 and a bf16-staged
+   control must each fail), each gradient tensor within 0.06 * max|ref| of
+   the plain backward;
    the space core's CLS row (f32 P V) within half a bf16 unit of plain;
 4. extraction main path: build_model("TVTSv2_B_16") with seeded weights (noise
    on every leaf of both towers), extract_embeddings over 3 batches of 8
@@ -37,8 +39,10 @@ their times):
    12/11/11/1 per forward; pooled cosine against the eager tower in bf16 and
    in f32; extract_video_feature; then the eager tower built with
    use_pallas=True (12 H9 space launches a forward) against the same tower
-   without it, in bf16 and in f32 (cosine >= 0.995 and max|diff| to the f32
-   tower; 12 f32 H9 launches a forward);
+   without it, in bf16 and in f32 (cosine >= 0.995 and max|diff| within
+   F32_TOWER_BAND = 1e-5 * max|ref| of the f32 tower, which the tower with
+   H9 as the TF32 or bf16-staged control must each fail; 12 f32 H9 launches
+   a forward);
 5. zero-shot main path, kernels on both towers: run_retrieval over 21
    clip-caption pairs in batches of 8, run_recognition over a few class
    names, run_ssv2_mc with a few options per clip; 11 H7 launches per text
@@ -191,6 +195,13 @@ BAND = 0.05
 # kernel to plain's rounding)
 CORE_BAND = 0.02
 COS_BF16, COS_F32 = 0.999, 0.995
+# H9 in f32 against plain f32, max|diff| over max|ref|. The cores alone: f32
+# sums in another order lie ~1e-6 from plain, while a kernel that reads q, k,
+# v as TF32 (a TF32 mma) lies >= 4e-4 from it and one that stages k, v in
+# bf16 >= 3e-3. Phase 4's f32 tower (pooled output) damps all three: ~1.6e-6,
+# ~4.7e-5 and ~2.5e-4 on the H100. Each run holds both controls above its
+# band (f32_controls, f32_tower_controls), so each band tells f32 from either
+F32_BAND, F32_TOWER_BAND = 1e-4, 1e-5
 REPLACES = {
     "fused_time_block": "tvts_tpu/ops/pallas_block_attention.py:2456",
     "fused_space_block": "tvts_tpu/ops/pallas_block_attention.py:2964",
@@ -399,9 +410,9 @@ def divided_mask(T: int, N: int, mode: str, device) -> torch.Tensor:
 
 def core_f32_check(ac, qkv32, T: int, N: int, mode: str) -> tuple[float, float, float, float]:
     """H9 on f32 q, k, v against plain f32 (full-f32 products): (max|diff|,
-    max|ref|, the band min(BAND, CORE_BAND * max|ref|), and how far plain on
-    the bf16-rounded inputs lies from plain f32, which the kernel may not
-    pass)."""
+    max|ref|, the band F32_BAND * max|ref| (inside min(BAND, CORE_BAND *
+    max|ref|)), and how far plain on the bf16-rounded inputs lies from plain
+    f32, which the kernel may not pass either)."""
     from tvts_torch.ops.attention import divided_space_time_attention
 
     with no_tf32():
@@ -411,7 +422,33 @@ def core_f32_check(ac, qkv32, T: int, N: int, mode: str) -> tuple[float, float, 
     if got.dtype != torch.float32:
         raise AssertionError(f"H9 f32 returned {got.dtype}")
     diff, ref, tol = core_band_check(got, want)
-    return diff, ref, tol, (plain16.float() - want).abs().max().item()
+    return diff, ref, min(tol, F32_BAND * ref), (plain16.float() - want).abs().max().item()
+
+
+def round_tf32(t: torch.Tensor) -> torch.Tensor:
+    """f32 t rounded to TF32 (10 mantissa bits, to nearest): what a TF32 mma
+    reads of an f32 operand."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+# what two kernels that are not f32 would read of f32 q, k, v: a TF32 mma
+# (its P V operand's rounding would only add to that), and one staging k and
+# v in bf16
+F32_CONTROLS = {
+    "TF32 q, k, v": lambda q, k, v: (round_tf32(q), round_tf32(k), round_tf32(v)),
+    "bf16-staged k, v": lambda q, k, v: (q, k.bfloat16().float(), v.bfloat16().float()),
+}
+
+
+def f32_controls(qkv32, T: int, N: int, mode: str) -> dict:
+    """max|diff| to plain f32 of plain on what each F32_CONTROLS kernel reads."""
+    from tvts_torch.ops.attention import divided_space_time_attention as plain
+
+    with no_tf32():
+        want = plain(*qkv32, T, N, mode)
+        return {name: (plain(*read(*qkv32), T, N, mode) - want).abs().max().item()
+                for name, read in F32_CONTROLS.items()}
 
 
 def core_band_check(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, float]:
@@ -823,8 +860,8 @@ def time_steps(tag: str, label: str, train: dict, apply_fn, batch, card: str,
 
 # sessions of torch.profiler that may record no device activity (seen on the
 # card now and then, twice in a row once, six in a row once) before a
-# measurement gives up; the waits between them double from 0.5 s
-PROFILE_ATTEMPTS = 6
+# measurement fails; the waits between them double from 0.5 s up to 8 s
+PROFILE_ATTEMPTS = 10
 
 
 def _profile(fn, iters: int = 1):
@@ -850,7 +887,7 @@ def _profile(fn, iters: int = 1):
             return prof, wall
         unread.append("no device activity" if not counts else
                       f"lost kernels {({k: c for k, c in counts.items() if c % iters})}")
-        time.sleep(0.5 * 2 ** attempt)
+        time.sleep(min(8.0, 0.5 * 2 ** attempt))
     print(f"torch.profiler: {PROFILE_ATTEMPTS} sessions unread: {unread}")
     return None, wall
 
@@ -1303,15 +1340,11 @@ def ln_gemm_table(dev, card: str, bk) -> list[dict]:
 def device_ms(fn, iters: int = 10) -> float:
     """Device time of fn's CUDA kernels per call (torch.profiler), after a
     warm-up: the host's launch overhead, which CUDA events around a short
-    function would count, left out. Where the profiler cannot read it
-    (_profile), CUDA events around `iters` calls instead, said in a line."""
+    function would count, left out. Fails when the profiler cannot read it
+    (_profile_or_raise): a kernel line's times are all of this one kind."""
     for _ in range(2):
         fn()
-    prof, _ = _profile(lambda: [fn() for _ in range(iters)], iters)
-    if prof is None:
-        ms = cuda_ms(fn, iters=iters)
-        print(f"device_ms: timed with CUDA events instead, launch gaps included: {ms:.4f} ms")
-        return ms
+    prof, _ = _profile_or_raise(lambda: [fn() for _ in range(iters)], iters)
     host = _host_keys(prof)
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
@@ -2058,11 +2091,41 @@ def use_pallas_phase(tag: str, ext: dict, dev, bk, bb, ta) -> dict:
             print(f"[{tag}] use_pallas=True (bf16) vs the f32 tower: min cosine {c32:.6f} "
                   f"(>= {COS_F32})")
             ok = ok and c32 >= COS_F32
+        else:
+            tol = F32_TOWER_BAND * float(np.abs(ext[ref]).max())
+            controls = f32_tower_controls(model, loader, ext[ref])
+            print(f"[{tag}] use_pallas=True (f32): max|diff| {diff:.3e} <= {tol:.3e} "
+                  f"({F32_TOWER_BAND} * max|ref|); the tower with H9 as a control that is not f32, "
+                  "above it: " + ", ".join(f"{k} {c:.3e}" for k, c in controls.items()))
+            if min(controls.values()) <= tol:
+                raise AssertionError(f"a control that is not f32 passes the f32 tower's band "
+                                     f"{tol}: {controls}")
+            ok = ok and diff <= tol
         if not ok:
             raise AssertionError(f"the use_pallas tower ({label}) disagrees with the plain "
                                  "eager tower")
         out[name if label == "bf16" else f"{name} (f32)"] = launches[name]
         del model
+    return out
+
+
+def f32_tower_controls(model, loader, want: np.ndarray) -> dict:
+    """max|diff| to `want` of the f32 use_pallas tower's pooled output with
+    its H9 calls computed as each F32_CONTROLS kernel would."""
+    from tvts_torch.eval.embed import extract_embeddings
+    from tvts_torch.ops import attention_cores as ac
+    from tvts_torch.ops.attention import divided_space_time_attention as plain
+
+    kernel, out = ac.divided_space_time_attention_fused, {}
+    try:
+        for name, read in F32_CONTROLS.items():
+            ac.divided_space_time_attention_fused = \
+                lambda q, k, v, T, N, mode, read=read: plain(*read(q, k, v), T, N, mode)
+            with no_tf32():
+                got = extract_embeddings(model, loader, use_fused=False)["video"]
+            out[name] = float(np.abs(got - want).max())
+    finally:
+        ac.divided_space_time_attention_fused = kernel
     return out
 
 
@@ -2284,12 +2347,17 @@ def parity_phase(dev, bk, bb, ta, ac) -> dict:
             if ac.divided_space_time_attention_fused.f32_launches != before + 1:
                 raise AssertionError("divided_space_time_attention_fused did not count its f32 "
                                      "launch")
+            controls = f32_controls(qkv32, T, N, mode)
             print(f"[3] divided_space_time_attention_fused (f32) {mode:5s} {label}: max|diff| "
-                  f"to plain f32 {diff:.3e} max|ref| {ref:.4f} (tol {tol:.4f} = min({BAND}, "
-                  f"{CORE_BAND} * max|ref|); <= plain bf16's own {tol16:.5f})")
+                  f"to plain f32 {diff:.3e} max|ref| {ref:.4f} (tol {tol:.3e} = {F32_BAND} * "
+                  f"max|ref|; <= plain bf16's own {tol16:.5f}); controls above tol: "
+                  + ", ".join(f"{k} {c:.3e}" for k, c in controls.items()))
             if diff > tol or diff > tol16:
                 raise AssertionError(f"H9 f32 {mode} {label}: max|diff| {diff} > {tol} or "
                                      f"> {tol16}")
+            if min(controls.values()) <= tol:
+                raise AssertionError(f"H9 f32 {mode} {label}: a control that is not f32 passes "
+                                     f"the band {tol}: {controls}")
             if label == "N=196 d=64" and mode == "space":
                 max_err["divided_space_time_attention_fused (f32)"] = diff
     return max_err
@@ -2635,11 +2703,8 @@ def host_split(config_path: str, video_reader, card: str, n: int = 8) -> None:
           f"transform {1e3 * transform / n:.2f} ms [{card}]")
 
 
-# the loader sweep of phase 10: worker counts, threads and the fork pool; and
-# the seconds a forked worker may take for one item before the run fails (a
-# crashed or deadlocked worker)
+# the loader sweep of phase 10: worker counts, threads and the fork pool
 SWEEP_WORKERS = (2, 4, 8)
-FORK_ITEM_TIMEOUT_S = 60
 
 
 def loader_sweep(tag: str, config_path: str, ret_eval, model, card: str) -> list[dict]:
@@ -2648,32 +2713,27 @@ def loader_sweep(tag: str, config_path: str, ret_eval, model, card: str) -> list
     each worker count, threads and the fork pool. The fork pool forks this
     process, which holds a CUDA context: its workers run the dataset alone
     (numpy and cv2 with its own threads off), and a fork that crashes or
-    deadlocks fails the phase."""
-    from tvts_torch.data import loader as loader_mod
+    deadlocks fails the phase (loader.PROC_ITEM_TIMEOUT_S)."""
     from tvts_torch.utils.config import ConfigParser, read_json
 
     config = ConfigParser(read_json(config_path), test=True)
-    rows, saved = [], loader_mod.PROC_ITEM_TIMEOUT_S
-    loader_mod.PROC_ITEM_TIMEOUT_S = FORK_ITEM_TIMEOUT_S
-    try:
-        for pool in ("threads", "fork"):
-            for workers in SWEEP_WORKERS:
-                _, loader = config.initialize_dataset_loader(
-                    config["data_loader"], {"split": "test", "shuffle": False,
-                                            "num_workers": workers})
-                loader.use_processes = pool == "fork"
-                rec = RecordingLoader(loader)
-                t0 = time.perf_counter()
-                n = len(ret_eval.extract_embeddings(model, rec, use_fused=True)["video"])
-                torch.cuda.synchronize()
-                sec = time.perf_counter() - t0
-                rows.append({"pool": pool, "workers": workers, "clips": n,
-                             "clips_s": n / sec, "host_share": rec.wait_s / sec})
-                print(f"[{tag}] loader sweep: {pool:7s} {workers} workers: {n} clips in "
-                      f"{sec:.3f} s = {n / sec:.2f} clips/s from files, host share "
-                      f"{rec.wait_s / sec:.3f} [{card}]")
-    finally:
-        loader_mod.PROC_ITEM_TIMEOUT_S = saved
+    rows = []
+    for pool in ("threads", "fork"):
+        for workers in SWEEP_WORKERS:
+            _, loader = config.initialize_dataset_loader(
+                config["data_loader"], {"split": "test", "shuffle": False,
+                                        "num_workers": workers})
+            loader.use_processes = pool == "fork"
+            rec = RecordingLoader(loader)
+            t0 = time.perf_counter()
+            n = len(ret_eval.extract_embeddings(model, rec, use_fused=True)["video"])
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            rows.append({"pool": pool, "workers": workers, "clips": n,
+                         "clips_s": n / sec, "host_share": rec.wait_s / sec})
+            print(f"[{tag}] loader sweep: {pool:7s} {workers} workers: {n} clips in "
+                  f"{sec:.3f} s = {n / sec:.2f} clips/s from files, host share "
+                  f"{rec.wait_s / sec:.3f} [{card}]")
     return rows
 
 

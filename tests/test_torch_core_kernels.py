@@ -13,6 +13,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from chip_smoke import CORE_SHAPES, F32_BAND, core_inputs, f32_controls
 from tests.test_torch_vit import jax_params, port_model, tiny_inputs, tiny_vision
 from tvts_torch.ops.attention import divided_space_time_attention
 from tvts_torch.ops.attention_cores import divided_space_time_attention_fused
@@ -57,6 +58,23 @@ def test_attention_cores_f32_match_jax_at_the_tower_head_dims(mode, d):
                                              torch.from_numpy(v), T, N, mode)
     assert got.dtype == torch.float32 and np.asarray(want).dtype == np.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("mode", ["space", "time"])
+@pytest.mark.parametrize("label", list(CORE_SHAPES))
+def test_f32_band_tells_f32_from_tf32_and_bf16_staging(label, mode):
+    """chip_smoke's F32_BAND, which holds H9 in f32 on the card, at each core
+    shape (one clip): plain f32 lies well inside it from an f64 reference, and
+    plain on what a TF32 mma or a bf16-staged kernel reads lies outside it by
+    more than twice."""
+    _, T, N, H, d = CORE_SHAPES[label]
+    qkv = core_inputs(1, T, N, H, d, 3, "cpu", dtype=torch.float32)
+    ref = divided_space_time_attention(*(t.double() for t in qkv), T, N, mode)
+    tol = F32_BAND * ref.abs().max().item()
+    got = divided_space_time_attention(*qkv, T, N, mode)
+    assert (got.double() - ref).abs().max().item() <= tol / 10
+    controls = f32_controls(qkv, T, N, mode)
+    assert min(controls.values()) > 2 * tol, (controls, tol)
 
 
 def test_attention_cores_take_f32_and_refuse_mixed_dtypes(monkeypatch):

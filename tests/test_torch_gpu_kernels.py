@@ -21,6 +21,7 @@ import torch
 from chip_smoke import (
     BWD_SHAPES,
     CORE_SHAPES,
+    F32_BAND,
     GRAD_NAMES,
     MLP_GRAD_NAMES,
     MLP_SHAPES,
@@ -34,6 +35,7 @@ from chip_smoke import (
     core_calls,
     core_f32_check,
     core_inputs,
+    f32_controls,
     grad_band_check,
     kernel_calls,
     ln_bwd_check,
@@ -264,15 +266,20 @@ def test_attention_core_kernel_matches_plain(cuda, label, mode):
 @pytest.mark.parametrize("mode", ["space", "time"])
 @pytest.mark.parametrize("label", list(CORE_SHAPES))
 def test_attention_core_f32_kernel_matches_plain(cuda, label, mode):
-    """H9 on f32 q, k, v: within min(0.05, 0.02 * max|ref|) of plain f32 and
-    no farther from it than plain on the bf16-rounded inputs is; on the
-    head-split views and on contiguous copies alike."""
+    """H9 on f32 q, k, v: within F32_BAND * max|ref| of plain f32 (inside
+    min(0.05, 0.02 * max|ref|)), which plain on what a TF32 mma or a
+    bf16-staged kernel reads fails, and no farther from it than plain on the
+    bf16-rounded inputs is; on the head-split views and on contiguous copies
+    alike."""
     B, T, N, H, d = CORE_SHAPES[label]
     qkv = core_inputs(B, T, N, H, d, 3, cuda, dtype=torch.float32)
     before = ac.divided_space_time_attention_fused.f32_launches
     diff, ref, tol, tol16 = core_f32_check(ac, qkv, T, N, mode)
     assert ac.divided_space_time_attention_fused.f32_launches == before + 1
+    assert tol == F32_BAND * ref
     assert diff <= min(tol, tol16), (diff, ref, tol, tol16)
+    controls = f32_controls(qkv, T, N, mode)
+    assert min(controls.values()) > tol, controls
     got = ac.divided_space_time_attention_fused(*qkv, T, N, mode)
     dense = ac.divided_space_time_attention_fused(*(t.contiguous() for t in qkv), T, N, mode)
     assert got.dtype == dense.dtype == torch.float32 and torch.equal(dense, got)
@@ -292,6 +299,21 @@ def test_attention_core_f32_raises_above_its_shared_memory(cuda, d):
         else:
             with pytest.raises(ValueError, match=f"at most {n_max} patches"):
                 ac.divided_space_time_attention_fused(q, k, v, 1, N, "space")
+
+
+def test_attention_core_f32_frame_rule_is_the_librarys(cuda):
+    """_check_space_frame_f32 (checked before the library loads) and the
+    library's tvts_space_core_f32_fits (the rule the launch refuses by) agree
+    on every frame size up to past the limit."""
+    lib = bk.library()
+    for d in (64, 80):
+        for N in range(1, 1200):
+            try:
+                ac._check_space_frame_f32(N, d)
+                fits = True
+            except ValueError:
+                fits = False
+            assert fits == bool(lib.tvts_space_core_f32_fits(N, d)), (N, d)
 
 
 def test_prefetch_to_device_is_bit_for_bit_the_host_batches(cuda):

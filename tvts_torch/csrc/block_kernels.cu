@@ -226,6 +226,12 @@ int tvts_attention_core_strided(const void* q, const void* k, const void* v, voi
   return (int)cudaErrorInvalidValue;
 }
 
+// 1 when a frame of N patches at head dim dh fits one f32 space-core block
+// (its launch refuses the frame otherwise), else 0.
+int tvts_space_core_f32_fits(int N, int dh) {
+  return tvts::space_core_f32_smem(N, dh) <= (size_t)tvts::SMEM_OPTIN;
+}
+
 // CLS global row: out[b, h*dh:(h+1)*dh] = softmax(q_b,h . k_b,h,j * scale) @ v over
 // j < L. Row j of batch b sits at k + b*kv_bstride + j*kv_rstride (v alike).
 // partial: f32 scratch [B, H, ceil(L / 128), dh + 2]. lse != NULL: the row's

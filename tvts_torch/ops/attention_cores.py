@@ -54,7 +54,9 @@ def space_core_f32_smem(N: int, d: int) -> int:
 
 def _check_space_frame_f32(N: int, d: int) -> None:
     """Raise ValueError when a frame of N patches does not fit an f32
-    space-core block."""
+    space-core block. The library's tvts_space_core_f32_fits is the rule the
+    launch refuses by; this is its copy, checked before the library loads and
+    held equal to it on the card."""
     if space_core_f32_smem(N, d) > bk.SMEM_OPTIN:
         n_max = bk.SMEM_OPTIN // (8 * d) - 1
         raise ValueError(f"{N} patches a frame at head dim {d} in f32: the space core stages a "

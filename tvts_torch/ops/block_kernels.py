@@ -163,6 +163,7 @@ def library() -> ctypes.CDLL:
                           p],
         "tvts_attention_core_strided": [p, p, p, p, ctypes.POINTER(i64), i, i, i, i, i, f, i, i,
                                         p],
+        "tvts_space_core_f32_fits": [i, i],
         "tvts_cls_attention": [p, i64, p, p, i64, i64, i, p, i64, p, p, i, i, i, f, i, p],
         "tvts_text_core": [p, p, p, i, i, i, i, f, i, i, p],
         "tvts_text_core_bwd": [p, p, p, p, p, p, p, i, i, i, i, i, f, i, i, p],
