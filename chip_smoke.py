@@ -7,8 +7,8 @@ hand-written Hopper kernels, for B/16, B/32 and H/14 -- on one CUDA card.
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure raises and exits non-zero; they
-run in the order 1-5, 10, 7, 6, 11 for B/16, then 9 (B/32) and 8 (H/14) with
-their times):
+run in the order 1-5, 10, 7, 6, 11, 12 for B/16, then 9 (B/32) and 8 (H/14)
+with their times):
 1. refuse to run without CUDA; print the card's name and power limit;
 2. build the kernels from tvts_torch/csrc with nvcc (sm_90a, one nvcc per
    translation unit, all at once); print the build seconds, the -Xptxas -v
@@ -123,7 +123,7 @@ their times):
    f32, one masked f32 scaled_dot_product_attention and its bound (f32 bytes,
    the f32 FMA rate);
 11. pretraining from files: under a temporary directory, the YT-Temporal
-   layout (48 videos of 30 s at 30 fps, 320x240, ASR annotations of ~2.5
+   layout (72 videos of 30 s at 30 fps, 320x240, ASR annotations of ~2.5
    words a second with junk words and a denoised text the DTW aligns) and the
    WebVid one (48 clips of 10 s at 25 fps, 596x336), read through the repo's
    tvts_tpu/configs/dist-yt-web-pt-vit-b-16-fused.json (data_dir, meta_root
@@ -138,6 +138,23 @@ their times):
    beside the device-resident step at B=12; a YT-Temporal item's host time
    split (caption and DTW, decode, transform) and get_caption_multi on a
    600-word annotation;
+12. the Trainer on the same files, through tvts_torch.cli.train_dist_TVTSv2's
+   main with a 1-rank NCCL process group (--coordinator localhost:<free
+   port>), so the sharded step's all-gathers, sort-loss means and gradient
+   all-reduce run as NCCL launches: the pretraining config edited only in
+   data_dir, meta_root, num_workers, epochs (2), max_samples_per_epoch (6
+   steps a loader an epoch) and save_dir (a directory the phase removes), val
+   splits of the first 24 videos of each layout; full B/16 width and depth,
+   B=12, bf16 compute over f32 masters, init_val and "min val_loss_0" as the
+   file has them. It fails unless every step's launches are phase 7's (219
+   with the sort head, 212 without) and its loss finite, the init and both
+   epochs' validations ran, checkpoint-epoch{1,2}.pth and model_best.pth were
+   written, the epoch-2 file built by strict build_model gives a val batch's
+   embeddings bit for bit the trained model's, and `-r checkpoint-epoch1.pth`
+   restores parameters, AdamW state, step count and monitor_best bit for bit
+   and runs epoch 2; it prints the Trainer's clips/s and host share over
+   steps 3-12 of epoch 1 beside phase 11's bare loop, each validation, and
+   each checkpoint's size and seconds to save;
 9. B/32: extraction at B=8 through the kernels (counts 12/11/11/1, cosine
    gates), clips/s at B=64 (kernels, eager);
 8. H/14 at full width and depth (32 blocks of 1280, text 24 blocks of 1024):
@@ -2930,36 +2947,48 @@ def asr_annotation(seed: int, duration: float, words_s: float = ASR_WORDS_S) -> 
 
 
 def pretrain_trees(root: str, args: dict, video_params: dict | None = None,
-                   ytt=YTT_TREE, webvid=WEBVID_TREE) -> tuple[str, dict]:
+                   ytt=YTT_TREE, webvid=WEBVID_TREE, val: int = 0,
+                   words_s: float = ASR_WORDS_S) -> tuple[str, dict]:
     """Write the YT-Temporal layout (meta/yttemporal_train.csv, a tsv with a
     Name column; ytt/videos/<channel>/<id>.mp4 and their
     annotations/<id>.json) and the WebVid one (meta/webvid_train.tsv,
     webvid/train/<id>.mp4) under root, and the repo's pretraining config with
     data_dir and meta_root set and `args` (and `video_params`) merged into
-    both loaders. Returns (config path, clip specs {path: (seed, frames,
-    fps, (H, W))}); the clips themselves are written by write_clip."""
+    both loaders. `val`: the val splits hold the first `val` videos of each
+    (yttemporal_val.csv; webvid_val.tsv over webvid/val/<id>.mp4, links to
+    the train clips); `words_s`: ASR words a second. Returns (config path,
+    clip specs {path: (seed, frames, fps, (H, W))}); the clips themselves are
+    written by write_clip."""
     meta, specs = os.path.join(root, "meta"), {}
     os.makedirs(meta)
     n, seconds, fps, shape = ytt
     names = [f"channel{i % 4}/yt{i:04d}.mp4" for i in range(n)]
-    with open(os.path.join(meta, "yttemporal_train.csv"), "w") as f:
-        f.write("Name\n" + "".join(f"{name}\n" for name in names))
+    for split, rows in (("train", names), ("val", names[:val]))[:1 + bool(val)]:
+        with open(os.path.join(meta, f"yttemporal_{split}.csv"), "w") as f:
+            f.write("Name\n" + "".join(f"{name}\n" for name in rows))
     ytt_dir = os.path.join(root, "ytt")
     for i, name in enumerate(names):
         channel, vid = name.split("/")
         ann_dir = os.path.join(ytt_dir, "videos", channel, "annotations")
         os.makedirs(ann_dir, exist_ok=True)
         with open(os.path.join(ann_dir, vid[:-4] + ".json"), "w") as f:
-            json.dump(asr_annotation(i, seconds), f)
+            json.dump(asr_annotation(i, seconds, words_s), f)
         specs[os.path.join(ytt_dir, "videos", name)] = (1000 + i, fps * seconds, fps, shape)
     n, seconds, fps, shape = webvid
     web_dir = os.path.join(root, "webvid")
     captions = synthetic_captions(n, seed=14)
-    with open(os.path.join(meta, "webvid_train.tsv"), "w") as f:
-        f.write("name\tvideoid\n" + "".join(f"{c}\t{2000 + i}\n" for i, c in enumerate(captions)))
+    for split, k in (("train", n), ("val", val))[:1 + bool(val)]:
+        with open(os.path.join(meta, f"webvid_{split}.tsv"), "w") as f:
+            f.write("name\tvideoid\n"
+                    + "".join(f"{c}\t{2000 + i}\n" for i, c in enumerate(captions[:k])))
     for i in range(n):
         specs[os.path.join(web_dir, "train", f"{2000 + i}.mp4")] = (2000 + i, fps * seconds, fps,
                                                                     shape)
+    if val:
+        os.makedirs(os.path.join(web_dir, "val"))
+        for i in range(val):
+            os.symlink(os.path.join(web_dir, "train", f"{2000 + i}.mp4"),
+                       os.path.join(web_dir, "val", f"{2000 + i}.mp4"))
     with open(REPO / "tvts_tpu" / "configs" / PRETRAIN_CONFIG) as f:
         config = json.load(f)
     for spec in config["data_loader"]:
@@ -3047,13 +3076,42 @@ def ytt_host_split(ds, video_reader, card: str, n: int = 8) -> None:
         ytt_mod.align_using_dtw = original
 
 
-def pretrain_phase(dev, card: str, bk, bb, ta) -> dict:
-    """Phase 11 (module notes): pretraining from files. Returns its rates."""
+# phase 12 trains 6 steps a loader an epoch: 72 YT-Temporal train videos; the
+# val splits hold the first 24 videos of each layout (2 batches each)
+PRETRAIN_YTT_TREE = (72, *YTT_TREE[1:])
+PRETRAIN_VAL = 24
+
+
+def pretrain_files(root: str, tag: str) -> tuple[str, object, str | None]:
+    """The YT-Temporal and WebVid layouts of phases 11 and 12 under root, the
+    config's loaders at the machine's cores: (config path, the decode
+    context: seeded frames injected where no backend exists, the backend)."""
     import contextlib
-    import tempfile
-    from functools import partial
 
     from tvts_torch.data import native_decoder, video_reader
+
+    workers = len(os.sched_getaffinity(0))
+    config_path, specs = pretrain_trees(root, {"num_workers": workers}, ytt=PRETRAIN_YTT_TREE,
+                                        val=PRETRAIN_VAL)
+    backend = decode_backend(native_decoder, video_reader)
+    if backend is None:
+        print(f"[{tag}] " + json.dumps({"decode_backend": None, "frames": "from their seeds, "
+                                        "injected at video_reader.read_frames_at"}))
+        return config_path, injected_decode(video_reader, specs), None
+    t0 = time.perf_counter()
+    write_clips(specs, workers)
+    print(f"[{tag}] " + json.dumps({
+        "decode_backend": backend, "clips_written": len(specs),
+        "frames_written": sum(spec[1] for spec in specs.values()),
+        "write_s": round(time.perf_counter() - t0, 3)}))
+    return config_path, contextlib.nullcontext(), backend
+
+
+def pretrain_phase(dev, card: str, bk, bb, ta, config_path: str, backend: str | None) -> dict:
+    """Phase 11 (module notes): pretraining from files. Returns its rates."""
+    from functools import partial
+
+    from tvts_torch.data import video_reader
     from tvts_torch.data.prefetch import prefetch_to_device
     from tvts_torch.ops.fused_forward import train_apply
     from tvts_torch.ops.kernel_config import resolve_kernel_config, train_apply_kwargs
@@ -3061,116 +3119,99 @@ def pretrain_phase(dev, card: str, bk, bb, ta) -> dict:
     from tvts_torch.train.trainer import prepare_batch
     from tvts_torch.utils.config import ConfigParser, read_json
 
-    workers = len(os.sched_getaffinity(0))
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="tvts_pretrain_phase_") as root:
-        config_path, specs = pretrain_trees(root, {"num_workers": workers})
-        backend = decode_backend(native_decoder, video_reader)
-        if backend is None:
-            print("[11] " + json.dumps({"decode_backend": None, "frames": "from their seeds, "
-                                        "injected at video_reader.read_frames_at"}))
-            decode = injected_decode(video_reader, specs)
-        else:
-            t0 = time.perf_counter()
-            write_clips(specs, workers)
-            print("[11] " + json.dumps({
-                "decode_backend": backend, "clips_written": len(specs),
-                "frames_written": sum(spec[1] for spec in specs.values()),
-                "write_s": round(time.perf_counter() - t0, 3)}))
-            decode = contextlib.nullcontext()
-        config = ConfigParser(read_json(config_path), test=True)
-        datasets, loaders = zip(*(config.initialize_dataset_loader(spec)
-                                  for spec in config["data_loader"]))
-        print(f"[11] {PRETRAIN_CONFIG}: " + ", ".join(
-            f"{type(ds).__name__} {len(ds)} videos, batch {ld.batch_size}, {ld.num_workers} "
-            f"workers" for ds, ld in zip(datasets, loaders)))
-        arch = config["arch"]["type"]
-        train = build_train(arch, dev, noise_seed=21, text_tune_layers=3, tag="11")
-        cfg, model = train["cfg"], train["model"]
-        L, TL = cfg.vision.layers, cfg.text.layers
-        kcfg = resolve_kernel_config(arch, config["trainer"]["kernels"])
-        kwargs = train_apply_kwargs(kcfg, train["ocfg"])
-        print(f"[11] trainer.kernels {config['trainer']['kernels']} -> {kwargs}")
-        apply_fn = partial(train_apply, **kwargs)
-        step = make_train_step(model, train["optimizer"], train["ocfg"], apply_fn=apply_fn)
-        before = {n: p.detach().clone() for n, p in model.named_parameters()}
-        v, n_clips = cfg.vision, cfg.num_clips
-        B = loaders[0].batch_size
+    config = ConfigParser(read_json(config_path), test=True)
+    datasets, loaders = zip(*(config.initialize_dataset_loader(spec)
+                              for spec in config["data_loader"]))
+    print(f"[11] {PRETRAIN_CONFIG}: " + ", ".join(
+        f"{type(ds).__name__} {len(ds)} videos, batch {ld.batch_size}, {ld.num_workers} "
+        f"workers" for ds, ld in zip(datasets, loaders)))
+    arch = config["arch"]["type"]
+    train = build_train(arch, dev, noise_seed=21, text_tune_layers=3, tag="11")
+    cfg, model = train["cfg"], train["model"]
+    L, TL = cfg.vision.layers, cfg.text.layers
+    kcfg = resolve_kernel_config(arch, config["trainer"]["kernels"])
+    kwargs = train_apply_kwargs(kcfg, train["ocfg"])
+    print(f"[11] trainer.kernels {config['trainer']['kernels']} -> {kwargs}")
+    apply_fn = partial(train_apply, **kwargs)
+    step = make_train_step(model, train["optimizer"], train["ocfg"], apply_fn=apply_fn)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    v, n_clips = cfg.vision, cfg.num_clips
+    B = loaders[0].batch_size
 
-        host, snaps, losses = [], [], []
+    host, snaps, losses = [], [], []
 
-        def fed():  # the host batches, kept for the bit-for-bit check
-            for batch in alternating(loaders):
-                host.append(prepare_batch(batch))
-                yield host[-1]
+    def fed():  # the host batches, kept for the bit-for-bit check
+        for batch in alternating(loaders):
+            host.append(prepare_batch(batch))
+            yield host[-1]
 
-        n_steps, window = 8, range(2, 8)  # time steps 3-8
-        with decode:
-            feed = prefetch_to_device(fed(), size=2, device=dev)
-            wait = t_window = 0.0
-            for i in range(n_steps):
-                if i == window[0]:
-                    torch.cuda.synchronize()
-                    t_window = time.perf_counter()
-                t0 = time.perf_counter()
-                batch = next(feed)
-                if i in window:
-                    wait += time.perf_counter() - t0
-                # a copy on this stream, right behind the prefetcher's event: what the step reads
-                snaps.append({k: t.clone() for k, t in batch.items()})
-                ytt = "labels" in batch
-                if i == 0:
-                    hb = host[0]
-                    shapes = {k: tuple(a.shape) for k, a in hb.items()}
-                    print(f"[11] first YT-Temporal batch from files: {shapes}")
-                    want = {"video": (B, v.num_frames, 3, v.input_resolution, v.input_resolution),
-                            "keep_ind": (B, v.n_keep), "text_ids": (n_clips * B, 77),
-                            "labels": (B, n_clips)}
-                    if not ytt or shapes != want or hb["video"].dtype != np.float32 \
-                            or not (hb["labels"] == np.arange(n_clips)).all():
-                        raise AssertionError(f"YT-Temporal batch: {shapes}, expected {want}")
-                    got = step0_gate("11", "step 0 from files", model, batch, apply_fn,
-                                     bk, bb, ta)
-                    expect_launches("step 0 from files", got, step_launches(L, TL, 9))
-                reset_launch_counts(bk, bb, ta)
-                aux = {k: t.item() for k, t in step(batch).items()}
-                launches = launch_counts(bk, bb, ta)
-                expect_launches(f"step {i + 1} from files ({'YT-Temporal' if ytt else 'WebVid'})",
-                                launches, step_launches(L, TL, 9, sort=ytt))
-                losses.append(aux["loss"])
-                print(f"[11] step {i + 1} ({'YT-Temporal' if ytt else 'WebVid'}, "
-                      f"{batch['text_ids'].shape[0]} captions): "
-                      + ", ".join(f"{k} {x:.6f}" for k, x in aux.items())
-                      + f"; launches {sum(launches.values())} (as phase 7, "
-                      f"{'with' if ytt else 'without'} the sort head)")
-                if not all(np.isfinite(list(aux.values()))):
-                    raise AssertionError(f"step {i + 1} from files: non-finite {aux}")
+    n_steps, window = 8, range(2, 8)  # time steps 3-8
+    feed = prefetch_to_device(fed(), size=2, device=dev)
+    wait = t_window = 0.0
+    for i in range(n_steps):
+        if i == window[0]:
             torch.cuda.synchronize()
-            sec = time.perf_counter() - t_window
-        same = all(torch.equal(snap[k].cpu(), torch.from_numpy(np.ascontiguousarray(hb[k])))
-                   for snap, hb in zip(snaps, host) for k in hb)
-        print(f"[11] prefetched batches bit for bit the host batches ({len(snaps)} batches, "
-              f"every array): {same}")
-        if not same or len(snaps) != n_steps:
-            raise AssertionError("prefetched batches differ from the host batches")
-        changed = [n for n in train["frozen"]
-                   if not torch.equal(dict(model.named_parameters())[n].detach(), before[n])]
-        if changed:
-            raise AssertionError(f"frozen tensors changed: {changed}")
-        print(f"[11] {n_steps} steps from files, finite losses; {len(train['frozen'])} frozen "
-              f"tensors unchanged bit for bit")
-        clips = B * len(window)
-        rates = {"clips_s": clips / sec, "host_share": wait / sec}
-        ytt_host_split(datasets[0], video_reader, card)
-        del snaps, host
-        # the same step on a device-resident batch (the first from files), each loader's kind
-        resident = {}
-        for label, hb in (("YT-Temporal", 0), ("WebVid", 1)):
-            batch = {k: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                     for k, a in prepare_batch(next(iter(loaders[hb]))).items()}
-            ms = time_steps("11", f"{label} B={B} device-resident", train, apply_fn, batch, card)
-            resident[label] = B / (ms / 1e3)
-        rates["resident_clips_s"] = sum(resident.values()) / len(resident)
+            t_window = time.perf_counter()
+        t0 = time.perf_counter()
+        batch = next(feed)
+        if i in window:
+            wait += time.perf_counter() - t0
+        # a copy on this stream, right behind the prefetcher's event: what the step reads
+        snaps.append({k: t.clone() for k, t in batch.items()})
+        ytt = "labels" in batch
+        if i == 0:
+            hb = host[0]
+            shapes = {k: tuple(a.shape) for k, a in hb.items()}
+            print(f"[11] first YT-Temporal batch from files: {shapes}")
+            want = {"video": (B, v.num_frames, 3, v.input_resolution, v.input_resolution),
+                    "keep_ind": (B, v.n_keep), "text_ids": (n_clips * B, 77),
+                    "labels": (B, n_clips)}
+            if not ytt or shapes != want or hb["video"].dtype != np.float32 \
+                    or not (hb["labels"] == np.arange(n_clips)).all():
+                raise AssertionError(f"YT-Temporal batch: {shapes}, expected {want}")
+            got = step0_gate("11", "step 0 from files", model, batch, apply_fn,
+                             bk, bb, ta)
+            expect_launches("step 0 from files", got, step_launches(L, TL, 9))
+        reset_launch_counts(bk, bb, ta)
+        aux = {k: t.item() for k, t in step(batch).items()}
+        launches = launch_counts(bk, bb, ta)
+        expect_launches(f"step {i + 1} from files ({'YT-Temporal' if ytt else 'WebVid'})",
+                        launches, step_launches(L, TL, 9, sort=ytt))
+        losses.append(aux["loss"])
+        print(f"[11] step {i + 1} ({'YT-Temporal' if ytt else 'WebVid'}, "
+              f"{batch['text_ids'].shape[0]} captions): "
+              + ", ".join(f"{k} {x:.6f}" for k, x in aux.items())
+              + f"; launches {sum(launches.values())} (as phase 7, "
+              f"{'with' if ytt else 'without'} the sort head)")
+        if not all(np.isfinite(list(aux.values()))):
+            raise AssertionError(f"step {i + 1} from files: non-finite {aux}")
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t_window
+    same = all(torch.equal(snap[k].cpu(), torch.from_numpy(np.ascontiguousarray(hb[k])))
+               for snap, hb in zip(snaps, host) for k in hb)
+    print(f"[11] prefetched batches bit for bit the host batches ({len(snaps)} batches, "
+          f"every array): {same}")
+    if not same or len(snaps) != n_steps:
+        raise AssertionError("prefetched batches differ from the host batches")
+    changed = [n for n in train["frozen"]
+               if not torch.equal(dict(model.named_parameters())[n].detach(), before[n])]
+    if changed:
+        raise AssertionError(f"frozen tensors changed: {changed}")
+    print(f"[11] {n_steps} steps from files, finite losses; {len(train['frozen'])} frozen "
+          f"tensors unchanged bit for bit")
+    clips = B * len(window)
+    rates = {"clips_s": clips / sec, "host_share": wait / sec}
+    ytt_host_split(datasets[0], video_reader, card)
+    del snaps, host
+    # the same step on a device-resident batch (the first from files), each loader's kind
+    resident = {}
+    for label, hb in (("YT-Temporal", 0), ("WebVid", 1)):
+        batch = {k: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for k, a in prepare_batch(next(iter(loaders[hb]))).items()}
+        ms = time_steps("11", f"{label} B={B} device-resident", train, apply_fn, batch, card)
+        resident[label] = B / (ms / 1e3)
+    rates["resident_clips_s"] = sum(resident.values()) / len(resident)
     print(f"[11] pretraining from files (YT-Temporal and WebVid in turn, B={B}): "
           f"{rates['clips_s']:.2f} clips/s over steps 3-8, host share {rates['host_share']:.3f} "
           f"(seconds waiting on the prefetcher over that window); device-resident "
@@ -3181,6 +3222,230 @@ def pretrain_phase(dev, card: str, bk, bb, ta) -> dict:
     del train, model
     torch.cuda.empty_cache()
     return rates
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the Trainer on the card, through the train CLI
+# ---------------------------------------------------------------------------
+TRAINER_STEPS = 6  # optimizer steps a loader an epoch
+TRAINER_WINDOW = range(2, 12)  # steps 3-12 of epoch 1 (0-based), after two of warm-up
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def patched(*patches):
+    """Context: setattr(obj, name, value) for each (obj, name, value), undone on exit."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+        for obj, name, value in patches:
+            setattr(obj, name, value)
+        try:
+            yield
+        finally:
+            for obj, name, value in saved:
+                setattr(obj, name, value)
+
+    return ctx()
+
+
+def trainer_hooks(bk, bb, ta, record: dict):
+    """Context: the Trainer's steps, batch waits, validations, checkpoint
+    writes and resume recorded into `record` (each step's launches, its aux
+    on the device; the window's host clock, synchronised at both ends)."""
+    from tvts_torch.train import step as step_mod, trainer as trainer_mod
+    from tvts_torch.utils import checkpoint as ckpt_mod
+
+    step_call = step_mod.TrainStep.__call__
+    pipeline = trainer_mod.Trainer._pipeline
+    valid = trainer_mod.Trainer._valid_epoch
+    resume = trainer_mod.Trainer.resume
+    save = ckpt_mod.save_reference_checkpoint
+
+    def counted_step(self, batch):
+        reset_launch_counts(bk, bb, ta)
+        aux = step_call(self, batch)
+        record["steps"].append(("labels" in batch, launch_counts(bk, bb, ta), aux))
+        i = len(record["steps"]) - 1
+        if i in (TRAINER_WINDOW.start - 1, TRAINER_WINDOW.stop - 1):
+            torch.cuda.synchronize()
+            record["t0" if i < TRAINER_WINDOW.start else "t1"] = time.perf_counter()
+        return aux
+
+    def timed_pipeline(self, dl):
+        it = pipeline(self, dl)
+
+        def batches():
+            while True:
+                t0 = time.perf_counter()
+                batch = next(it, None)
+                if batch is None:
+                    return
+                record["waits"].append((len(record["steps"]), time.perf_counter() - t0))
+                yield batch
+
+        return batches()
+
+    def timed_valid(self, epoch):
+        t0 = time.perf_counter()
+        log = valid(self, epoch)
+        record["vals"].append((epoch, log, time.perf_counter() - t0))
+        return log
+
+    def timed_save(model, path, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(model, path, *args, **kwargs)
+        record["saves"].append((os.path.basename(path), time.perf_counter() - t0,
+                                os.path.getsize(path)))
+
+    def checked_resume(self, tag=None):
+        nxt = resume(self, tag)
+        saved = torch.load(tag, map_location="cpu", weights_only=True)
+        state = self.optimizer.state_dict()["state"]
+        record["resume"] = {
+            "next_epoch": nxt,
+            "parameters": all(torch.equal(v.cpu(), saved["state_dict"][f"module.{k}"])
+                              for k, v in self.model.state_dict().items()),
+            "adamw_state": sorted(state) == sorted(saved["optimizer"]["state"]) and all(
+                torch.equal(torch.as_tensor(v).cpu(), torch.as_tensor(saved["optimizer"]["state"][i][k]))
+                for i, st in state.items() for k, v in st.items()),
+            "step": (self.train_step.count, saved["step"]),
+            "monitor_best": (self.ckpt.monitor.best, saved["monitor_best"])}
+        return nxt
+
+    return patched((step_mod.TrainStep, "__call__", counted_step),
+                   (trainer_mod.Trainer, "_pipeline", timed_pipeline),
+                   (trainer_mod.Trainer, "_valid_epoch", timed_valid),
+                   (trainer_mod.Trainer, "resume", checked_resume),
+                   (ckpt_mod, "save_reference_checkpoint", timed_save))
+
+
+def check_trainer_steps(tag: str, steps: list, L: int, TL: int) -> None:
+    """Finite losses, and each step's launches phase 7's (with or without the sort head)."""
+    for i, (ytt, launches, _) in enumerate(steps):
+        expect_launches(f"Trainer step {i + 1}", launches, step_launches(L, TL, 9, sort=ytt))
+    losses = torch.stack([aux["loss"].float() for _, _, aux in steps]).cpu()
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"Trainer steps: non-finite losses {losses.tolist()}")
+    counts = sorted({sum(launches.values()) for _, launches, _ in steps})
+    total = {k: sum(launches[k] for _, launches, _ in steps) for k in steps[0][1]}
+    print(f"[{tag}] {len(steps)} Trainer steps, finite losses (first {losses[0].item():.6f}, "
+          f"last {losses[-1].item():.6f}); launches a step {counts} (as phase 7: 219 with the "
+          f"sort head, 212 without); over the steps: "
+          + json.dumps({k: n for k, n in total.items() if n}))
+
+
+def trainer_phase(dev, card: str, bk, bb, ta, root: str, config_path: str, bare: dict) -> None:
+    """Phase 12 (module notes): the Trainer through tvts_torch.cli.train_dist_TVTSv2."""
+    import torch.distributed as dist
+
+    from tvts_torch.cli import train_dist_TVTSv2 as cli
+    from tvts_torch.models.configs import MODEL_REGISTRY
+    from tvts_torch.models.factory import build_model
+    from tvts_torch.train.step import make_eval_step
+    from tvts_torch.train.trainer import prepare_batch
+    from tvts_torch.utils.config import read_json, write_json
+
+    t_phase = time.perf_counter()
+    config = read_json(config_path)
+    B = config["data_loader"][0]["args"]["batch_size"]
+    results = os.path.join(root, "results")
+    edits = {"epochs": 2, "max_samples_per_epoch": TRAINER_STEPS * B, "save_dir": results}
+    config["trainer"].update(edits)
+    path = os.path.join(root, "phase12.json")
+    write_json(config, path)
+    arch = config["arch"]["type"]
+    cfg = MODEL_REGISTRY[arch]()
+    L, TL = cfg.vision.layers, cfg.text.layers
+    print(f"[12] {PRETRAIN_CONFIG} edited in data_dir, meta_root, num_workers "
+          f"({config['data_loader'][0]['args']['num_workers']}) and trainer {edits}; "
+          f"init_val {config['trainer']['init_val']}, monitor "
+          f"{config['trainer']['monitor']!r}, kernels {config['trainer']['kernels']}; "
+          f"val splits of {PRETRAIN_VAL} videos each")
+    record = {"steps": [], "waits": [], "vals": [], "saves": []}
+    try:
+        argv = ["-c", path, "--num_processes", "1", "--process_id", "0"]
+        with trainer_hooks(bk, bb, ta, record):
+            trainer = cli.main([*argv, "--coordinator", f"localhost:{free_port()}"])
+        if dist.is_initialized():
+            raise AssertionError("the train CLI left its process group")
+        steps = record["steps"]
+        if len(steps) != 2 * 2 * TRAINER_STEPS or trainer.train_step.count != len(steps):
+            raise AssertionError(f"{len(steps)} Trainer steps, count {trainer.train_step.count}")
+        check_trainer_steps("12", steps, L, TL)
+        sec = record["t1"] - record["t0"]
+        wait = sum(w for i, w in record["waits"] if i in TRAINER_WINDOW)
+        clips = B * len(TRAINER_WINDOW)
+        print(f"[12] the Trainer (1-rank NCCL group, the sharded step) over steps "
+              f"{TRAINER_WINDOW.start + 1}-{TRAINER_WINDOW.stop} of epoch 1: {clips / sec:.2f} "
+              f"clips/s, host share {wait / sec:.3f}; phase 11's bare loop from the same "
+              f"files {bare['clips_s']:.2f} clips/s, host share {bare['host_share']:.3f}; "
+              f"device-resident {bare['resident_clips_s']:.2f} [{card}]")
+        print(f"[12] seconds waiting on the feed before each step of that window: "
+              + json.dumps([round(w, 4) for i, w in record["waits"] if i in TRAINER_WINDOW])
+              + f"; WebVid restarts its loader at step {2 * 4 + 2} (4 batches of {B})")
+        for epoch, log, seconds in record["vals"]:
+            print(f"[12] validation epoch {epoch} ({seconds:.2f} s): " + json.dumps(
+                {k: round(v, 6) for k, v in log.items() if np.isscalar(v)}))
+        if [e for e, _, _ in record["vals"]] != [0, 1, 2]:
+            raise AssertionError(f"validations {[e for e, _, _ in record['vals']]}, expected "
+                                 "the init one and one an epoch")
+        for name, seconds, size in record["saves"]:
+            print(f"[12] saved {name}: {size / 2 ** 30:.3f} GiB in {seconds:.2f} s "
+                  f"({size / 2 ** 30 / seconds:.2f} GiB/s) [{card}]")
+        save_dir = trainer.ckpt.save_dir
+        names = sorted(os.listdir(save_dir))
+        if not {"checkpoint-epoch1.pth", "checkpoint-epoch2.pth", "model_best.pth"} <= set(names):
+            raise AssertionError(f"checkpoints written: {names}")
+        # the epoch-2 file, built strictly, against the trained model
+        val = trainer.valid_loaders[0]
+        batch = {k: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for k, a in prepare_batch(next(iter(val))).items()}
+        want = make_eval_step(trainer.model, apply_fn=trainer.train_step.fwd)(batch)
+        _, loaded = build_model(arch, load_checkpoint=os.path.join(save_dir,
+                                                                   "checkpoint-epoch2.pth"),
+                                eval_mode=False, device=dev, compute_dtype=torch.bfloat16)
+        got = make_eval_step(loaded, apply_fn=trainer.train_step.fwd)(batch)
+        same = all(torch.equal(got[k], want[k]) for k in ("video_emb", "text_emb", "sort_acc"))
+        print(f"[12] build_model(load_checkpoint=checkpoint-epoch2.pth), strict: embeddings of "
+              f"a val batch ({batch['video'].shape[0]} clips) bit for bit the trained "
+              f"model's: {same}")
+        if not same:
+            raise AssertionError("a strict reload of the epoch checkpoint disagrees")
+        del trainer, loaded, want, got
+        torch.cuda.empty_cache()
+        # resume from the epoch-1 file: state bit for bit, then epoch 2 runs
+        record.update(steps=[], waits=[], vals=[], saves=[])
+        epoch1 = os.path.join(save_dir, "checkpoint-epoch1.pth")
+        with trainer_hooks(bk, bb, ta, record):
+            resumed = cli.main([*argv, "--coordinator", f"localhost:{free_port()}",
+                                "-r", epoch1])
+        res = record["resume"]
+        print(f"[12] -r checkpoint-epoch1.pth: " + json.dumps(res))
+        if not (res["parameters"] and res["adamw_state"] and res["next_epoch"] == 2
+                and res["step"][0] == res["step"][1] == 2 * TRAINER_STEPS
+                and res["monitor_best"][0] == res["monitor_best"][1]):
+            raise AssertionError(f"resume restored another state: {res}")
+        check_trainer_steps("12", record["steps"], L, TL)
+        if resumed.train_step.count != 4 * TRAINER_STEPS or \
+                [e for e, _, _ in record["vals"]] != [2]:
+            raise AssertionError("the resumed epoch did not run")
+        print(f"[12] the resumed epoch 2 ran: {len(record['steps'])} steps, validation, "
+              f"{[name for name, _, _ in record['saves']]} written")
+        del resumed
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(results, ignore_errors=True)
+    print(f"[12] Trainer phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -3377,8 +3642,14 @@ def main() -> int:
     del train
     torch.cuda.empty_cache()
 
-    # ---- phase 11: pretraining from files -----------------------------------
-    pretrain_phase(dev, card, bk, bb, ta)
+    # ---- phases 11 and 12: pretraining from files, then the Trainer ----------
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="tvts_pretrain_") as root:
+        config_path, decode, backend = pretrain_files(root, "11")
+        with decode:
+            bare = pretrain_phase(dev, card, bk, bb, ta, config_path, backend)
+            trainer_phase(dev, card, bk, bb, ta, root, config_path, bare)
 
     # ---- phase 9 (B/32) and phase 8 (H/14), with their times -----------------
     b32_phase(dev, card, bk, bb, ta)

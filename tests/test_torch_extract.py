@@ -152,16 +152,17 @@ def test_extract_video_feature_full_keep_set():
 
 def test_tvts_torch_imports_no_jax():
     """Every tvts_torch module, and chip_smoke.py, imports without pulling in
-    jax, flax, tvts_tpu, regex or pandas, none of which the card's machine has,
-    nor cv2 or PIL: the data layer imports cv2 only when its cv2 backend runs,
-    and PIL never (a subprocess: this test process already holds jax through
-    conftest)."""
+    jax, flax, optax, orbax, tvts_tpu, regex or pandas, none of which the
+    card's machine has, nor cv2 or PIL: the data layer imports cv2 only when
+    its cv2 backend runs, and PIL never (a subprocess: this test process
+    already holds jax through conftest)."""
     code = (
         "import importlib, pkgutil, sys, tvts_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(tvts_torch.__path__, 'tvts_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] "
-        "       in ('jax', 'flax', 'tvts_tpu', 'regex', 'pandas', 'cv2', 'PIL'))\n"
+        "       in ('jax', 'flax', 'optax', 'orbax', 'tvts_tpu', 'regex', 'pandas', 'cv2',"
+        "           'PIL'))\n"
         "assert not bad, bad\n"
         "print(' '.join(n for n in sys.modules if n.startswith('tvts_torch')))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -180,3 +181,8 @@ def test_tvts_torch_imports_no_jax():
             "tvts_torch.cli.zero_ssv2_mc", "tvts_torch.cli.zero_ret_ViT_H_14"} <= imported
     assert {"tvts_torch.data.asr", "tvts_torch.data.ytt", "tvts_torch.data.collate",
             "tvts_torch.data.prefetch", "tvts_torch.train.trainer"} <= imported
+    assert {"tvts_torch.cli.train_dist_TVTSv2", "tvts_torch.cli.train_dist_TVTSv2_ViT_H_14",
+            "tvts_torch.parallel.mesh", "tvts_torch.parallel.collectives",
+            "tvts_torch.parallel.partition", "tvts_torch.utils.checkpoint",
+            "tvts_torch.utils.logging", "tvts_torch.utils.tb_events",
+            "tvts_torch.utils.visualizer", "tvts_torch.utils.profiling"} <= imported

@@ -3,6 +3,8 @@ tvts_tpu/models/factory.py)."""
 
 from __future__ import annotations
 
+import logging
+
 import torch
 from torch import nn
 
@@ -10,7 +12,9 @@ from tvts_torch.models.configs import MODEL_REGISTRY
 from tvts_torch.models.layers import LayerNormF32
 from tvts_torch.models.space_time_vit import LayerScale
 from tvts_torch.models.tvts_v2 import TVTSv2
-from tvts_torch.utils.convert import load_reference_state_dict
+from tvts_torch.utils.convert import load_reference_state_dict, merge_params
+
+log = logging.getLogger(__name__)
 
 
 def cast_tower_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -31,15 +35,19 @@ def build_model(arch_type: str,
                 seed: int = 0,
                 compute_dtype: torch.dtype | None = None,
                 remat: bool = False,
-                use_pallas: bool = False) -> tuple:
+                use_pallas: bool = False,
+                strict: bool = True) -> tuple:
     """(cfg, TVTSv2) on `device` (the card unless the caller asks for the
     CPU). eval_mode=True gives the downstream config (no tube masking) in
     eval mode; eval_mode=False the masked training config in train mode.
     Weights come from `load_checkpoint` (a reference `.pth`, `module.`
-    stripped, every key loaded strictly, the sort head included; nothing is
-    drawn) or, without one, from the JAX package's initializers drawn from a
+    stripped) or, without one, from the JAX package's initializers drawn from a
     generator seeded with `seed`, on the CPU, so one seed gives the same
-    weights on every device. `dtype` is the parameters' dtype (LayerNorms stay float32);
+    weights on every device. With strict=True the checkpoint must set every
+    parameter and name nothing else (nothing is drawn); strict=False draws
+    the initial weights and overlays the checkpoint on them (`merge_params`:
+    missing keys keep their fresh values, unused keys are logged, a shape
+    mismatch raises). The JAX package's strict load only refuses unused keys. `dtype` is the parameters' dtype (LayerNorms stay float32);
     `compute_dtype` the activations' (bf16 over f32 masters for training).
     `remat` checkpoints every tower block in training; `use_pallas` runs the
     eager video tower's space attention core on the H9 kernel (forward only)."""
@@ -50,10 +58,14 @@ def build_model(arch_type: str,
     if eval_mode:
         cfg = cfg.eval_config()
     model = TVTSv2(cfg, remat=remat, use_pallas=use_pallas)
-    if load_checkpoint:  # strict: the checkpoint sets every parameter, so none is drawn
+    if load_checkpoint and strict:  # the checkpoint sets every parameter, so none is drawn
         model.load_state_dict(load_reference_state_dict(load_checkpoint), strict=True)
     else:
         model.reset_parameters(torch.Generator().manual_seed(seed))
+        if load_checkpoint:
+            missing, unused = merge_params(model, load_reference_state_dict(load_checkpoint))
+            log.info("loaded %s: %d keys kept their initial values, %d unused: %s",
+                     load_checkpoint, len(missing), len(unused), unused)
     cast_tower_(model, dtype).to(device)
     model.set_compute_dtype(compute_dtype)
     model.train(not eval_mode)

@@ -8,6 +8,8 @@ Rank semantics of the reference, ties included:
   distance 1e8;
 - `retrieval_as_classification` averages ties and subtracts the enumeration
   index of each ground-truth label (ascending label order).
+The classification and alignment metrics the Trainer may name (`acc`,
+`topk_acc`, `video_precision`, `video_precision_adj`) follow.
 """
 
 from __future__ import annotations
@@ -78,3 +80,41 @@ def retrieval_as_classification(sims: np.ndarray, query_masks: np.ndarray) -> di
         ranks.extend(_averaged_rank(row, row[label]) - idx
                      for idx, label in enumerate(np.flatnonzero(mask)))
     return cols2metrics(np.asarray(ranks), num_queries=len(ranks))
+
+
+def acc(output: np.ndarray, target: np.ndarray) -> float:
+    """Top-1 accuracy."""
+    pred = np.argmax(np.asarray(output), axis=1)
+    target = np.asarray(target)
+    if pred.shape[0] != len(target):
+        raise ValueError(f"{pred.shape[0]} predictions for {len(target)} targets")
+    return float(np.sum(pred == target)) / len(target)
+
+
+def topk_acc(output: np.ndarray, target: np.ndarray, k: int = 5) -> float:
+    """Top-k accuracy; equal scores rank in column order."""
+    topk = np.argsort(-np.asarray(output), axis=1, kind="stable")[:, :k]
+    target = np.asarray(target)
+    return float(np.sum(topk == target[:, None])) / len(target)
+
+
+def _pair_matches(output: np.ndarray, target: np.ndarray) -> int:
+    """Predicted (video, text) id pairs [B, P, 2] that appear, both ids, among
+    the same batch element's target pairs [B, P', 2]."""
+    output, target = np.asarray(output), np.asarray(target)
+    if output.shape[0] != target.shape[0] or output.shape[2] != 2 or target.shape[2] != 2:
+        raise ValueError(f"pairs {output.shape} and {target.shape}: expected [B, P, 2] each")
+    return int((output[:, :, None, :] == target[:, None, :, :]).all(-1).any(-1).sum())
+
+
+def video_precision(output: np.ndarray, target: np.ndarray) -> float:
+    """Fraction of predicted pairs aligned to a target pair."""
+    target = np.asarray(target)
+    return _pair_matches(output, target) / (target.shape[0] * target.shape[1])
+
+
+def video_precision_adj(output: np.ndarray, target: np.ndarray) -> float:
+    """video_precision over the videos that have an aligning text: the
+    denominator is the number of distinct video ids in target[:, :, 0]."""
+    target = np.asarray(target)
+    return _pair_matches(output, target) / len(np.unique(target[:, :, 0]))

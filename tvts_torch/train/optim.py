@@ -105,6 +105,13 @@ class StateDtypeAdamW(torch.optim.Optimizer):
         super().__init__(params, dict(lr=0.0, weight_decay=0.0, betas=betas, eps=eps))
         self.mu_dtype = mu_dtype
 
+    def load_state_dict(self, state_dict: dict) -> None:
+        """torch.optim casts the state to each parameter's dtype on load:
+        the first moment goes back to `mu_dtype` (exact: it was saved in it)."""
+        super().load_state_dict(state_dict)
+        for state in self.state.values():
+            state["mu"] = state["mu"].to(self.mu_dtype)
+
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:

@@ -9,8 +9,22 @@ predict_order); the default is the eager `model(...)`,
 ops/fused_forward.train_apply the kernel path. Frozen parameters carry
 requires_grad False (train/optim.make_optimizer), so autograd computes no
 weight gradient for them while activation gradients still flow through their
-blocks: the JAX package's `_stop_frozen`. The multi-device step waits for the
-distributed trainer.
+blocks: the JAX package's `_stop_frozen`.
+
+`make_sharded_train_step` is the JAX package's explicit data-parallel step
+(tvts_tpu/train/step.py:145-233) over torch.distributed, a process a rank:
+each rank runs `apply_fn` on its own batch; the video and text embeddings
+are all-gathered into the whole batch's contrastive matrix, the sort loss and
+its accuracy are averaged over the ranks (parallel/collectives.py), and the
+gradients are SUM all-reduced (one flat buffer a dtype). The update is the
+JAX package's: world x the gradient of the same loss on the whole batch in
+one process. Without a process group it is `make_train_step`.
+
+A trainable parameter the loss does not reach (the sort head on a batch
+without labels: WebVid) gets a zero gradient before the update, as the JAX
+step's gradient tree holds zeros there, so AdamW still decays its moments
+and applies weight decay to it (torch.optim skips a parameter whose
+gradient is None).
 """
 
 from __future__ import annotations
@@ -21,6 +35,7 @@ import torch
 
 from tvts_torch.ops.losses import norm_softmax_loss, sort_accuracy, sort_loss
 from tvts_torch.ops.sim import sim_matrix
+from tvts_torch.parallel.collectives import all_gather_embeddings, pmean
 from tvts_torch.train.optim import OptimizerConfig, milestone_scale_fn
 
 
@@ -28,14 +43,20 @@ def default_apply(model, batch):
     return model(batch["video"], batch["text_ids"], batch.get("keep_ind"))
 
 
-def _losses(outputs, batch, temperature: float) -> tuple[torch.Tensor, dict]:
-    """(loss, aux of detached scalars) of the forward's outputs."""
+def _losses(outputs, batch, temperature: float,
+            gather: bool = False) -> tuple[torch.Tensor, dict]:
+    """(loss, aux of detached scalars) of the forward's outputs; `gather`:
+    over the ranks' embeddings, the sort terms averaged over the ranks."""
     text_emb, video_emb, pred_order = outputs
+    if gather:
+        video_emb, text_emb = all_gather_embeddings(video_emb), all_gather_embeddings(text_emb)
     loss_ct = norm_softmax_loss(sim_matrix(video_emb.float(), text_emb.float()), temperature)
     loss_ce = s_acc = torch.zeros((), device=loss_ct.device)
     if pred_order is not None and "labels" in batch:
         loss_ce = sort_loss(pred_order, batch["labels"])
         s_acc = sort_accuracy(pred_order, batch["labels"])
+        if gather:
+            loss_ce, s_acc = pmean(loss_ce), pmean(s_acc)
     loss = loss_ct + loss_ce
     aux = {"loss": loss, "loss_ct": loss_ct, "loss_ce": loss_ce, "sort_acc": s_acc}
     return loss, {k: v.detach() for k, v in aux.items()}
@@ -47,25 +68,62 @@ def make_loss_fn(temperature: float = 0.05, apply_fn: Callable | None = None) ->
     return lambda model, batch: _losses(fwd(model, batch), batch, temperature)
 
 
-def make_train_step(model, optimizer: torch.optim.Optimizer, cfg: OptimizerConfig,
-                    temperature: float = 0.05, apply_fn: Callable | None = None) -> Callable:
-    """step(batch) -> aux: one AdamW step with the milestone LR of the step
-    count (the first step is step 0, as in optax)."""
-    loss_fn = make_loss_fn(temperature, apply_fn)
-    scale = milestone_scale_fn(cfg)
-    count = [0]
+class TrainStep:
+    """step(batch) -> aux: one optimizer step at the milestone LR of `count`,
+    the optimizer steps taken so far (the first step is step 0, as in
+    optax). `count` is the schedule's state: a checkpoint saves it and a
+    resume sets it. With `mesh` a started process group, the sharded step."""
 
-    def train_step(batch):
-        for group in optimizer.param_groups:
-            group["lr"] = group["base_lr"] * scale(count[0])
-        optimizer.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(model, batch)
+    def __init__(self, model, optimizer: torch.optim.Optimizer, cfg: OptimizerConfig,
+                 temperature: float = 0.05, apply_fn: Callable | None = None, mesh=None):
+        self.model, self.optimizer = model, optimizer
+        self.fwd = apply_fn or default_apply
+        self.temperature = temperature
+        self.scale = milestone_scale_fn(cfg)
+        self.gather = mesh is not None and mesh.distributed
+        self.trainable = [p for group in optimizer.param_groups for p in group["params"]]
+        self.count = 0
+
+    def __call__(self, batch: dict) -> dict:
+        for group in self.optimizer.param_groups:
+            group["lr"] = group["base_lr"] * self.scale(self.count)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, aux = _losses(self.fwd(self.model, batch), batch, self.temperature, self.gather)
         loss.backward()
-        optimizer.step()
-        count[0] += 1
+        for p in self.trainable:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.gather:
+            self._sum_grads()
+        self.optimizer.step()
+        self.count += 1
         return aux
 
-    return train_step
+    def _sum_grads(self) -> None:
+        """SUM all-reduce of every gradient, one flat buffer a dtype."""
+        import torch.distributed as dist
+
+        by_dtype: dict = {}
+        for p in self.trainable:
+            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+        for grads in by_dtype.values():
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat)
+            torch._foreach_copy_(grads, [part.view_as(g) for part, g in
+                                         zip(flat.split([g.numel() for g in grads]), grads)])
+
+
+def make_train_step(model, optimizer: torch.optim.Optimizer, cfg: OptimizerConfig,
+                    temperature: float = 0.05, apply_fn: Callable | None = None) -> TrainStep:
+    """One AdamW step of the whole batch in this process."""
+    return TrainStep(model, optimizer, cfg, temperature, apply_fn)
+
+
+def make_sharded_train_step(model, optimizer: torch.optim.Optimizer, cfg: OptimizerConfig,
+                            mesh, temperature: float = 0.05,
+                            apply_fn: Callable | None = None) -> TrainStep:
+    """One data-parallel step of this rank's batch (module notes)."""
+    return TrainStep(model, optimizer, cfg, temperature, apply_fn, mesh)
 
 
 def make_eval_step(model, temperature: float = 0.05,

@@ -1,0 +1,103 @@
+"""Checkpoints with the reference's monitor / best semantics, on torch.save
+(counterpart of tvts_tpu/utils/checkpoint.py; reference
+v2/base/base_trainer.py:119-247).
+
+- every `save_period` epochs `checkpoint-epoch{N}.pth`, and `model_best.pth`
+  when the monitored value improves ("min val_loss_0" style monitor
+  strings); `step{N}.pth` every `save_every_steps` optimizer steps. The JAX
+  package writes orbax directories of the same names without the suffix;
+- each file is the reference trainer's layout, as
+  utils/convert.save_reference_checkpoint writes it: {arch, epoch,
+  state_dict (`module.`-prefixed reference names), optimizer (the
+  optimizer's state dict), monitor_best, config} plus `step`, the optimizer
+  steps taken (the milestone LR schedule's count). `epoch` is the last
+  epoch the file has completed (a step file: the epochs before its own), so
+  a resume continues at epoch + 1; `build_model(load_checkpoint=...)` loads
+  its `state_dict` strictly;
+- the monitor's best is updated before the epoch's files are written, so a
+  file's `monitor_best` includes that epoch, as the reference writes it;
+- only the process that `writes` (rank 0) touches the disk; every process
+  keeps the same monitor.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import re
+
+import torch
+
+from tvts_torch.utils.convert import save_reference_checkpoint
+
+
+class Monitor:
+    """'min val_loss_0' / 'max R1' / 'off' (base_trainer.py:40-52)."""
+
+    def __init__(self, spec: str = "off"):
+        self.spec = spec
+        if spec == "off":
+            self.mode, self.metric = "off", None
+            self.best = 0.0
+        else:
+            self.mode, self.metric = spec.split()
+            if self.mode not in ("min", "max"):
+                raise ValueError(f"monitor {spec!r}: mode must be min or max")
+            self.best = math.inf if self.mode == "min" else -math.inf
+
+    def improved(self, log: dict) -> bool:
+        """True (and `best` updated) when log's metric is at least as good as best."""
+        if self.mode == "off" or self.metric not in log:
+            return False
+        val = log[self.metric]
+        better = val <= self.best if self.mode == "min" else val >= self.best
+        if better:
+            self.best = val
+        return better
+
+
+class CheckpointManager:
+    def __init__(self, save_dir: str, save_period: int = 1, monitor: str = "off",
+                 arch: str = "", config: dict | None = None, writes: bool = True):
+        self.save_dir = os.path.abspath(str(save_dir))
+        self.save_period = save_period
+        self.monitor = Monitor(monitor)
+        self.arch, self.config, self.writes = arch, config or {}, writes
+        if writes:
+            os.makedirs(self.save_dir, exist_ok=True)
+
+    def path(self, tag: str) -> str:
+        """The file of `tag`; a path to an existing file is taken as it is."""
+        return tag if os.path.isfile(tag) else os.path.join(self.save_dir, f"{tag}.pth")
+
+    def _save(self, tag: str, epoch: int, state: dict) -> None:
+        save_reference_checkpoint(state["model"], self.path(tag), self.arch, epoch=epoch,
+                                  config=self.config, monitor_best=self.monitor.best,
+                                  optimizer=state["optimizer"].state_dict(), step=state["step"])
+
+    def save_epoch(self, epoch: int, state: dict, val_log: dict | None = None) -> list[str]:
+        """After epoch `epoch` (1-based): the periodic file and, on a monitor
+        improvement, model_best. `state`: {"model", "optimizer", "step"}.
+        Returns the tags written."""
+        best = val_log is not None and self.monitor.improved(val_log)
+        tags = ([f"checkpoint-epoch{epoch}"] if epoch % self.save_period == 0 else []) \
+            + (["model_best"] if best else [])
+        if self.writes:
+            for tag in tags:
+                self._save(tag, epoch, state)
+        return tags
+
+    def save_step(self, step: int, state: dict, epoch: int = 0) -> None:
+        """A mid-epoch file after `step` optimizer steps, in epoch `epoch` + 1."""
+        if self.writes:
+            self._save(f"step{int(step)}", epoch, state)
+
+    def restore(self, tag: str) -> dict:
+        """The checkpoint dict of `tag` (or of a path), tensors on the CPU."""
+        return torch.load(self.path(tag), map_location="cpu", weights_only=True)
+
+    def latest_epoch(self) -> int | None:
+        eps = [int(m.group(1)) for f in os.listdir(self.save_dir)
+               if (m := re.fullmatch(r"checkpoint-epoch(\d+)\.pth", f))] \
+            if os.path.isdir(self.save_dir) else []
+        return max(eps) if eps else None

@@ -14,7 +14,14 @@ ddp_prefix=False)` writes for a full TVTSv2 tree (or a bare video tower):
   fc1/fc2, `blocks_{i}` -> `transformer.resblocks.{i}` for the video tower,
   and the attentional pooler's `attn_pool.attn.{q,k,v}_proj_weight`,
   `in_proj_bias`, `out_proj.*`; LayerScale's `ls_*.gamma` keeps its name.
-numpy only: no JAX and no `tvts_tpu` import.
+
+The CLIP init and the reference checkpoint file (counterparts of
+`torch_convert.py`'s `convert_clip_visual` :185, `convert_clip_full` :201,
+`merge_params` :224 and `save_reference_checkpoint` :332) work on state
+dicts under the reference names, which the port's modules carry, so no
+parameter tree is involved; `load_reference_state_dict` is the JAX package's
+`load_torch_state_dict` (:26), returning tensors.
+numpy and torch only: no JAX and no `tvts_tpu` import.
 """
 
 from __future__ import annotations
@@ -87,3 +94,79 @@ def load_reference_state_dict(path: str) -> dict[str, torch.Tensor]:
         obj = obj["state_dict"]
     return {re.sub(r"^module\.", "", k): v for k, v in obj.items()
             if isinstance(v, torch.Tensor)}
+
+
+# keys a CLIP or reference state dict holds that are no parameters (torch_convert._SKIP)
+_SKIP = ("attn_mask", "num_batches_tracked", "logit_scale")
+
+
+def convert_clip_visual(visual_sd: Mapping) -> dict:
+    """A raw CLIP `visual.*` state dict -> video-tower entries: `in_proj_*`
+    -> `qkv.*`, `out_proj` -> `proj` under `video_model.` (the reference's
+    remap, model_dist_TVTSv2_ViT_B_16.py:33-45). The space-time parameters
+    (timeattn, ln_3, temporal_embedding) are absent: fresh init keeps them."""
+    out = {}
+    for k, v in visual_sd.items():
+        if any(s in k for s in _SKIP):
+            continue
+        k = re.sub(r"^visual\.", "", k).replace("in_proj_", "qkv.").replace("out_proj", "proj")
+        out[f"video_model.{k}"] = v
+    return out
+
+
+def convert_clip_full(sd: Mapping) -> dict:
+    """A raw OpenAI-CLIP state dict (`visual.*` and the text tower at the top
+    level) -> reference-named entries: the visual tower through
+    `convert_clip_visual`; the text tower's `transformer.resblocks.*` under
+    `text_model.resblocks.*` (nn.MultiheadAttention names kept),
+    `token_embedding` / `positional_embedding` / `ln_final` with the `text_`
+    prefix, `text_projection` as it is; `logit_scale` dropped."""
+    out = convert_clip_visual({k: v for k, v in sd.items() if k.startswith("visual.")})
+    for k, v in sd.items():
+        if k.startswith("visual.") or any(s in k for s in _SKIP):
+            continue
+        if k.startswith("transformer."):
+            out["text_model." + k[len("transformer."):]] = v
+        elif k == "text_projection":
+            out[k] = v
+        else:  # token_embedding.weight, positional_embedding, ln_final.*
+            out[f"text_{k}"] = v
+    return out
+
+
+def merge_params(model: torch.nn.Module, state_dict: Mapping,
+                 strict: bool = False) -> tuple[list[str], list[str]]:
+    """Overlay `state_dict` (tensors or arrays) onto the model's parameters,
+    cast to each parameter's dtype; the parameters it does not name keep
+    their values (fresh init). Raises on a shape mismatch before anything is
+    written, and with strict=True also on an entry the model lacks. Returns
+    (missing, unused): the model's names the dict left alone, and the dict's
+    names the model lacks."""
+    own = model.state_dict()
+    unused = [k for k in state_dict if k not in own]
+    for k, v in state_dict.items():
+        if k in own and tuple(own[k].shape) != tuple(v.shape):
+            raise ValueError(f"shape mismatch at {k}: init {tuple(own[k].shape)} vs loaded "
+                             f"{tuple(v.shape)}")
+    if strict and unused:
+        raise ValueError(f"unused loaded params: {unused}")
+    with torch.no_grad():
+        for k, v in state_dict.items():
+            if k in own:
+                own[k].copy_(torch.as_tensor(v))
+    return [k for k in own if k not in state_dict], unused
+
+
+def save_reference_checkpoint(model: torch.nn.Module, path: str, arch: str, epoch: int = 0,
+                              config: dict | None = None, monitor_best: float = 0.0,
+                              optimizer: dict | None = None, step: int | None = None) -> None:
+    """A `.pth` in the reference trainer's layout (base_trainer.py:165-189):
+    {arch, epoch, state_dict (`module.`-prefixed reference names), optimizer
+    (a state dict, empty by default), monitor_best, config}, plus `step`, the
+    optimizer steps taken, where given."""
+    ckpt = {"arch": arch, "epoch": epoch,
+            "state_dict": {f"module.{k}": v for k, v in model.state_dict().items()},
+            "optimizer": optimizer or {}, "monitor_best": monitor_best, "config": config or {}}
+    if step is not None:
+        ckpt["step"] = step
+    torch.save(ckpt, path)
