@@ -2,13 +2,14 @@
 """Smoke run of the PyTorch port's main paths -- TVTSv2 video feature
 extraction, zero-shot eval (retrieval, prompt recognition, SSV2 multiple
 choice) and the pretraining step (forward, backward, AdamW) through the
-hand-written Hopper kernels, for B/16, B/32 and H/14 -- on one CUDA card.
+hand-written Hopper kernels, for B/16, B/32 and H/14, and TVTS v1
+pretraining (eager, as in the JAX package) -- on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure raises and exits non-zero; they
-run in the order 1-5, 10, 7, 6, 11, 12 for B/16, then 9 (B/32) and 8 (H/14)
-with their times):
+run in the order 1-5, 10, 7, 6, 11, 12, 13 for B/16 and v1, then 9 (B/32)
+and 8 (H/14) with their times):
 1. refuse to run without CUDA; print the card's name and power limit;
 2. build the kernels from tvts_torch/csrc with nvcc (sm_90a, one nvcc per
    translation unit, all at once); print the build seconds, the -Xptxas -v
@@ -155,6 +156,27 @@ with their times):
    and runs epoch 2; it prints the Trainer's clips/s and host share over
    steps 3-12 of epoch 1 beside phase 11's bare loop, each validation, and
    each checkpoint's size and seconds to save;
+13. TVTS v1 at full width (TVTSv1Config(): the joint ViT 12 x 768 over 8
+   tubes x 49 kept of 16 frames at 224², S = 393; DistilBERT 6 x 768, vocab
+   30522, 50 tokens; the sort head at 768, S = 397; 167.33 M parameters),
+   seeded weights with noise on every leaf: the forward at B=16 in bf16
+   against f32 (cosine of both embeddings >= V1_COS = 0.995, |dloss| <
+   V1_DLOSS = 2e-2; the worst relative gradient error printed); the forward
+   and the step (tvts_torch.train.optim.make_v1_optimizer) on a
+   device-resident batch (ms, clips/s, peak memory; no hand-written kernel
+   launched) and one profiled step's busy ms, idle share and top kernels;
+   then tvts_torch.cli.train_dist_TVTS's main with a 1-rank NCCL group on the
+   repo's v1-dist-yt-pt.json, edited only in data_dir, meta_root (phase 11's
+   72 YT-Temporal videos listed 3 times), num_workers (8), epochs,
+   max_samples_per_epoch (12 steps of 16) and save_dir, with a WordPiece
+   vocab over the synthetic ASR words: finite losses with loss_ce > 0,
+   clips/s and host share over steps 3-12 beside the device-resident rate,
+   the checkpoint's size and seconds, the epoch file rebuilt strictly by
+   build_v1_model bit for bit on a batch's embeddings, and `-r` restoring
+   parameters, AdamW state and step count bit for bit before a resumed
+   epoch of 4 steps; v1-dist-cc-web-pt.json's CC3M loader over 96
+   cv2-written PNG and JPEG images (shapes, items/s), and the CLI twin's
+   refusal of that config by name;
 9. B/32: extraction at B=8 through the kernels (counts 12/11/11/1, cosine
    gates), clips/s at B=64 (kernels, eager);
 8. H/14 at full width and depth (32 blocks of 1280, text 24 blocks of 1024):
@@ -3448,6 +3470,336 @@ def trainer_phase(dev, card: str, bk, bb, ta, root: str, config_path: str, bare:
     print(f"[12] Trainer phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the TVTS v1 family on the card (DistilBERT, the joint ViT, the
+# v1 sort head), through tvts_torch.cli.train_dist_TVTS
+# ---------------------------------------------------------------------------
+V1_CONFIG, V1_CC_CONFIG = "v1-dist-yt-pt.json", "v1-dist-cc-web-pt.json"
+V1_COS = 0.995  # bf16 embeddings against f32 at step 0 (PERF.md §2's f32 band)
+V1_DLOSS = 2e-2  # |loss_bf16 - loss_f32| at step 0
+V1_B = 16  # the config's batch
+V1_STEPS = 12  # optimizer steps an epoch: the window TRAINER_WINDOW is steps 3-12
+V1_RESUMED_STEPS = 4  # steps of the resumed epoch 2
+V1_YTT_REPEAT = 3  # the v1 metadata lists each YT-Temporal video this many times
+V1_CC_IMAGES = 96  # CC3M images (2 batches of the config's 48), half PNG, half JPEG
+BERT_SPECIALS = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+
+
+def write_v1_vocab(path: str) -> str:
+    """A WordPiece vocab.txt over the synthetic ASR's tokens: BERT's special
+    tokens, every word of WORDS, punctuation and digits."""
+    tokens = (BERT_SPECIALS + sorted(set(WORDS)) + list(",.?!&;#'")
+              + [str(d) for d in range(10)])
+    with open(path, "w") as f:
+        f.write("\n".join(tokens) + "\n")
+    return path
+
+
+def v1_config(path: str, name: str, loaders: dict, trainer: dict) -> str:
+    """The repo's tvts_tpu/configs/<name> with `loaders[dataset_name]` merged
+    into the args of each loader it names (the others dropped) and `trainer`
+    into its trainer section; written to path."""
+    with open(REPO / "tvts_tpu" / "configs" / name) as f:
+        config = json.load(f)
+    config["data_loader"] = [spec for spec in config["data_loader"]
+                             if spec["args"]["dataset_name"] in loaders]
+    for spec in config["data_loader"]:
+        spec["args"].update(loaders[spec["args"]["dataset_name"]])
+    config["trainer"].update(trainer)
+    with open(path, "w") as f:
+        json.dump(config, f, indent=2)
+    return path
+
+
+def v1_batch(cfg, B: int, seed: int, dev) -> dict:
+    """A synthetic v1 batch: normalised clips of num_frames, a keep set a tube
+    [B, n_tubes, n_keep], num_clips clip-major id rows a clip ([CLS], ids,
+    [SEP], then padding; row 0 full) with their mask, labels arange(num_clips)."""
+    rng = np.random.default_rng(seed)
+    n, L = cfg.num_clips, cfg.max_text_len
+    video = rng.standard_normal((B, cfg.num_frames, 3, cfg.img_size, cfg.img_size))
+    keep = np.stack([np.stack([rng.permutation(cfg.patches_per_frame)[:cfg.n_keep]
+                               for _ in range(cfg.n_tubes)]) for _ in range(B)])
+    ids = np.zeros((n * B, L), np.int64)
+    mask = np.zeros((n * B, L), np.int64)
+    for r in range(n * B):
+        k = L if r == 0 else int(rng.integers(4, L + 1))
+        ids[r, :k] = np.concatenate([[101], rng.integers(1000, cfg.text.vocab_size, k - 2),
+                                     [102]])
+        mask[r, :k] = 1
+    return {"video": torch.tensor(video, dtype=torch.float32, device=dev),
+            "text_ids": torch.from_numpy(ids).to(dev),
+            "attention_mask": torch.from_numpy(mask).to(dev),
+            "keep_ind": torch.from_numpy(keep).to(dev),
+            "labels": torch.from_numpy(np.tile(np.arange(n), (B, 1))).to(dev)}
+
+
+def v1_forward_check(dev, card: str, cfg) -> tuple:
+    """The full-width v1 model (seeded weights, noise on every leaf) at B=16:
+    the bf16 forward against f32 at step 0 (the gates) and the worst
+    gradient error. Returns (bf16 model, batch)."""
+    import copy
+
+    from tvts_torch.models.factory import build_v1_model
+    from tvts_torch.train.step import default_apply, make_loss_fn
+
+    model = build_v1_model(cfg, device=dev, seed=0, compute_dtype=torch.bfloat16)
+    add_noise_(model, 31, dev)
+    model32 = copy.deepcopy(model)
+    model32.set_compute_dtype(None)
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = v1_batch(cfg, V1_B, seed=13, dev=dev)
+    loss_fn = make_loss_fn()
+    out, loss, grads = {}, {}, {}
+    for label, m in (("f32", model32), ("bf16", model)):
+        with no_tf32():
+            with torch.no_grad():
+                out[label] = [t.float().cpu().numpy() for t in default_apply(m, batch)]
+            loss[label], grads[label] = grads_of(m, loss_fn, batch)
+    del model32
+    torch.cuda.empty_cache()
+    shapes = [o.shape for o in out["bf16"]]
+    want = [(V1_B, cfg.projection_dim), (V1_B, cfg.projection_dim),
+            (V1_B, cfg.num_clips, cfg.num_clips)]
+    if shapes != want or not all(np.isfinite(o).all() for o in out["bf16"]):
+        raise AssertionError(f"v1 forward: shapes {shapes} (expected {want}) or non-finite")
+    cos_t = cos_rows(out["bf16"][0], out["f32"][0]).min()
+    cos_v = cos_rows(out["bf16"][1], out["f32"][1]).min()
+    dloss = abs(loss["bf16"] - loss["f32"])
+    # tools/train_grad_check.py's measure: over tensors with max|g| > 1e-2 *
+    # the global max (a k bias's gradient is zero but for rounding)
+    top = max(g.abs().max().item() for g in grads["f32"].values())
+    errs = {n: ((grads["bf16"][n] - g).abs().max() / g.abs().max()).item()
+            for n, g in grads["f32"].items() if g.abs().max() > 1e-2 * top}
+    worst = max(errs, key=errs.get)
+    print(f"[13] TVTSv1 {n_params / 1e6:.2f} M parameters (video {cfg.depth} x "
+          f"{cfg.embed_dim}, {cfg.n_tubes} tubes x {cfg.n_keep} kept, S = "
+          f"{1 + cfg.n_tubes * cfg.n_keep}; DistilBERT {cfg.text.n_layers} x {cfg.text.dim}, "
+          f"vocab {cfg.text.vocab_size}, {cfg.max_text_len} tokens; sort head S = "
+          f"{1 + cfg.n_tubes * cfg.n_keep + cfg.num_clips}), forward B={V1_B} bf16 against "
+          f"f32: text cosine min {cos_t:.6f}, video cosine min {cos_v:.6f} (>= {V1_COS}); "
+          f"loss {loss['bf16']:.6f} / {loss['f32']:.6f}, |dloss| {dloss:.2e} (< {V1_DLOSS}); "
+          f"worst relative gradient error (max|dg| / max|g|, {len(errs)} of {len(grads['f32'])} "
+          f"tensors with max|g| > 1e-2 * {top:.3e}) {errs[worst]:.4f} at {worst}")
+    if min(cos_t, cos_v) < V1_COS or dloss >= V1_DLOSS:
+        raise AssertionError("the v1 bf16 forward disagrees with f32")
+    return model, batch
+
+
+def v1_resident(dev, card: str, cfg, model, batch, bk, bb, ta) -> dict:
+    """The forward and the step at B=16 on the device-resident batch: ms,
+    clips/s, peak memory, and one profiled step's breakdown."""
+    from tvts_torch.train.optim import OptimizerConfig, make_v1_optimizer
+    from tvts_torch.train.step import default_apply, make_train_step
+
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: default_apply(model, batch), iters=5)
+    step = make_train_step(model, make_v1_optimizer(model), OptimizerConfig())
+    reset_launch_counts(bk, bb, ta)
+    for _ in range(2):
+        step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0, iters = time.perf_counter(), 5
+    for _ in range(iters):
+        step(batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect_launches("v1 steps", launch_counts(bk, bb, ta), {})
+    print(f"[13] TVTSv1 B={V1_B} device-resident: forward {fwd_ms:.2f} ms "
+          f"({V1_B / fwd_ms * 1e3:.2f} clips/s); step {ms:.2f} ms, {V1_B / ms * 1e3:.2f} "
+          f"clips/s, peak memory {mem:.2f} GiB; no hand-written kernel launched [{card}]")
+    rows, wall = kernel_timeline(lambda: step(batch))
+    busy = sum(us for us, _ in rows) / 1e3
+    print(f"[13] profiled TVTSv1 step B={V1_B}: device busy {busy:.2f} ms, {len(rows)} "
+          f"kernels; idle share {max(0.0, 1 - busy / ms):.3f} of the unprofiled step "
+          f"({ms:.2f} ms), {max(0.0, 1 - busy / wall):.3f} of the profiled one ({wall:.2f} ms) "
+          f"[{card}]")
+    groups, by_label = {}, {}
+    for us, key in rows:
+        group = ("optimizer (multi_tensor_apply)" if "multi_tensor_apply" in key
+                 else "convolution (the Conv3d patchify, cuDNN)"
+                 if any(k in key for k in ("convolve", "wgrad_alg", "dgrad_alg"))
+                 else "GEMM (cuBLAS / CUTLASS)"
+                 if any(k in key for k in ("nvjet", "gemm", "cutlass", "sm90_xmma"))
+                 else "softmax" if "softmax" in key.lower()
+                 else "other (elementwise, reductions, copies, LayerNorm in torch ops)")
+        groups[group] = groups.get(group, 0.0) + us / 1e3
+        t, n = by_label.get(key, (0.0, 0))
+        by_label[key] = (t + us / 1e3, n + 1)
+    for group, t in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"[13]   {t:9.3f} ms ({t / busy:.3f}) {group}")
+    print("[13]   top device time by kernel:")
+    for key, (t, n) in sorted(by_label.items(), key=lambda kv: -kv[1][0])[:16]:
+        print(f"[13]   {t:9.3f} ms {n:5d}x {key[:100]}")
+    return {"fwd_ms": fwd_ms, "ms": ms, "clips_s": V1_B / ms * 1e3, "mem": mem}
+
+
+def v1_trainer(dev, card: str, cfg, root: str, config_path: str, vocab: str,
+               resident: dict, bk, bb, ta) -> None:
+    """v1-dist-yt-pt.json through the CLI twin: 12 steps, the epoch file
+    rebuilt strictly, then `-r` and a second epoch."""
+    from tvts_torch.cli import train_dist_TVTS as cli
+    from tvts_torch.models.factory import build_v1_model
+    from tvts_torch.train.step import make_eval_step
+    from tvts_torch.train.trainer import prepare_batch
+    from tvts_torch.utils.config import read_json
+
+    ytt = next(spec["args"] for spec in read_json(config_path)["data_loader"]
+               if spec["args"]["dataset_name"] == "YTTemporal")
+    meta = os.path.join(root, "meta_v1")
+    os.makedirs(meta, exist_ok=True)
+    with open(os.path.join(ytt["meta_root"], "yttemporal_train.csv")) as f:
+        header, *names = f.read().splitlines()
+    with open(os.path.join(meta, "yttemporal_train.csv"), "w") as f:
+        f.write("\n".join([header] + names * V1_YTT_REPEAT) + "\n")
+    results = os.path.join(root, "results_v1")
+    edits = {"epochs": 1, "max_samples_per_epoch": V1_STEPS * V1_B, "save_dir": results}
+    path = v1_config(os.path.join(root, "v1.json"), V1_CONFIG, {"YTTemporal": {
+        "data_dir": ytt["data_dir"], "meta_root": meta, "num_workers": 8}}, edits)
+    print(f"[13] {V1_CONFIG} edited in data_dir, meta_root ({len(names)} YT-Temporal videos "
+          f"listed {V1_YTT_REPEAT} times), num_workers (8) and trainer {edits}; 4 clips x 4 "
+          f"frames and 4 transcripts an item, per_tube_masks = {cfg.n_tubes}")
+    record = {"steps": [], "waits": [], "vals": [], "saves": []}
+    argv = ["-c", path, "--bert_vocab", vocab, "--num_processes", "1", "--process_id", "0"]
+    try:
+        with trainer_hooks(bk, bb, ta, record):
+            trainer = cli.main([*argv, "--coordinator", f"localhost:{free_port()}"])
+        steps = record["steps"]
+        if len(steps) != V1_STEPS or trainer.train_step.count != V1_STEPS:
+            raise AssertionError(f"{len(steps)} v1 Trainer steps, count "
+                                 f"{trainer.train_step.count}")
+        for i, (ytt_batch, launches, _) in enumerate(steps):
+            expect_launches(f"v1 Trainer step {i + 1}", launches, {})
+        aux = {k: torch.stack([a[k].float() for _, _, a in steps]).cpu()
+               for k in ("loss", "loss_ct", "loss_ce")}
+        if not all(torch.isfinite(v).all() for v in aux.values()) \
+                or not (aux["loss_ce"] > 0).all() or not all(y for y, _, _ in steps):
+            raise AssertionError(f"v1 Trainer steps: {aux}")
+        sec = record["t1"] - record["t0"]
+        wait = sum(w for i, w in record["waits"] if i in TRAINER_WINDOW)
+        clips = V1_B * len(TRAINER_WINDOW)
+        print(f"[13] the v1 Trainer (1-rank NCCL group, the sharded step, B={V1_B}): losses "
+              f"finite, loss_ce > 0 in every step (first loss {aux['loss'][0]:.6f}, last "
+              f"{aux['loss'][-1]:.6f}); over steps {TRAINER_WINDOW.start + 1}-"
+              f"{TRAINER_WINDOW.stop}: {clips / sec:.2f} clips/s, {sec / len(TRAINER_WINDOW) * 1e3:.1f} "
+              f"ms a step, host share {wait / sec:.3f}; device-resident {resident['clips_s']:.2f} "
+              f"clips/s ({resident['ms']:.2f} ms a step) [{card}]")
+        print(f"[13] seconds waiting on the feed before each step of that window: "
+              + json.dumps([round(w, 4) for i, w in record["waits"] if i in TRAINER_WINDOW]))
+        for name, seconds, size in record["saves"]:
+            print(f"[13] saved {name}: {size / 2 ** 30:.3f} GiB in {seconds:.2f} s "
+                  f"({size / 2 ** 30 / seconds:.2f} GiB/s) [{card}]")
+        epoch1 = os.path.join(trainer.ckpt.save_dir, "checkpoint-epoch1.pth")
+        batch = {k: torch.from_numpy(np.ascontiguousarray(a)).to(dev) for k, a in prepare_batch(
+            next(iter(trainer.data_loaders[0])), tokenize_fn=trainer.tokenize_fn).items()}
+        want = make_eval_step(trainer.model)(batch)
+        loaded = build_v1_model(trainer.model.cfg, load_checkpoint=epoch1, device=dev,
+                                compute_dtype=trainer.model.video_model.compute_dtype)
+        got = make_eval_step(loaded)(batch)
+        same = all(torch.equal(got[k], want[k]) for k in ("video_emb", "text_emb", "sort_acc"))
+        print(f"[13] build_v1_model(load_checkpoint=checkpoint-epoch1.pth), strict: embeddings "
+              f"of a batch ({batch['video'].shape[0]} clips) bit for bit the trained model's: "
+              f"{same}")
+        if not same:
+            raise AssertionError("a strict reload of the v1 epoch checkpoint disagrees")
+        del trainer, loaded, want, got
+        torch.cuda.empty_cache()
+        record.update(steps=[], waits=[], vals=[], saves=[])
+        # the resumed epoch: V1_RESUMED_STEPS steps
+        path = v1_config(path, V1_CONFIG, {"YTTemporal": {
+            "data_dir": ytt["data_dir"], "meta_root": meta, "num_workers": 8}},
+            dict(edits, epochs=2, max_samples_per_epoch=V1_RESUMED_STEPS * V1_B))
+        with trainer_hooks(bk, bb, ta, record):
+            resumed = cli.main([*argv, "--coordinator", f"localhost:{free_port()}",
+                                "-r", epoch1])
+        res = record["resume"]
+        print(f"[13] -r checkpoint-epoch1.pth: " + json.dumps(res))
+        if not (res["parameters"] and res["adamw_state"] and res["next_epoch"] == 2
+                and res["step"][0] == res["step"][1] == V1_STEPS):
+            raise AssertionError(f"the v1 resume restored another state: {res}")
+        if resumed.train_step.count != V1_STEPS + V1_RESUMED_STEPS \
+                or len(record["steps"]) != V1_RESUMED_STEPS:
+            raise AssertionError("the resumed v1 epoch did not run")
+        print(f"[13] the resumed epoch 2 ran: {len(record['steps'])} steps, "
+              f"{[name for name, _, _ in record['saves']]} written")
+        del resumed
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(results, ignore_errors=True)
+
+
+def v1_cc3m(card: str, root: str, vocab: str) -> None:
+    """The cc-web config's CC3M loader on cv2-written PNG and JPEG images;
+    the CLI twin refuses that config by name."""
+    import cv2
+
+    from tvts_torch.cli import train_dist_TVTS as cli
+    from tvts_torch.utils.config import ConfigParser, read_json
+
+    cc = os.path.join(root, "cc3m")
+    os.makedirs(os.path.join(cc, "training"))
+    rows = []
+    for i in range(V1_CC_IMAGES):
+        shape = ((240, 320), (300, 400), (320, 240), (256, 256))[i % 4]
+        name = f"{i:05d}.{'png' if i % 2 else 'jpg'}"
+        frame = clip_frames(3000 + i, [0], shape)[0]
+        cv2.imwrite(os.path.join(cc, "training", name), np.ascontiguousarray(frame[..., ::-1]))
+        rows.append(f"{synthetic_captions(1, 3000 + i)[0]}\t{name}")
+    with open(os.path.join(cc, "cc3m_train.tsv"), "w") as f:
+        f.write("caption\tfilename\n" + "\n".join(rows) + "\n")
+    path = v1_config(os.path.join(root, "v1_cc.json"), V1_CC_CONFIG, {"ConceptualCaptions3M": {
+        "data_dir": cc, "meta_root": cc, "num_workers": 8}}, {"save_dir": os.path.join(root, "r")})
+    config = ConfigParser(read_json(path), test=True)
+    spec = config["data_loader"][0]
+    ds, loader = config.initialize_dataset_loader(spec)
+    t0, items = time.perf_counter(), 0
+    for batch in loader:
+        n, res = loader.batch_size, spec["args"]["video_params"]["input_res"]
+        want = (n, spec["args"]["video_params"]["num_frames"], 3, res, res)
+        # the list-wrapped captions collate clip-major: one list of n
+        if batch["video"].shape != want or batch["keep_ind"].shape != (n, 49) \
+                or [len(t) for t in batch["text"]] != [n] \
+                or not np.isfinite(batch["video"]).all():
+            raise AssertionError(f"CC3M batch: video {batch['video'].shape} (expected {want}), "
+                                 f"keep_ind {batch['keep_ind'].shape}")
+        items += n
+    sec = time.perf_counter() - t0
+    print(f"[13] {V1_CC_CONFIG}'s CC3M loader ({type(ds).__name__}, {len(ds)} cv2-written "
+          f"images, PNG and JPEG, 240x320 to 300x400): {items} items in batches of "
+          f"{loader.batch_size}, video {tuple(batch['video'].shape)}, keep_ind "
+          f"{tuple(batch['keep_ind'].shape)}: {items / sec:.2f} items/s, "
+          f"{loader.num_workers} workers [{card}]")
+    cc_path = v1_config(os.path.join(root, "v1_cc_web.json"), V1_CC_CONFIG, {
+        "ConceptualCaptions3M": {"data_dir": cc, "meta_root": cc},
+        "WebVid": {"data_dir": cc, "meta_root": cc}}, {"save_dir": os.path.join(root, "r")})
+    try:
+        cli.main(["-c", cc_path, "--bert_vocab", vocab])
+    except ValueError as e:
+        if "per_tube_masks" not in str(e) or "joint_vit.py:84-86" not in str(e):
+            raise
+        print(f"[13] the CLI twin refuses {V1_CC_CONFIG}: {e}")
+    else:
+        raise AssertionError(f"the CLI twin ran {V1_CC_CONFIG}")
+
+
+def v1_phase(dev, card: str, bk, bb, ta, root: str, config_path: str) -> None:
+    """Phase 13 (module notes): the TVTS v1 family at full width."""
+    from tvts_torch.models.tvts_v1 import TVTSv1Config
+
+    t_phase = time.perf_counter()
+    cfg = TVTSv1Config()
+    model, batch = v1_forward_check(dev, card, cfg)
+    resident = v1_resident(dev, card, cfg, model, batch, bk, bb, ta)
+    del model, batch
+    torch.cuda.empty_cache()
+    vocab = write_v1_vocab(os.path.join(root, "v1_vocab.txt"))
+    v1_trainer(dev, card, cfg, root, config_path, vocab, resident, bk, bb, ta)
+    v1_cc3m(card, root, vocab)
+    print(f"[13] v1 phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     # ---- phase 1: the card --------------------------------------------------
     if not torch.cuda.is_available():
@@ -3642,7 +3994,7 @@ def main() -> int:
     del train
     torch.cuda.empty_cache()
 
-    # ---- phases 11 and 12: pretraining from files, then the Trainer ----------
+    # ---- phases 11-13: pretraining from files, the Trainer, TVTS v1 ----------
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="tvts_pretrain_") as root:
@@ -3650,6 +4002,8 @@ def main() -> int:
         with decode:
             bare = pretrain_phase(dev, card, bk, bb, ta, config_path, backend)
             trainer_phase(dev, card, bk, bb, ta, root, config_path, bare)
+            # ---- phase 13: the TVTS v1 family, on the same YT-Temporal tree ------
+            v1_phase(dev, card, bk, bb, ta, root, config_path)
 
     # ---- phase 9 (B/32) and phase 8 (H/14), with their times -----------------
     b32_phase(dev, card, bk, bb, ta)

@@ -154,8 +154,9 @@ def test_tvts_torch_imports_no_jax():
     """Every tvts_torch module, and chip_smoke.py, imports without pulling in
     jax, flax, optax, orbax, tvts_tpu, regex or pandas, none of which the
     card's machine has, nor cv2 or PIL: the data layer imports cv2 only when
-    its cv2 backend runs, and PIL never (a subprocess: this test process
-    already holds jax through conftest)."""
+    its cv2 backend runs (data/image_datasets.py only inside decode_image,
+    which decodes what the JAX package opens with PIL), and PIL never (a
+    subprocess: this test process already holds jax through conftest)."""
     code = (
         "import importlib, pkgutil, sys, tvts_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(tvts_torch.__path__, 'tvts_torch.'):\n"
@@ -186,3 +187,6 @@ def test_tvts_torch_imports_no_jax():
             "tvts_torch.parallel.partition", "tvts_torch.utils.checkpoint",
             "tvts_torch.utils.logging", "tvts_torch.utils.tb_events",
             "tvts_torch.utils.visualizer", "tvts_torch.utils.profiling"} <= imported
+    assert {"tvts_torch.text.wordpiece", "tvts_torch.models.distilbert",
+            "tvts_torch.models.joint_vit", "tvts_torch.models.tvts_v1",
+            "tvts_torch.data.image_datasets", "tvts_torch.cli.train_dist_TVTS"} <= imported

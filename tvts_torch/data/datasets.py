@@ -48,6 +48,7 @@ import re
 import numpy as np
 
 from tvts_torch.data import video_reader
+from tvts_torch.data.image_datasets import ConceptualCaptions3M
 from tvts_torch.data.transforms import video_transform
 from tvts_torch.data.ytt import YTTemporal
 
@@ -498,21 +499,12 @@ DATASET_REGISTRY = {
     "UCF101": UCF101,
     "SSV2_mc": SSV2_mc,
     "YTTemporal": YTTemporal,
-}
-# datasets of the JAX package's registry that this package does not read yet:
-# name -> (the JAX reader, the ROADMAP.md item that ports it)
-NOT_PORTED = {
-    "ConceptualCaptions3M": ("tvts_tpu/data/image_datasets.py", "M4"),
+    "ConceptualCaptions3M": ConceptualCaptions3M,
 }
 
 
 def dataset_loader(dataset_name: str, *args, **kwargs):
     """Name -> dataset (reference data_loader.py:15-68)."""
-    if dataset_name in NOT_PORTED:
-        reader, item = NOT_PORTED[dataset_name]
-        raise NotImplementedError(
-            f"dataset {dataset_name} is not ported yet: its JAX reader is {reader}; "
-            f"ROADMAP.md item {item} ports it")
     if dataset_name not in DATASET_REGISTRY:
         raise NotImplementedError(f"dataset {dataset_name} not implemented")
     return DATASET_REGISTRY[dataset_name](dataset_name, *args, **kwargs)

@@ -11,8 +11,13 @@ from torch import nn
 from tvts_torch.models.configs import MODEL_REGISTRY
 from tvts_torch.models.layers import LayerNormF32
 from tvts_torch.models.space_time_vit import LayerScale
+from tvts_torch.models.tvts_v1 import TVTSv1, TVTSv1Config
 from tvts_torch.models.tvts_v2 import TVTSv2
-from tvts_torch.utils.convert import load_reference_state_dict, merge_params
+from tvts_torch.utils.convert import (
+    convert_v1_state_dict,
+    load_reference_state_dict,
+    merge_params,
+)
 
 log = logging.getLogger(__name__)
 
@@ -70,3 +75,28 @@ def build_model(arch_type: str,
     model.set_compute_dtype(compute_dtype)
     model.train(not eval_mode)
     return cfg, model
+
+
+def build_v1_model(cfg: TVTSv1Config = TVTSv1Config(),
+                   load_checkpoint: str | None = None,
+                   device: str | torch.device = "cuda",
+                   seed: int = 0,
+                   compute_dtype: torch.dtype | None = None) -> TVTSv1:
+    """A TVTSv1 with float32 parameters in train mode on `device` (the card
+    unless the caller asks for the CPU): every weight from `load_checkpoint`
+    (a reference v1 `.pth` read by utils/convert.convert_v1_state_dict,
+    loaded strictly) or, without one, from the JAX package's initializers
+    drawn from a generator seeded with `seed` on the CPU. `compute_dtype` is
+    the activations' (bf16 over the f32 parameters for training)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_v1_model: no CUDA device; pass device='cpu' to build on "
+                           "the CPU")
+    model = TVTSv1(cfg)
+    if load_checkpoint:
+        model.load_state_dict(convert_v1_state_dict(load_reference_state_dict(load_checkpoint)),
+                              strict=True)
+    else:
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+    model.to(device).set_compute_dtype(compute_dtype)
+    return model

@@ -64,6 +64,12 @@ class SortBlock(nn.Module):
         self.norm2 = LayerNormF32(D, eps=SORT_LN_EPS)
         self.mlp = SortMlp(D, int(D * cfg.mlp_ratio))
 
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.norm1.reset_parameters()
+        self.norm2.reset_parameters()
+        for layer in (self.attn.qkv, self.attn.proj, self.mlp.fc1, self.mlp.fc2):
+            _reset_linear(layer, generator)
+
     def forward(self, x: torch.Tensor, tail: int | None = None) -> torch.Tensor:
         """tail=k returns only the last k rows of the block output (exact)."""
         a = self.attn(self.norm1(x), q_tail=tail)
@@ -87,10 +93,7 @@ class SortTransformer(nn.Module):
         """The JAX package's initializers, drawn from `generator`."""
         nn.init.zeros_(self.type_embed)
         for blk in self.blocks:
-            blk.norm1.reset_parameters()
-            blk.norm2.reset_parameters()
-            for layer in (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2):
-                _reset_linear(layer, generator)
+            blk.reset_parameters(generator)
         self.norm.reset_parameters()
         _reset_linear(self.head, generator)
 

@@ -23,6 +23,11 @@ parameters it is the JAX package's single-device H/14 recipe
 (tools/train_bench.py --bf16_state). torch.optim.AdamW has no such switch, so
 a config that sets it gets `StateDtypeAdamW`, the same update written out in
 plain torch in optax's order of operations and rounding points.
+
+TVTS v1 (`make_v1_optimizer`, scripts/train_dist_TVTS.py:89-100) trains
+every parameter in one AdamW group: the config's lr, betas and weight decay
+(on every parameter, biases and norms too), eps 1e-6, and the same
+milestone decay.
 """
 
 from __future__ import annotations
@@ -180,3 +185,12 @@ def make_optimizer(model: torch.nn.Module, cfg: OptimizerConfig) -> torch.optim.
         return StateDtypeAdamW(param_groups, betas=cfg.betas, eps=cfg.eps,
                                mu_dtype=getattr(torch, cfg.mu_dtype))
     return torch.optim.AdamW(param_groups, betas=cfg.betas, eps=cfg.eps)
+
+
+def make_v1_optimizer(model: torch.nn.Module, lr: float = 1e-4, betas=(0.9, 0.999),
+                      weight_decay: float = 0.0, eps: float = 1e-6) -> torch.optim.Optimizer:
+    """TVTS v1's single-group AdamW over every parameter (optax.adamw with no
+    mask); the group keeps its base LR under "base_lr" for the train step."""
+    return torch.optim.AdamW([{"params": list(model.parameters()), "lr": lr, "base_lr": lr,
+                               "weight_decay": weight_decay, "name": "all"}],
+                             betas=tuple(betas), eps=eps)

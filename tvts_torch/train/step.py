@@ -3,8 +3,9 @@ reference v2/trainer/trainer.py:463-499): forward -> sim_matrix(video, text)
 -> NormSoftmaxLoss + 2x sort cross-entropy -> backward -> AdamW step.
 
 A batch is a dict of tensors on the model's device: "video" [B, T, 3, H, W],
-"text_ids" [n_trans * B, ctx] clip-major, "keep_ind" [B, n_keep], "labels"
-[B, n_trans]. `apply_fn(model, batch)` returns (text_emb, video_emb,
+"text_ids" [n_trans * B, ctx] clip-major, "keep_ind" [B, n_keep] (TVTS v1:
+[B, n_tubes, n_keep]), "labels" [B, n_trans], and for TVTS v1 the text ids'
+"attention_mask". `apply_fn(model, batch)` returns (text_emb, video_emb,
 predict_order); the default is the eager `model(...)`,
 ops/fused_forward.train_apply the kernel path. Frozen parameters carry
 requires_grad False (train/optim.make_optimizer), so autograd computes no
@@ -40,6 +41,11 @@ from tvts_torch.train.optim import OptimizerConfig, milestone_scale_fn
 
 
 def default_apply(model, batch):
+    """The eager forward; a batch with an "attention_mask" (TVTS v1's
+    DistilBERT ids) passes it after the text ids, as the JAX package's does."""
+    if "attention_mask" in batch:
+        return model(batch["video"], batch["text_ids"], batch["attention_mask"],
+                     batch.get("keep_ind"))
     return model(batch["video"], batch["text_ids"], batch.get("keep_ind"))
 
 

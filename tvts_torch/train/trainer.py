@@ -5,8 +5,9 @@ v2/trainer/trainer.py `Trainer_TVTSv2_*` and v2/base/base_trainer.py
 Batch preparation (`prepare_batch`, reference trainer.py:465-473): a collated
 loader batch -> the numeric arrays of the train step (train/step.py):
 - text: the per-clip transcripts concatenated clip-major, then CLIP-tokenized
-  with truncation (`clip_tokenize_fn`); YT-Temporal gives 4 transcripts a
-  clip (the sort loss on), WebVid 1 (off);
+  with truncation (`clip_tokenize_fn`), or for TVTS v1 WordPiece-tokenized
+  with an attention mask (`wordpiece_tokenize_fn`); YT-Temporal gives 4
+  transcripts a clip (the sort loss on), WebVid 1 (off);
 - a 2-D `label` (YT-Temporal's arange(num_clips) per clip) becomes `labels`.
 
 `Trainer`:
@@ -59,6 +60,20 @@ def clip_tokenize_fn(context_length: int = 77):
 
     def fn(texts):
         return {"text_ids": tokenize_openclip(texts, context_length=context_length)}
+
+    return fn
+
+
+def wordpiece_tokenize_fn(vocab_path: str | None = None, max_length: int = 50):
+    """The TVTS v1 text pipeline: DistilBERT WordPiece ids and their attention
+    mask, padded to max_length (reference v1/trainer/trainer.py:130-131)."""
+    from tvts_torch.text.wordpiece import WordPieceTokenizer
+
+    tk = WordPieceTokenizer(vocab_path)
+
+    def fn(texts):
+        enc = tk(texts, max_length=max_length)
+        return {"text_ids": enc["input_ids"], "attention_mask": enc["attention_mask"]}
 
     return fn
 

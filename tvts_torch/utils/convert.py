@@ -21,6 +21,13 @@ The CLIP init and the reference checkpoint file (counterparts of
 dicts under the reference names, which the port's modules carry, so no
 parameter tree is involved; `load_reference_state_dict` is the JAX package's
 `load_torch_state_dict` (:26), returning tensors.
+The TVTS v1 maps (models/tvts_v1.py, whose modules carry the reference v1
+names): `v1_state_dict_from_jax` is the inverse of the JAX package's
+`convert_v1_state_dict` (torch_convert.py:127); `convert_v1_state_dict`
+reads a reference v1 checkpoint as that function does (the VideoMAE
+`attn.q_bias` / `v_bias` folded into `qkv.bias` with a zero k bias, the HF
+DistilBERT keys under `text_model.` without their `distilbert.` prefix);
+`inflate_mae_2d_to_3d` is its MAE patch-embed inflation (:173).
 numpy and torch only: no JAX and no `tvts_tpu` import.
 """
 
@@ -170,3 +177,76 @@ def save_reference_checkpoint(model: torch.nn.Module, path: str, arch: str, epoc
     if step is not None:
         ckpt["step"] = step
     torch.save(ckpt, path)
+
+
+# the JAX TVTSv1 tree's dotted names -> the reference v1 names, in order
+_V1_RENAMES = tuple((re.compile(p), r) for p, r in (
+    (r"^text_model\.(word_embeddings|position_embeddings)\.", r"text_model.embeddings.\1."),
+    (r"^text_model\.emb_layer_norm\.", "text_model.embeddings.LayerNorm."),
+    (r"^text_model\.blocks_(\d+)\.([qkv]_lin|out_lin)\.",
+     r"text_model.transformer.layer.\1.attention.\2."),
+    (r"^text_model\.blocks_(\d+)\.(lin[12])\.", r"text_model.transformer.layer.\1.ffn.\2."),
+    (r"^text_model\.blocks_(\d+)\.", r"text_model.transformer.layer.\1."),
+    (r"^video_model\.patch_embed\.", "video_model.patch_embed.proj."),
+    (r"^(video_model|pred_model)\.blocks_(\d+)\.", r"\1.blocks.\2."),
+    (r"\.mlp\.c_fc\.", ".mlp.fc1."),
+    (r"\.mlp\.c_proj\.", ".mlp.fc2."),
+    (r"^txt_proj\.", "txt_proj.1."),
+    (r"^vid_proj\.", "vid_proj.0."),
+))
+
+
+def v1_state_dict_from_jax(params: Mapping) -> dict[str, np.ndarray]:
+    """JAX TVTSv1 parameter tree (numpy leaves) -> the reference v1 state
+    dict of float32 arrays: kernels transposed ([in, out] -> [out, in]; the
+    tubelet conv [t, p, p, in, out] -> [out, in, t, p, p]), LayerNorm
+    `scale` and embedding `embedding` -> `weight`, then `_V1_RENAMES`."""
+    out: dict[str, np.ndarray] = {}
+    for path, arr in _flatten(params):
+        arr = np.asarray(arr, dtype=np.float32)
+        leaf = path[-1]
+        if leaf == "kernel":
+            if arr.ndim not in (2, 5):
+                raise ValueError(f"unhandled kernel shape {arr.shape} at {path}")
+            arr = arr.T if arr.ndim == 2 else arr.transpose(4, 3, 0, 1, 2)
+            name = ".".join(path[:-1]) + ".weight"
+        elif leaf in ("scale", "embedding"):
+            name = ".".join(path[:-1]) + ".weight"
+        else:
+            name = ".".join(path)
+        for pattern, repl in _V1_RENAMES:
+            name = pattern.sub(repl, name)
+        out[name] = np.ascontiguousarray(arr)
+    return out
+
+
+def convert_v1_state_dict(sd: Mapping) -> dict:
+    """A reference v1 state dict (`module.` stripped or not) -> entries under
+    the port's names, as the JAX package reads it: each `attn.q_bias` /
+    `attn.v_bias` pair becomes `attn.qkv.bias` = [q_bias, 0, v_bias]; the
+    `text_model.*` keys go through `distilbert_state_dict`; CLIP-only keys
+    (`_SKIP`) are dropped; the rest keep their names."""
+    from tvts_torch.models.distilbert import distilbert_state_dict
+
+    sd = {re.sub(r"^module\.", "", k): v for k, v in sd.items()}
+    for k in [k for k in sd if k.endswith(".attn.q_bias")]:
+        base = k[: -len("q_bias")]
+        qb, vb = torch.as_tensor(sd.pop(k)), torch.as_tensor(sd.pop(base + "v_bias"))
+        sd[base + "qkv.bias"] = torch.cat([qb, torch.zeros_like(qb), vb])
+    text = distilbert_state_dict({k[len("text_model."):]: v for k, v in sd.items()
+                                  if k.startswith("text_model.")})
+    out = {k: v for k, v in sd.items()
+           if not k.startswith("text_model.") and not any(s in k for s in _SKIP)}
+    out.update({f"text_model.{k}": v for k, v in text.items()})
+    return out
+
+
+def inflate_mae_2d_to_3d(sd: Mapping, tubelet_size: int = 2) -> dict:
+    """An MAE 2-D patch embed [D, 3, p, p] repeated over the tubelet's time
+    axis -> [D, 3, tubelet, p, p] (reference model_dist_TVTS.py:56-59)."""
+    out = dict(sd)
+    key = "patch_embed.proj.weight"
+    if key in out and out[key].ndim == 4:
+        w = torch.as_tensor(out[key])
+        out[key] = w[:, :, None].repeat(1, 1, tubelet_size, 1, 1)
+    return out
