@@ -2,14 +2,15 @@
 """Smoke run of the PyTorch port's main paths -- TVTSv2 video feature
 extraction, zero-shot eval (retrieval, prompt recognition, SSV2 multiple
 choice) and the pretraining step (forward, backward, AdamW) through the
-hand-written Hopper kernels, for B/16, B/32 and H/14, and TVTS v1
-pretraining (eager, as in the JAX package) -- on one CUDA card.
+hand-written Hopper kernels, for B/16, B/32 and H/14, TVTS v1
+pretraining and the v1 SSV2 downstream stack (eager, as in the JAX package)
+-- on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure raises and exits non-zero; they
-run in the order 1-5, 10, 7, 6, 11, 12, 13 for B/16 and v1, then 9 (B/32)
-and 8 (H/14) with their times):
+run in the order 1-5, 10, 7, 6, 11, 12, 13, 14 for B/16 and v1, then 9
+(B/32) and 8 (H/14) with their times):
 1. refuse to run without CUDA; print the card's name and power limit;
 2. build the kernels from tvts_torch/csrc with nvcc (sm_90a, one nvcc per
    translation unit, all at once); print the build seconds, the -Xptxas -v
@@ -177,6 +178,30 @@ and 8 (H/14) with their times):
    epoch of 4 steps; v1-dist-cc-web-pt.json's CC3M loader over 96
    cv2-written PNG and JPEG images (shapes, items/s), and the CLI twin's
    refusal of that config by name;
+14. the v1 SSV2 downstream stack at scripts/sh/ft_ssv2.sh's width, eager as in
+   the JAX package (no hand-written kernel may launch in the phase): a seeded
+   v1 .pth (TVTSv1Config() with noise on every leaf, save_reference_checkpoint)
+   -> FinetuneViT (174 classes, 16 frames of 224², ViT-B/16, S = 1568, 86.37 M
+   parameters, remat) through load_pretrain_video_tower (the transferred
+   tensors bit for bit, fc_norm and head at init); at step 0, with noise on
+   the head, bf16 against f32 at B=12 (cosine of the pooled fc_norm features
+   and of the logits >= FT_COS = 0.995, |dloss| < FT_DLOSS = 2e-2; the worst
+   relative gradient error printed); the eval forward, the finetune and the
+   linear-probe steps on a device-resident B=12 batch (ms, clips/s, peak
+   memory) and one profiled finetune step (busy ms, idle share, top
+   kernels); then, on an SSV2-shaped tree of cv2-written 427x240 clips (48
+   frames at 12 fps, 96 train / 24 val / 12 test videos, 174-class labels),
+   tvts_torch.cli.run_class_finetuning --mode finetune --model_ema with
+   ft_ssv2.sh's flags for one epoch (finite losses, clips/s and the host
+   clock split over steps 3-8 beside the resident rate, a training item's
+   host time split into decode, resize and crop, RandAugment, normalise and
+   erase, the seconds of validation, of the multi-view test (12 videos x 6
+   views, each merged) and of the checkpoint), run_class_linear with
+   linear_ssv2.sh's flags for FT_LINEAR_STEPS steps (the first 36 train
+   videos, 12 val, no test; every backbone tensor bit for bit the
+   checkpoint's, head and fc_norm moved) and run_class_zero over the 24 val
+   videos (R@1/5/10; the first batch's features bit for bit
+   JointViT(video)[:, 0]);
 9. B/32: extraction at B=8 through the kernels (counts 12/11/11/1, cosine
    gates), clips/s at B=64 (kernels, eager);
 8. H/14 at full width and depth (32 blocks of 1280, text 24 blocks of 1024):
@@ -3610,9 +3635,17 @@ def v1_resident(dev, card: str, cfg, model, batch, bk, bb, ta) -> dict:
     print(f"[13] TVTSv1 B={V1_B} device-resident: forward {fwd_ms:.2f} ms "
           f"({V1_B / fwd_ms * 1e3:.2f} clips/s); step {ms:.2f} ms, {V1_B / ms * 1e3:.2f} "
           f"clips/s, peak memory {mem:.2f} GiB; no hand-written kernel launched [{card}]")
-    rows, wall = kernel_timeline(lambda: step(batch))
+    eager_step_profile("13", f"TVTSv1 step B={V1_B}", lambda: step(batch), ms, card)
+    return {"fwd_ms": fwd_ms, "ms": ms, "clips_s": V1_B / ms * 1e3, "mem": mem}
+
+
+def eager_step_profile(tag: str, what: str, fn, ms: float, card: str) -> float:
+    """One profiled call of an eager step: device busy ms, idle share against
+    the unprofiled step (`ms`) and the profiled one, busy time by kind and the
+    top kernels. Returns the busy ms."""
+    rows, wall = kernel_timeline(fn)
     busy = sum(us for us, _ in rows) / 1e3
-    print(f"[13] profiled TVTSv1 step B={V1_B}: device busy {busy:.2f} ms, {len(rows)} "
+    print(f"[{tag}] profiled {what}: device busy {busy:.2f} ms, {len(rows)} "
           f"kernels; idle share {max(0.0, 1 - busy / ms):.3f} of the unprofiled step "
           f"({ms:.2f} ms), {max(0.0, 1 - busy / wall):.3f} of the profiled one ({wall:.2f} ms) "
           f"[{card}]")
@@ -3629,11 +3662,11 @@ def v1_resident(dev, card: str, cfg, model, batch, bk, bb, ta) -> dict:
         t, n = by_label.get(key, (0.0, 0))
         by_label[key] = (t + us / 1e3, n + 1)
     for group, t in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"[13]   {t:9.3f} ms ({t / busy:.3f}) {group}")
-    print("[13]   top device time by kernel:")
+        print(f"[{tag}]   {t:9.3f} ms ({t / busy:.3f}) {group}")
+    print(f"[{tag}]   top device time by kernel:")
     for key, (t, n) in sorted(by_label.items(), key=lambda kv: -kv[1][0])[:16]:
-        print(f"[13]   {t:9.3f} ms {n:5d}x {key[:100]}")
-    return {"fwd_ms": fwd_ms, "ms": ms, "clips_s": V1_B / ms * 1e3, "mem": mem}
+        print(f"[{tag}]   {t:9.3f} ms {n:5d}x {key[:100]}")
+    return busy
 
 
 def v1_trainer(dev, card: str, cfg, root: str, config_path: str, vocab: str,
@@ -3798,6 +3831,414 @@ def v1_phase(dev, card: str, bk, bb, ta, root: str, config_path: str) -> None:
     v1_trainer(dev, card, cfg, root, config_path, vocab, resident, bk, bb, ta)
     v1_cc3m(card, root, vocab)
     print(f"[13] v1 phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the v1 SSV2 downstream stack on the card, through
+# tvts_torch.cli.run_class_finetuning
+# ---------------------------------------------------------------------------
+SSV2_CLASSES = 174
+SSV2_SPLITS = {"train": 96, "val": 24, "test": 12}
+SSV2_CLIP = (48, 12, (240, 427))  # frames, fps, (h, w): SSV2's 240-pixel-high clips
+
+
+FT_B = 12  # ft_ssv2.sh's batch
+FT_ARCH = {"num_classes": SSV2_CLASSES, "num_frames": 16, "img_size": 224}  # ViT-B/16 widths
+FT_COS = 0.995  # bf16 pooled features and logits against f32 at step 0 (PERF.md §2's f32 band)
+FT_DLOSS = 2e-2  # |loss_bf16 - loss_f32| at step 0
+FT_WINDOW = range(2, 8)  # steps 3-8 of the epoch from files (0-based)
+FT_LINEAR_STEPS = 3  # the linear probe's steps: the first 36 train videos, 12 val, no test
+# scripts/sh/{ft,linear,zero}_ssv2.sh's flags, one epoch
+FT_FLAGS = ["--model", "vit_base_patch16_224", "--nb_classes", str(SSV2_CLASSES),
+            "--batch_size", str(FT_B), "--input_size", "224", "--short_side_size", "224",
+            "--num_frames", "16", "--test_num_segment", "2", "--test_num_crop", "3",
+            "--epochs", "1"]
+FT_RECIPES = {"finetune": ["--lr", "1e-3", "--weight_decay", "0.05", "--model_ema"],
+              "linear": ["--lr", "0.1", "--weight_decay", "1e-9", "--warmup_epochs", "10"],
+              "zero": []}
+
+
+def ssv2_tree(root: str, splits: dict, clip: tuple = SSV2_CLIP, classes: int = SSV2_CLASSES,
+              workers: int = 8, write: bool = True) -> tuple[str, dict]:
+    """An SSV2-shaped classification tree under root: videos/<split>/<i>.mp4
+    (clip_frames, `clip` = (frames, fps, (h, w)), cv2-written unless
+    write=False) and <split>.csv rows "videos/<split>/<i>.mp4 <label>",
+    min(12, classes) labels spread over `classes` in turn. Returns (root,
+    the clips' specs as write_clips takes them)."""
+    specs, seed = {}, 14000
+    n_labels = min(12, classes)
+    os.makedirs(root, exist_ok=True)
+    for split, n in splits.items():
+        rows = []
+        for i in range(n):
+            rel = f"videos/{split}/{i:05d}.mp4"
+            specs[os.path.join(root, rel)] = (seed, *clip)
+            rows.append(f"{rel} {(i % n_labels) * (classes // n_labels)}")
+            seed += 1
+        with open(os.path.join(root, f"{split}.csv"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    if write:
+        write_clips(specs, workers)
+    return root, specs
+
+
+def ft_pretrain_pth(dev, path: str) -> str:
+    """A seeded v1 pretraining checkpoint: TVTSv1Config() from seed 0 with
+    noise on every leaf, in the reference layout (save_reference_checkpoint)."""
+    from tvts_torch.models.factory import build_v1_model
+    from tvts_torch.utils.convert import save_reference_checkpoint
+
+    model = build_v1_model(device=dev, seed=0)
+    add_noise_(model, 41, dev)
+    save_reference_checkpoint(model, path, "TVTSv1")
+    del model
+    torch.cuda.empty_cache()
+    return path
+
+
+def ft_model(dev, card: str, pth: str):
+    """FinetuneViT at ft_ssv2.sh's width from the v1 checkpoint: the
+    transferred tensors bit for bit the checkpoint's, fc_norm and head at init."""
+    from tvts_torch.downstream.model import FinetuneViT, load_pretrain_video_tower
+    from tvts_torch.utils.convert import convert_v1_state_dict, load_reference_state_dict
+
+    model = FinetuneViT(**FT_ARCH, remat=True)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    init = {k: v.clone() for k, v in model.state_dict().items()
+            if k.startswith(("fc_norm.", "head."))}
+    sd = load_reference_state_dict(pth)
+    names = load_pretrain_video_tower(model, sd)
+    ref, state = convert_v1_state_dict(sd), model.state_dict()
+    same = all(torch.equal(state[n], ref[f"video_model.{n}"]) for n in names)
+    kept = all(torch.equal(state[k], v) for k, v in init.items())
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[14] FinetuneViT ({FT_ARCH['num_classes']} classes, {FT_ARCH['num_frames']} frames "
+          f"of {FT_ARCH['img_size']}², {model.depth} x {model.embed_dim}, S = "
+          f"{model.pos_table.shape[0]}, "
+          f"{n_params / 1e6:.2f} M parameters) from the v1 checkpoint: {len(names)} tensors "
+          f"transferred (blocks.*, patch_embed.*), bit for bit: {same}; fc_norm and head at "
+          f"init: {kept}")
+    if not (same and kept and set(names) == set(state) - set(init)):
+        raise AssertionError("load_pretrain_video_tower moved another set of tensors")
+    return model.to(dev)
+
+
+def ft_step0(dev, card: str, model) -> tuple:
+    """bf16 against f32 at step 0 on a B=12 batch (noise on the head too):
+    the pooled features' and logits' cosine, |dloss|, the worst gradient
+    error. Returns (video, targets) on the card."""
+    import copy
+
+    from tvts_torch.downstream.engine import soft_ce
+    from tvts_torch.downstream.mixup import one_hot
+    from tvts_torch.models.layers import linear
+
+    gen = torch.Generator(device=dev).manual_seed(43)
+    with torch.no_grad():
+        model.head.weight.add_(0.02 * torch.randn(model.head.weight.shape, generator=gen,
+                                                  device=dev))
+    rng = np.random.default_rng(14)
+    T, size = FT_ARCH["num_frames"], FT_ARCH["img_size"]
+    video = torch.tensor(rng.standard_normal((FT_B, T, 3, size, size), dtype=np.float32),
+                         device=dev)
+    targets = torch.from_numpy(one_hot(rng.integers(0, SSV2_CLASSES, FT_B), SSV2_CLASSES,
+                                       0.1)).to(dev)
+    model32 = copy.deepcopy(model)
+    model.set_compute_dtype(torch.bfloat16)
+    feats, logits, loss, grads = {}, {}, {}, {}
+    for label, m in (("f32", model32), ("bf16", model)):
+        with no_tf32():
+            with torch.no_grad():
+                f = m.forward_features(video)
+                feats[label] = f.float().cpu().numpy()
+                logits[label] = linear(f, m.head.weight, m.head.bias).float().cpu().numpy()
+            value = soft_ce(m(video), targets)
+            value.backward()
+        loss[label] = value.item()
+        grads[label] = {n: p.grad.float() for n, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+    cos_f = cos_rows(feats["bf16"], feats["f32"]).min()
+    cos_l = cos_rows(logits["bf16"], logits["f32"]).min()
+    dloss = abs(loss["bf16"] - loss["f32"])
+    top = max(g.abs().max().item() for g in grads["f32"].values())
+    errs = {n: ((grads["bf16"][n] - g).abs().max() / g.abs().max()).item()
+            for n, g in grads["f32"].items() if g.abs().max() > 1e-2 * top}
+    worst = max(errs, key=errs.get)
+    print(f"[14] step 0, bf16 against f32 (remat, B={FT_B}): pooled fc_norm cosine min "
+          f"{cos_f:.6f}, logits cosine min {cos_l:.6f} (>= {FT_COS}); loss {loss['bf16']:.6f} / "
+          f"{loss['f32']:.6f}, |dloss| {dloss:.2e} (< {FT_DLOSS}); worst relative gradient "
+          f"error (max|dg| / max|g|, {len(errs)} of {len(grads['f32'])} tensors with max|g| > "
+          f"1e-2 * {top:.3e}) {errs[worst]:.4f} at {worst}")
+    del model32, grads
+    torch.cuda.empty_cache()
+    if min(cos_f, cos_l) < FT_COS or dloss >= FT_DLOSS or not np.isfinite(logits["bf16"]).all():
+        raise AssertionError("the FinetuneViT bf16 step 0 disagrees with f32")
+    return video, targets
+
+
+def ft_resident(dev, card: str, model, video, targets) -> dict:
+    """The finetune and linear-probe steps and the eval forward at B=12 on the
+    device-resident batch (remat, as the script builds the model): ms,
+    clips/s, peak memory; one profiled finetune step."""
+    import copy
+
+    from tvts_torch.downstream.engine import (
+        make_cls_eval_step,
+        make_cls_train_step,
+        make_finetune_optimizer,
+    )
+
+    eval_ms = cuda_ms(lambda: make_cls_eval_step(model)(video), iters=5)
+    print(f"[14] FinetuneViT eval forward B={FT_B}: {eval_ms:.2f} ms, "
+          f"{FT_B / eval_ms * 1e3:.2f} clips/s [{card}]")
+    out = {"eval_ms": eval_ms}
+    probe = copy.deepcopy(model)
+    for mode, m in (("finetune", model), ("linear", probe)):
+        opt, _ = make_finetune_optimizer(m, 1e-3, 0.05, epochs=50, steps_per_epoch=8,
+                                         linear_probe=mode == "linear")
+        step = make_cls_train_step(m, opt)
+        losses = [step(video, targets) for _ in range(2)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0, iters = time.perf_counter(), 5
+        losses += [step(video, targets) for _ in range(iters)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / iters * 1e3
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not torch.isfinite(torch.stack(losses)).all():
+            raise AssertionError(f"{mode} step: non-finite loss")
+        print(f"[14] FinetuneViT {mode} step B={FT_B} device-resident (remat, "
+              f"{sum(p.numel() for p in m.parameters() if p.requires_grad) / 1e6:.2f} M "
+              f"trainable): {ms:.2f} ms, {FT_B / ms * 1e3:.2f} clips/s, peak memory "
+              f"{mem:.2f} GiB [{card}]")
+        out[mode] = {"ms": ms, "clips_s": FT_B / ms * 1e3, "mem": mem}
+        if mode == "finetune":
+            out["busy"] = eager_step_profile("14", f"FinetuneViT finetune step B={FT_B}",
+                                             lambda: step(video, targets), ms, card)
+    del probe
+    torch.cuda.empty_cache()
+    return out
+
+
+def cls_item_split(ds, card: str, n: int = 8) -> None:
+    """Where a training item's host time goes, one item at a time on this
+    thread, as VideoClsDataset.__getitem__ runs it: decode, the resize and
+    crop, RandAugment, the normalisation and erasing."""
+    from tvts_torch.data import video_reader
+    from tvts_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD, _normalise
+    from tvts_torch.downstream.randaug import RandAugment
+    from tvts_torch.downstream.random_erasing import RandomErasing
+
+    spent = np.zeros(4)
+    for i in range(n):
+        rng = np.random.default_rng(i)
+        path = ds.samples[i][0]
+        t0 = time.perf_counter()
+        vlen = max(video_reader.get_video_len(path, backend=ds.reader), 1)
+        frames = video_reader.read_frames_at(path, ds._segment_indices(vlen, rng),
+                                             backend=ds.reader)
+        t1 = time.perf_counter()
+        frames = ds._spatial_crop(frames, rng)
+        t2 = time.perf_counter()
+        frames = RandAugment(num_ops=4, magnitude=7, rng=rng)(frames)
+        t3 = time.perf_counter()
+        RandomErasing(probability=0.25, rng=rng)(_normalise(frames, IMAGENET_MEAN, IMAGENET_STD))
+        spent += (t1 - t0, t2 - t1, t3 - t2, time.perf_counter() - t3)
+    ms = 1e3 * spent / n
+    print(f"[14] host time a training item, one thread ({n} items of {ds.num_frames} frames "
+          f"from {SSV2_CLIP[2][1]}x{SSV2_CLIP[2][0]} clips): decode {ms[0]:.2f} ms, resize and "
+          f"crop {ms[1]:.2f} ms, RandAugment {ms[2]:.2f} ms, normalise and erase {ms[3]:.2f} ms; "
+          f"{ms.sum():.2f} ms in all [{card}]")
+
+
+def ft_cli_hooks(cli, record: dict):
+    """Context: the CLI's train steps (the window's host clock, synchronised
+    at both ends), its train loader's waits, validation, test and checkpoint
+    seconds recorded into `record`."""
+    step_factory, evaluate, final_test = cli.make_cls_train_step, cli.evaluate, cli.final_test
+
+    def timed_factory(model, optimizer):
+        step = step_factory(model, optimizer)
+
+        def run(video, targets):
+            t0 = time.perf_counter()
+            loss = step(video, targets)
+            record["calls"].append((record["steps"], t0 - record["arrived"],
+                                    time.perf_counter() - t0))
+            record["steps"] += 1
+            i = record["steps"] - 1
+            if i in (FT_WINDOW.start - 1, FT_WINDOW.stop - 1):
+                torch.cuda.synchronize()
+                record["t0" if i < FT_WINDOW.start else "t1"] = time.perf_counter()
+            return loss
+
+        return run
+
+    class TimedLoader(cli.ShardedLoader):
+        def __iter__(self):
+            it = super().__iter__()
+            while True:
+                t0 = time.perf_counter()
+                batch = next(it, None)
+                if batch is None:
+                    return
+                if self.shuffle:
+                    record["arrived"] = time.perf_counter()
+                    record["waits"].append((record["steps"], record["arrived"] - t0))
+                yield batch
+
+    class TimedCheckpoints(cli.CheckpointManager):
+        def save_epoch(self, epoch, state, val_log=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tags = super().save_epoch(epoch, state, val_log)
+            record["saves"].append((tags, time.perf_counter() - t0,
+                                    sum(os.path.getsize(self.path(t)) for t in tags)))
+            return tags
+
+    def timed(fn, key):
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            record[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    return patched((cli, "make_cls_train_step", timed_factory),
+                   (cli, "ShardedLoader", TimedLoader),
+                   (cli, "CheckpointManager", TimedCheckpoints),
+                   (cli, "evaluate", timed(evaluate, "val_s")),
+                   (cli, "final_test", timed(final_test, "test_s")))
+
+
+def ft_cli(dev, card: str, tree: str, pth: str, out_dir: str, resident: dict) -> None:
+    """The three modes through the CLI twin and its aliases, from files."""
+    from tvts_torch.cli import run_class_finetuning as cli
+    from tvts_torch.cli import run_class_linear, run_class_zero
+    from tvts_torch.downstream.cls_dataset import VideoClsDataset
+    from tvts_torch.downstream.model import FinetuneViT, load_pretrain_video_tower
+    from tvts_torch.utils.convert import load_reference_state_dict
+
+    common = ["--data_path", tree, "--data_root", tree, "--finetune", pth, *FT_FLAGS]
+    record = {"steps": 0, "waits": [], "calls": [], "val_s": [], "test_s": [], "saves": []}
+    t0 = time.perf_counter()
+    with ft_cli_hooks(cli, record):
+        out = cli.main(["--mode", "finetune", *common, *FT_RECIPES["finetune"],
+                        "--output_dir", os.path.join(out_dir, "ft")])
+    wall = time.perf_counter() - t0
+    losses = np.asarray(out["losses"])
+    res, acc = out["test"]
+    n_steps = SSV2_SPLITS["train"] // FT_B
+    if len(losses) != n_steps or not np.isfinite(losses).all() or out["ema"] is None:
+        raise AssertionError(f"finetune from files: losses {losses}")
+    if res["n"] != SSV2_SPLITS["test"] or acc.count.tolist() != [6] * SSV2_SPLITS["test"]:
+        raise AssertionError(f"the multi-view test merged {acc.count.tolist()}")
+    sec = record["t1"] - record["t0"]
+    wait = sum(w for i, w in record["waits"] if i in FT_WINDOW)
+    clips = FT_B * len(FT_WINDOW)
+    print(f"[14] run_class_finetuning --mode finetune --model_ema (ft_ssv2.sh's flags, 1 epoch "
+          f"of {n_steps} steps, {cli.TRAIN_WORKERS} train workers): losses finite ({losses[0]:.4f} "
+          f"... {losses[-1]:.4f}); over steps {FT_WINDOW.start + 1}-{FT_WINDOW.stop}: "
+          f"{clips / sec:.2f} clips/s, {sec / len(FT_WINDOW) * 1e3:.1f} ms a step, host share "
+          f"{wait / sec:.3f}; device-resident {resident['finetune']['clips_s']:.2f} clips/s "
+          f"({resident['finetune']['ms']:.2f} ms a step) [{card}]")
+    prep = np.mean([p for i, p, _ in record["calls"] if i in FT_WINDOW])
+    call = np.mean([c for i, _, c in record["calls"] if i in FT_WINDOW])
+    print(f"[14] the window's host clock a step: waiting on the train loader "
+          f"{1e3 * wait / len(FT_WINDOW):.1f} ms, mixup and the copy to the card "
+          f"{1e3 * prep:.1f} ms, the step's call (enqueueing its kernels) {1e3 * call:.1f} ms; "
+          f"the device busy ~{resident['busy']:.1f} ms a step (the resident profile); seconds "
+          f"waiting on the loader before each step: "
+          + json.dumps([round(w, 4) for _, w in record["waits"]]) + f" [{card}]")
+    print(f"[14] validation ({SSV2_SPLITS['val']} videos) {record['val_s'][0]:.2f} s, val top1 "
+          f"{100 * out['val_top1'][0]:.2f}%; multi-view test ({SSV2_SPLITS['test']} videos x 6 "
+          f"views, each video's 6 merged) {record['test_s'][0]:.2f} s, top1 "
+          f"{100 * res['top1']:.2f}% top5 {100 * res['top5']:.2f}%; "
+          + "; ".join(f"checkpoint {tags} {size / 2 ** 30:.3f} GiB in {s:.2f} s"
+                      for tags, s, size in record["saves"])
+          + f"; the run {wall:.1f} s [{card}]")
+    cls_item_split(VideoClsDataset(os.path.join(tree, "train.csv"), tree, mode="train",
+                                   num_frames=FT_ARCH["num_frames"],
+                                   input_size=FT_ARCH["img_size"],
+                                   short_side_size=FT_ARCH["img_size"]), card)
+    del out
+    torch.cuda.empty_cache()
+
+    linear_dir = os.path.join(out_dir, "linear_data")  # rows of the same videos
+    os.makedirs(linear_dir, exist_ok=True)
+    for split, n in (("train", FT_LINEAR_STEPS * FT_B), ("val", FT_B)):
+        with open(os.path.join(tree, f"{split}.csv")) as f:
+            rows = f.read().splitlines()[:n]
+        with open(os.path.join(linear_dir, f"{split}.csv"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    t0 = time.perf_counter()
+    out = run_class_linear.main(["--data_path", linear_dir, *common[2:], *FT_RECIPES["linear"],
+                                 "--output_dir", os.path.join(out_dir, "linear")])
+    wall = time.perf_counter() - t0
+    want = FinetuneViT(**FT_ARCH)
+    want.reset_parameters(torch.Generator().manual_seed(0))
+    load_pretrain_video_tower(want, load_reference_state_dict(pth))
+    want = want.state_dict()
+    moved = {k: not torch.equal(v.cpu(), want[k]) for k, v in out["model"].state_dict().items()}
+    frozen_same = not any(m for k, m in moved.items() if not k.startswith(("head.", "fc_norm.")))
+    probe_moved = all(m for k, m in moved.items() if k.startswith(("head.", "fc_norm.")))
+    losses = np.asarray(out["losses"])
+    print(f"[14] run_class_linear (linear_ssv2.sh's flags, {len(losses)} steps over the first "
+          f"{FT_LINEAR_STEPS * FT_B} train videos, {FT_B} val, no test; {wall:.1f} s): "
+          f"losses finite {bool(np.isfinite(losses).all())}; every backbone tensor bit for bit "
+          f"the checkpoint's: {frozen_same}; head and fc_norm moved: {probe_moved}; val top1 "
+          f"{100 * out['val_top1'][0]:.2f}% [{card}]")
+    if not (frozen_same and probe_moved and len(losses) == FT_LINEAR_STEPS
+            and np.isfinite(losses).all()):
+        raise AssertionError("the linear probe moved the backbone or left the head")
+    del out
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    out = run_class_zero.main([*common, "--output_dir", os.path.join(out_dir, "zero")])
+    wall = time.perf_counter() - t0
+    ds = VideoClsDataset(os.path.join(tree, "val.csv"), tree, mode="validation",
+                         num_frames=FT_ARCH["num_frames"], input_size=FT_ARCH["img_size"],
+                         short_side_size=FT_ARCH["img_size"])
+    video = torch.from_numpy(np.stack([ds[i]["video"] for i in range(FT_B)])).to(dev)
+    with torch.inference_mode():
+        got = out["model"](video, None)[:, 0].float().cpu().numpy()
+    same = bool(np.array_equal(got, out["feats"][:FT_B]))
+    print(f"[14] run_class_zero: v2v over {len(out['labels'])} val clips "
+          f"{json.dumps(out['metrics'])}, {wall:.1f} s; the first batch's features bit for bit "
+          f"JointViT(video)[:, 0]: {same} [{card}]")
+    if not same or not np.isfinite(out["feats"]).all():
+        raise AssertionError("zero-shot v2v features disagree with the JointViT CLS rows")
+
+
+def downstream_phase(dev, card: str, bk, bb, ta, root: str, backend: str | None) -> None:
+    """Phase 14 (module notes): the v1 SSV2 downstream stack at full width."""
+    import contextlib
+
+    from tvts_torch.data import video_reader
+
+    t_phase = time.perf_counter()
+    reset_launch_counts(bk, bb, ta)
+    pth = ft_pretrain_pth(dev, os.path.join(root, "v1_pretrain.pth"))
+    model = ft_model(dev, card, pth)
+    video, targets = ft_step0(dev, card, model)
+    resident = ft_resident(dev, card, model, video, targets)
+    del model, video, targets
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tree, specs = ssv2_tree(os.path.join(root, "ssv2"), SSV2_SPLITS,
+                            workers=len(os.sched_getaffinity(0)), write=backend is not None)
+    print(f"[14] " + json.dumps({"decode_backend": backend, "clips": len(specs),
+                                 "frames": SSV2_CLIP[0], "fps": SSV2_CLIP[1],
+                                 "shape": SSV2_CLIP[2], "write_s": round(time.perf_counter() - t0,
+                                                                          3)}))
+    decode = (contextlib.nullcontext() if backend is not None
+              else injected_decode(video_reader, specs))
+    with decode:
+        ft_cli(dev, card, tree, pth, os.path.join(root, "results_ft"), resident)
+    expect_launches("the downstream phase", launch_counts(bk, bb, ta), {})
+    print(f"[14] no hand-written kernel launched; downstream phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -4004,6 +4445,8 @@ def main() -> int:
             trainer_phase(dev, card, bk, bb, ta, root, config_path, bare)
             # ---- phase 13: the TVTS v1 family, on the same YT-Temporal tree ------
             v1_phase(dev, card, bk, bb, ta, root, config_path)
+        # ---- phase 14: the v1 SSV2 downstream stack, through the CLI twin -------
+        downstream_phase(dev, card, bk, bb, ta, root, backend)
 
     # ---- phase 9 (B/32) and phase 8 (H/14), with their times -----------------
     b32_phase(dev, card, bk, bb, ta)

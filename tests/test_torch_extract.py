@@ -190,3 +190,8 @@ def test_tvts_torch_imports_no_jax():
     assert {"tvts_torch.text.wordpiece", "tvts_torch.models.distilbert",
             "tvts_torch.models.joint_vit", "tvts_torch.models.tvts_v1",
             "tvts_torch.data.image_datasets", "tvts_torch.cli.train_dist_TVTS"} <= imported
+    assert {"tvts_torch.downstream.randaug", "tvts_torch.downstream.mixup",
+            "tvts_torch.downstream.random_erasing", "tvts_torch.downstream.cls_dataset",
+            "tvts_torch.downstream.model", "tvts_torch.downstream.engine",
+            "tvts_torch.downstream.zero_v2v", "tvts_torch.cli.run_class_finetuning",
+            "tvts_torch.cli.run_class_linear", "tvts_torch.cli.run_class_zero"} <= imported

@@ -71,13 +71,16 @@ class CheckpointManager:
         return tag if os.path.isfile(tag) else os.path.join(self.save_dir, f"{tag}.pth")
 
     def _save(self, tag: str, epoch: int, state: dict) -> None:
+        optimizer = state.get("optimizer")
         save_reference_checkpoint(state["model"], self.path(tag), self.arch, epoch=epoch,
                                   config=self.config, monitor_best=self.monitor.best,
-                                  optimizer=state["optimizer"].state_dict(), step=state["step"])
+                                  optimizer=None if optimizer is None else optimizer.state_dict(),
+                                  step=state.get("step"))
 
     def save_epoch(self, epoch: int, state: dict, val_log: dict | None = None) -> list[str]:
         """After epoch `epoch` (1-based): the periodic file and, on a monitor
-        improvement, model_best. `state`: {"model", "optimizer", "step"}.
+        improvement, model_best. `state`: {"model", "optimizer", "step"}; the
+        downstream scripts save {"model"} alone (an empty optimizer, no step).
         Returns the tags written."""
         best = val_log is not None and self.monitor.improved(val_log)
         tags = ([f"checkpoint-epoch{epoch}"] if epoch % self.save_period == 0 else []) \

@@ -28,6 +28,9 @@ reads a reference v1 checkpoint as that function does (the VideoMAE
 `attn.q_bias` / `v_bias` folded into `qkv.bias` with a zero k bias, the HF
 DistilBERT keys under `text_model.` without their `distilbert.` prefix);
 `inflate_mae_2d_to_3d` is its MAE patch-embed inflation (:173).
+`finetune_state_dict_from_jax` turns the JAX downstream FinetuneViT's tree
+into the port's (tvts_torch/downstream/model.py) state dict, the v1 video
+tower's names at the top level.
 numpy and torch only: no JAX and no `tvts_tpu` import.
 """
 
@@ -218,6 +221,14 @@ def v1_state_dict_from_jax(params: Mapping) -> dict[str, np.ndarray]:
             name = pattern.sub(repl, name)
         out[name] = np.ascontiguousarray(arr)
     return out
+
+
+def finetune_state_dict_from_jax(params: Mapping) -> dict[str, np.ndarray]:
+    """JAX FinetuneViT parameter tree (numpy leaves) -> the port's FinetuneViT
+    state dict: the v1 video tower's map (`patch_embed.proj`, `blocks.{i}`
+    with fc1 / fc2), `fc_norm` and `head` transposed, under no prefix."""
+    sd = v1_state_dict_from_jax({"video_model": params})
+    return {k[len("video_model."):]: v for k, v in sd.items()}
 
 
 def convert_v1_state_dict(sd: Mapping) -> dict:
