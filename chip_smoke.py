@@ -9,8 +9,8 @@ pretraining and the v1 SSV2 downstream stack (eager, as in the JAX package)
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure raises and exits non-zero; they
-run in the order 1-5, 10, 7, 6, 11, 12, 13, 14 for B/16 and v1, then 9
-(B/32) and 8 (H/14) with their times):
+run in the order 1-5, 10, 7, 6, 11, 12, 15, 13, 14 for B/16 and v1, then 9
+(B/32) and 8 (H/14, with phase 15's H/14 gates) with their times):
 1. refuse to run without CUDA; print the card's name and power limit;
 2. build the kernels from tvts_torch/csrc with nvcc (sm_90a, one nvcc per
    translation unit, all at once); print the build seconds, the -Xptxas -v
@@ -202,6 +202,23 @@ run in the order 1-5, 10, 7, 6, 11, 12, 13, 14 for B/16 and v1, then 9
    checkpoint's, head and fc_norm moved) and run_class_zero over the 24 val
    videos (R@1/5/10; the first batch's features bit for bit
    JointViT(video)[:, 0]);
+15. --fsdp sharding (tvts_torch/parallel/partition.fsdp_shard: FSDP2 over
+   the ("dp", "fsdp") DeviceMesh, a unit a block) through the kernel steps on
+   a 1-rank NCCL group (one card: every collective is a copy): phase 7's
+   B/16 model and optimizer at B=12 under the "best" preset, a copy sharded
+   and its optimizer built after sharding; 3 steps of each on the same
+   batches: each sharded step's launches phase 7's (219), its aux and after
+   the steps every parameter bit for bit the unsharded step's (else the
+   max|diff| within 2e-5 of each tensor's largest update); ms a step and
+   peak memory of both (unsharded, sharded, sharded, unsharded) and one
+   profiled step of each (device busy, NCCL kernels, the host ranges of
+   FSDP2's hooks and the optimizer's step); a checkpoint gathered from the
+   shards (the unsharded layout) rebuilt by strict build_model gives a
+   batch's embeddings, sort accuracy and loss bit for bit the sharded
+   model's. Inside phase 8, after its every-kernel gate: a sharded copy of
+   the H/14 model at B=4 through the preset and the every-kernel forward
+   and backward (phase 8's launches), each through the step-0 gate against
+   the eager unsharded model, its loss equal to the unsharded kernel path's;
 9. B/32: extraction at B=8 through the kernels (counts 12/11/11/1, cosine
    gates), clips/s at B=64 (kernels, eager);
 8. H/14 at full width and depth (32 blocks of 1280, text 24 blocks of 1024):
@@ -737,12 +754,17 @@ def expect_launches(tag: str, got: dict, want: dict) -> None:
 
 
 def grads_of(model, loss_fn, batch) -> tuple[float, dict]:
-    """(loss, name -> f32 gradient) of the trainable parameters."""
+    """(loss, name -> f32 gradient) of the trainable parameters (zeros where
+    the loss misses one); a sharded model's gradients gathered whole."""
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    model.zero_grad(set_to_none=True)
     loss, _ = loss_fn(model, batch)
-    grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
-    return loss.item(), {n: (torch.zeros_like(p) if g is None else g).float()
-                         for (n, _), g in zip(named, grads)}
+    loss.backward()
+    grads = {n: (torch.zeros(p.shape, device=p.device) if p.grad is None
+                 else p.grad.full_tensor() if hasattr(p.grad, "full_tensor") else p.grad).float()
+             for n, p in named}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
 
 
 def add_noise_(model, seed: int, dev) -> None:
@@ -790,16 +812,24 @@ def kernel_apply(train: dict, tag: str, **overrides):
 
 def step0_gate(tag: str, label: str, model, batch, apply_fn, bk, bb, ta) -> dict:
     """The kernel path against the eager path at the current parameters
-    (|dloss| < 2e-2, worst relative gradient error < 0.12 over tensors with
-    max|g| > 1e-2 * global). Returns the launches of the kernel path's one
-    forward and backward."""
+    (gate_check). Returns the launches of the kernel path's one forward and
+    backward."""
     from tvts_torch.train.step import make_loss_fn
 
     reset_launch_counts(bk, bb, ta)
     loss_k, gk = grads_of(model, make_loss_fn(apply_fn=apply_fn), batch)
     torch.cuda.synchronize()
     launches = launch_counts(bk, bb, ta)
-    loss_e, ge = grads_of(model, make_loss_fn(), batch)
+    gate_check(tag, label, loss_k, gk, *grads_of(model, make_loss_fn(), batch))
+    print(f"[{tag}] {label}: launches of one forward and backward: "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    return launches
+
+
+def gate_check(tag: str, label: str, loss_k: float, gk: dict, loss_e: float, ge: dict) -> None:
+    """The step-0 gate: |dloss| < 2e-2, worst relative gradient error < 0.12
+    over tensors with max|g| > 1e-2 * global, of the kernel path's loss and
+    gradients against the eager path's."""
     gscale = max(g.abs().max().item() for g in ge.values())
     rows = []
     for name, e in ge.items():
@@ -814,9 +844,6 @@ def step0_gate(tag: str, label: str, model, batch, apply_fn, bk, bb, ta) -> dict
         print(f"[{tag}]   rel {rel:.3e} abs {err:.3e} max|g| {amax:.3e} {name}")
     if not np.isfinite(loss_k) or abs(loss_k - loss_e) >= 2e-2 or (sig and sig[0][0] >= 0.12):
         raise AssertionError(f"{label}: kernel path disagrees with the eager path at step 0")
-    print(f"[{tag}] {label}: launches of one forward and backward: "
-          f"{ {k: n for k, n in launches.items() if n} }")
-    return launches
 
 
 def optimizer_steps(tag: str, train: dict, apply_fn, batch, n_steps: int, bk, bb, ta) -> dict:
@@ -900,14 +927,9 @@ def train_phase(dev, bk, bb, ta) -> dict:
     return dict(train, kernel_apply=best, mlp_apply=mlp, launches=launches)
 
 
-def time_steps(tag: str, label: str, train: dict, apply_fn, batch, card: str,
-               iters: int = 3) -> float:
-    """ms of one optimizer step (host clock around synchronised steps), with
-    clips/s and the peak device memory."""
-    from tvts_torch.train.step import make_train_step
-
-    B = batch["video"].shape[0]
-    step = make_train_step(train["model"], train["optimizer"], train["ocfg"], apply_fn=apply_fn)
+def step_timing(step, batch, iters: int = 3) -> tuple[float, float]:
+    """(ms a step by the host clock around synchronised steps after one
+    warm-up step, peak GiB of device memory over them)."""
     step(batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -915,8 +937,18 @@ def time_steps(tag: str, label: str, train: dict, apply_fn, batch, card: str,
     for _ in range(iters):
         step(batch)
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / iters * 1e3
-    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    return (time.perf_counter() - t0) / iters * 1e3, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def time_steps(tag: str, label: str, train: dict, apply_fn, batch, card: str,
+               iters: int = 3) -> float:
+    """ms of one optimizer step (host clock around synchronised steps), with
+    clips/s and the peak device memory."""
+    from tvts_torch.train.step import make_train_step
+
+    B = batch["video"].shape[0]
+    ms, mem = step_timing(make_train_step(train["model"], train["optimizer"], train["ocfg"],
+                                          apply_fn=apply_fn), batch, iters)
     print(f"[{tag}] {train['cfg'].name} train step B={B} {label:22s}: {ms:.2f} ms/step, "
           f"{B / ms * 1e3:.2f} clips/s, peak memory {mem:.2f} GiB [{card}]")
     return ms
@@ -2246,6 +2278,10 @@ def h14_phase(dev, card, bk, bb, ta) -> None:
     every = kernel_apply(train, "8", time_mode="pallas", mlp_mode="pallas", sort_mode="pallas")
     got = step0_gate("8", "every kernel", train["model"], batch, every, bk, bb, ta)
     expect_launches("H/14 gate, every kernel", got, step_launches(L, TL, frozen, mlp=True))
+    # ---- phase 15, H/14: the same gates on a sharded copy -------------------
+    fsdp_h14_gates(dev, train, batch, {"preset": preset, "every kernel": every},
+                   {"preset": step_launches(L, TL, frozen, time=False, sort=False),
+                    "every kernel": step_launches(L, TL, frozen, mlp=True)}, bk, bb, ta)
 
     B = 8
     torch.cuda.empty_cache()
@@ -3432,7 +3468,7 @@ def trainer_phase(dev, card: str, bk, bb, ta, root: str, config_path: str, bare:
         sec = record["t1"] - record["t0"]
         wait = sum(w for i, w in record["waits"] if i in TRAINER_WINDOW)
         clips = B * len(TRAINER_WINDOW)
-        print(f"[12] the Trainer (1-rank NCCL group, the sharded step) over steps "
+        print(f"[12] the Trainer (1-rank NCCL group, the mesh step) over steps "
               f"{TRAINER_WINDOW.start + 1}-{TRAINER_WINDOW.stop} of epoch 1: {clips / sec:.2f} "
               f"clips/s, host share {wait / sec:.3f}; phase 11's bare loop from the same "
               f"files {bare['clips_s']:.2f} clips/s, host share {bare['host_share']:.3f}; "
@@ -3493,6 +3529,181 @@ def trainer_phase(dev, card: str, bk, bb, ta, root: str, config_path: str, bare:
     finally:
         shutil.rmtree(results, ignore_errors=True)
     print(f"[12] Trainer phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 15: parameter and optimizer-state sharding (parallel/partition.py's
+# fsdp_shard) through the kernel steps, on a 1-rank NCCL group
+# ---------------------------------------------------------------------------
+FSDP_B = 12  # phase 11's batch
+FSDP_STEPS = 3
+
+
+def one_rank_mesh(dev):
+    """A 1-rank process group on `dev` (NCCL on the card) and its (dp, fsdp)
+    DeviceMesh, closed on exit."""
+    from tvts_torch.parallel.mesh import create_mesh
+
+    return create_mesh(coordinator=f"localhost:{free_port()}", num_processes=1, process_id=0,
+                       device=dev.type)
+
+
+def sharded_copy(model, mesh):
+    """A copy of `model` sharded over the mesh's fsdp group (every block of
+    both towers and the sort head a unit, then the root)."""
+    import copy
+
+    from tvts_torch.parallel.partition import fsdp_shard
+
+    return fsdp_shard(copy.deepcopy(model), mesh)
+
+
+def fsdp_step_profile(label: str, step, batch, ms: float, card: str) -> None:
+    """One profiled step: device busy ms and idle share, the NCCL kernels'
+    device ms, and the host ranges of FSDP2's hooks and the optimizer's step
+    (inclusive host ms, summed over units), which the idle share is made of."""
+    prof, wall = _profile_or_raise(lambda: step(batch))
+    host = _host_keys(prof)
+    busy = nccl = 0.0
+    ranges: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in host:
+            us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+            busy += us / 1e3
+            nccl += us / 1e3 if "nccl" in e.key.lower() else 0.0
+        elif e.device_type == torch.autograd.DeviceType.CPU and (
+                e.key.startswith("FSDP::") or e.key.startswith("Optimizer.step")):
+            name = e.key.split(" (")[0].split(" for ")[0]  # summed over the units
+            t, n = ranges.get(name, (0.0, 0))
+            ranges[name] = (t + e.cpu_time_total / 1e3, n + e.count)
+    print(f"[15] profiled {label} step: device busy {busy:.2f} ms (NCCL kernels {nccl:.2f} ms); "
+          f"idle share {max(0.0, 1 - busy / ms):.3f} of the unprofiled step ({ms:.2f} ms), "
+          f"{max(0.0, 1 - busy / wall):.3f} of the profiled one ({wall:.2f} ms) [{card}]")
+    for name, (t, n) in sorted(ranges.items(), key=lambda kv: -kv[1][0]):
+        print(f"[15]   host {t:9.3f} ms {n:4d}x {name}")
+
+
+def fsdp_b16_phase(dev, card: str, bk, bb, ta) -> None:
+    """Phase 15, B/16 (module notes)."""
+    import tempfile
+
+    from tvts_torch.models.factory import build_model
+    from tvts_torch.parallel.partition import full_state_dict
+    from tvts_torch.train.optim import make_optimizer
+    from tvts_torch.train.step import make_eval_step, make_train_step
+    from tvts_torch.utils.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    arch = "TVTSv2_B_16"
+    train = build_train(arch, dev, noise_seed=11, text_tune_layers=3, tag="15")
+    cfg, model, ocfg = train["cfg"], train["model"], train["ocfg"]
+    L, TL = cfg.vision.layers, cfg.text.layers
+    best = kernel_apply(train, "15")
+    batches = [train_batch(cfg, FSDP_B, seed=150 + i, device=dev) for i in range(FSDP_STEPS)]
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    with one_rank_mesh(dev) as mesh:
+        sharded = sharded_copy(model, mesh)
+        print(f"[15] {arch} sharded by fsdp_shard on a 1-rank {mesh.backend} group (dp "
+              f"{mesh.dp} x fsdp {mesh.fsdp}): {len(model.fsdp_units())} block units and the "
+              f"root; B={FSDP_B}, the optimizer built after sharding")
+        plain = make_train_step(model, train["optimizer"], ocfg, apply_fn=best)
+        step = make_train_step(sharded, make_optimizer(sharded, ocfg), ocfg, apply_fn=best,
+                               mesh=mesh)
+        for i, batch in enumerate(batches):
+            reset_launch_counts(bk, bb, ta)
+            aux = step(batch)
+            torch.cuda.synchronize()
+            launches = launch_counts(bk, bb, ta)
+            expect_launches(f"sharded step {i}", launches, step_launches(L, TL, 9))
+            want = plain(batch)
+            print(f"[15] step {i}: sharded " + ", ".join(f"{k} {v.item():.6f}"
+                                                         for k, v in aux.items())
+                  + f"; {sum(launches.values())} launches (phase 7's: "
+                  f"{sum(step_launches(L, TL, 9).values())}); every aux bit for bit the "
+                  f"unsharded step's: {all(torch.equal(aux[k], want[k]) for k in aux)}")
+        after = full_state_dict(sharded)
+        diffs = {n: (after[n] - p.detach()).abs().max().item() for n, p in model.named_parameters()}
+        same = all(torch.equal(after[n], p.detach()) for n, p in model.named_parameters())
+        worst = max(diffs, key=diffs.get)
+        print(f"[15] after {FSDP_STEPS} steps every one of {len(diffs)} parameters bit for bit "
+              f"the unsharded model's: {same}; max|diff| {diffs[worst]:.3e} ({worst})")
+        if not same:
+            band = {n: 2e-5 * (p.detach() - before[n]).abs().max().item()
+                    for n, p in model.named_parameters()}
+            over = [n for n, d in diffs.items() if d > band[n]]
+            if over:
+                raise AssertionError(f"sharded parameters beyond 2e-5 of their largest update: "
+                                     f"{over[:5]}")
+        times = []
+        for label, s in (("unsharded", plain), ("sharded", step), ("sharded", step),
+                         ("unsharded", plain)):
+            ms, mem = step_timing(s, batches[0])
+            times.append((label, ms, mem))
+            print(f"[15] B/16 step B={FSDP_B} {label:9s}: {ms:.2f} ms, peak memory {mem:.2f} GiB "
+                  f"[{card}]")
+        for label, s in (("unsharded", plain), ("sharded", step)):
+            fsdp_step_profile(label, s, batches[0], min(ms for name, ms, _ in times
+                                                          if name == label), card)
+        with tempfile.TemporaryDirectory(prefix="tvts_fsdp_") as root:
+            ckpt = CheckpointManager(root, arch=arch)
+            t0 = time.perf_counter()
+            ckpt.save_epoch(1, {"model": sharded, "optimizer": step.optimizer,
+                                "step": step.count})
+            seconds = time.perf_counter() - t0
+            path = ckpt.path("checkpoint-epoch1")
+            saved = torch.load(path, map_location="cpu", weights_only=True)
+            layout = sorted(saved["optimizer"]["state"]) == sorted(
+                plain.optimizer.state_dict()["state"]) and all(
+                v.shape == model.state_dict()[k.removeprefix("module.")].shape
+                for k, v in saved["state_dict"].items())
+            _, loaded = build_model(arch, load_checkpoint=path, eval_mode=False, device=dev,
+                                    compute_dtype=torch.bfloat16)
+            got = make_eval_step(loaded, apply_fn=best)(batches[0])
+            want = make_eval_step(sharded, apply_fn=best)(batches[0])
+            reload = all(torch.equal(got[k], want[k]) for k in want)
+            print(f"[15] checkpoint gathered from the shards: {os.path.getsize(path) / 2 ** 30:.3f} "
+                  f"GiB in {seconds:.2f} s [{card}]; the unsharded layout (full tensors, the "
+                  f"optimizer's int-keyed state): {layout}; build_model(strict) on it gives a "
+                  f"batch's embeddings, sort accuracy and loss bit for bit the sharded model's: "
+                  f"{reload}")
+            if not (layout and reload):
+                raise AssertionError("the checkpoint gathered from the shards does not reload")
+            del loaded, saved
+        del sharded, step
+    del train, model, plain, before
+    torch.cuda.empty_cache()
+    print(f"[15] B/16 phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def fsdp_h14_gates(dev, train: dict, batch: dict, modes: dict, want: dict, bk, bb, ta) -> None:
+    """Phase 15, H/14 (module notes): each kernel mode's forward and backward
+    on a sharded copy of phase 8's model, through the step-0 gate against
+    the eager unsharded model; the sharded loss equal to the unsharded
+    kernel path's."""
+    from tvts_torch.train.step import make_loss_fn
+
+    t_phase = time.perf_counter()
+    model = train["model"]
+    loss_e, ge = grads_of(model, make_loss_fn(), batch)
+    with one_rank_mesh(dev) as mesh:
+        sharded = sharded_copy(model, mesh)
+        for label, apply_fn in modes.items():
+            loss_u = make_loss_fn(apply_fn=apply_fn)(model, batch)[0].item()
+            reset_launch_counts(bk, bb, ta)
+            loss_s, gs = grads_of(sharded, make_loss_fn(apply_fn=apply_fn), batch)
+            torch.cuda.synchronize()
+            expect_launches(f"H/14 sharded, {label}", launch_counts(bk, bb, ta), want[label])
+            gate_check("15", f"H/14 sharded, {label}", loss_s, gs, loss_e, ge)
+            print(f"[15] H/14 {label}, sharded: {sum(want[label].values())} launches (phase 8's); "
+                  f"loss {loss_s!r}, the unsharded kernel path's {loss_u!r}: equal "
+                  f"{loss_s == loss_u}")
+            if loss_s != loss_u:
+                raise AssertionError(f"H/14 {label}: the sharded loss differs from the unsharded")
+            del gs
+        del sharded
+    del ge
+    torch.cuda.empty_cache()
+    print(f"[15] H/14 gates {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -4443,6 +4654,8 @@ def main() -> int:
         with decode:
             bare = pretrain_phase(dev, card, bk, bb, ta, config_path, backend)
             trainer_phase(dev, card, bk, bb, ta, root, config_path, bare)
+            # ---- phase 15: --fsdp sharding through the B/16 kernel step ------
+            fsdp_b16_phase(dev, card, bk, bb, ta)
             # ---- phase 13: the TVTS v1 family, on the same YT-Temporal tree ------
             v1_phase(dev, card, bk, bb, ta, root, config_path)
         # ---- phase 14: the v1 SSV2 downstream stack, through the CLI twin -------

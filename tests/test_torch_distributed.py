@@ -12,6 +12,9 @@ devices:
     YT-Temporal batch, then a WebVid one, which leaves the sort head without
     a gradient) against the JAX optimizer; `shard_params` gives every rank
     rank 0's weights;
+(b') the step the Trainer builds over the same mesh, with SGD(lr=1), against
+    the JAX package's `make_train_step` on a 2-device dp mesh (what its
+    Trainer runs): the gradient of the whole batch's loss, 1x;
 (c) the Trainer through the train CLI on 2 ranks: disjoint training indices,
     the validation metrics of the init validation equal to a one-process run
     on the same val set (each item reseeds `random` from its index, so an
@@ -65,13 +68,31 @@ def make_config(mod, f):
 
 
 WORKER = r"""
-import json, os, random, sys
+import json, os, random, socket, sys, time
 import numpy as np
 import torch
 
 torch.set_num_threads(1)
-rank, world, port_a, port_b, work = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
-                                     sys.argv[4], sys.argv[5])
+rank, world, port_a, work = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+
+def published_port(name):
+    # rank 0 picks a free port just before the group starts and publishes it:
+    # a port picked long before may meanwhile serve another connection
+    path = os.path.join(work, f"{name}.port")
+    if rank == 0:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            free = s.getsockname()[1]
+        with open(path + ".tmp", "w") as f:
+            f.write(str(free))
+        os.replace(path + ".tmp", path)
+        return free
+    for _ in range(6000):
+        if os.path.exists(path):
+            return int(open(path).read())
+        time.sleep(0.05)
+    raise TimeoutError(path)
+
 spec = json.load(open(os.path.join(work, "spec.json")))
 from tvts_torch.models import configs as pc
 
@@ -120,6 +141,13 @@ with create_mesh(coordinator=f"localhost:{port_a}", num_processes=world, process
     aux = make_sharded_train_step(model, sgd, OptimizerConfig(), mesh)(ytt)
     out["sgd"] = {k: (v - init[k]).numpy() for k, v in model.state_dict().items()}
     out["sgd_aux"] = {k: v.item() for k, v in aux.items()}
+    # (b') the step the Trainer builds over the mesh, SGD(lr=1)
+    from tvts_torch.train.trainer import Trainer
+
+    model.load_state_dict(init)
+    sgd = torch.optim.SGD([{"params": list(model.parameters()), "lr": 1.0, "base_lr": 1.0}])
+    Trainer(model, sgd, OptimizerConfig(), [], mesh=mesh).train_step(ytt)
+    out["trainer_sgd"] = {k: (v - init[k]).numpy() for k, v in model.state_dict().items()}
     model.load_state_dict(init)
     ocfg = OptimizerConfig(text_layers=2, text_tune_layers=1)
     step = make_sharded_train_step(model, make_optimizer(model, ocfg), ocfg, mesh)
@@ -161,7 +189,8 @@ trainer_mod.Trainer._valid_epoch = recorded_valid
 from tvts_torch.cli import train_dist_TVTSv2 as cli
 
 trainer = cli.main(["-c", os.path.join(work, "trainer.json"), "--no-bf16", "--device", "cpu",
-                    "--coordinator", f"localhost:{port_b}", "--num_processes", str(world),
+                    "--coordinator", f"localhost:{published_port('trainer')}",
+                    "--num_processes", str(world),
                     "--process_id", str(rank)])
 out["trainer"] = {"indices": indices, "val": vals, "count": trainer.train_step.count,
                   "writes": trainer.ckpt.writes, "writer": trainer.writer is not None}
@@ -244,8 +273,8 @@ def ranks(one_thread, registries, tmp_path_factory):
     with open(work / "worker.py", "w") as f:
         f.write(WORKER)
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    ports = [str(_free_port()), str(_free_port())]
-    procs = [subprocess.Popen([sys.executable, str(work / "worker.py"), str(r), str(WORLD), *ports,
+    port = str(_free_port())
+    procs = [subprocess.Popen([sys.executable, str(work / "worker.py"), str(r), str(WORLD), port,
                                str(work)], env=env, cwd=REPO, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
     logs = [p.communicate(timeout=300)[0] for p in procs]
@@ -343,6 +372,31 @@ def test_sharded_sgd_step_equals_jax_and_is_world_times_the_whole_batch_gradient
     make_train_step(whole, sgd, OptimizerConfig())({k: torch.from_numpy(v) for k, v in ytt.items()})
     one = {k: WORLD * (v - init[k]).numpy() for k, v in whole.state_dict().items()}
     _close(outs[0]["sgd"], one)
+
+
+def test_trainer_step_equals_the_jax_mesh_step(ranks):
+    """The Trainer's step at world 2 updates with the gradient of the whole
+    batch's loss, as the JAX Trainer's make_train_step over a dp mesh does
+    (tvts_tpu/train/trainer.py:137-140); it once took the sharded
+    step, 2x that gradient."""
+    import jax
+    import optax
+
+    from tvts_tpu.parallel import create_mesh, shard_batch, shard_params
+    from tvts_tpu.train.step import create_train_state, make_train_step
+    from tvts_tpu.utils.torch_convert import export_state_dict
+
+    work, outs = ranks
+    model, params, (ytt, _) = _jax_side(work)
+    tx = optax.sgd(1.0)
+    mesh = create_mesh(dp=WORLD, devices=jax.devices()[:WORLD])
+    with mesh:
+        state = create_train_state(shard_params(params, mesh), tx)
+        state, _ = make_train_step(model, tx, donate=False)(state, shard_batch(ytt, mesh))
+    delta = jax.tree.map(lambda a, b: np.asarray(a) - np.asarray(b), state.params, params)
+    want = export_state_dict(delta, ddp_prefix=False)
+    for out in outs:
+        _close(out["trainer_sgd"], want)
 
 
 def test_sharded_adamw_steps_equal_jax(ranks):

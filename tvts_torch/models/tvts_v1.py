@@ -92,6 +92,13 @@ class TVTSv1(nn.Module):
             nn.init.zeros_(layer.bias)
         self.pred_model.reset_parameters(generator)
 
+    def fsdp_units(self) -> list:
+        """The modules parallel/partition.fsdp_shard shards one by one (the
+        root takes the rest): each block of JointViT, DistilBERT and the sort
+        head."""
+        return [*self.video_model.blocks, *self.text_model.transformer.layer,
+                *self.pred_model.blocks]
+
     def set_compute_dtype(self, dtype: torch.dtype | None) -> None:
         """Activation dtype of both towers and the head (None: the weights')."""
         self.text_model.compute_dtype = dtype

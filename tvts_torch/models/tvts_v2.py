@@ -42,6 +42,13 @@ class TVTSv2(TextTransformer):
         self.reset_text_parameters(generator)
         self.pred_model.reset_parameters(generator)
 
+    def fsdp_units(self) -> list:
+        """The modules parallel/partition.fsdp_shard shards one by one (the
+        root takes the rest): each residual block of both towers and of the
+        sort head."""
+        return [*self.video_model.transformer.resblocks, *self.text_model.resblocks,
+                *self.pred_model.blocks]
+
     def set_compute_dtype(self, dtype: torch.dtype | None) -> None:
         """Activation dtype of both towers (None: the weights' dtype)."""
         self.compute_dtype = dtype

@@ -32,6 +32,7 @@ from tvts_torch.ops.text_attention import (
     sort_transformer_fused_forward,
     text_transformer_fused_forward,
 )
+from tvts_torch.parallel.partition import whole
 
 
 def space_time_vit_fused_forward(model: SpaceTimeViT, video: torch.Tensor,
@@ -90,26 +91,35 @@ def space_time_vit_fused_train_forward(model: SpaceTimeViT, video: torch.Tensor,
                                   "(cfg.ls_init set); run the eager tower for such a config")
     x = model.embed(video, keep_ind)
     T = video.shape[1] if video.ndim == 5 else 1
+    for blk in model.transformer.resblocks:
+        x = whole(blk, _train_block, blk, x, T, cfg.heads, cfg.act, space_kernel, time_kernel,
+                  mlp_kernel, mlp_save_hidden)
+    return model.pool(x, need_tokens=True)
+
+
+def _train_block(blk, x, T: int, heads: int, act: str, space_kernel: bool, time_kernel: bool,
+                 mlp_kernel: bool, mlp_save_hidden: bool):
+    """One block of the differentiable tower; it reads the block's
+    parameters, so under sharding it runs inside the block's window
+    (parallel/partition.whole)."""
     dt = x.dtype
 
     def weights(ln, first, second):
         return (ln.weight, ln.bias, first.weight.to(dt), first.bias.to(dt),
                 second.weight.to(dt), second.bias.to(dt))
 
-    def time_plain(x, *tw):
-        if not torch.is_grad_enabled():
-            return time_block_plain(x, *tw, T, cfg.heads)
-        return checkpoint(time_block_plain, x, *tw, T, cfg.heads, use_reentrant=False)
-
-    for blk in model.transformer.resblocks:
-        tw = weights(blk.ln_3, blk.timeattn.qkv, blk.timeattn.proj)
-        tr = time_subpath(x, *tw, T, cfg.heads) if time_kernel else time_plain(x, *tw)
-        sw = weights(blk.ln_1, blk.attn.qkv, blk.attn.proj)
-        x = (space_subpath if space_kernel else space_block_plain)(tr, x, *sw, T, cfg.heads)
-        mw = weights(blk.ln_2, blk.mlp.c_fc, blk.mlp.c_proj)
-        x = (mlp_subpath(x, *mw, cfg.act, mlp_save_hidden) if mlp_kernel
-             else mlp_block_plain(x, *mw, cfg.act))
-    return model.pool(x, need_tokens=True)
+    tw = weights(blk.ln_3, blk.timeattn.qkv, blk.timeattn.proj)
+    if time_kernel:
+        tr = time_subpath(x, *tw, T, heads)
+    elif torch.is_grad_enabled():
+        tr = checkpoint(time_block_plain, x, *tw, T, heads, use_reentrant=False)
+    else:
+        tr = time_block_plain(x, *tw, T, heads)
+    sw = weights(blk.ln_1, blk.attn.qkv, blk.attn.proj)
+    x = (space_subpath if space_kernel else space_block_plain)(tr, x, *sw, T, heads)
+    mw = weights(blk.ln_2, blk.mlp.c_fc, blk.mlp.c_proj)
+    return (mlp_subpath(x, *mw, act, mlp_save_hidden) if mlp_kernel
+            else mlp_block_plain(x, *mw, act))
 
 
 def train_apply(model, batch: dict, *, space_kernel: bool = True, time_kernel: bool = True,
@@ -121,7 +131,14 @@ def train_apply(model, batch: dict, *, space_kernel: bool = True, time_kernel: b
     predict_order) of a batch dict, as model(video, text_ids, keep_ind)
     returns them. mlp_kernel runs the video tower's MLP sub-paths on H8.
     text_tune_from: the first trainable text block (the blocks below it take
-    the dx-only H7 backward)."""
+    the dx-only H7 backward). Under sharding it runs inside the model's
+    window, as model(...) would (parallel/partition.whole)."""
+    return whole(model, _train_apply, model, batch, space_kernel, time_kernel, text_kernel,
+                 sort_kernel, mlp_kernel, mlp_save_hidden, text_tune_from)
+
+
+def _train_apply(model, batch, space_kernel, time_kernel, text_kernel, sort_kernel, mlp_kernel,
+                 mlp_save_hidden, text_tune_from):
     video, text_ids = batch["video"], batch["text_ids"]
     bz = video.shape[0]
     text_emb = (text_transformer_fused_forward(model, text_ids, tune_from=text_tune_from)

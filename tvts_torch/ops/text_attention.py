@@ -51,6 +51,7 @@ from tvts_torch.models.layers import layer_norm_f32, linear, mlp, self_attention
 from tvts_torch.ops import block_backward as bb
 from tvts_torch.ops import block_kernels as bk
 from tvts_torch.ops.attention import merge_heads, split_heads
+from tvts_torch.parallel.partition import whole
 
 # csrc/text_attention.cuh and text_attention_bwd.cuh: the longest sequence of
 # the one-block kernels; the TMA + wgmma kernels' tiles (rows a block, rows a
@@ -398,18 +399,21 @@ def text_transformer_fused_forward(model, token_ids: torch.Tensor,
     eot_pos = token_ids.long().argmax(dim=-1)
     *blocks, last = model.text_model.resblocks
     for i, blk in enumerate(blocks):
-        frozen = tune_from is not None and i < tune_from
-        x = text_subpath(x, *_attn_weights(blk.ln_1, blk.attn, x.dtype, frozen),
-                         num_heads=cfg.heads, causal=True, frozen=frozen)
-        if frozen:
-            w = [t.detach() for t in (blk.ln_2.weight, blk.ln_2.bias, blk.mlp.c_fc.weight,
-                                      blk.mlp.c_fc.bias, blk.mlp.c_proj.weight,
-                                      blk.mlp.c_proj.bias)]
-            x = x + mlp(layer_norm_f32(x, w[0], w[1]), *w[2:], blk.mlp.act)
-        else:
-            x = x + blk.mlp(blk.ln_2(x))
-    x = _eot_only_block(x, last, eot_pos, cfg.heads)
+        x = whole(blk, _text_block, blk, x, cfg.heads, tune_from is not None and i < tune_from)
+    x = whole(last, _eot_only_block, x, last, eot_pos, cfg.heads)
     return model.project_text(x[:, 0])
+
+
+def _text_block(blk, x, num_heads: int, frozen: bool):
+    """One text block but the last: H7, then the plain MLP (under sharding
+    inside the block's window, parallel/partition.whole)."""
+    x = text_subpath(x, *_attn_weights(blk.ln_1, blk.attn, x.dtype, frozen),
+                     num_heads=num_heads, causal=True, frozen=frozen)
+    if frozen:
+        w = [t.detach() for t in (blk.ln_2.weight, blk.ln_2.bias, blk.mlp.c_fc.weight,
+                                  blk.mlp.c_fc.bias, blk.mlp.c_proj.weight, blk.mlp.c_proj.bias)]
+        return x + mlp(layer_norm_f32(x, w[0], w[1]), *w[2:], blk.mlp.act)
+    return x + blk.mlp(blk.ln_2(x))
 
 
 def sort_transformer_fused_forward(sort_model, text_tokens: torch.Tensor,
@@ -424,9 +428,15 @@ def sort_transformer_fused_forward(sort_model, text_tokens: torch.Tensor,
     n_text = text_tokens.shape[1]
     *blocks, last = sort_model.blocks
     for blk in blocks:
-        w = (blk.norm1.weight, blk.norm1.bias, blk.attn.qkv.weight.to(x.dtype),
-             blk.attn.qkv.bias.to(x.dtype), blk.attn.proj.weight.to(x.dtype),
-             blk.attn.proj.bias.to(x.dtype))
-        x = text_subpath(x, *w, num_heads=cfg.num_heads, causal=False, eps=blk.norm1.eps)
-        x = x + blk.mlp(blk.norm2(x))
+        x = whole(blk, _sort_block, blk, x, cfg.num_heads)
     return sort_model.classify(last(x, tail=n_text))
+
+
+def _sort_block(blk, x, num_heads: int):
+    """One sort block but the last: H7, then the plain MLP (under sharding
+    inside the block's window, parallel/partition.whole)."""
+    w = (blk.norm1.weight, blk.norm1.bias, blk.attn.qkv.weight.to(x.dtype),
+         blk.attn.qkv.bias.to(x.dtype), blk.attn.proj.weight.to(x.dtype),
+         blk.attn.proj.bias.to(x.dtype))
+    x = text_subpath(x, *w, num_heads=num_heads, causal=False, eps=blk.norm1.eps)
+    return x + blk.mlp(blk.norm2(x))

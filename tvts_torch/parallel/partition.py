@@ -1,8 +1,31 @@
-"""Parameter and batch placement for data-parallel training (counterpart of
-tvts_tpu/parallel/partition.py, dp only).
+"""Parameter and batch placement (counterpart of
+tvts_tpu/parallel/partition.py).
 
-- `shard_params`: every rank takes rank 0's parameters and buffers
-  (a broadcast): the replicated layout of DDP;
+- `shard_params`: every rank takes rank 0's parameters and buffers (a
+  broadcast: the replicated layout of DDP); with the mesh's fsdp > 1 it then
+  shards them (`fsdp_shard`);
+- `fsdp_shard`: FSDP2 `fully_shard` over the ("dp", "fsdp") DeviceMesh
+  (HSDP): the parameters, their gradients and the optimizer state built
+  afterwards are split over the fsdp axis (dim 0, torch.chunk's pieces) and
+  replicated over dp. One unit a residual block of every tower (the model's
+  `fsdp_units()`) and the root for the rest. The JAX package picks a
+  sharded axis per matrix (`param_partition_spec`), a TPU layout; the
+  update is the same. The weights stay f32 masters, gathered in f32 and
+  cast at their use (no mixed-precision policy, so no rounding moves
+  against the JAX package). FSDP2 averages the gradients over dp x fsdp:
+  the gradient of the whole batch's loss (train/step.py), as the JAX mesh
+  step's. Any group size shards, 1 included;
+- `whole(module, fn, *args)`: `fn(*args)` inside `module`'s forward window,
+  its parameters whole. The kernel paths (ops/fused_forward.py,
+  ops/text_attention.py) read a block's parameters directly and never call
+  its `forward`, so without this FSDP2 would neither gather them before the
+  kernels nor reduce-scatter their gradients after the backward. `fn`'s
+  tensors come in through `args`, where FSDP2 hangs its backward hooks.
+  Without sharding it is `fn(*args)`;
+- `full_state_dict`, `full_optimizer_state`: the gathered state, every
+  rank taking part (a collective), for a checkpoint in the reference
+  layout; `load_full_state_dict`, `load_full_optimizer_state`: each rank
+  keeps its own shard of a full state, as a resume needs;
 - `shard_batch`: this rank's part of a global batch. The Trainer does not
   need it: each rank's ShardedLoader yields its own disjoint samples
   (data/loader.py), which are the rank-local batch as they are. The JAX
@@ -16,15 +39,127 @@ import torch
 
 from tvts_torch.parallel.mesh import Mesh
 
+_WHOLE = "_fsdp_whole"  # the forward method fsdp_shard registers on each unit
+
+
 def shard_params(model: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
-    """Broadcast rank 0's parameters and buffers to every rank, in place."""
+    """Broadcast rank 0's parameters and buffers to every rank, in place;
+    then, with fsdp > 1, shard them. Build the optimizer afterwards."""
     if mesh.distributed:
         import torch.distributed as dist
 
         with torch.no_grad():
             for t in [*model.parameters(), *model.buffers()]:
                 dist.broadcast(t.data, src=0)
+    if mesh.fsdp > 1:
+        fsdp_shard(model, mesh)
     return model
+
+
+def _call(fn, *args, **kwargs):
+    return fn(*args, **kwargs)
+
+
+def fsdp_shard(model: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
+    """Shard `model` in place over the mesh's fsdp axis (module notes): the
+    units of `model.fsdp_units()`, then the root."""
+    from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
+
+    if mesh.device_mesh is None:
+        raise ValueError("fsdp_shard needs a mesh with a started process group")
+    for unit in [*model.fsdp_units(), model]:
+        fully_shard(unit, mesh=mesh.device_mesh)
+        setattr(unit, _WHOLE, _call)
+        register_fsdp_forward_method(unit, _WHOLE)
+    return model
+
+
+def is_sharded(model: torch.nn.Module) -> bool:
+    """True for a model fsdp_shard sharded (without importing FSDP2)."""
+    return hasattr(model, _WHOLE)
+
+
+def whole(module: torch.nn.Module, fn, *args, **kwargs):
+    """fn(*args, **kwargs) with `module`'s parameters whole (module notes)."""
+    method = getattr(module, _WHOLE, None)
+    return fn(*args, **kwargs) if method is None else method(fn, *args, **kwargs)
+
+
+def _dtensor():
+    from torch.distributed.tensor import DTensor
+
+    return DTensor
+
+
+def _full(t):
+    return t.full_tensor() if isinstance(t, _dtensor()) else t
+
+
+def full_state_dict(model: torch.nn.Module) -> dict:
+    """model.state_dict() with each shard gathered whole (on every rank)."""
+    return {k: _full(v) for k, v in model.state_dict().items()}
+
+
+def full_optimizer_state(optimizer: torch.optim.Optimizer) -> dict:
+    """optimizer.state_dict() with each sharded state tensor gathered whole:
+    the unsharded optimizer's layout (on every rank)."""
+    sd = optimizer.state_dict()
+    sd["state"] = {i: {k: _full(v) for k, v in st.items()} for i, st in sd["state"].items()}
+    return sd
+
+
+def _local_part(like, full: torch.Tensor) -> torch.Tensor:
+    """This rank's part of `full` for the DTensor `like`: torch.chunk's piece
+    along each sharded dim, as FSDP2 and DTensor cut it."""
+    from torch.distributed.tensor import Shard
+
+    mesh = like.device_mesh
+    for dim, (placement, coord) in enumerate(zip(like.placements, mesh.get_coordinate())):
+        if isinstance(placement, Shard):
+            pieces = full.chunk(mesh.size(dim), placement.dim)
+            full = pieces[coord] if coord < len(pieces) else full.narrow(placement.dim, 0, 0)
+    local = like.to_local()
+    if full.shape != local.shape:
+        raise ValueError(f"a full tensor of {tuple(full.shape)} does not cut into this rank's "
+                         f"shard of {tuple(local.shape)}")
+    return full.to(local.device)
+
+
+def load_full_state_dict(model: torch.nn.Module, state_dict: dict) -> None:
+    """load_state_dict(state_dict, strict=True) of a full state; a sharded
+    model keeps each rank's own shard of it."""
+    if not is_sharded(model):
+        model.load_state_dict(state_dict, strict=True)
+        return
+    current = model.state_dict()
+    missing = sorted(set(current) - set(state_dict))
+    unexpected = sorted(set(state_dict) - set(current))
+    if missing or unexpected:
+        raise KeyError(f"state dict mismatch: missing {missing}, unexpected {unexpected}")
+    DTensor = _dtensor()
+    with torch.no_grad():
+        for name, t in current.items():
+            full = state_dict[name]
+            if isinstance(t, DTensor):
+                t.to_local().copy_(_local_part(t, full))
+            else:
+                t.copy_(full)
+
+
+def load_full_optimizer_state(optimizer: torch.optim.Optimizer, state: dict) -> None:
+    """optimizer.load_state_dict of a full state (full_optimizer_state's
+    layout); each state tensor of a sharded parameter becomes this rank's
+    shard of it, in the dtype the load gave it."""
+    optimizer.load_state_dict(state)
+    DTensor = _dtensor()
+    for p, st in optimizer.state.items():
+        if not isinstance(p, DTensor):
+            continue
+        for k, v in st.items():
+            if torch.is_tensor(v) and not isinstance(v, DTensor) and v.shape == p.shape \
+                    and k != "step":
+                st[k] = DTensor.from_local(_local_part(p, v).clone(), p.device_mesh,
+                                           p.placements, shape=p.shape, stride=p.stride())
 
 
 def shard_batch(batch: dict, mesh: Mesh) -> dict:

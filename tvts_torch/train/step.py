@@ -12,14 +12,26 @@ requires_grad False (train/optim.make_optimizer), so autograd computes no
 weight gradient for them while activation gradients still flow through their
 blocks: the JAX package's `_stop_frozen`.
 
-`make_sharded_train_step` is the JAX package's explicit data-parallel step
-(tvts_tpu/train/step.py:145-233) over torch.distributed, a process a rank:
-each rank runs `apply_fn` on its own batch; the video and text embeddings
-are all-gathered into the whole batch's contrastive matrix, the sort loss and
-its accuracy are averaged over the ranks (parallel/collectives.py), and the
-gradients are SUM all-reduced (one flat buffer a dtype). The update is the
-JAX package's: world x the gradient of the same loss on the whole batch in
-one process. Without a process group it is `make_train_step`.
+Under a process group (parallel/mesh.create_mesh), a process a rank, each
+rank runs `apply_fn` on its own batch; the video and text embeddings are
+all-gathered into the whole batch's contrastive matrix and the sort loss and
+its accuracy are averaged over the ranks (parallel/collectives.py). Each
+rank's gradient of that loss is then world x its share of the whole batch's
+gradient (all_gather's transpose sums the cotangent over the ranks), and the
+steps differ in what they make of it:
+- `make_train_step(..., mesh=)` is the JAX package's `make_train_step` over
+  a mesh (tvts_tpu/train/step.py:89-104: one jitted step of the global
+  batch), the one its Trainer and train scripts take: its gradient is the
+  gradient of the whole batch's loss, as in one process. The gradients are
+  SUM all-reduced (one flat buffer a dtype) and divided by the world; a
+  model sharded by parallel/partition.fsdp_shard has them reduce-scattered
+  and averaged over dp x fsdp by FSDP2 instead, and no second reduction
+  runs;
+- `make_sharded_train_step` is the JAX package's explicit shard_map step
+  (tvts_tpu/train/step.py:145-233), which only tests reach there: its
+  gradients are SUM all-reduced and not divided, world x the gradient of
+  the same loss on the whole batch.
+Without a process group both are the step of one process.
 
 A trainable parameter the loss does not reach (the sort head on a batch
 without labels: WebVid) gets a zero gradient before the update, as the JAX
@@ -78,15 +90,25 @@ class TrainStep:
     """step(batch) -> aux: one optimizer step at the milestone LR of `count`,
     the optimizer steps taken so far (the first step is step 0, as in
     optax). `count` is the schedule's state: a checkpoint saves it and a
-    resume sets it. With `mesh` a started process group, the sharded step."""
+    resume sets it. With `mesh` a started process group, the gathered loss;
+    `world_scale`: the summed gradients are not divided by the world (the
+    sharded step, module notes)."""
 
     def __init__(self, model, optimizer: torch.optim.Optimizer, cfg: OptimizerConfig,
-                 temperature: float = 0.05, apply_fn: Callable | None = None, mesh=None):
+                 temperature: float = 0.05, apply_fn: Callable | None = None, mesh=None,
+                 world_scale: bool = False):
+        from tvts_torch.parallel.partition import is_sharded
+
         self.model, self.optimizer = model, optimizer
         self.fwd = apply_fn or default_apply
         self.temperature = temperature
         self.scale = milestone_scale_fn(cfg)
         self.gather = mesh is not None and mesh.distributed
+        self.sharded = is_sharded(model)
+        if self.sharded and world_scale:
+            raise ValueError("the sharded step keeps the JAX world x scale, which FSDP2's "
+                             "averaged gradients do not give: use make_train_step")
+        self.divisor = 1 if world_scale or not self.gather else mesh.world
         self.trainable = [p for group in optimizer.param_groups for p in group["params"]]
         self.count = 0
 
@@ -97,16 +119,17 @@ class TrainStep:
         loss, aux = _losses(self.fwd(self.model, batch), batch, self.temperature, self.gather)
         loss.backward()
         for p in self.trainable:
-            if p.grad is None:
+            if p.grad is None:  # under FSDP a zero of the parameter's shard
                 p.grad = torch.zeros_like(p)
-        if self.gather:
+        if self.gather and not self.sharded:
             self._sum_grads()
         self.optimizer.step()
         self.count += 1
         return aux
 
     def _sum_grads(self) -> None:
-        """SUM all-reduce of every gradient, one flat buffer a dtype."""
+        """SUM all-reduce of every gradient, one flat buffer a dtype, divided
+        by `divisor`."""
         import torch.distributed as dist
 
         by_dtype: dict = {}
@@ -115,21 +138,26 @@ class TrainStep:
         for grads in by_dtype.values():
             flat = torch.cat([g.reshape(-1) for g in grads])
             dist.all_reduce(flat)
+            if self.divisor != 1:
+                flat /= self.divisor
             torch._foreach_copy_(grads, [part.view_as(g) for part, g in
                                          zip(flat.split([g.numel() for g in grads]), grads)])
 
 
 def make_train_step(model, optimizer: torch.optim.Optimizer, cfg: OptimizerConfig,
-                    temperature: float = 0.05, apply_fn: Callable | None = None) -> TrainStep:
-    """One AdamW step of the whole batch in this process."""
-    return TrainStep(model, optimizer, cfg, temperature, apply_fn)
+                    temperature: float = 0.05, apply_fn: Callable | None = None,
+                    mesh=None) -> TrainStep:
+    """One AdamW step with the gradient of the whole batch's loss: this
+    process's batch, or with `mesh` the batches of every rank (module notes)."""
+    return TrainStep(model, optimizer, cfg, temperature, apply_fn, mesh)
 
 
 def make_sharded_train_step(model, optimizer: torch.optim.Optimizer, cfg: OptimizerConfig,
                             mesh, temperature: float = 0.05,
                             apply_fn: Callable | None = None) -> TrainStep:
-    """One data-parallel step of this rank's batch (module notes)."""
-    return TrainStep(model, optimizer, cfg, temperature, apply_fn, mesh)
+    """The JAX explicit data-parallel step of this rank's batch: world x the
+    whole batch's gradient (module notes)."""
+    return TrainStep(model, optimizer, cfg, temperature, apply_fn, mesh, world_scale=True)
 
 
 def make_eval_step(model, temperature: float = 0.05,

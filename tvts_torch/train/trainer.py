@@ -47,8 +47,9 @@ from tvts_torch.ops import metrics as metrics_mod
 from tvts_torch.ops.sim import sim_matrix
 from tvts_torch.parallel.collectives import all_gather_embeddings
 from tvts_torch.parallel.mesh import Mesh
+from tvts_torch.parallel.partition import load_full_optimizer_state, load_full_state_dict
 from tvts_torch.text.tokenizer import tokenize_openclip
-from tvts_torch.train.step import make_eval_step, make_sharded_train_step, make_train_step
+from tvts_torch.train.step import make_eval_step, make_train_step
 
 # the validation metrics, by their names in ops/metrics.py
 VAL_METRICS = ("t2v_metrics", "v2t_metrics")
@@ -122,8 +123,11 @@ class Trainer:
     """The epoch loop over `model` (trained in place) and `optimizer`
     (train/optim.make_optimizer); `opt_cfg` sets the milestone LR schedule.
     `mesh` (parallel/mesh.create_mesh) with a started process group makes
-    the step the sharded one; batches and validation run on the model's
-    device. Keyword arguments as the JAX package's Trainer."""
+    the step the mesh one (the gradient of every rank's batch together, as
+    the JAX Trainer's `make_train_step` over its mesh); a model sharded by
+    parallel/partition.fsdp_shard trains, validates, saves gathered and
+    resumes re-sharded. Batches and validation run on the model's device.
+    Keyword arguments as the JAX package's Trainer."""
 
     def __init__(self, model, optimizer, opt_cfg, data_loaders, valid_loaders=None,
                  epochs: int = 10, mesh: Mesh | None = None, ckpt_manager=None,
@@ -151,11 +155,8 @@ class Trainer:
         self.profile_dir = profile_dir
         self.profile_steps = profile_steps
         self.start_epoch = 1
-        if self.mesh.distributed:
-            self.train_step = make_sharded_train_step(model, optimizer, opt_cfg, self.mesh,
-                                                      temperature, apply_fn)
-        else:
-            self.train_step = make_train_step(model, optimizer, opt_cfg, temperature, apply_fn)
+        self.train_step = make_train_step(model, optimizer, opt_cfg, temperature, apply_fn,
+                                          self.mesh)
         self.eval_step = make_eval_step(model, temperature, apply_fn)
 
     def _len_epoch(self) -> int:
@@ -203,9 +204,9 @@ class Trainer:
                 return 1
             tag = f"checkpoint-epoch{latest}"
         ckpt = self.ckpt.restore(tag)
-        self.model.load_state_dict({k.removeprefix("module."): v
-                                    for k, v in ckpt["state_dict"].items()}, strict=True)
-        self.optimizer.load_state_dict(ckpt["optimizer"])
+        load_full_state_dict(self.model, {k.removeprefix("module."): v
+                                          for k, v in ckpt["state_dict"].items()})
+        load_full_optimizer_state(self.optimizer, ckpt["optimizer"])
         self.train_step.count = int(ckpt["step"])
         self.ckpt.monitor.best = ckpt["monitor_best"]
         self.start_epoch = int(ckpt["epoch"]) + 1

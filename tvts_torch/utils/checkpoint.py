@@ -17,7 +17,10 @@ v2/base/base_trainer.py:119-247).
 - the monitor's best is updated before the epoch's files are written, so a
   file's `monitor_best` includes that epoch, as the reference writes it;
 - only the process that `writes` (rank 0) touches the disk; every process
-  keeps the same monitor.
+  keeps the same monitor, and every process gathers the state of a model
+  sharded by parallel/partition.fsdp_shard (a collective), so the file is
+  the unsharded layout: full tensors in `state_dict`, the optimizer's state
+  dict as an unsharded optimizer holds it.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import re
 
 import torch
 
+from tvts_torch.parallel.partition import full_optimizer_state, full_state_dict, is_sharded
 from tvts_torch.utils.convert import save_reference_checkpoint
 
 
@@ -70,12 +74,21 @@ class CheckpointManager:
         """The file of `tag`; a path to an existing file is taken as it is."""
         return tag if os.path.isfile(tag) else os.path.join(self.save_dir, f"{tag}.pth")
 
-    def _save(self, tag: str, epoch: int, state: dict) -> None:
-        optimizer = state.get("optimizer")
-        save_reference_checkpoint(state["model"], self.path(tag), self.arch, epoch=epoch,
-                                  config=self.config, monitor_best=self.monitor.best,
-                                  optimizer=None if optimizer is None else optimizer.state_dict(),
-                                  step=state.get("step"))
+    def _save(self, tags: list[str], epoch: int, state: dict) -> None:
+        """Write `state` under each tag (rank 0); a sharded model's state is
+        gathered on every rank first."""
+        model, optimizer = state["model"], state.get("optimizer")
+        if is_sharded(model):  # a collective: every rank gathers
+            model = full_state_dict(model)
+            optimizer = None if optimizer is None else full_optimizer_state(optimizer)
+        elif optimizer is not None:
+            optimizer = optimizer.state_dict()
+        if not self.writes:
+            return
+        for tag in tags:
+            save_reference_checkpoint(model, self.path(tag), self.arch, epoch=epoch,
+                                      config=self.config, monitor_best=self.monitor.best,
+                                      optimizer=optimizer, step=state.get("step"))
 
     def save_epoch(self, epoch: int, state: dict, val_log: dict | None = None) -> list[str]:
         """After epoch `epoch` (1-based): the periodic file and, on a monitor
@@ -85,15 +98,13 @@ class CheckpointManager:
         best = val_log is not None and self.monitor.improved(val_log)
         tags = ([f"checkpoint-epoch{epoch}"] if epoch % self.save_period == 0 else []) \
             + (["model_best"] if best else [])
-        if self.writes:
-            for tag in tags:
-                self._save(tag, epoch, state)
+        if tags:
+            self._save(tags, epoch, state)
         return tags
 
     def save_step(self, step: int, state: dict, epoch: int = 0) -> None:
         """A mid-epoch file after `step` optimizer steps, in epoch `epoch` + 1."""
-        if self.writes:
-            self._save(f"step{int(step)}", epoch, state)
+        self._save([f"step{int(step)}"], epoch, state)
 
     def restore(self, tag: str) -> dict:
         """The checkpoint dict of `tag` (or of a path), tensors on the CPU."""

@@ -167,15 +167,16 @@ def merge_params(model: torch.nn.Module, state_dict: Mapping,
     return [k for k in own if k not in state_dict], unused
 
 
-def save_reference_checkpoint(model: torch.nn.Module, path: str, arch: str, epoch: int = 0,
+def save_reference_checkpoint(model, path: str, arch: str, epoch: int = 0,
                               config: dict | None = None, monitor_best: float = 0.0,
                               optimizer: dict | None = None, step: int | None = None) -> None:
     """A `.pth` in the reference trainer's layout (base_trainer.py:165-189):
     {arch, epoch, state_dict (`module.`-prefixed reference names), optimizer
     (a state dict, empty by default), monitor_best, config}, plus `step`, the
-    optimizer steps taken, where given."""
+    optimizer steps taken, where given. `model`: a module or its state dict."""
+    weights = model.state_dict() if isinstance(model, torch.nn.Module) else model
     ckpt = {"arch": arch, "epoch": epoch,
-            "state_dict": {f"module.{k}": v for k, v in model.state_dict().items()},
+            "state_dict": {f"module.{k}": v for k, v in weights.items()},
             "optimizer": optimizer or {}, "monitor_best": monitor_best, "config": config or {}}
     if step is not None:
         ckpt["step"] = step
