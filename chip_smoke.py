@@ -33,7 +33,8 @@ run in the order 1-5, 10, 7, 6, 11, 12, 15, 13, 14 for B/16 and v1, then 9
    max|ref|), and no farther from plain in f32 than plain in bf16 is; H9 in
    f32 within F32_BAND = 1e-4 * max|ref|, which a TF32 and a bf16-staged
    control must each fail), each gradient tensor within 0.06 * max|ref| of
-   the plain backward;
+   the plain backward; the sha256 of the H1, H2 and bf16 H9 outputs (equal
+   digests in two trees: bit-identical outputs);
    the space core's CLS row (f32 P V) within half a bf16 unit of plain;
 4. extraction main path: build_model("TVTSv2_B_16") with seeded weights (noise
    on every leaf of both towers), extract_embeddings over 3 batches of 8
@@ -44,7 +45,9 @@ run in the order 1-5, 10, 7, 6, 11, 12, 15, 13, 14 for B/16 and v1, then 9
    without it, in bf16 and in f32 (cosine >= 0.995 and max|diff| within
    F32_TOWER_BAND = 1e-5 * max|ref| of the f32 tower, which the tower with
    H9 as the TF32 or bf16-staged control must each fail; 12 f32 H9 launches
-   a forward);
+   a forward); H9 in time mode on f32 q, k, v at the tower's shape (B=8), the
+   entry called directly as no tower calls it (one launch of the f32 time
+   core), within F32_BAND of plain f32;
 5. zero-shot main path, kernels on both towers: run_retrieval over 21
    clip-caption pairs in batches of 8, run_recognition over a few class
    names, run_ssv2_mc with a few options per clip; 11 H7 launches per text
@@ -121,9 +124,10 @@ run in the order 1-5, 10, 7, 6, 11, 12, 15, 13, 14 for B/16 and v1, then 9
    scaled_dot_product_attention: `library_ms`), and the
    device-time breakdown of one kernel-path train step from torch.profiler,
    which fails if the step's LayerNorm column sums take more than
-   LN_SUMS_MS; H9 in f32 at phase 4's tower shape (B=8, N=196) against plain
-   f32, one masked f32 scaled_dot_product_attention and its bound (f32 bytes,
-   the f32 FMA rate);
+   LN_SUMS_MS; H9 in f32, space and time, at phase 4's tower shape (B=8,
+   N=196) and H/14's frame (B=4, N=256, d=80) against plain f32, one masked
+   f32 scaled_dot_product_attention and two bounds (f32 bytes, and the
+   operations at the f32 FMA rate or as three TF32 tensor-core products);
 11. pretraining from files: under a temporary directory, the YT-Temporal
    layout (72 videos of 30 s at 30 fps, 320x240, ASR annotations of ~2.5
    words a second with junk words and a denoised text the DTW aligns) and the
@@ -299,9 +303,11 @@ REPLACES = {
     "mlp_subpath_backward": "tvts_tpu/ops/pallas_block_attention.py:1021",
     "mlp_subpath_backward (saved hidden)": "tvts_tpu/ops/pallas_block_backward.py:2637",
     "divided_space_time_attention_fused": "tvts_tpu/ops/pallas_attention.py:107",
-    # H9 on f32 q, k, v: the f32 instances of the time core and the CLS row,
-    # and the f32 space core (space_core_f32_kernel)
-    "divided_space_time_attention_fused (f32)": "tvts_tpu/ops/pallas_attention.py:107",
+    # H9 on f32 q, k, v: the f32 space core (space_core_f32_kernel, the mode
+    # the towers run) with the f32 CLS row, and the f32 time core
+    # (time_core_f32_kernel, which only a direct call of the entry reaches)
+    "divided_space_time_attention_fused (f32)": "tvts_tpu/ops/pallas_attention.py:31",
+    "divided_space_time_attention_fused (f32 time)": "tvts_tpu/ops/pallas_attention.py:69",
     # the weight-gradient half of the backward kernels (also :736, :2637;
     # pallas_block_attention.py:1021; pallas_text_attention.py:264)
     "wgrad": "tvts_tpu/ops/pallas_block_backward.py:3106",
@@ -319,7 +325,8 @@ REPLACES = {
 SOURCE = "tvts_torch/csrc/block_kernels.cu"
 REPO = Path(__file__).resolve().parent
 PEAK_FLOPS, HBM_BYTES_S = 989e12, 3.35e12  # H100 SXM: dense bf16, HBM3
-PEAK_F32_FLOPS = 67e12  # H100 SXM: float32 outside the tensor cores (the f32 H9 kernels)
+PEAK_F32_FLOPS = 67e12  # H100 SXM: float32 outside the tensor cores (the f32 H9 time core)
+PEAK_TF32_FLOPS = 495e12  # H100 SXM: dense TF32 (the f32 H9 space core, three products a step)
 # the TPU's measured real-shape gradient band (5.8e-2, PERF.md before the port)
 GRAD_BAND = 0.06
 # H5 / H6 backward parity shapes: (B, T, N, D, H)
@@ -344,6 +351,13 @@ CORE_SHAPES = {"N=196 d=64": (2, 12, 196, 12, 64), "N=49 d=64": (2, 12, 49, 12, 
 WORDS = ("a person is playing the guitar on stage while dog runs across green field "
          "under blue sky man cooks pasta in small kitchen woman rides bike through "
          "city street at night children swim pool dance read book").split()
+
+
+def sha256_of(t: torch.Tensor) -> str:
+    """The sha256 of a tensor's bytes: equal digests, bit-identical tensors."""
+    import hashlib
+
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
 
 
 def card_line() -> str:
@@ -731,6 +745,8 @@ def launch_counts(bk, bb, ta) -> dict[str, int]:
     counts["space_core_backward (pair)"] = bb.space_core_backward.pair_launches
     counts["divided_space_time_attention_fused (f32)"] = \
         ac.divided_space_time_attention_fused.f32_launches
+    counts["divided_space_time_attention_fused (f32 time)"] = \
+        ac.divided_space_time_attention_fused.f32_time_launches
     return counts
 
 
@@ -743,6 +759,7 @@ def reset_launch_counts(bk, bb, ta) -> None:
     bb.mlp_subpath.saved_launches = bb.mlp_subpath_backward.saved_launches = 0
     bb.space_core_backward.pair_launches = 0
     ac.divided_space_time_attention_fused.f32_launches = 0
+    ac.divided_space_time_attention_fused.f32_time_launches = 0
 
 
 def expect_launches(tag: str, got: dict, want: dict) -> None:
@@ -955,8 +972,10 @@ def time_steps(tag: str, label: str, train: dict, apply_fn, batch, card: str,
 
 
 # sessions of torch.profiler that may record no device activity (seen on the
-# card now and then, twice in a row once, six in a row once) before a
-# measurement fails; the waits between them double from 0.5 s up to 8 s
+# card now and then, twice in a row once, six in a row once) or lose kernels
+# (ten in a row, fewer recorded each time, with the card's memory held by
+# PyTorch's cache) before a measurement fails; the waits between them double
+# from 0.5 s up to 8 s, each after emptying the cache
 PROFILE_ATTEMPTS = 10
 
 
@@ -983,6 +1002,7 @@ def _profile(fn, iters: int = 1):
             return prof, wall
         unread.append("no device activity" if not counts else
                       f"lost kernels {({k: c for k, c in counts.items() if c % iters})}")
+        torch.cuda.empty_cache()
         time.sleep(min(8.0, 0.5 * 2 ** attempt))
     print(f"torch.profiler: {PROFILE_ATTEMPTS} sessions unread: {unread}")
     return None, wall
@@ -1253,33 +1273,114 @@ def train_times(dev, card, bk, bb, ta, ac, train: dict, times: dict, library: di
               f"{bnd[0]:.3f} ms ({bnd[1]}) [{card}]")
 
 
-# H9 in f32 at the shape of phase 4's f32 use_pallas tower: (B, T, N, H, d)
-CORE_F32_SHAPE = (8, 12, 196, 12, 64)
+# H9 in f32 at the shape of phase 4's f32 use_pallas tower and at H/14's
+# frame: (B, T, N, H, d)
+CORE_F32_SHAPES = {"B/16 tower": (8, 12, 196, 12, 64), "H/14 frame": (4, 12, 256, 16, 80)}
+
+
+def core_f32_bounds(mode: str, B: int, T: int, N: int, H: int, d: int) -> dict:
+    """H9's least times in f32 (bytes at 4 B an element against the
+    operations): the operations at the f32 FMA rate ("f32 FMA") and as three
+    TF32 tensor-core products ("3xTF32"), each (ms, bound_by)."""
+    flops, nbytes = core_work(mode, B, T, N, H, d, elem=4)
+    return {"f32 FMA": bound_ms(flops, nbytes, PEAK_F32_FLOPS),
+            "3xTF32": bound_ms(3 * flops, nbytes, PEAK_TF32_FLOPS)}
 
 
 def core_f32_times(dev, card: str, ac, times: dict, library: dict) -> None:
-    """H9 on f32 q, k, v against plain f32 and one masked f32
-    scaled_dot_product_attention (`library_ms`); its bound from the f32
-    bytes and the f32 FMA rate outside the tensor cores."""
-    B, T, N, H, d = CORE_F32_SHAPE
-    name = "divided_space_time_attention_fused (f32)"
-    qkv = core_inputs(B, T, N, H, d, 19, dev, dtype=torch.float32)
-    for mode in ("space", "time"):
-        kernel, plain = core_calls(ac, qkv, T, N, mode)
-        one_call = core_library_call(qkv, T, N, mode)
-        with torch.inference_mode(), no_tf32():
-            k_ms, p_ms = cuda_ms(kernel, iters=10), cuda_ms(plain, iters=3)
-            l_ms = cuda_ms(one_call, iters=10)
-            diff, ref, tol = core_band_check(one_call(), plain())
-        if diff > tol:
-            raise AssertionError(f"the masked f32 library call is not H9 {mode}: max|diff| {diff}")
-        bnd = bound_ms(*core_work(mode, B, T, N, H, d, elem=4), peak=PEAK_F32_FLOPS)
-        if mode == "space":  # the mode the towers run
-            times[name], library[name] = (k_ms, p_ms, bnd), l_ms
-        print(f"[6] {name} {mode} B={B} N={N} d={d}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} "
-              f"ms, masked f32 scaled_dot_product_attention {l_ms:.3f} ms (max|diff| to plain "
-              f"{diff:.2e}), bound {bnd[0]:.3f} ms ({bnd[1]}: f32 at {PEAK_F32_FLOPS / 1e12:.0f} "
-              f"TFLOP/s, 4 bytes an element) [{card}]")
+    """H9 on f32 q, k, v, space and time, against plain f32 and one masked
+    f32 scaled_dot_product_attention (`library_ms`), beside both bounds; the
+    kernels line takes the bound of the route each core runs (space: three
+    TF32 products, time: f32 FMA) at the f32 tower's shape."""
+    name = "divided_space_time_attention_fused (f32"
+    for label, (B, T, N, H, d) in CORE_F32_SHAPES.items():
+        qkv = core_inputs(B, T, N, H, d, 19, dev, dtype=torch.float32)
+        for mode in ("space", "time"):
+            kernel, plain = core_calls(ac, qkv, T, N, mode)
+            one_call = core_library_call(qkv, T, N, mode)
+            with torch.inference_mode(), no_tf32():
+                k_ms, p_ms = cuda_ms(kernel, iters=20), cuda_ms(plain, iters=3)
+                l_ms = cuda_ms(one_call, iters=10)
+                diff, ref, tol = core_band_check(one_call(), plain())
+            if diff > tol:
+                raise AssertionError(f"the masked f32 library call is not H9 {mode}: max|diff| "
+                                     f"{diff}")
+            bounds = core_f32_bounds(mode, B, T, N, H, d)
+            if label == "B/16 tower":
+                key = f"{name})" if mode == "space" else f"{name} time)"
+                route = bounds["3xTF32" if mode == "space" else "f32 FMA"]
+                times[key], library[key] = (k_ms, p_ms, route), l_ms
+            print(f"[6] {name}) {mode} {label} B={B} N={N} H={H} d={d}: kernel {k_ms:.4f} ms, "
+                  f"plain {p_ms:.3f} ms, masked f32 scaled_dot_product_attention {l_ms:.3f} ms "
+                  f"(max|diff| to plain {diff:.2e}), bounds "
+                  + ", ".join(f"{k} {b[0]:.4f} ms ({b[1]})" for k, b in bounds.items())
+                  + f" (f32 at {PEAK_F32_FLOPS / 1e12:.0f}, TF32 at "
+                  f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s, 4 bytes an element) [{card}]")
+        del qkv
+        torch.cuda.empty_cache()
+
+
+# mma.sync throughput probe: each warp issues 8 independent m16n8k8 TF32 (or
+# m16n8k16 bf16) products `iters` times from registers; the rate that bounds
+# a kernel on mma.sync (the f32 H9 space core: three TF32 products a step)
+MMA_PROBE = r"""
+#include <cstdint>
+template <int BF16>
+__global__ void mma_probe(float* out, int iters) {
+  float c[8][4] = {};
+  uint32_t a[4] = {threadIdx.x, threadIdx.x * 3u, threadIdx.x * 5u, threadIdx.x * 7u};
+  const uint32_t b0 = threadIdx.x * 11u, b1 = threadIdx.x * 13u;
+  for (int it = 0; it < iters; ++it)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (BF16)
+        asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+                     "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+                     : "+f"(c[i][0]), "+f"(c[i][1]), "+f"(c[i][2]), "+f"(c[i][3])
+                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      else
+        asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+                     "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+                     : "+f"(c[i][0]), "+f"(c[i][1]), "+f"(c[i][2]), "+f"(c[i][3])
+                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+    }
+  float s = 0.f;
+  for (int i = 0; i < 8; ++i) s += c[i][0] + c[i][1] + c[i][2] + c[i][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int mma_probe_launch(int bf16, int blocks, int threads, float* out, int iters) {
+  if (bf16) mma_probe<1><<<blocks, threads>>>(out, iters);
+  else mma_probe<0><<<blocks, threads>>>(out, iters);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def mma_sync_rates(dev, card: str, bk) -> dict:
+    """TFLOP/s of mma.sync m16n8k8 TF32 and m16n8k16 bf16 at 8 warps an SM
+    (two blocks of 4 on each SM, 4096 iterations of 8 products a warp), by
+    CUDA events; the probe is built with the kernels' nvcc into a temporary
+    directory."""
+    import ctypes
+    import tempfile
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks, threads, iters = 2 * sms, 128, 4096
+    out = torch.empty(blocks * threads, device=dev)
+    rates = {}
+    with tempfile.TemporaryDirectory(prefix="tvts_mma_probe_") as tmp:
+        src, so = Path(tmp) / "probe.cu", Path(tmp) / "probe.so"
+        src.write_text(MMA_PROBE)
+        subprocess.run([bk._nvcc(), *bk._NVCC_FLAGS[:4], "-Xcompiler", "-fPIC", "-shared",
+                        "-o", str(so), str(src)], check=True, capture_output=True)
+        lib = ctypes.CDLL(str(so))
+        for kind, k in (("tf32 m16n8k8", 8), ("bf16 m16n8k16", 16)):
+            launch = lambda: lib.mma_probe_launch(int(k == 16), blocks, threads,
+                                                  ctypes.c_void_p(out.data_ptr()), iters)
+            ms = cuda_ms(launch, iters=3)
+            rates[kind] = 2 * 16 * 8 * k * 8 * iters * blocks * threads / 32 / (ms * 1e-3) / 1e12
+            print(f"[6] mma.sync {kind}: {rates[kind]:.1f} TFLOP/s at 8 warps an SM [{card}]")
+    return rates
 
 
 def mlp_times(tag: str, card: str, bk, bb, a: dict, g, act: str, times: dict | None) -> None:
@@ -2156,9 +2257,12 @@ def use_pallas_phase(tag: str, ext: dict, dev, bk, bb, ta) -> dict:
     """Extraction through the eager tower built with use_pallas=True (the
     space core of every block on H9) against the same tower without it, in
     bf16 and in f32 (H9's f32 kernels; the f32 towers with full-f32
-    products). Returns the H9 launches, bf16 and f32."""
+    products); then H9 in time mode on f32 q, k, v, called directly. Returns
+    the H9 launches: bf16, f32 and f32 time."""
     from tvts_torch.eval.embed import extract_embeddings
     from tvts_torch.models.factory import build_model
+    from tvts_torch.ops import attention_cores as ac
+    from tvts_torch.ops.attention import divided_space_time_attention
 
     cfg, name = ext["cfg"], "divided_space_time_attention_fused"
     want = cfg.vision.layers * ext["n_forwards"]
@@ -2202,6 +2306,27 @@ def use_pallas_phase(tag: str, ext: dict, dev, bk, bb, ta) -> dict:
                                  "eager tower")
         out[name if label == "bf16" else f"{name} (f32)"] = launches[name]
         del model
+    # H9 time on f32 q, k, v: no tower calls it (they run space), so the entry
+    # is called as a user would, at the f32 tower's batch and shape
+    v = cfg.vision
+    T, N, H, d = v.num_frames, v.patches_per_frame, v.heads, v.width // v.heads
+    qkv = core_inputs(8, T, N, H, d, 21, dev, dtype=torch.float32)
+    reset_launch_counts(bk, bb, ta)
+    with torch.no_grad(), no_tf32():
+        got = ac.divided_space_time_attention_fused(*qkv, T, N, "time")
+        launches = launch_counts(bk, bb, ta)
+        want = divided_space_time_attention(*qkv, T, N, "time")
+    expect_launches("H9 time (f32)", launches,
+                    {name: 1, f"{name} (f32)": 1, f"{name} (f32 time)": 1})
+    diff, ref, _ = core_band_check(got, want)
+    print(f"[{tag}] divided_space_time_attention_fused(mode=\"time\") on f32 q, k, v B=8 N={N}: "
+          f"launches { {k: n for k, n in launches.items() if n} }; max|diff| to plain f32 "
+          f"{diff:.3e} <= {F32_BAND * ref:.3e} ({F32_BAND} * max|ref|)")
+    if diff > F32_BAND * ref:
+        raise AssertionError(f"H9 time (f32): max|diff| {diff} > {F32_BAND} * {ref}")
+    out[f"{name} (f32 time)"] = launches[f"{name} (f32 time)"]
+    del qkv, got, want
+    torch.cuda.empty_cache()  # the later profiles need device memory for their records
     return out
 
 
@@ -2317,7 +2442,7 @@ def parity_phase(dev, bk, bb, ta, ac) -> dict:
             torch.cuda.synchronize()
             diff, ref, tol = band_check(got, want)
             print(f"[3] {name:22s} {label:12s} max|diff| {diff:.5f} mean|ref| {ref:.4f} "
-                  f"(tol {tol:.4f})")
+                  f"(tol {tol:.4f}) sha256 {sha256_of(got)}")
             if diff > tol:
                 raise AssertionError(f"{name} {label}: max|diff| {diff} > {tol}")
             if label == "B/16":
@@ -2432,7 +2557,8 @@ def parity_phase(dev, bk, bb, ta, ac) -> dict:
             tol32 = (want.float() - want32).abs().max().item()
             print(f"[3] divided_space_time_attention_fused {mode:5s} {label}: max|diff| "
                   f"{diff:.5f} max|ref| {ref:.4f} (tol {tol:.4f} = min({BAND}, {CORE_BAND} * "
-                  f"max|ref|)); to plain in f32 {diff32:.5f} (<= plain bf16's own {tol32:.5f})")
+                  f"max|ref|)); to plain in f32 {diff32:.5f} (<= plain bf16's own {tol32:.5f}); "
+                  f"sha256 {sha256_of(got)}")
             if diff > tol or diff32 > tol32:
                 raise AssertionError(f"H9 {mode} {label}: max|diff| {diff} > {tol}, or "
                                      f"{diff32} > {tol32} against f32")
@@ -2458,8 +2584,9 @@ def parity_phase(dev, bk, bb, ta, ac) -> dict:
             if min(controls.values()) <= tol:
                 raise AssertionError(f"H9 f32 {mode} {label}: a control that is not f32 passes "
                                      f"the band {tol}: {controls}")
-            if label == "N=196 d=64" and mode == "space":
-                max_err["divided_space_time_attention_fused (f32)"] = diff
+            if label == "N=196 d=64":
+                max_err["divided_space_time_attention_fused (f32"
+                        + (")" if mode == "space" else " time)")] = diff
     return max_err
 
 
@@ -2476,6 +2603,7 @@ def profile_phase(dev, card: str, bk, bb, ta) -> None:
     time_core_bwd_digests(dev, bb)
     space_core_bwd_digests(dev, bb)
     ln_bwd_digests(dev, bb)
+    mma_sync_rates(dev, card, bk)
     cfg, model = build_model("TVTSv2_B_16", dtype=torch.bfloat16, device=dev, seed=0)
     add_noise_(model, 1, dev)
     v = cfg.vision

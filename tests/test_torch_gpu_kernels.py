@@ -290,7 +290,7 @@ def test_attention_core_f32_raises_above_its_shared_memory(cuda, d):
     """The f32 space core stages a frame's keys and values in f32: a frame
     that does not fit a block raises ValueError, and is never sent to plain;
     the largest that fits runs."""
-    n_max = bk.SMEM_OPTIN // (8 * d) - 1
+    n_max = ac.space_core_f32_max_patches(d)
     for N, ok in ((n_max, True), (n_max + 1, False)):
         q, k, v = core_inputs(1, 1, N, 1, d, 5, cuda, dtype=torch.float32)
         if ok:
@@ -299,6 +299,53 @@ def test_attention_core_f32_raises_above_its_shared_memory(cuda, d):
         else:
             with pytest.raises(ValueError, match=f"at most {n_max} patches"):
                 ac.divided_space_time_attention_fused(q, k, v, 1, N, "space")
+
+
+# (B, T, N, H, d): a ragged batch at the B/16 frame, the largest frame the f32
+# space core takes at head dim 80
+F32_CORE_CASES = {"B=3": (3, 12, 196, 12, 64),
+                  "largest N d=80": (1, 2, ac.space_core_f32_max_patches(80), 2, 80)}
+
+
+@pytest.mark.parametrize("mode", ["space", "time"])
+@pytest.mark.parametrize("label", list(F32_CORE_CASES))
+def test_attention_core_f32_ragged_batch_and_largest_frame(cuda, label, mode):
+    """The f32 cores at a ragged batch and at the largest frame that fits,
+    within F32_BAND * max|ref| of plain f32, on head-split views and on
+    contiguous copies alike."""
+    B, T, N, H, d = F32_CORE_CASES[label]
+    qkv = core_inputs(B, T, N, H, d, 6, cuda, dtype=torch.float32)
+    diff, ref, tol, _ = core_f32_check(ac, qkv, T, N, mode)
+    assert diff <= tol, (diff, ref, tol)
+    got = ac.divided_space_time_attention_fused(*qkv, T, N, mode)
+    dense = ac.divided_space_time_attention_fused(*(t.contiguous() for t in qkv), T, N, mode)
+    assert torch.equal(dense, got)
+
+
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("T", [1, 5, 12, 32])
+def test_attention_core_f32_time_every_frame_count(cuda, T, d):
+    """The f32 time core at 1 to 32 frames (its rows run four at a time, so
+    5 leaves lanes idle) and three heads, within F32_BAND of plain f32, each
+    call counted as an f32 time launch."""
+    qkv = core_inputs(2, T, 49, 3, d, 7, cuda, dtype=torch.float32)
+    before = ac.divided_space_time_attention_fused.f32_time_launches
+    diff, ref, tol, _ = core_f32_check(ac, qkv, T, 49, "time")
+    assert ac.divided_space_time_attention_fused.f32_time_launches == before + 1
+    assert diff <= tol, (diff, ref, tol)
+
+
+def test_attention_core_f32_refused_launch_raises(cuda, monkeypatch):
+    """A launch the library refuses (a frame past the f32 space core's shared
+    memory, its Python check taken away) raises; nothing falls back to plain,
+    and nothing is counted."""
+    N = ac.space_core_f32_max_patches(64) + 1
+    qkv = core_inputs(1, 1, N, 1, 64, 8, cuda, dtype=torch.float32)
+    monkeypatch.setattr(ac, "_check_space_frame_f32", lambda N, d: None)
+    before = ac.divided_space_time_attention_fused.f32_launches
+    with torch.no_grad(), pytest.raises(RuntimeError, match="CUDA kernel launch failed"):
+        ac.divided_space_time_attention_fused(*qkv, 1, N, "space")
+    assert ac.divided_space_time_attention_fused.f32_launches == before
 
 
 def test_attention_core_f32_frame_rule_is_the_librarys(cuda):

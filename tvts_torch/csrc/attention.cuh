@@ -13,9 +13,11 @@
 // caller passes scale 1) and write an output laid out likewise. STRIDED is a
 // template parameter, so the packed kernels of H1 / H2 keep their
 // compile-time addressing. H9 also takes f32 q, k and v, as the JAX function
-// does: the time core and the CLS row take the element type as a template
-// parameter (f32 loads, the same f32 arithmetic), and the space core has an
-// f32 kernel of its own (space_core_f32_kernel: SIMT, no tensor cores).
+// does: the CLS row takes the element type as a template parameter (f32
+// loads, the same f32 arithmetic), and the space and time cores have f32
+// kernels of their own (space_core_f32_kernel: 3xTF32 on the tensor cores;
+// time_core_f32_kernel: f32 FMA, a persistent grid of warps that copy one
+// group while they compute another).
 #pragma once
 
 #include <math.h>
@@ -60,7 +62,7 @@ struct CoreAddr {
 };
 
 // ---------------------------------------------------------------------------
-// Time core (H1 and H6's forward packed; H9 time strided, bf16 or f32). It replaces the
+// Time core (H1 and H6's forward packed; H9 time strided in bf16). It replaces the
 // time attention inside tvts_tpu/ops/pallas_block_attention.py::
 // fused_time_attention_block_v7 (:2456) and pallas_attention.py::
 // _time_attention_fused (:69). Patch (t, n) attends over the CLS key plus
@@ -73,10 +75,8 @@ struct CoreAddr {
 // (one block over all 12 heads holds 35 K registers and runs alone on its
 // SM, its loads and then its math). 16-byte cp.async copies,
 // neighbouring threads on neighbouring addresses, bring the T query rows and
-// the 1 + T key and value rows of the group into shared memory in their own
-// element type (the CLS key and value rows once a block, not once a head;
-// f32 doubles the bytes, 125 KB a block at T = 32, d = 80, and the arithmetic
-// is the same).
+// the 1 + T key and value rows of the group into shared memory (the CLS key
+// and value rows once a block, not once a head).
 // A thread owns each (t, h) query row, with an exact max-shifted online f32
 // softmax over the 1 + T keys in the first version's order of operations
 // (its training-step gates sit near their limits at H/14: a logit summed in
@@ -193,9 +193,9 @@ inline int time_core_heads(int T, int H) {
   return (H + groups - 1) / groups;
 }
 
-// bytes of a block's q, k and v rows at `elem` bytes an element
-inline size_t time_core_smem(int T, int HG, int DH, int elem = 2) {
-  return (size_t)(3 * T + 2) * HG * DH * elem;
+// bytes of a block's q, k and v rows
+inline size_t time_core_smem(int T, int HG, int DH) {
+  return (size_t)(3 * T + 2) * HG * DH * sizeof(bf16);
 }
 
 // ---------------------------------------------------------------------------
@@ -510,92 +510,552 @@ __global__ void __launch_bounds__(SP_WARPS * 32, 2)
 }
 
 // ---------------------------------------------------------------------------
-// Space core in f32 (H9 on f32 q, k, v): tvts_tpu/ops/pallas_attention.py::
-// _space_attention_fused (:31) takes f32 as well as bf16, with f32 products;
-// the bf16 core above runs mma.sync on bf16 fragments, and TF32 mma would
-// round the products, so this instance is SIMT FMA. Patch (t, i) attends
-// over the CLS key plus frame t's N patches; patch rows only (the CLS row is
-// the split-KV kernel's). Bound on the H100: the f32 FMA rate (3 d FMAs per
-// (query, key) pair with the rescale, against 4 d bytes of q, k, v and out
-// per query: far above the byte line at 50 to 257 keys a query).
-// Design: one block per (b, t, h) stages the frame's 1 + N key and value
-// rows in f32 in shared memory once (16-byte cp.async; 2 (N + 1) d * 4 bytes:
-// 164 KB at N = 256, d = 80, against the 227 KB a block may take, which
-// bounds N: space_core_f32_smem); a thread per query row (up to 256 a block,
-// rows strided over the threads beyond) keeps its q and output in registers
-// and walks the keys in order with the time core's exact max-shifted online
-// f32 softmax, each logit one f32 chain over the head dim. Every thread of a
-// warp reads the same key row, so the shared-memory reads are broadcasts.
+// Space core in f32 (H9 space on f32 q, k, v): it replaces tvts_tpu/ops/
+// pallas_attention.py::_space_attention_fused (:31) on f32 inputs, whose
+// products are f32. Patch (t, i) attends over the CLS key plus frame t's N
+// patches; patch rows only (the CLS row is the split-KV kernel's).
+// Bound on the H100: 4 d flops a (query, key) pair at 50 to 257 keys a query
+// is far above the byte line in f32 SIMT (0.171 ms at B = 8, N = 196, d = 64
+// at 67 TFLOP/s, against 0.069 ms of bytes), so the products go to the tensor
+// cores. A single TF32 product reads each operand with 10 mantissa bits and
+// lies >= 4e-4 * max|ref| from f32, outside the f32 band, so each product is
+// 3xTF32: x = hi + lo (split_tf32), a * b = lo_a hi_b + hi_a lo_b + hi_a hi_b
+// on mma.sync m16n8k8 with f32 accumulation, the small terms first (what the
+// splits and the dropped lo lo term lose is ~2^-20 of the product). The
+// probabilities are split too: P read once as TF32 would lie ~2^-11 off. On
+// this route the bound is max(bytes, three products at 495 TFLOP/s) = 0.069
+// ms at B = 8, N = 196, d = 64; mma.sync's own TF32 rate on the card is ~320
+// TFLOP/s, 0.116 ms for the three products.
+// mma.sync over wgmma: wgmma takes tf32 operands K-major only, so V would
+// have to be transposed as it is staged, the split parts of K and V would
+// have to sit in shared memory (twice the frame: H/14's would not fit), and
+// a warpgroup's 64-row tiles would leave N = 49 frames three quarters empty;
+// a warp's 16-row slabs fit every frame size.
+// Design, the bf16 space core's: one block per (b, t, h) stages the frame's
+// 1 + N key and value rows in f32 once (16-byte cp.async, one group per
+// 32-key tile, so tile 0's arithmetic starts while the later tiles are in
+// flight), rows padded to d + 4 floats (the fragment loads hit 32 distinct
+// banks) and zero rows to a multiple of 8 keys; the frame's 16-row query
+// slabs walk them (warp w takes slabs w, w + W, ...; its q fragments, split
+// once, come from global memory a slab ahead): 32-key tiles in key order
+// with the CLS key in tile 0, an online f32 softmax in the log2 domain
+// rescaled once a tile, and only the 8-key chunks that hold a live key. P V
+// takes the S accumulator as its A fragment with the keys of each 8-key
+// chunk permuted (k index c holds key 2c, c + 4 key 2c + 1, and V's B
+// fragment reads the same keys), so no shuffle moves P between the two
+// products. Each of the SM's four schedulers drives its own tensor core, so
+// a block has 4 warps (W) where two 106 KB blocks fit an SM (N = 196, d =
+// 64), else 8 on one block (173 KB at N = 256, d = 80); 3, 5 or 7 warps
+// leave one scheduler with twice the slabs. Slabs left over after whole
+// rounds of the warps would keep one warp busy longer than the rest: a
+// single one (13 slabs on 4 warps at N = 196) has its key chunks split over
+// the warps, whose partials are merged at the end. The staged frame bounds
+// N (space_core_f32_smem). What holds it at ~2x mma.sync's rate: with 170 to
+// 240 registers a thread (the split q, the accumulators, S) an SM holds 8
+// warps, too few to hide the split, softmax and load latencies behind the
+// tensor cores.
 // ---------------------------------------------------------------------------
-constexpr int SPF_MAX_THREADS = 256;
+constexpr int SPF_MAX_WARPS = 8;
+constexpr int SPF_BK = 32;  // keys a tile: the softmax's rescale points
 
-inline size_t space_core_f32_smem(int N, int DH) { return (size_t)2 * (N + 1) * DH * 4; }
+__host__ __device__ inline int space_core_f32_rows(int N) { return (N + 1 + 7) / 8 * 8; }
+
+// K and V [rows][DH + 4] f32
+inline size_t space_core_f32_smem(int N, int DH) {
+  return (size_t)2 * space_core_f32_rows(N) * (DH + 4) * sizeof(float);
+}
+
+// Warps a block: four where two blocks fit an SM's 228 KB (each block also
+// holds 1 KB of the system's), else eight on the one block an SM holds.
+inline int space_core_f32_warps(int N, int DH) {
+  return 2 * (space_core_f32_smem(N, DH) + 1024) <= 228 * 1024 ? 4 : SPF_MAX_WARPS;
+}
+
+// x = hi + lo: hi is x truncated to TF32 (10 mantissa bits), so the mma
+// reads it exactly; lo = x - hi (exact in f32) goes in as raw bits, which the
+// mma reads truncated to TF32 as well: |lo| < 2^-10 |x|, so what it drops is
+// < 2^-20 |x|. Two ops an element (a mask and a subtraction), against five
+// for rounding both parts (cvt.rna): the split runs on every K and V element
+// a slab reads, and rounding costs ~20% of the kernel's time at B = 8, N =
+// 196, d = 64 on an H100 at 700 W (PERF.md).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// D = A(16x8, row) * B(8x8, col) + D, TF32 in, f32 accumulate.
+__device__ __forceinline__ void mma_tf32_1688(float (&c)[4], const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c[i] += a * b[i] for M accumulators in 3xTF32, from the split A fragment
+// and each B fragment's two elements: lo hi, hi lo, hi hi, each product over
+// all M before the next (M independent mma between two that depend)
+template <int M>
+__device__ __forceinline__ void mma_3xtf32(float (&c)[M][4], const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4], const float (&b)[M][2]) {
+  uint32_t hi[M][2], lo[M][2];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    split_tf32(b[i][0], hi[i][0], lo[i][0]);
+    split_tf32(b[i][1], hi[i][1], lo[i][1]);
+  }
+#pragma unroll
+  for (int i = 0; i < M; ++i) mma_tf32_1688(c[i], a_lo, hi[i][0], hi[i][1]);
+#pragma unroll
+  for (int i = 0; i < M; ++i) mma_tf32_1688(c[i], a_hi, lo[i][0], lo[i][1]);
+#pragma unroll
+  for (int i = 0; i < M; ++i) mma_tf32_1688(c[i], a_hi, hi[i][0], hi[i][1]);
+}
+
+// A warp's 16 query rows: split q fragments (A fragment of the k step kk:
+// rows g, g + 8, columns 8 kk + t4 and + 4), output accumulators, the online
+// softmax state of rows g and g + 8 (log2 domain).
+template <int DH>
+struct SpaceSlabF32 {
+  uint32_t qh[DH / 8][4], ql[DH / 8][4];
+  float o[DH / 8][4];
+  float m[2], l[2];
+};
+
+// The raw q A fragments of the slab at query row q0 (rows g and g + 8,
+// columns 8 kk + t4 and + 4), 0 past N: loaded a pass ahead of their use.
+template <int DH>
+__device__ __forceinline__ void space_f32_q_load(const CoreAddr<DH, true, float>& view, int b,
+                                                 int h, int t, int N, int q0,
+                                                 float (&q)[DH / 8][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + g + r * 8;
+    const float* row = qi < N ? view.row(0, b, h, 1 + (i64)t * N + qi) : nullptr;
+#pragma unroll
+    for (int kk = 0; kk < DH / 8; ++kk)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        q[kk][r + 2 * half] = row ? row[kk * 8 + half * 4 + t4] : 0.f;
+  }
+}
+
+// q takes the logit scale (log2 units) before its split, so S comes out
+// scaled.
+template <int DH>
+__device__ __forceinline__ void space_f32_slab_begin(SpaceSlabF32<DH>& st,
+                                                     const float (&q)[DH / 8][4],
+                                                     float scale_log2) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(q[kk][i] * scale_log2, st.qh[kk][i], st.ql[kk][i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    st.m[r] = -INFINITY;
+    st.l[r] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i) st.o[i][0] = st.o[i][1] = st.o[i][2] = st.o[i][3] = 0.f;
+}
+
+// One key tile of a slab, keys k0.. below n_keys. FULL: all SPF_BK keys are
+// live, so the chunk loops unroll without a branch and no key is masked;
+// the last tile of a frame (or of a split slab's share) runs its live
+// chunks one at a time.
+template <int DH, bool FULL>
+__device__ __forceinline__ void space_f32_slab_tile(SpaceSlabF32<DH>& st, const float* sK,
+                                                    const float* sV, int k0, int n_keys) {
+  constexpr int LD = DH + 4;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  // 8-key chunks with a live key
+  const int n8 = FULL ? SPF_BK / 8 : (min(SPF_BK, n_keys - k0) + 7) >> 3;
+
+  // S = Q K^T for the 16 rows x the tile's live chunks; B fragment: key g, columns t4 and + 4
+  float s[SPF_BK / 8][4];
+#pragma unroll
+  for (int i = 0; i < SPF_BK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DH / 8; ++kk) {
+    if (FULL) {
+      float kb[SPF_BK / 8][2];
+#pragma unroll
+      for (int nt = 0; nt < SPF_BK / 8; ++nt) {
+        const float* kr = sK + (k0 + nt * 8 + g) * LD + kk * 8 + t4;
+        kb[nt][0] = kr[0];
+        kb[nt][1] = kr[4];
+      }
+      mma_3xtf32(s, st.qh[kk], st.ql[kk], kb);
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < SPF_BK / 8; ++nt) {
+        if (nt >= n8) continue;
+        const float* kr = sK + (k0 + nt * 8 + g) * LD + kk * 8 + t4;
+        const float kb[1][2] = {{kr[0], kr[4]}};
+        mma_3xtf32(reinterpret_cast<float(&)[1][4]>(s[nt]), st.qh[kk], st.ql[kk], kb);
+      }
+    }
+  }
+
+  // online softmax in the log2 domain; this thread owns rows g and g + 8
+  float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nt = 0; nt < SPF_BK / 8; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int key = k0 + nt * 8 + t4 * 2 + (c & 1);
+      if (!FULL && key >= n_keys) s[nt][c] = -INFINITY;
+      tmax[c >> 1] = fmaxf(tmax[c >> 1], s[nt][c]);
+    }
+  float corr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+    const float m_new = fmaxf(st.m[r], tmax[r]);  // finite: every tile holds a live key
+    corr[r] = exp2f(st.m[r] - m_new);
+    st.m[r] = m_new;
+    st.l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int nt = 0; nt < SPF_BK / 8; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float p = exp2f(s[nt][c] - st.m[c >> 1]);
+      s[nt][c] = p;
+      st.l[c >> 1] += p;
+    }
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i) {
+    st.o[i][0] *= corr[0];
+    st.o[i][1] *= corr[0];
+    st.o[i][2] *= corr[1];
+    st.o[i][3] *= corr[1];
+  }
+
+  // O += P V over the live chunks: k index t4 is key 2 t4 and t4 + 4 key
+  // 2 t4 + 1, so the A fragment of P is the S accumulator as it lies
+#pragma unroll
+  for (int kt = 0; kt < SPF_BK / 8; ++kt) {
+    if (!FULL && kt >= n8) continue;
+    uint32_t ph[4], pl[4];
+    split_tf32(s[kt][0], ph[0], pl[0]);  // row g, key 2 t4
+    split_tf32(s[kt][2], ph[1], pl[1]);  // row g + 8, key 2 t4
+    split_tf32(s[kt][1], ph[2], pl[2]);  // row g, key 2 t4 + 1
+    split_tf32(s[kt][3], ph[3], pl[3]);  // row g + 8, key 2 t4 + 1
+    const float* vr = sV + (k0 + kt * 8 + 2 * t4) * LD + g;
+    float vb[DH / 8][2];
+#pragma unroll
+    for (int dt = 0; dt < DH / 8; ++dt) {
+      vb[dt][0] = vr[dt * 8];
+      vb[dt][1] = vr[LD + dt * 8];
+    }
+    mma_3xtf32(st.o, ph, pl, vb);
+  }
+}
 
 template <int DH>
-__global__ void __launch_bounds__(SPF_MAX_THREADS)
-    space_core_f32_kernel(const CoreAddr<DH, true, float> view, int T, int N, float scale) {
-  extern __shared__ __align__(16) unsigned char sf_raw[];
-  constexpr int VPR = DH / 4;  // 16-byte vectors per head row
-  float* sK = reinterpret_cast<float*>(sf_raw);  // [1 + N][DH], key 0 the CLS token
-  float* sV = sK + (N + 1) * DH;                 // [1 + N][DH]
-  const int b = blockIdx.x / T, t = blockIdx.x % T, h = blockIdx.y;
-  const i64 frame_row0 = 1 + (i64)t * N;
-  for (int e = threadIdx.x; e < (N + 1) * VPR; e += blockDim.x) {
-    const int r = e / VPR, c = (e - r * VPR) * 4;
-    const i64 tok = r == 0 ? 0 : frame_row0 + r - 1;
-    cp_async16(sK + r * DH + c, view.row(1, b, h, tok) + c);
-    cp_async16(sV + r * DH + c, view.row(2, b, h, tok) + c);
+__device__ __forceinline__ void space_f32_slab_end(SpaceSlabF32<DH>& st,
+                                                   const CoreAddr<DH, true, float>& view, int b,
+                                                   int h, int t, int N, int q0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    st.l[r] += __shfl_xor_sync(0xffffffffu, st.l[r], 1);
+    st.l[r] += __shfl_xor_sync(0xffffffffu, st.l[r], 2);
+    const int qi = q0 + g + r * 8;
+    if (qi >= N) continue;
+    const float inv = 1.f / st.l[r];
+    float* dst = view.out_row(b, h, 1 + (i64)t * N + qi);
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i)
+      *reinterpret_cast<float2*>(dst + i * 8 + t4 * 2) =
+          make_float2(st.o[i][2 * r] * inv, st.o[i][2 * r + 1] * inv);
   }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
+}
 
-  for (int qi = threadIdx.x; qi < N; qi += blockDim.x) {
-    const float* qr = view.row(0, b, h, frame_row0 + qi);
-    float qf[DH], acc[DH];
+// A split slab's partial, warp by warp: each lane's o and its rows' m and l
+// (log2 domain, l summed over the row's four lanes), at sP + (warp * 32 +
+// lane) * (DH / 2 + 4); then the merge of the warps' partials by lane.
+template <int DH>
+__device__ __forceinline__ void space_f32_slab_park(SpaceSlabF32<DH>& st, float* sP) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* p = sP + (warp * 32 + lane) * (DH / 2 + 4);
 #pragma unroll
-    for (int i = 0; i < DH; i += 8) {
-      float f[8];
-      load8(qr + i, f);
+  for (int r = 0; r < 2; ++r) {
+    st.l[r] += __shfl_xor_sync(0xffffffffu, st.l[r], 1);
+    st.l[r] += __shfl_xor_sync(0xffffffffu, st.l[r], 2);
+    p[DH / 2 + r] = st.m[r];
+    p[DH / 2 + 2 + r] = st.l[r];
+  }
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        qf[i + e] = f[e] * scale;
-        acc[i + e] = 0.f;
+  for (int i = 0; i < DH / 8; ++i)
+    *reinterpret_cast<float4*>(p + 4 * i) =
+        make_float4(st.o[i][0], st.o[i][1], st.o[i][2], st.o[i][3]);
+}
+
+template <int DH>
+__device__ __forceinline__ void space_f32_slab_merge(const float* sP, int warps,
+                                                     const CoreAddr<DH, true, float>& view,
+                                                     int b, int h, int t, int N, int q0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[DH / 8][4] = {};
+  for (int w = 0; w < warps; ++w) {
+    const float* p = sP + (w * 32 + lane) * (DH / 2 + 4);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) m[r] = fmaxf(m[r], p[DH / 2 + r]);
+  }
+  for (int w = 0; w < warps; ++w) {
+    const float* p = sP + (w * 32 + lane) * (DH / 2 + 4);
+    const float c[2] = {exp2f(p[DH / 2] - m[0]), exp2f(p[DH / 2 + 1] - m[1])};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] += c[r] * p[DH / 2 + 2 + r];
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][e] += c[e >> 1] * p[4 * i + e];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + g + r * 8;
+    if (qi >= N) continue;
+    const float inv = 1.f / l[r];
+    float* dst = view.out_row(b, h, 1 + (i64)t * N + qi);
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i)
+      *reinterpret_cast<float2*>(dst + i * 8 + t4 * 2) =
+          make_float2(o[i][2 * r] * inv, o[i][2 * r + 1] * inv);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(SPF_MAX_WARPS * 32)
+    space_core_f32_kernel(const CoreAddr<DH, true, float> view, int T, int N,
+                          float scale_log2) {
+  constexpr int LD = DH + 4;
+  constexpr int VPR = DH / 4;  // 16-byte vectors per head row
+  extern __shared__ __align__(16) float sf[];
+  const int tid = threadIdx.x, warp = tid >> 5, warps = blockDim.x >> 5;
+  const int b = blockIdx.x / T, t = blockIdx.x % T, h = blockIdx.y;
+  const int n_keys = N + 1, rows = space_core_f32_rows(N);
+  const int n_tiles = (n_keys + SPF_BK - 1) / SPF_BK;
+  float* sK = sf;              // [rows][LD], key s: s == 0 the CLS token, else patch s - 1
+  float* sV = sf + rows * LD;  // [rows][LD]
+  const i64 frame_row0 = 1 + (i64)t * N;
+
+  // stage the frame's keys and values, one cp.async group per tile
+  for (int k0 = 0; k0 < n_keys; k0 += SPF_BK) {
+    const int kend = min(k0 + SPF_BK, rows);
+    for (int e = tid; e < (kend - k0) * VPR; e += blockDim.x) {
+      const int r = k0 + e / VPR, c = (e % VPR) * 4;
+      if (r < n_keys) {
+        const i64 tok = r == 0 ? 0 : frame_row0 + r - 1;
+        cp_async16(sK + r * LD + c, view.row(1, b, h, tok) + c);
+        cp_async16(sV + r * LD + c, view.row(2, b, h, tok) + c);
+      } else {  // padding: zero rows (their P is 0, so V must be finite)
+        *reinterpret_cast<float4*>(sK + r * LD + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(sV + r * LD + c) = make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
-    float m = -INFINITY, l = 0.f;
-    for (int s = 0; s <= N; ++s) {
-      const float* kr = sK + s * DH;
-      float dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < DH; i += 8) {
-        float f[8];
-        load8(kr + i, f);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) dot += qf[i + e] * f[e];
-      }
-      const float m_new = fmaxf(m, dot);
-      const float corr = __expf(m - m_new);
-      const float p = __expf(dot - m_new);
-      l = l * corr + p;
-      const float* vr = sV + s * DH;
-#pragma unroll
-      for (int i = 0; i < DH; i += 8) {
-        float f[8];
-        load8(vr + i, f);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc[i + e] = acc[i + e] * corr + p * f[e];
-      }
-      m = m_new;
+    cp_async_commit();
+  }
+
+  const int n_slabs = (N + 15) / 16;
+  // one slab over after whole rounds of the warps (13 slabs on 4 at N = 196)
+  // would keep a warp busy a quarter longer than the rest: its keys are
+  // split over the warps instead, and their partials merged at the end in
+  // the staged frame's place
+  const bool split = n_slabs > warps && n_slabs % warps == 1 &&
+                     warps * 32 * (DH / 2 + 4) <= 2 * rows * LD;
+  const int n_whole = n_slabs - split;
+  SpaceSlabF32<DH> st;
+  // warp w takes slabs w', w' + W, ... (W warps; w' = w rotated by the block,
+  // so that a warp with a slab more falls on another of the SM's four
+  // schedulers in each block), then, if split, its share of the split slab's
+  // 8-key chunks, keys [k_lo, k_hi); each pass loads the next one's q. Its
+  // first slab walks the tiles as they land (every warp joins that pass's
+  // barriers, a slab or not), the others find every tile in place; one call
+  // site a tile kind keeps the code small.
+  auto pass_q0 = [&](int slab) {  // the query row of the pass at `slab`; -1: none
+    if (slab < n_whole) return slab * 16;
+    return split && slab < n_whole + warps ? n_whole * 16 : -1;
+  };
+  const int first = (warp + blockIdx.x + blockIdx.y) % warps;
+  float q[DH / 8][4];
+  int q0 = pass_q0(first);
+  if (q0 < 0) {  // no slab: join the first pass's barriers
+    for (int i = 0; i < n_tiles; ++i) {
+      cp_async_wait_pending(n_tiles - 1 - i);
+      __syncthreads();
     }
-    const float inv = 1.f / l;
-    float* dst = view.out_row(b, h, frame_row0 + qi);
-#pragma unroll
-    for (int i = 0; i < DH; i += 8) {
-      float o[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) o[e] = acc[i + e] * inv;
-      store8(dst + i, o);
+  } else {
+    space_f32_q_load(view, b, h, t, N, q0, q);
+  }
+  for (int slab = first; q0 >= 0; slab += warps) {
+    const bool share = slab >= n_whole;
+    const int chunks = rows / 8;
+    const int k_lo = share ? warp * chunks / warps * 8 : 0;
+    const int k_hi = share ? min((warp + 1) * chunks / warps * 8, n_keys) : n_keys;
+    space_f32_slab_begin(st, q, scale_log2);
+    const int next = pass_q0(slab + warps);
+    if (next >= 0) space_f32_q_load(view, b, h, t, N, next, q);
+    for (int k0 = k_lo, i = 0; k0 < k_hi; k0 += SPF_BK, ++i) {
+      if (slab == first) {
+        cp_async_wait_pending(n_tiles - 1 - i);
+        __syncthreads();
+      }
+      if (k_hi - k0 >= SPF_BK)
+        space_f32_slab_tile<DH, true>(st, sK, sV, k0, k_hi);
+      else
+        space_f32_slab_tile<DH, false>(st, sK, sV, k0, k_hi);
     }
+    if (share) break;
+    space_f32_slab_end(st, view, b, h, t, N, q0);
+    q0 = next;
+  }
+  if (split) {  // every warp is done with K and V: their place takes the partials
+    __syncthreads();
+    space_f32_slab_park(st, sf);
+    __syncthreads();
+    if (warp == 0) space_f32_slab_merge(sf, warps, view, b, h, t, N, n_whole * 16);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Time core in f32 (H9 time on f32 q, k, v): it replaces tvts_tpu/ops/
+// pallas_attention.py::_time_attention_fused (:69) on f32 inputs. Patch
+// (t, n) attends over the CLS key plus location n in every frame: per
+// (b, n, h), T <= 32 queries over 1 + T keys; patch rows only.
+// Bound on the H100: bytes (q, k and v read once, the output written once,
+// 4 bytes an element: 0.069 ms at B = 8, N = 196, H = 12, d = 64; the 1 + T
+// keys a query are 0.8 GFLOP of f32 FMA there, 0.012 ms at 67 TFLOP/s).
+// What a byte-bound kernel needs is memory-level parallelism, so this is not
+// the bf16 time core (whose order of operations the training gates hold, and
+// whose block loads, then computes, then stores): a persistent grid of
+// blocks of up to four warps, each warp walking (b, n, h) groups in turn
+// with its own two buffers in shared memory: while it computes one group,
+// 16-byte cp.async copies bring the next group's T query rows and 1 + T key
+// and value rows (neighbouring lanes on neighbouring addresses). Eight lanes
+// take a query row, each every eighth 16-byte vector of the head dim, so a
+// logit is four short f32 chains a lane and three shuffles, and four rows
+// run at once. The softmax is exact and max-shifted in f32: the 1 + T
+// logits first (in registers), then their max, then p and P V; the output
+// leaves from registers in 16-byte stores. The key loops run a compile-time
+// count of keys, KEYS >= 1 + T (13 for T <= 12, else 33), without a branch:
+// keys past T read key T again and get p = 0, so the logits' loads and
+// shuffles interleave across keys. Two buffers of (3 T + 2) d f32 a
+// warp: 76 KB a block at T = 12, d = 64 (two blocks an SM); fewer warps a
+// block where four do not fit (three at T = 32, d = 80).
+// ---------------------------------------------------------------------------
+constexpr int TF_WARPS = 4;  // warps a block, at most
+constexpr int TF_LANES = 8;  // lanes a query row
+
+// shared memory of one warp: two buffers of a group's q, k and v rows
+inline size_t time_core_f32_warp_smem(int T, int DH) {
+  return (size_t)2 * (3 * T + 2) * DH * sizeof(float);
+}
+
+inline int time_core_f32_warps(int T, int DH) {
+  return std::max(1, std::min(TF_WARPS, (int)(SMEM_OPTIN / time_core_f32_warp_smem(T, DH))));
+}
+
+// Copy group `item` = (b, n, h)'s q rows (frames 0..T-1), then its k and v
+// rows (key 0 the CLS token, key s frame s - 1) into buf, a warp's lanes on
+// consecutive 16-byte vectors.
+template <int DH>
+__device__ __forceinline__ void time_f32_stage(const CoreAddr<DH, true, float>& view, i64 item,
+                                               int T, int N, float* buf) {
+  constexpr int VPR = DH / 4;
+  const int lane = threadIdx.x & 31, h = (int)(item % view.H);
+  const i64 bn = item / view.H;
+  const int n = (int)(bn % N), b = (int)(bn / N);
+  for (int e = lane; e < (3 * T + 2) * VPR; e += 32) {
+    const int r = e / VPR, c = (e - r * VPR) * 4;
+    const int which = r < T ? 0 : r <= 2 * T ? 1 : 2;
+    const int s = which == 0 ? r + 1 : which == 1 ? r - T : r - 2 * T - 1;
+    const i64 tok = s == 0 ? 0 : 1 + (i64)(s - 1) * N + n;
+    cp_async16(buf + r * DH + c, view.row(which, b, h, tok) + c);
+  }
+}
+
+template <int DH, int KEYS>
+__global__ void __launch_bounds__(TF_WARPS * 32)
+    time_core_f32_kernel(const CoreAddr<DH, true, float> view, int B, int T, int N,
+                         float scale) {
+  constexpr int VPR = DH / 4;                           // 16-byte vectors a head row
+  constexpr int VPL = (VPR + TF_LANES - 1) / TF_LANES;  // of them a lane takes, at most
+  extern __shared__ __align__(16) float tf_sm[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int j = lane % TF_LANES, rg = lane / TF_LANES;  // vector offset, row in the 4 at once
+  const int H = view.H, buf_floats = (3 * T + 2) * DH;
+  float* bufs = tf_sm + (size_t)warp * 2 * buf_floats;
+  const i64 n_items = (i64)B * N * H, stride = (i64)gridDim.x * warps;
+  i64 item = (i64)blockIdx.x * warps + warp;
+  if (item < n_items) time_f32_stage(view, item, T, N, bufs);
+  cp_async_commit();
+  for (int cur = 0; item < n_items; item += stride, cur ^= 1) {
+    if (item + stride < n_items)
+      time_f32_stage(view, item + stride, T, N, bufs + (cur ^ 1) * buf_floats);
+    cp_async_commit();
+    cp_async_wait_pending(1);  // this group's rows have landed
+    __syncwarp();
+    const float4* sq = reinterpret_cast<const float4*>(bufs + cur * buf_floats);
+    const float4* sk = sq + T * VPR;
+    const float4* sv = sk + (T + 1) * VPR;
+    const int h = (int)(item % H);
+    const i64 bn = item / H;
+    const int n = (int)(bn % N), b = (int)(bn / N);
+    for (int t0 = 0; t0 < T; t0 += 32 / TF_LANES) {
+      const int t = min(t0 + rg, T - 1);  // past T: row T - 1 again, not stored
+      float4 q[VPL], acc[VPL];
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) {
+        const int c = j + i * TF_LANES;
+        q[i] = c < VPR ? sq[t * VPR + c] : make_float4(0.f, 0.f, 0.f, 0.f);
+        q[i].x *= scale; q[i].y *= scale; q[i].z *= scale; q[i].w *= scale;
+        acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      float logit[KEYS], m = -INFINITY;
+#pragma unroll
+      for (int s = 0; s < KEYS; ++s) {
+        const int key = min(s, T);
+        float dx = 0.f, dy = 0.f, dz = 0.f, dw = 0.f;
+#pragma unroll
+        for (int i = 0; i < VPL; ++i) {  // a vector past the row: q is 0 there
+          const float4 k = sk[key * VPR + min(j + i * TF_LANES, VPR - 1)];
+          dx += q[i].x * k.x; dy += q[i].y * k.y; dz += q[i].z * k.z; dw += q[i].w * k.w;
+        }
+        float dot = (dx + dy) + (dz + dw);
+#pragma unroll
+        for (int o = 1; o < TF_LANES; o <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        logit[s] = s <= T ? dot : -INFINITY;
+        m = fmaxf(m, logit[s]);
+      }
+      float l = 0.f;
+#pragma unroll
+      for (int s = 0; s < KEYS; ++s) {
+        const float p = __expf(logit[s] - m);  // 0 past T
+        l += p;
+#pragma unroll
+        for (int i = 0; i < VPL; ++i) {  // a vector past the row: not stored
+          const float4 v = sv[min(s, T) * VPR + min(j + i * TF_LANES, VPR - 1)];
+          acc[i].x += p * v.x; acc[i].y += p * v.y; acc[i].z += p * v.z; acc[i].w += p * v.w;
+        }
+      }
+      if (t0 + rg < T) {
+        const float inv = 1.f / l;
+        float4* dst = reinterpret_cast<float4*>(view.out_row(b, h, 1 + (i64)t * N + n));
+#pragma unroll
+        for (int i = 0; i < VPL; ++i) {
+          const int c = j + i * TF_LANES;
+          if (c < VPR)
+            dst[c] = make_float4(acc[i].x * inv, acc[i].y * inv, acc[i].z * inv, acc[i].w * inv);
+        }
+      }
+    }
+    __syncwarp();  // every lane is done with this buffer before it is refilled
   }
 }
 

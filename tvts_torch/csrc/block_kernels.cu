@@ -35,19 +35,19 @@ tvts::CoreAddr<DH, STRIDED, E> core_view(const void* q, const void* k, const voi
   return view;
 }
 
-template <int DH, bool STRIDED, typename E = bf16>
+template <int DH, bool STRIDED>
 cudaError_t launch_time_core(const void* q, const void* k, const void* v, void* out, void* lse,
                              const i64* strides, int B, int T, int N, int H, float scale,
                              cudaStream_t s) {
   const int HG = tvts::time_core_heads(T, H);
-  const size_t smem = tvts::time_core_smem(T, HG, DH, sizeof(E));
+  const size_t smem = tvts::time_core_smem(T, HG, DH);
   cudaError_t err =
-      cudaFuncSetAttribute(tvts::time_core_kernel<DH, STRIDED, E>,
+      cudaFuncSetAttribute(tvts::time_core_kernel<DH, STRIDED>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int threads = (T * HG + 31) / 32 * 32;
-  tvts::time_core_kernel<DH, STRIDED, E><<<dim3(N, B, (H + HG - 1) / HG), threads, smem, s>>>(
-      core_view<DH, STRIDED, E>(q, k, v, out, H, 1 + T * N, strides), (float*)lse, T, N, HG,
+  tvts::time_core_kernel<DH, STRIDED><<<dim3(N, B, (H + HG - 1) / HG), threads, smem, s>>>(
+      core_view<DH, STRIDED>(q, k, v, out, H, 1 + T * N, strides), (float*)lse, T, N, HG,
       scale);
   return cudaGetLastError();
 }
@@ -59,12 +59,44 @@ cudaError_t launch_space_core_f32(const void* q, const void* k, const void* v, v
                                   cudaStream_t s) {
   const size_t smem = tvts::space_core_f32_smem(N, DH);
   if (smem > (size_t)tvts::SMEM_OPTIN) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(tvts::space_core_f32_kernel<DH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = tvts::space_core_f32_kernel<DH>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)  // two 106 KB blocks an SM at N = 196, d = 64
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  const int threads = std::min(tvts::SPF_MAX_THREADS, (N + 31) / 32 * 32);
-  tvts::space_core_f32_kernel<DH><<<dim3(B * T, H), threads, smem, s>>>(
-      core_view<DH, true, float>(q, k, v, out, H, 1 + T * N, strides), T, N, scale);
+  kernel<<<dim3(B * T, H), tvts::space_core_f32_warps(N, DH) * 32, smem, s>>>(
+      core_view<DH, true, float>(q, k, v, out, H, 1 + T * N, strides), T, N,
+      scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+// H9's time core on f32 q, k, v (time_core_f32_kernel): patch rows only, a
+// persistent grid of as many blocks as fit the card at once
+template <int DH>
+cudaError_t launch_time_core_f32(const void* q, const void* k, const void* v, void* out,
+                                 const i64* strides, int B, int T, int N, int H, float scale,
+                                 cudaStream_t s) {
+  const int warps = tvts::time_core_f32_warps(T, DH);
+  const size_t smem = warps * tvts::time_core_f32_warp_smem(T, DH);
+  auto kernel = T <= 12 ? tvts::time_core_f32_kernel<DH, 13> : tvts::time_core_f32_kernel<DH, 33>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, warps * 32, smem);
+  if (err != cudaSuccess) return err;
+  const i64 groups = (i64)B * N * H;
+  const int blocks = (int)std::min<i64>((groups + warps - 1) / warps,
+                                        (i64)sms * std::max(1, per_sm));
+  kernel<<<blocks, warps * 32, smem, s>>>(
+      core_view<DH, true, float>(q, k, v, out, H, 1 + T * N, strides), B, T, N, scale);
   return cudaGetLastError();
 }
 
@@ -102,8 +134,7 @@ cudaError_t launch_core_strided(const void* q, const void* k, const void* v, voi
                                 int space, int f32, cudaStream_t s) {
   if (f32)
     return space ? launch_space_core_f32<DH>(q, k, v, out, strides, B, T, N, H, scale, s)
-                 : launch_time_core<DH, true, float>(q, k, v, out, nullptr, strides, B, T, N,
-                                                     H, scale, s);
+                 : launch_time_core_f32<DH>(q, k, v, out, strides, B, T, N, H, scale, s);
   return space ? launch_space_core<DH, true>(q, k, v, out, nullptr, nullptr, strides, B, T, N,
                                              H, scale, s)
                : launch_time_core<DH, true>(q, k, v, out, nullptr, strides, B, T, N, H, scale,

@@ -20,18 +20,26 @@ leaves to XLA as `full_attention`. Bound on the H100: bytes (q, k, v read and
 the output written once; 4 * d flops per (query, key) pair is far below the
 tensor-core line at 13 to 257 keys per query).
 
-f32 (as the JAX function takes it): the same time core and CLS row with f32
-loads and the same f32 arithmetic, and a space core of its own
-(csrc/attention.cuh::space_core_f32_kernel: SIMT f32 FMA, since the bf16
-core's mma.sync takes bf16 fragments and TF32 would round the products; the
-frame's keys and values staged in f32, which bounds N: `space_core_f32_smem`).
-Bound on the H100: the f32 FMA rate for the space core (3 d FMAs a (query, key)
-pair at up to 257 keys a query), bytes for the time core.
+f32 (as the JAX function takes it): the same CLS row with f32 loads and
+arithmetic, and space and time cores of their own. The space core
+(csrc/attention.cuh::space_core_f32_kernel) runs the bf16 core's slabs and
+tiles on the tensor cores in 3xTF32: each f32 operand, the probabilities
+too, split into its TF32 truncation and the remainder, three mma.sync
+products a step, so it lies a few 1e-6 * max|ref| from plain f32 where one
+TF32 product lies ~1e-3 * max|ref| off; it stages the frame's keys and
+values in f32, which bounds N (`space_core_f32_smem`). The time core
+(time_core_f32_kernel) is f32 FMA on a persistent grid of warps, each
+copying its next (b, n, h) group while it computes the current one, eight
+lanes a query row. Bound on the H100: the
+space core's three TF32 products and its bytes weigh the same (0.069 ms at
+B = 8, N = 196, d = 64; 0.171 ms for the same work in f32 FMA), the time
+core's bytes.
 
 Dispatch as in block_kernels: the plain version on a CPU tensor, the kernels
 (q, k and v all bf16 or all f32; d 64 or 80; T <= 32 for the time core) on a
 CUDA tensor, or raise. `.launches` counts the calls that ran the kernels on
-the card, `.f32_launches` those of them in f32.
+the card, `.f32_launches` those of them in f32, `.f32_time_launches` those
+in f32 and time mode.
 """
 
 from __future__ import annotations
@@ -48,8 +56,14 @@ DTYPES = (torch.bfloat16, torch.float32)
 
 def space_core_f32_smem(N: int, d: int) -> int:
     """Shared memory of an f32 space-core block (csrc/attention.cuh): the
-    frame's 1 + N key and value rows in f32."""
-    return 2 * (N + 1) * d * 4
+    frame's 1 + N key and value rows in f32, padded to a multiple of 8 rows
+    and to d + 4 columns."""
+    return 2 * (-(-(N + 1) // 8) * 8) * (d + 4) * 4
+
+
+def space_core_f32_max_patches(d: int) -> int:
+    """The largest N whose frame fits an f32 space-core block."""
+    return bk.SMEM_OPTIN // (8 * (d + 4)) // 8 * 8 - 1
 
 
 def _check_space_frame_f32(N: int, d: int) -> None:
@@ -58,7 +72,7 @@ def _check_space_frame_f32(N: int, d: int) -> None:
     launch refuses by; this is its copy, checked before the library loads and
     held equal to it on the card."""
     if space_core_f32_smem(N, d) > bk.SMEM_OPTIN:
-        n_max = bk.SMEM_OPTIN // (8 * d) - 1
+        n_max = space_core_f32_max_patches(d)
         raise ValueError(f"{N} patches a frame at head dim {d} in f32: the space core stages a "
                          f"frame's {N + 1} key and value rows in shared memory "
                          f"({space_core_f32_smem(N, d)} bytes); at most {n_max} patches fit the "
@@ -136,8 +150,10 @@ def divided_space_time_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torc
                     1 if folded else H, d, scale=1.0, batch=B * H if folded else B)
     divided_space_time_attention_fused.launches += 1
     divided_space_time_attention_fused.f32_launches += f32
+    divided_space_time_attention_fused.f32_time_launches += f32 and mode == "time"
     return out
 
 
 divided_space_time_attention_fused.launches = 0
 divided_space_time_attention_fused.f32_launches = 0
+divided_space_time_attention_fused.f32_time_launches = 0
