@@ -9,8 +9,8 @@ pretraining and the v1 SSV2 downstream stack (eager, as in the JAX package)
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure raises and exits non-zero; they
-run in the order 1-5, 10, 7, 6, 11, 12, 15, 13, 14 for B/16 and v1, then 9
-(B/32) and 8 (H/14, with phase 15's H/14 gates) with their times):
+run in the order 1-5, 10, 7, 6, 11, 12, 15, 16, 13, 14 for B/16 and v1, then
+9 (B/32) and 8 (H/14, with phase 15's and 16's H/14 gates) with their times):
 1. refuse to run without CUDA; print the card's name and power limit;
 2. build the kernels from tvts_torch/csrc with nvcc (sm_90a, one nvcc per
    translation unit, all at once); print the build seconds, the -Xptxas -v
@@ -223,6 +223,28 @@ run in the order 1-5, 10, 7, 6, 11, 12, 15, 13, 14 for B/16 and v1, then 9
    the H/14 model at B=4 through the preset and the every-kernel forward
    and backward (phase 8's launches), each through the step-0 gate against
    the eager unsharded model, its loss equal to the unsharded kernel path's;
+16. --tp (tvts_torch/parallel/tensor_parallel.py: Megatron's column -> row
+   pairs on local slices, the qkv rows cut by heads; the kernel path gathers
+   each block's slices whole at the kernels) on the same 1-rank NCCL group,
+   the mesh (1, 1, 1, 1) and the tp code path forced at group size 1
+   (tp_shard cuts at any size, as fsdp_shard shards): phase 15's B/16 model
+   at B=12 under the "best" preset, a tp copy and a tp x fsdp copy, each
+   with its optimizer built after sharding; 3 steps of each beside the
+   unsharded step on the same batches: each copy's launches phase 7's (219),
+   its aux and after the steps every parameter bit for bit the unsharded
+   step's (else within 2e-5 of each tensor's largest update); ms a step and
+   peak memory of each (unsharded, tp, tp x fsdp, tp x fsdp, tp,
+   unsharded), one profiled step of each copy (device busy, NCCL kernels,
+   the host ranges of the tp Functions, FSDP2's hooks and the optimizer's
+   step); a checkpoint gathered from the tp copy (the reference layout)
+   rebuilt by strict build_model gives a batch's embeddings, sort accuracy
+   and loss bit for bit the tp copy's. Inside phase 8, after phase 15's
+   gates: a tp copy of the H/14 model at B=4 through the preset and the
+   every-kernel step-0 gates against the eager unsharded model (phase 8's
+   launches), the every-kernel loss equal to the unsharded kernel path's
+   (the preset's eager sort head runs Megatron's row products, a bf16
+   rounding apart). Two to eight ranks run only on the CPU
+   (tests/test_torch_tp.py);
 9. B/32: extraction at B=8 through the kernels (counts 12/11/11/1, cosine
    gates), clips/s at B=64 (kernels, eager);
 8. H/14 at full width and depth (32 blocks of 1280, text 24 blocks of 1024):
@@ -772,14 +794,20 @@ def expect_launches(tag: str, got: dict, want: dict) -> None:
 
 def grads_of(model, loss_fn, batch) -> tuple[float, dict]:
     """(loss, name -> f32 gradient) of the trainable parameters (zeros where
-    the loss misses one); a sharded model's gradients gathered whole."""
+    the loss misses one); a sharded model's gradients gathered whole (over
+    fsdp, then tp)."""
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     model.zero_grad(set_to_none=True)
     loss, _ = loss_fn(model, batch)
     loss.backward()
-    grads = {n: (torch.zeros(p.shape, device=p.device) if p.grad is None
-                 else p.grad.full_tensor() if hasattr(p.grad, "full_tensor") else p.grad).float()
-             for n, p in named}
+    from tvts_torch.parallel import tensor_parallel as tp
+
+    grads = {}
+    for n, p in named:
+        g = torch.zeros(p.shape, device=p.device) if p.grad is None \
+            else p.grad.full_tensor() if hasattr(p.grad, "full_tensor") else p.grad
+        layout = tp.param_layout(p)
+        grads[n] = (g if layout is None else tp.full(g, layout)).float()
     model.zero_grad(set_to_none=True)
     return loss.item(), grads
 
@@ -2403,10 +2431,12 @@ def h14_phase(dev, card, bk, bb, ta) -> None:
     every = kernel_apply(train, "8", time_mode="pallas", mlp_mode="pallas", sort_mode="pallas")
     got = step0_gate("8", "every kernel", train["model"], batch, every, bk, bb, ta)
     expect_launches("H/14 gate, every kernel", got, step_launches(L, TL, frozen, mlp=True))
-    # ---- phase 15, H/14: the same gates on a sharded copy -------------------
-    fsdp_h14_gates(dev, train, batch, {"preset": preset, "every kernel": every},
-                   {"preset": step_launches(L, TL, frozen, time=False, sort=False),
-                    "every kernel": step_launches(L, TL, frozen, mlp=True)}, bk, bb, ta)
+    # ---- phases 15 and 16, H/14: the same gates on a sharded and a tp copy ----
+    gates = ({"preset": preset, "every kernel": every},
+             {"preset": step_launches(L, TL, frozen, time=False, sort=False),
+              "every kernel": step_launches(L, TL, frozen, mlp=True)})
+    fsdp_h14_gates(dev, train, batch, *gates, bk, bb, ta)
+    tp_h14_gates(dev, train, batch, *gates, bk, bb, ta)
 
     B = 8
     torch.cuda.empty_cache()
@@ -3686,10 +3716,15 @@ def sharded_copy(model, mesh):
     return fsdp_shard(copy.deepcopy(model), mesh)
 
 
-def fsdp_step_profile(label: str, step, batch, ms: float, card: str) -> None:
+# the host ranges of parallel/tensor_parallel.py's autograd Functions
+TP_FUNCTIONS = ("_Gather", "_CopyToTP", "_ReduceFromTP")
+
+
+def fsdp_step_profile(label: str, step, batch, ms: float, card: str, tag: str = "15") -> None:
     """One profiled step: device busy ms and idle share, the NCCL kernels'
-    device ms, and the host ranges of FSDP2's hooks and the optimizer's step
-    (inclusive host ms, summed over units), which the idle share is made of."""
+    device ms, and the host ranges of FSDP2's hooks, the tp Functions and the
+    optimizer's step (inclusive host ms, summed over units), which the idle
+    share is made of."""
     prof, wall = _profile_or_raise(lambda: step(batch))
     host = _host_keys(prof)
     busy = nccl = 0.0
@@ -3700,15 +3735,16 @@ def fsdp_step_profile(label: str, step, batch, ms: float, card: str) -> None:
             busy += us / 1e3
             nccl += us / 1e3 if "nccl" in e.key.lower() else 0.0
         elif e.device_type == torch.autograd.DeviceType.CPU and (
-                e.key.startswith("FSDP::") or e.key.startswith("Optimizer.step")):
+                e.key.startswith("FSDP::") or e.key.startswith("Optimizer.step")
+                or any(f in e.key for f in TP_FUNCTIONS)):
             name = e.key.split(" (")[0].split(" for ")[0]  # summed over the units
             t, n = ranges.get(name, (0.0, 0))
             ranges[name] = (t + e.cpu_time_total / 1e3, n + e.count)
-    print(f"[15] profiled {label} step: device busy {busy:.2f} ms (NCCL kernels {nccl:.2f} ms); "
+    print(f"[{tag}] profiled {label} step: device busy {busy:.2f} ms (NCCL kernels {nccl:.2f} ms); "
           f"idle share {max(0.0, 1 - busy / ms):.3f} of the unprofiled step ({ms:.2f} ms), "
           f"{max(0.0, 1 - busy / wall):.3f} of the profiled one ({wall:.2f} ms) [{card}]")
     for name, (t, n) in sorted(ranges.items(), key=lambda kv: -kv[1][0]):
-        print(f"[15]   host {t:9.3f} ms {n:4d}x {name}")
+        print(f"[{tag}]   host {t:9.3f} ms {n:4d}x {name}")
 
 
 def fsdp_b16_phase(dev, card: str, bk, bb, ta) -> None:
@@ -3832,6 +3868,161 @@ def fsdp_h14_gates(dev, train: dict, batch: dict, modes: dict, want: dict, bk, b
     del ge
     torch.cuda.empty_cache()
     print(f"[15] H/14 gates {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 16: tensor parallelism (parallel/tensor_parallel.py) through the
+# kernel steps, on a 1-rank NCCL group with the tp code path forced
+# ---------------------------------------------------------------------------
+def tp_copy(model, mesh, fsdp: bool = False):
+    """A copy of `model` cut into tp slices over the mesh's tp group (every
+    attention and MLP of both towers and the sort head; at any group size,
+    1 included), and with `fsdp` then sharded as phase 15 shards."""
+    import copy
+
+    from tvts_torch.parallel.partition import fsdp_shard
+    from tvts_torch.parallel.tensor_parallel import tp_shard
+
+    out = tp_shard(copy.deepcopy(model), mesh)
+    return fsdp_shard(out, mesh) if fsdp else out
+
+
+def tp_b16_phase(dev, card: str, bk, bb, ta) -> None:
+    """Phase 16, B/16 (module notes)."""
+    import tempfile
+
+    from tvts_torch.models.factory import build_model
+    from tvts_torch.parallel import tensor_parallel as tp
+    from tvts_torch.parallel.partition import full_state_dict
+    from tvts_torch.train.optim import make_optimizer
+    from tvts_torch.train.step import make_eval_step, make_train_step
+    from tvts_torch.utils.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    arch = "TVTSv2_B_16"
+    train = build_train(arch, dev, noise_seed=11, text_tune_layers=3, tag="16")
+    cfg, model, ocfg = train["cfg"], train["model"], train["ocfg"]
+    L, TL = cfg.vision.layers, cfg.text.layers
+    best = kernel_apply(train, "16")
+    batches = [train_batch(cfg, FSDP_B, seed=160 + i, device=dev) for i in range(FSDP_STEPS)]
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    with one_rank_mesh(dev) as mesh:
+        copies = {"tp": tp_copy(model, mesh), "tp x fsdp": tp_copy(model, mesh, fsdp=True)}
+        n_mods = len(tp.sharded_modules(copies["tp"]))
+        print(f"[16] {arch} cut by tp_shard on a 1-rank {mesh.backend} group (mesh dp "
+              f"{mesh.dp} x fsdp {mesh.fsdp} x sp {mesh.sp} x tp {mesh.tp}, the tp code path "
+              f"forced): {n_mods} attention and MLP modules, "
+              f"{len(tp.layouts(copies['tp']))} tensors in tp slices; B={FSDP_B}, each "
+              f"optimizer built after sharding")
+        plain = make_train_step(model, train["optimizer"], ocfg, apply_fn=best)
+        steps = {label: make_train_step(m, make_optimizer(m, ocfg), ocfg, apply_fn=best,
+                                        mesh=mesh) for label, m in copies.items()}
+        want_launches = step_launches(L, TL, 9)
+        for i, batch in enumerate(batches):
+            auxes = {}
+            for label, step in steps.items():
+                reset_launch_counts(bk, bb, ta)
+                auxes[label] = step(batch)
+                torch.cuda.synchronize()
+                expect_launches(f"{label} step {i}", launch_counts(bk, bb, ta), want_launches)
+            want = plain(batch)
+            for label, aux in auxes.items():
+                print(f"[16] step {i}: {label} " + ", ".join(f"{k} {v.item():.6f}"
+                                                            for k, v in aux.items())
+                      + f"; {sum(want_launches.values())} launches (phase 7's); every aux "
+                      f"bit for bit the unsharded step's: "
+                      f"{all(torch.equal(aux[k], want[k]) for k in aux)}")
+        for label, m in copies.items():
+            after = full_state_dict(m)
+            diffs = {n: (after[n] - p.detach()).abs().max().item()
+                     for n, p in model.named_parameters()}
+            same = all(torch.equal(after[n], p.detach()) for n, p in model.named_parameters())
+            worst = max(diffs, key=diffs.get)
+            print(f"[16] {label}: after {FSDP_STEPS} steps every one of {len(diffs)} parameters "
+                  f"bit for bit the unsharded model's: {same}; max|diff| {diffs[worst]:.3e} "
+                  f"({worst})")
+            if not same:
+                band = {n: 2e-5 * (p.detach() - before[n]).abs().max().item()
+                        for n, p in model.named_parameters()}
+                over = [n for n, d in diffs.items() if d > band[n]]
+                if over:
+                    raise AssertionError(f"{label} parameters beyond 2e-5 of their largest "
+                                         f"update: {over[:5]}")
+        times = {}
+        for label in ("unsharded", "tp", "tp x fsdp", "tp x fsdp", "tp", "unsharded"):
+            ms, mem = step_timing(steps.get(label, plain), batches[0])
+            times[label] = min(times.get(label, ms), ms)
+            print(f"[16] B/16 step B={FSDP_B} {label:9s}: {ms:.2f} ms, peak memory {mem:.2f} "
+                  f"GiB [{card}]")
+        for label, step in steps.items():
+            fsdp_step_profile(label, step, batches[0], times[label], card, tag="16")
+        with tempfile.TemporaryDirectory(prefix="tvts_tp_") as root:
+            ckpt = CheckpointManager(root, arch=arch)
+            t0 = time.perf_counter()
+            ckpt.save_epoch(1, {"model": copies["tp"], "optimizer": steps["tp"].optimizer,
+                                "step": steps["tp"].count})
+            seconds = time.perf_counter() - t0
+            path = ckpt.path("checkpoint-epoch1")
+            saved = torch.load(path, map_location="cpu", weights_only=True)
+            layout = sorted(saved["optimizer"]["state"]) == sorted(
+                plain.optimizer.state_dict()["state"]) and all(
+                v.shape == model.state_dict()[k.removeprefix("module.")].shape
+                for k, v in saved["state_dict"].items())
+            _, loaded = build_model(arch, load_checkpoint=path, eval_mode=False, device=dev,
+                                    compute_dtype=torch.bfloat16)
+            got = make_eval_step(loaded, apply_fn=best)(batches[0])
+            want = make_eval_step(copies["tp"], apply_fn=best)(batches[0])
+            reload = all(torch.equal(got[k], want[k]) for k in want)
+            print(f"[16] checkpoint gathered from the tp slices: "
+                  f"{os.path.getsize(path) / 2 ** 30:.3f} GiB in {seconds:.2f} s [{card}]; the "
+                  f"reference layout (full tensors, the optimizer's int-keyed state): {layout}; "
+                  f"build_model(strict) on it gives a batch's embeddings, sort accuracy and "
+                  f"loss bit for bit the tp copy's: {reload}")
+            if not (layout and reload):
+                raise AssertionError("the checkpoint gathered from the tp slices does not reload")
+            del loaded, saved
+        del copies, steps
+    del train, model, plain, before
+    torch.cuda.empty_cache()
+    print(f"[16] B/16 phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def tp_h14_gates(dev, train: dict, batch: dict, modes: dict, want: dict, bk, bb, ta) -> None:
+    """Phase 16, H/14 (module notes): each kernel mode's forward and backward
+    on a tp copy of phase 8's model, through the step-0 gate against the
+    eager unsharded model. Where every sharded module runs inside the
+    kernel path's gathered window (the sort head on H7), the tp copy's loss
+    equals the unsharded kernel path's; the preset's eager sort head takes
+    Megatron's row products, whose bias is added after the sum over tp (a
+    bf16 rounding apart from one F.linear), as the JAX preset's sort head
+    runs partitioned under GSPMD, and is held to the gate alone."""
+    from tvts_torch.train.step import make_loss_fn
+
+    t_phase = time.perf_counter()
+    model = train["model"]
+    loss_e, ge = grads_of(model, make_loss_fn(), batch)
+    with one_rank_mesh(dev) as mesh:
+        copy = tp_copy(model, mesh)
+        for label, apply_fn in modes.items():
+            loss_u = make_loss_fn(apply_fn=apply_fn)(model, batch)[0].item()
+            reset_launch_counts(bk, bb, ta)
+            loss_t, gt = grads_of(copy, make_loss_fn(apply_fn=apply_fn), batch)
+            torch.cuda.synchronize()
+            expect_launches(f"H/14 tp, {label}", launch_counts(bk, bb, ta), want[label])
+            gate_check("16", f"H/14 tp, {label}", loss_t, gt, loss_e, ge)
+            exact = apply_fn.keywords.get("sort_kernel", True)
+            print(f"[16] H/14 {label}, tp copy: {sum(want[label].values())} launches (phase 8's); "
+                  f"loss {loss_t!r}, the unsharded kernel path's {loss_u!r}: equal "
+                  f"{loss_t == loss_u}, |diff| {abs(loss_t - loss_u):.3e}"
+                  + ("" if exact else " (the eager sort head's row products: the gate holds it)"))
+            if exact and loss_t != loss_u:
+                raise AssertionError(f"H/14 {label}: the tp copy's loss differs from the "
+                                     f"unsharded")
+            del gt
+        del copy
+    del ge
+    torch.cuda.empty_cache()
+    print(f"[16] H/14 gates {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -4784,6 +4975,8 @@ def main() -> int:
             trainer_phase(dev, card, bk, bb, ta, root, config_path, bare)
             # ---- phase 15: --fsdp sharding through the B/16 kernel step ------
             fsdp_b16_phase(dev, card, bk, bb, ta)
+            # ---- phase 16: --tp through the B/16 kernel step -----------------
+            tp_b16_phase(dev, card, bk, bb, ta)
             # ---- phase 13: the TVTS v1 family, on the same YT-Temporal tree ------
             v1_phase(dev, card, bk, bb, ta, root, config_path)
         # ---- phase 14: the v1 SSV2 downstream stack, through the CLI twin -------

@@ -1,6 +1,6 @@
 """tvts_torch/cli/dryrun.py, the twin of __graft_entry__.py, on the CPU:
-- `python -m tvts_torch.cli.dryrun 4` (dp 2 x fsdp 2 over four gloo
-  processes) exits 0, every rank printing its eager and kernel-path losses
+- `python -m tvts_torch.cli.dryrun 4` (dp 2 x tp 2 over four gloo
+  processes, the JAX dry run's factors but sp's, which go to dp) exits 0, every rank printing its eager and kernel-path losses
   within 1e-4 of each other, and no rank loads JAX;
 - `entry()`'s B/16 forward gives the JAX entry's output shapes (on the meta
   device: the full-width forward's shapes without its CPU cost);
@@ -107,8 +107,8 @@ def dryrun_log():
 
 
 def test_dryrun_4_exits_0_with_both_losses_close(dryrun_log):
-    rows = re.findall(r"\[dryrun rank (\d)\] dp 2 x fsdp 2: eager loss (\S+), kernel path loss "
-                      r"(\S+); modules of JAX loaded: \[\]", dryrun_log)
+    rows = re.findall(r"\[dryrun rank (\d)\] dp 2 x fsdp 1 x tp 2: eager loss (\S+), kernel path "
+                      r"loss (\S+); modules of JAX loaded: \[\]", dryrun_log)
     assert sorted(int(r) for r, _, _ in rows) == list(range(N)), dryrun_log
     for _, eager, kernels in rows:
         assert np.isfinite(float(eager)) and abs(float(eager) - float(kernels)) <= 1e-4

@@ -22,7 +22,8 @@ JAX package's fsdp mesh step on two of tests/conftest.py's CPU devices:
     `build_model` loads; `-r` under `--fsdp 2` restores parameters, AdamW
     state and step count bit for bit and continues as the straight run;
     `train_dist_TVTS --fsdp 2` against `--fsdp 1`.
-Plus `create_mesh`'s refusals (fsdp that does not divide the world; tp, sp).
+Plus `create_mesh`'s refusals (fsdp or tp that does not divide the world;
+sp).
 """
 
 import dataclasses
@@ -341,7 +342,7 @@ def test_workers_never_import_jax(ranks):
 def test_mesh_and_rank0_weights(ranks):
     _, outs = ranks
     for out in outs:
-        assert out["mesh"] == [1, 2, ["dp", "fsdp"], [[0, 1]]]
+        assert out["mesh"] == [1, 2, ["dp", "fsdp", "sp", "tp"], [[[[0]], [[1]]]]]
         assert out["broadcast"]
 
 
@@ -517,6 +518,8 @@ def test_create_mesh_refuses_what_it_cannot_shard():
     with pytest.raises(ValueError, match="does not divide"):
         create_mesh(fsdp=2, coordinator="localhost:1", num_processes=3, process_id=0,
                     device="cpu")
-    for kw in ({"tp": 2}, {"sp": 2}):
-        with pytest.raises(NotImplementedError, match="M2d"):
-            create_mesh(device="cpu", **kw)
+    with pytest.raises(ValueError, match="does not divide"):
+        create_mesh(tp=2, coordinator="localhost:1", num_processes=3, process_id=0,
+                    device="cpu")
+    with pytest.raises(NotImplementedError, match="M2d-sp"):
+        create_mesh(device="cpu", sp=2)

@@ -406,15 +406,11 @@ def test_attention_core_kernel_raises_on_what_it_does_not_take(cuda):
         ac.divided_space_time_attention_fused(q, k, v.contiguous(), 4, 16, "space")
 
 
-def test_small_train_step_kernels_match_eager_on_card(cuda):
-    """A 2-block model at head dim 64 (f32 masters, bf16 compute): the loss
-    and gradients of train_apply (H5, H6, H7 and H8) against the eager forward, within the step-0
-    gate of chip_smoke.py (|dloss| < 2e-2, relative error < 0.12 on the
-    significant tensors)."""
+def _small_train(cuda):
+    """A 2-block model at head dim 64 (f32 masters, bf16 compute, seeded
+    noise on every leaf) and a seeded batch of 3 clips, on the card."""
     from tvts_torch.models.configs import SortConfig, TextConfig, TVTSv2Config, VisionConfig
     from tvts_torch.models.tvts_v2 import TVTSv2
-    from tvts_torch.ops.fused_forward import train_apply
-    from tvts_torch.train.step import make_loss_fn
 
     cfg = TVTSv2Config(name="small", vision=VisionConfig(input_resolution=64, width=128,
                                                          layers=2, heads=2, output_dim=128,
@@ -439,6 +435,18 @@ def test_small_train_step_kernels_match_eager_on_card(cuda):
              "keep_ind": torch.from_numpy(np.stack([rng.permutation(16)[:8]
                                                     for _ in range(B)])).to(cuda),
              "labels": torch.arange(cfg.num_clips).repeat(B, 1).to(cuda)}
+    return model, batch
+
+
+def test_small_train_step_kernels_match_eager_on_card(cuda):
+    """A 2-block model at head dim 64 (f32 masters, bf16 compute): the loss
+    and gradients of train_apply (H5, H6, H7 and H8) against the eager forward, within the step-0
+    gate of chip_smoke.py (|dloss| < 2e-2, relative error < 0.12 on the
+    significant tensors)."""
+    from tvts_torch.ops.fused_forward import train_apply
+    from tvts_torch.train.step import make_loss_fn
+
+    model, batch = _small_train(cuda)
     params = list(model.parameters())
     lk, _ = make_loss_fn(apply_fn=lambda m, b: train_apply(m, b, text_tune_from=1,
                                                            mlp_kernel=True))(model, batch)
@@ -450,6 +458,36 @@ def test_small_train_step_kernels_match_eager_on_card(cuda):
     for p, a, b in zip(params, gk, ge):
         if b.abs().max().item() > 1e-2 * gscale and a is not None:
             assert (a - b).abs().max().item() / b.abs().max().item() < 0.12
+
+
+def test_tp_kernel_path_launches_and_numbers_on_card(cuda):
+    """The kernel path (H5, H6, H7 and H8) of a tp copy on a 1-rank NCCL
+    group, the tp code path forced (parallel/tensor_parallel.tp_shard at
+    group size 1; the kernels take each block's slices gathered whole):
+    every kernel launched as often as on the unsharded model, and the loss
+    and every gradient bit for bit the unsharded model's."""
+    from functools import partial
+
+    from chip_smoke import grads_of, launch_counts, one_rank_mesh, reset_launch_counts, tp_copy
+    from tvts_torch.ops.fused_forward import train_apply
+    from tvts_torch.train.step import make_loss_fn
+
+    model, batch = _small_train(cuda)
+    loss_fn = make_loss_fn(apply_fn=partial(train_apply, text_tune_from=1, mlp_kernel=True))
+    reset_launch_counts(bk, bb, ta)
+    loss, grads = grads_of(model, loss_fn, batch)
+    torch.cuda.synchronize()
+    want = launch_counts(bk, bb, ta)
+    assert want["space_subpath"] == want["time_subpath"] == want["mlp_subpath"] == 2
+    with one_rank_mesh(cuda) as mesh:
+        copy = tp_copy(model, mesh)
+        reset_launch_counts(bk, bb, ta)
+        loss_t, grads_t = grads_of(copy, loss_fn, batch)
+        torch.cuda.synchronize()
+        assert launch_counts(bk, bb, ta) == want
+    assert loss_t == loss
+    for name, g in grads.items():
+        assert torch.equal(grads_t[name], g), name
 
 
 # ---------------------------------------------------------------------------

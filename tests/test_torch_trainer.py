@@ -395,10 +395,11 @@ def test_train_cli_refuses_what_it_cannot_run(tmp_path):
     # --fsdp 2 shards over groups of 2 ranks: one process has none
     with pytest.raises(ValueError, match="does not divide"):
         cli.main(["-c", config, "--device", "cpu", "--fsdp", "2"])
-    with pytest.raises(NotImplementedError, match="M2d"):
+    # --tp 2 splits the heads over groups of 2 ranks: one process has none
+    with pytest.raises(ValueError, match="does not divide"):
         cli.main(["-c", config, "--device", "cpu", "--tp", "2"])
-    with pytest.raises(NotImplementedError, match="M2d"):
-        create_mesh(tp=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="M2d-sp"):
+        create_mesh(sp=2, device="cpu")
     with pytest.raises(ValueError, match="num_processes"):
         create_mesh(coordinator="localhost:1", device="cpu")
     mesh = create_mesh(device="cpu")

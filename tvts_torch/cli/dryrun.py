@@ -10,10 +10,11 @@
   `__graft_entry__._dryrun_impl`: one eager step and one kernel-path step
   (`train_apply`; the kernels' plain versions on CPU tensors), each from the
   same seeded weights sharded by parallel/partition.shard_params; both
-  losses finite and within 1e-4 of each other. The mesh is fsdp = 2 where n
-  is even and dp = n / fsdp. The JAX dry run also takes tp = 2 (n even) and
-  sp = 2 (n a multiple of 4) and fsdp = 2 only at n a multiple of 8; tp and
-  sp wait for ROADMAP.md item M2d, so their factors go to fsdp and dp here.
+  losses finite and within 1e-4 of each other. The mesh takes the JAX dry
+  run's factors (__graft_entry__.py:86-89): tp = 2 where n is even, fsdp = 2
+  only where n is a multiple of 8, and the rest to dp. The JAX run also
+  takes sp = 2 where n is a multiple of 4; sp waits for ROADMAP.md item
+  M2d-sp, so its factor goes to dp here.
 
     python -m tvts_torch.cli.dryrun 4                # the 4-process dry run only
     python -m tvts_torch.cli.dryrun [--device cpu]   # entry's forward, then the 8-process run
@@ -99,12 +100,13 @@ def _worker(rank: int, n: int, port: int) -> None:
 
     torch.set_num_threads(1)
     cfg = tiny_config()
-    fsdp = 2 if n % 2 == 0 else 1
+    tp = 2 if n % 2 == 0 else 1
+    fsdp = 2 if n % 8 == 0 else 1
     ocfg = OptimizerConfig(text_layers=cfg.text.layers, text_tune_layers=1, schedule=(6, 8),
                            steps_per_epoch=10)
     paths = {"eager": None, "kernels": partial(train_apply, text_tune_from=ocfg.text_tune_from)}
     losses = {}
-    with create_mesh(fsdp=fsdp, coordinator=f"localhost:{port}", num_processes=n,
+    with create_mesh(fsdp=fsdp, tp=tp, coordinator=f"localhost:{port}", num_processes=n,
                      process_id=rank, device="cpu") as mesh:
         batch = shard_batch({k: torch.from_numpy(a) for k, a in _batch(cfg, 2 * n, 0).items()},
                             mesh)
@@ -116,7 +118,7 @@ def _worker(rank: int, n: int, port: int) -> None:
                                    mesh=mesh)
             losses[label] = step(batch)["loss"].item()
     jax = sorted(m for m in sys.modules if m.split(".")[0] in JAX_MODULES)
-    print(f"[dryrun rank {rank}] dp {mesh.dp} x fsdp {mesh.fsdp}: eager loss "
+    print(f"[dryrun rank {rank}] dp {mesh.dp} x fsdp {mesh.fsdp} x tp {mesh.tp}: eager loss "
           f"{losses['eager']:.6f}, kernel path loss {losses['kernels']:.6f}; modules of JAX "
           f"loaded: {jax}", flush=True)
     if not all(math.isfinite(v) for v in losses.values()):

@@ -13,10 +13,14 @@ checkpoint inflated over the tubelet), then the config's `load_checkpoint`,
 each overlaid on what came before. Every loader gets `per_tube_masks =
 n_tubes`. One process a card, as train_dist_TVTSv2: `--coordinator
 host:port --num_processes N --process_id i` or torchrun's environment;
-`--fsdp N` shards the parameters and AdamW state over groups of N ranks
-(parallel/partition.py), as the JAX script's `--fsdp`; `--tp` > 1 is
-refused (ROADMAP.md M2d); `-r <checkpoint .pth>` resumes from that file;
-only rank 0 writes checkpoints.
+`--tp T` splits the JointViT's and the sort head's heads and MLP hidden
+width over groups of T ranks, which train on the same rows
+(parallel/tensor_parallel.py; DistilBERT stays replicated, as no JAX rule
+names its layers), as the JAX script's `--tp`; `--fsdp N` shards the
+parameters (under tp, the tp slices) and AdamW state over groups of N ranks
+(parallel/partition.py), as the JAX script's `--fsdp`; `-r <checkpoint
+.pth>` resumes from that file and re-shards it; only rank 0 writes
+checkpoints, in the reference layout.
 
 The repo's `v1-dist-cc-web-pt.json` is refused before any loader is built
 (`check_loaders`): the JAX script cannot run it either. It sets
@@ -59,7 +63,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--fsdp", type=int, default=1,
                     help="shard parameters and optimizer state over groups of this many ranks")
     ap.add_argument("--tp", type=int, default=1,
-                    help="> 1: the JAX package's tensor parallelism, not ported (ROADMAP.md M2d)")
+                    help="split the heads and MLP hidden width over groups of this many ranks")
     ap.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=True,
                     help="bf16 compute over f32 parameters; --no-bf16 runs f32")
     ap.add_argument("--bert_vocab", default=None,
@@ -121,7 +125,7 @@ def build_trainer(args: argparse.Namespace, mesh) -> Trainer:
     ocfg_json = config.get("optimizer", {"args": {}})["args"]
     steps_per_epoch = max(max(len(dl) for dl in loaders), 1) * len(loaders)
     ocfg = OptimizerConfig(schedule=tuple(args.schedule), steps_per_epoch=steps_per_epoch)
-    shard_params(model, mesh)  # rank 0's weights, sharded with --fsdp > 1
+    shard_params(model, mesh)  # rank 0's weights, sharded with --tp > 1 and --fsdp > 1
     optimizer = make_v1_optimizer(model, lr=ocfg_json.get("lr", 1e-4),
                                   betas=ocfg_json.get("betas", [0.9, 0.999]),
                                   weight_decay=ocfg_json.get("weight_decay", 0.0))

@@ -10,13 +10,18 @@ One process a card: several cards take `--coordinator host:port
 --num_processes N --process_id i` in each process, or torchrun's
 environment (`torchrun --nproc_per_node 4 -m tvts_torch.cli.train_dist_TVTSv2
 -c ...`). `--device cpu` trains on the CPU (gloo between processes).
-`--fsdp N` shards the parameters and AdamW state over groups of N ranks and
-replicates them over the world / N groups (parallel/partition.py), as the
-JAX script's `--fsdp`; `--tp` > 1 is refused (ROADMAP.md M2d). `-r
-<checkpoint .pth>` resumes from that file, as the reference does (the JAX
-script looks for the latest epoch in the new run's own directory); under
-`--fsdp` it re-shards the file's full state. Only rank 0 writes checkpoints
-(gathered from the shards), logs, scalars and pages.
+`--tp T` splits the attention heads and the MLPs' hidden width over groups
+of T ranks, which train on the same rows (Megatron's column -> row pairs,
+parallel/tensor_parallel.py), as the JAX script's `--tp`; the kernel path
+(`--fused_kernels`, `trainer.kernels`) gathers each block's slices whole at
+the kernels, as the JAX kernel step does. `--fsdp N` shards the parameters
+(under tp, the tp slices) and AdamW state over groups of N ranks
+(parallel/partition.py), as the JAX script's `--fsdp`; the batch is split
+over the world / T ranks, dp x fsdp. `-r <checkpoint .pth>` resumes from
+that file, as the reference does (the JAX script looks for the latest epoch
+in the new run's own directory); under `--fsdp` or `--tp` it re-shards the
+file's full state. Only rank 0 writes checkpoints (gathered from the shards
+into the reference layout), logs, scalars and pages.
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--fsdp", type=int, default=1,
                     help="shard parameters and optimizer state over groups of this many ranks")
     ap.add_argument("--tp", type=int, default=1,
-                    help="> 1: the JAX package's tensor parallelism, not ported (ROADMAP.md M2d)")
+                    help="split the heads and MLP hidden width over groups of this many ranks")
     ap.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=True,
                     help="bf16 compute over f32 masters; --no-bf16 runs f32")
     ap.add_argument("--fused_kernels", action="store_true",
@@ -102,7 +107,7 @@ def build_trainer(args: argparse.Namespace, mesh) -> Trainer:
                            text_tune_layers=6 if arch == "TVTSv2_H_14" else 3,
                            schedule=tuple(args.schedule),
                            steps_per_epoch=steps_per_epoch * len(loaders))
-    shard_params(model, mesh)  # rank 0's weights, sharded with --fsdp > 1
+    shard_params(model, mesh)  # rank 0's weights, sharded with --tp > 1 and --fsdp > 1
     optimizer = make_optimizer(model, ocfg)
 
     tcfg = config["trainer"]

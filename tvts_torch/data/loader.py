@@ -79,9 +79,17 @@ def make_val_split(dataset, val_fraction: float = 0.1, seed: int = 0):
 
 
 def _distributed_rank() -> tuple[int, int]:
-    """(rank, world size) of torch.distributed's default group, or (0, 1)."""
+    """(place, size) of this rank's data group where parallel/mesh.create_mesh
+    started one (tp ranks share their place and so load the same rows, as
+    the JAX batch's P(("dp", "fsdp")) is replicated over tp), else (rank,
+    world size) of torch.distributed's default group, or (0, 1)."""
     import torch.distributed as dist
 
+    from tvts_torch.parallel.mesh import active_mesh
+
+    mesh = active_mesh()
+    if mesh is not None and mesh.distributed:
+        return mesh.data_rank, mesh.data_size
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1

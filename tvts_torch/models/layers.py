@@ -12,6 +12,11 @@ Numerics contracts, as in the JAX package:
 - `SelfAttention` is plain multi-head attention (text tower), optionally
   causal: masked logits are filled with finfo(float32).min and the softmax
   runs in float32.
+- Under tensor parallelism (parallel/tensor_parallel.py) `var_attention`,
+  `self_attention` and `mlp` take the module's `tp_group` and this rank's
+  slices: the heads and hidden units of its weights' rows (the local head
+  count is read off the qkv weight), the row product summed over the group.
+  `TP_LAYOUT` names the sharded parameters of each module.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from tvts_torch.ops.attention import (
     merge_heads,
     split_heads,
 )
+from tvts_torch.parallel.tensor_parallel import copy_to_tp, row_linear
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -79,20 +85,23 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.T
 
 
 def mlp(x: torch.Tensor, wfc: torch.Tensor, bfc: torch.Tensor, wproj: torch.Tensor,
-        bproj: torch.Tensor, act: str) -> torch.Tensor:
-    return linear(get_activation(act)(linear(x, wfc, bfc)), wproj, bproj)
+        bproj: torch.Tensor, act: str, tp=None) -> torch.Tensor:
+    x = copy_to_tp(x, tp)
+    return row_linear(get_activation(act)(linear(x, wfc, bfc)), wproj, bproj, tp)
 
 
 def var_attention(x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor,
                   wproj: torch.Tensor, bproj: torch.Tensor, num_frames: int,
                   patches_per_frame: int, mode: str, num_heads: int,
-                  use_pallas: bool = False) -> torch.Tensor:
-    """proj(divided attention(qkv(x))) on x [B, S, D]."""
+                  use_pallas: bool = False, tp=None) -> torch.Tensor:
+    """proj(divided attention(qkv(x))) on x [B, S, D]; under tp (module
+    notes) on the heads of wqkv's rows."""
     d = x.shape[-1] // num_heads
-    q, k, v = linear(x, wqkv, bqkv).chunk(3, dim=-1)
-    q = split_heads(q * d ** -0.5, num_heads)
-    k = split_heads(k, num_heads)
-    v = split_heads(v, num_heads)
+    heads = wqkv.shape[0] // (3 * d)
+    q, k, v = linear(copy_to_tp(x, tp), wqkv, bqkv).chunk(3, dim=-1)
+    q = split_heads(q * d ** -0.5, heads)
+    k = split_heads(k, heads)
+    v = split_heads(v, heads)
     if use_pallas and mode == "space":
         # imported here: ops/block_kernels.py imports this module
         from tvts_torch.ops.attention_cores import divided_space_time_attention_fused
@@ -100,11 +109,14 @@ def var_attention(x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor,
         out = divided_space_time_attention_fused(q, k, v, num_frames, patches_per_frame, mode)
     else:
         out = divided_space_time_attention(q, k, v, num_frames, patches_per_frame, mode)
-    return linear(merge_heads(out), wproj, bproj)
+    return row_linear(merge_heads(out), wproj, bproj, tp)
 
 
 class Mlp(nn.Module):
     """c_fc -> act -> c_proj (CLIP block MLP, hidden = width * mlp_ratio)."""
+
+    TP_LAYOUT = {"c_fc.weight": "col", "c_fc.bias": "col", "c_proj.weight": "row"}
+    tp_group = None  # set by parallel/tensor_parallel.tp_shard
 
     def __init__(self, dim: int, hidden_dim: int, act: str = "quick_gelu"):
         super().__init__()
@@ -119,11 +131,14 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return mlp(x, self.c_fc.weight, self.c_fc.bias, self.c_proj.weight,
-                   self.c_proj.bias, self.act)
+                   self.c_proj.bias, self.act, self.tp_group)
 
 
 class VarAttention(nn.Module):
     """Divided space/time attention with the CLS row global (ops/attention.py)."""
+
+    TP_LAYOUT = {"qkv.weight": "qkv", "qkv.bias": "qkv", "proj.weight": "row"}
+    tp_group = None
 
     def __init__(self, dim: int, num_heads: int, zero_init: bool = False):
         super().__init__()
@@ -146,16 +161,18 @@ class VarAttention(nn.Module):
                 mode: str, use_pallas: bool = False) -> torch.Tensor:
         return var_attention(x, self.qkv.weight, self.qkv.bias, self.proj.weight,
                              self.proj.bias, num_frames, patches_per_frame, mode,
-                             self.num_heads, use_pallas)
+                             self.num_heads, use_pallas, self.tp_group)
 
 
 def self_attention(x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor,
                    wproj: torch.Tensor, bproj: torch.Tensor, num_heads: int,
-                   causal: bool = False, q_tail: int | None = None) -> torch.Tensor:
+                   causal: bool = False, q_tail: int | None = None, tp=None) -> torch.Tensor:
     """proj(softmax(q k^T / sqrt(d)) v) on x [B, S, D]. q_tail=k computes the
-    outputs of the last k query rows only (k/v still span every row)."""
+    outputs of the last k query rows only (k/v still span every row). Under
+    tp (module notes) on the heads of wqkv's rows."""
     d = x.shape[-1] // num_heads
-    q, k, v = linear(x, wqkv, bqkv).chunk(3, dim=-1)
+    num_heads = wqkv.shape[0] // (3 * d)
+    q, k, v = linear(copy_to_tp(x, tp), wqkv, bqkv).chunk(3, dim=-1)
     if q_tail is not None:
         if causal:
             raise ValueError("q_tail is for full (non-causal) attention")
@@ -171,12 +188,15 @@ def self_attention(x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor,
         out = torch.softmax(logits, dim=-1).to(x.dtype) @ v
     else:
         out = full_attention(q, k, v)
-    return linear(merge_heads(out), wproj, bproj)
+    return row_linear(merge_heads(out), wproj, bproj, tp)
 
 
 class SelfAttention(nn.Module):
     """Multi-head self-attention under the reference (nn.MultiheadAttention)
     names: fused in_proj_weight [3D, D] / in_proj_bias, then out_proj."""
+
+    TP_LAYOUT = {"in_proj_weight": "qkv", "in_proj_bias": "qkv", "out_proj.weight": "row"}
+    tp_group = None
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
@@ -195,4 +215,4 @@ class SelfAttention(nn.Module):
                 q_tail: int | None = None) -> torch.Tensor:
         return self_attention(x, self.in_proj_weight, self.in_proj_bias,
                               self.out_proj.weight, self.out_proj.bias, self.num_heads,
-                              causal, q_tail)
+                              causal, q_tail, self.tp_group)

@@ -32,6 +32,9 @@ def _reset_linear(layer: nn.Linear, generator: torch.Generator) -> None:
 class SortAttention(nn.Module):
     """Full multi-head self-attention with the fused qkv / proj pair."""
 
+    TP_LAYOUT = {"qkv.weight": "qkv", "qkv.bias": "qkv", "proj.weight": "row"}
+    tp_group = None  # set by parallel/tensor_parallel.tp_shard
+
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
@@ -40,11 +43,14 @@ class SortAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, q_tail: int | None = None) -> torch.Tensor:
         return self_attention(x, self.qkv.weight, self.qkv.bias, self.proj.weight,
-                              self.proj.bias, self.num_heads, q_tail=q_tail)
+                              self.proj.bias, self.num_heads, q_tail=q_tail, tp=self.tp_group)
 
 
 class SortMlp(nn.Module):
     """fc1 -> exact gelu -> fc2."""
+
+    TP_LAYOUT = {"fc1.weight": "col", "fc1.bias": "col", "fc2.weight": "row"}
+    tp_group = None
 
     def __init__(self, dim: int, hidden_dim: int):
         super().__init__()
@@ -52,7 +58,8 @@ class SortMlp(nn.Module):
         self.fc2 = nn.Linear(hidden_dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return mlp(x, self.fc1.weight, self.fc1.bias, self.fc2.weight, self.fc2.bias, "gelu")
+        return mlp(x, self.fc1.weight, self.fc1.bias, self.fc2.weight, self.fc2.bias, "gelu",
+                   self.tp_group)
 
 
 class SortBlock(nn.Module):

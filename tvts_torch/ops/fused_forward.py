@@ -100,8 +100,9 @@ def space_time_vit_fused_train_forward(model: SpaceTimeViT, video: torch.Tensor,
 def _train_block(blk, x, T: int, heads: int, act: str, space_kernel: bool, time_kernel: bool,
                  mlp_kernel: bool, mlp_save_hidden: bool):
     """One block of the differentiable tower; it reads the block's
-    parameters, so under sharding it runs inside the block's window
-    (parallel/partition.whole)."""
+    parameters, so under sharding it runs with them whole
+    (parallel/partition.whole: inside the block's FSDP2 window, its tp
+    slices gathered; each rank's gradient comes back as its own slice)."""
     dt = x.dtype
 
     def weights(ln, first, second):

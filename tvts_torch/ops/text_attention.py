@@ -429,7 +429,13 @@ def sort_transformer_fused_forward(sort_model, text_tokens: torch.Tensor,
     *blocks, last = sort_model.blocks
     for blk in blocks:
         x = whole(blk, _sort_block, blk, x, cfg.num_heads)
-    return sort_model.classify(last(x, tail=n_text))
+    return sort_model.classify(whole(last, _sort_tail, last, x, n_text))
+
+
+def _sort_tail(blk, x, n_text: int):
+    """The last sort block's text rows in plain torch, its parameters whole
+    (parallel/partition.whole)."""
+    return type(blk).forward(blk, x, tail=n_text)
 
 
 def _sort_block(blk, x, num_heads: int):

@@ -1,5 +1,8 @@
 """Differentiable collectives for the contrastive loss (counterpart of
-tvts_tpu/parallel/collectives.py), over torch.distributed's default group.
+tvts_tpu/parallel/collectives.py), over a process group: the mesh's data
+group (parallel/mesh.py; the dp x fsdp ranks, which hold different rows;
+tp ranks hold the same rows, and gathering them too would repeat rows in
+the similarity matrix), or the default group where none is given.
 
 They carry the JAX package's transposes, not the reference's:
 - `all_gather_embeddings`: forward all_gather + concat along the batch axis
@@ -22,21 +25,21 @@ from __future__ import annotations
 import torch
 
 
-def _group_size() -> int:
-    """World size of the default group, 0 where none is started."""
+def _group_size(group=None) -> int:
+    """Size of `group` (None: the default group), 0 where none is started."""
     import torch.distributed as dist
 
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 0
+    return dist.get_world_size(group) if dist.is_available() and dist.is_initialized() else 0
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x: torch.Tensor, world: int) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, world: int, group) -> torch.Tensor:
         import torch.distributed as dist
 
-        ctx.world = world
+        ctx.world, ctx.group = world, group
         out = x.new_empty((world * x.shape[0], *x.shape[1:]))
-        dist.all_gather_into_tensor(out, x.contiguous())
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
         return out
 
     @staticmethod
@@ -44,18 +47,18 @@ class _AllGather(torch.autograd.Function):
         import torch.distributed as dist
 
         out = g.new_empty((g.shape[0] // ctx.world, *g.shape[1:]))
-        dist.reduce_scatter_tensor(out, g.contiguous(), op=dist.ReduceOp.SUM)
-        return out, None
+        dist.reduce_scatter_tensor(out, g.contiguous(), op=dist.ReduceOp.SUM, group=ctx.group)
+        return out, None, None
 
 
 class _PMean(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x: torch.Tensor, world: int) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, world: int, group) -> torch.Tensor:
         import torch.distributed as dist
 
-        ctx.world = world
+        ctx.world, ctx.group = world, group
         out = x.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out / world
 
     @staticmethod
@@ -63,17 +66,17 @@ class _PMean(torch.autograd.Function):
         import torch.distributed as dist
 
         g = g.clone()
-        dist.all_reduce(g)
-        return g / ctx.world, None
+        dist.all_reduce(g, group=ctx.group)
+        return g / ctx.world, None, None
 
 
-def all_gather_embeddings(x: torch.Tensor) -> torch.Tensor:
-    """[B_local, ...] -> [world * B_local, ...], ranks in order."""
-    world = _group_size()
-    return _AllGather.apply(x, world) if world else x
+def all_gather_embeddings(x: torch.Tensor, group=None) -> torch.Tensor:
+    """[B_local, ...] -> [ranks * B_local, ...], the group's ranks in order."""
+    world = _group_size(group)
+    return _AllGather.apply(x, world, group) if world else x
 
 
-def pmean(x: torch.Tensor) -> torch.Tensor:
-    """The mean of x over the ranks."""
-    world = _group_size()
-    return _PMean.apply(x, world) if world else x
+def pmean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean of x over the group's ranks."""
+    world = _group_size(group)
+    return _PMean.apply(x, world, group) if world else x

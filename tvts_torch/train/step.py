@@ -13,24 +13,30 @@ weight gradient for them while activation gradients still flow through their
 blocks: the JAX package's `_stop_frozen`.
 
 Under a process group (parallel/mesh.create_mesh), a process a rank, each
-rank runs `apply_fn` on its own batch; the video and text embeddings are
-all-gathered into the whole batch's contrastive matrix and the sort loss and
-its accuracy are averaged over the ranks (parallel/collectives.py). Each
-rank's gradient of that loss is then world x its share of the whole batch's
-gradient (all_gather's transpose sums the cotangent over the ranks), and the
-steps differ in what they make of it:
+rank runs `apply_fn` on its own batch (tp ranks on the same one); the video
+and text embeddings are all-gathered over the mesh's data group (the dp x
+fsdp ranks) into the whole batch's contrastive matrix and the sort loss and
+its accuracy are averaged over it (parallel/collectives.py). Each rank's
+gradient of that loss is then n x its share of the whole batch's gradient,
+n = dp x fsdp (all_gather's transpose sums the cotangent over the data
+ranks), and the steps differ in what they make of it:
 - `make_train_step(..., mesh=)` is the JAX package's `make_train_step` over
   a mesh (tvts_tpu/train/step.py:89-104: one jitted step of the global
   batch), the one its Trainer and train scripts take: its gradient is the
   gradient of the whole batch's loss, as in one process. The gradients are
-  SUM all-reduced (one flat buffer a dtype) and divided by the world; a
-  model sharded by parallel/partition.fsdp_shard has them reduce-scattered
-  and averaged over dp x fsdp by FSDP2 instead, and no second reduction
-  runs;
+  SUM all-reduced over the data group (one flat buffer a dtype) and divided
+  by dp x fsdp; a model sharded by parallel/partition.fsdp_shard has them
+  reduce-scattered and averaged over dp x fsdp by FSDP2 instead, and no
+  second reduction runs;
 - `make_sharded_train_step` is the JAX package's explicit shard_map step
   (tvts_tpu/train/step.py:145-233), which only tests reach there: its
-  gradients are SUM all-reduced and not divided, world x the gradient of
-  the same loss on the whole batch.
+  gradients are SUM all-reduced over the data group and not divided, dp x
+  fsdp x the gradient of the same loss on the whole batch.
+Neither reduces over tp: under tensor parallelism (parallel/tensor_parallel.py)
+a tp slice's gradient is this rank's own, and a tensor replicated over tp
+gets the same gradient on every tp rank. Tp slices all have one shape, so a
+reduction over the default group would sum one rank's heads into another's
+without an error; every reduction here names the data group.
 Without a process group both are the step of one process.
 
 A trainable parameter the loss does not reach (the sort head on a batch
@@ -61,20 +67,22 @@ def default_apply(model, batch):
     return model(batch["video"], batch["text_ids"], batch.get("keep_ind"))
 
 
-def _losses(outputs, batch, temperature: float,
-            gather: bool = False) -> tuple[torch.Tensor, dict]:
+def _losses(outputs, batch, temperature: float, gather: bool = False,
+            group=None) -> tuple[torch.Tensor, dict]:
     """(loss, aux of detached scalars) of the forward's outputs; `gather`:
-    over the ranks' embeddings, the sort terms averaged over the ranks."""
+    over the embeddings of the ranks of `group` (None: the default group),
+    the sort terms averaged over them."""
     text_emb, video_emb, pred_order = outputs
     if gather:
-        video_emb, text_emb = all_gather_embeddings(video_emb), all_gather_embeddings(text_emb)
+        video_emb = all_gather_embeddings(video_emb, group)
+        text_emb = all_gather_embeddings(text_emb, group)
     loss_ct = norm_softmax_loss(sim_matrix(video_emb.float(), text_emb.float()), temperature)
     loss_ce = s_acc = torch.zeros((), device=loss_ct.device)
     if pred_order is not None and "labels" in batch:
         loss_ce = sort_loss(pred_order, batch["labels"])
         s_acc = sort_accuracy(pred_order, batch["labels"])
         if gather:
-            loss_ce, s_acc = pmean(loss_ce), pmean(s_acc)
+            loss_ce, s_acc = pmean(loss_ce, group), pmean(s_acc, group)
     loss = loss_ct + loss_ce
     aux = {"loss": loss, "loss_ct": loss_ct, "loss_ce": loss_ce, "sort_acc": s_acc}
     return loss, {k: v.detach() for k, v in aux.items()}
@@ -90,25 +98,26 @@ class TrainStep:
     """step(batch) -> aux: one optimizer step at the milestone LR of `count`,
     the optimizer steps taken so far (the first step is step 0, as in
     optax). `count` is the schedule's state: a checkpoint saves it and a
-    resume sets it. With `mesh` a started process group, the gathered loss;
-    `world_scale`: the summed gradients are not divided by the world (the
-    sharded step, module notes)."""
+    resume sets it. With `mesh` a started process group, the loss gathered
+    over its data group; `world_scale`: the summed gradients are not divided
+    by dp x fsdp (the sharded step, module notes)."""
 
     def __init__(self, model, optimizer: torch.optim.Optimizer, cfg: OptimizerConfig,
                  temperature: float = 0.05, apply_fn: Callable | None = None, mesh=None,
                  world_scale: bool = False):
-        from tvts_torch.parallel.partition import is_sharded
+        from tvts_torch.parallel.partition import is_fsdp
 
         self.model, self.optimizer = model, optimizer
         self.fwd = apply_fn or default_apply
         self.temperature = temperature
         self.scale = milestone_scale_fn(cfg)
         self.gather = mesh is not None and mesh.distributed
-        self.sharded = is_sharded(model)
+        self.group = mesh.data_group if self.gather else None
+        self.sharded = is_fsdp(model)
         if self.sharded and world_scale:
             raise ValueError("the sharded step keeps the JAX world x scale, which FSDP2's "
                              "averaged gradients do not give: use make_train_step")
-        self.divisor = 1 if world_scale or not self.gather else mesh.world
+        self.divisor = 1 if world_scale or not self.gather else mesh.data_size
         self.trainable = [p for group in optimizer.param_groups for p in group["params"]]
         self.count = 0
 
@@ -116,7 +125,8 @@ class TrainStep:
         for group in self.optimizer.param_groups:
             group["lr"] = group["base_lr"] * self.scale(self.count)
         self.optimizer.zero_grad(set_to_none=True)
-        loss, aux = _losses(self.fwd(self.model, batch), batch, self.temperature, self.gather)
+        loss, aux = _losses(self.fwd(self.model, batch), batch, self.temperature, self.gather,
+                            self.group)
         loss.backward()
         for p in self.trainable:
             if p.grad is None:  # under FSDP a zero of the parameter's shard
@@ -128,8 +138,8 @@ class TrainStep:
         return aux
 
     def _sum_grads(self) -> None:
-        """SUM all-reduce of every gradient, one flat buffer a dtype, divided
-        by `divisor`."""
+        """SUM all-reduce of every gradient over the data group, one flat
+        buffer a dtype, divided by `divisor`."""
         import torch.distributed as dist
 
         by_dtype: dict = {}
@@ -137,7 +147,7 @@ class TrainStep:
             by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
         for grads in by_dtype.values():
             flat = torch.cat([g.reshape(-1) for g in grads])
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=self.group)
             if self.divisor != 1:
                 flat /= self.divisor
             torch._foreach_copy_(grads, [part.view_as(g) for part, g in
@@ -155,8 +165,8 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, cfg: OptimizerConfi
 def make_sharded_train_step(model, optimizer: torch.optim.Optimizer, cfg: OptimizerConfig,
                             mesh, temperature: float = 0.05,
                             apply_fn: Callable | None = None) -> TrainStep:
-    """The JAX explicit data-parallel step of this rank's batch: world x the
-    whole batch's gradient (module notes)."""
+    """The JAX explicit data-parallel step of this rank's batch: dp x fsdp x
+    the whole batch's gradient (module notes)."""
     return TrainStep(model, optimizer, cfg, temperature, apply_fn, mesh, world_scale=True)
 
 

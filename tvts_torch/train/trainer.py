@@ -23,10 +23,11 @@ loader batch -> the numeric arrays of the train step (train/step.py):
   embeddings and sort accuracy -> similarity matrix -> the metrics, resolved
   by name in ops/metrics.py -> `val_loss_{i}`, which is the sort accuracy
   ratio (1.0 without sort labels), a reference quirk kept (trainer.py:585-597,
-  630-631); across ranks the embeddings and sort counts are all-gathered
-  first, so every rank's metrics, monitor and model_best are the whole
-  validation set's (the JAX package computes them from each process's own
-  part);
+  630-631); across ranks the embeddings, sort counts and metas are
+  gathered over the mesh's data group first (tp ranks hold the same rows),
+  so every rank's metrics, monitor and model_best are the whole validation
+  set's, each row once (the JAX package computes them from each process's
+  own part);
 - checkpoints (utils/checkpoint.py) after every epoch and every
   `save_every_steps` steps, and `resume` from one: parameters, optimizer
   state, the LR schedule's step count and the monitor's best;
@@ -125,8 +126,10 @@ class Trainer:
     `mesh` (parallel/mesh.create_mesh) with a started process group makes
     the step the mesh one (the gradient of every rank's batch together, as
     the JAX Trainer's `make_train_step` over its mesh); a model sharded by
-    parallel/partition.fsdp_shard trains, validates, saves gathered and
-    resumes re-sharded. Batches and validation run on the model's device.
+    parallel/partition.shard_params (fsdp, tp) trains, validates, saves
+    gathered and resumes re-sharded. An epoch's samples are counted over the
+    data ranks (dp x fsdp), as the loaders split them. Batches and validation
+    run on the model's device.
     Keyword arguments as the JAX package's Trainer."""
 
     def __init__(self, model, optimizer, opt_cfg, data_loaders, valid_loaders=None,
@@ -287,9 +290,11 @@ class Trainer:
         return {f"loss_{i}": totals[i] / len_epoch for i in range(len(self.data_loaders))}
 
     def _gather(self, rows: torch.Tensor) -> torch.Tensor:
-        """Every rank's rows, in rank order (this rank's alone without a group)."""
+        """Every data rank's rows, in rank order (this rank's alone without a
+        group)."""
         with torch.no_grad():
-            return all_gather_embeddings(rows) if self.mesh.distributed else rows
+            return all_gather_embeddings(rows, self.mesh.data_group) if self.mesh.distributed \
+                else rows
 
     def _valid_epoch(self, epoch: int) -> dict:
         log = {}
@@ -316,10 +321,10 @@ class Trainer:
 
                 counts = torch.tensor([sort_correct, sort_num], dtype=torch.float64,
                                       device=self.device)
-                dist.all_reduce(counts)
+                dist.all_reduce(counts, group=self.mesh.data_group)
                 sort_correct, sort_num = counts[0].item(), int(counts[1].item())
-                gathered = [None] * self.mesh.world
-                dist.all_gather_object(gathered, metas)
+                gathered = [None] * self.mesh.data_size
+                dist.all_gather_object(gathered, metas, group=self.mesh.data_group)
                 metas = [m for part in gathered for m in part]
             sims = sim_matrix(txt.cpu(), vid.cpu()).numpy()
             log[f"val_loss_{dl_idx}"] = sort_correct / sort_num if sort_num else 1.0

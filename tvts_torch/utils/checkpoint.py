@@ -18,9 +18,12 @@ v2/base/base_trainer.py:119-247).
   file's `monitor_best` includes that epoch, as the reference writes it;
 - only the process that `writes` (rank 0) touches the disk; every process
   keeps the same monitor, and every process gathers the state of a model
-  sharded by parallel/partition.fsdp_shard (a collective), so the file is
-  the unsharded layout: full tensors in `state_dict`, the optimizer's state
-  dict as an unsharded optimizer holds it.
+  sharded by parallel/partition.shard_params (over fsdp, then over tp: a
+  collective), so the file is always the reference layout: full tensors
+  in `state_dict` (the qkv rows back in the reference (3, H, d) order),
+  the optimizer's state dict as an unsharded optimizer holds it. A file
+  written under any fsdp and tp loads strictly into an unsharded
+  `build_model`, and a resume under any fsdp and tp re-shards it.
 """
 
 from __future__ import annotations
