@@ -156,6 +156,9 @@ def test_preprocess_on_device_matches_jax(shape, crop_xy, atol):
     got = port_tf.preprocess_on_device(torch.from_numpy(frames), 224, crop_xy=crop_xy)
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=atol)
+    # the JAX signature's `train`, third and ignored
+    trained = port_tf.preprocess_on_device(torch.from_numpy(frames), 224, True, crop_xy)
+    assert torch.equal(trained, got)
 
 
 # ---------------------------------------------------------------------------

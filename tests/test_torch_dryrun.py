@@ -1,7 +1,8 @@
 """tvts_torch/cli/dryrun.py, the twin of __graft_entry__.py, on the CPU:
-- `python -m tvts_torch.cli.dryrun 4` (dp 2 x tp 2 over four gloo
-  processes, the JAX dry run's factors but sp's, which go to dp) exits 0, every rank printing its eager and kernel-path losses
-  within 1e-4 of each other, and no rank loads JAX;
+- `python -m tvts_torch.cli.dryrun 4` (dp 1 x sp 2 x tp 2 over four gloo
+  processes, the JAX dry run's factors) and `8` (fsdp 2 x sp 2 x tp 2) exit
+  0, every rank printing its eager (tokens split over sp) and kernel-path
+  (tokens whole) losses within 1e-4 of each other, and no rank loads JAX;
 - `entry()`'s B/16 forward gives the JAX entry's output shapes (on the meta
   device: the full-width forward's shapes without its CPU cost);
 - the dp 2 x fsdp 2 (HSDP) step's gradient is the whole batch's: an
@@ -73,17 +74,24 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def run_ranks(commands: list, work, timeout: float) -> list:
-    """Run one process a command (its output to a file in `work`); stop them
-    all once one fails or the time runs out, as the others would wait in a
-    collective. Returns each one's (exit code, output)."""
+def start_ranks(commands: list, work) -> list:
+    """Start one process a command, its output to a file in `work`; returns
+    [(process, log path)] for wait_ranks."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    paths = [work / f"rank{r}.log" for r in range(len(commands))]
-    procs = []
-    for cmd, path in zip(commands, paths):
+    started = []
+    for r, cmd in enumerate(commands):
+        path = work / f"rank{r}.log"
         with open(path, "w") as out:
-            procs.append(subprocess.Popen(cmd, env=env, cwd=REPO, stdout=out,
-                                          stderr=subprocess.STDOUT))
+            started.append((subprocess.Popen(cmd, env=env, cwd=REPO, stdout=out,
+                                             stderr=subprocess.STDOUT), path))
+    return started
+
+
+def wait_ranks(started: list, timeout: float) -> list:
+    """Wait for start_ranks' processes; stop them all once one fails or the
+    time runs out, as the others would wait in a collective. Returns each
+    one's (exit code, output)."""
+    procs = [p for p, _ in started]
     deadline = time.monotonic() + timeout
     try:
         while any(p.poll() is None for p in procs) and time.monotonic() < deadline \
@@ -94,26 +102,43 @@ def run_ranks(commands: list, work, timeout: float) -> list:
             if p.poll() is None:
                 p.kill()
             p.wait()
-    return [(p.returncode, path.read_text()) for p, path in zip(procs, paths)]
+    return [(p.returncode, path.read_text()) for p, path in started]
 
 
-@pytest.fixture(scope="module")
-def dryrun_log():
+def run_ranks(commands: list, work, timeout: float) -> list:
+    """Run one process a command (wait_ranks' results)."""
+    return wait_ranks(start_ranks(commands, work), timeout)
+
+
+def _dryrun(n: int) -> str:
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    proc = subprocess.run([sys.executable, "-m", "tvts_torch.cli.dryrun", str(N)], cwd=REPO,
+    proc = subprocess.run([sys.executable, "-m", "tvts_torch.cli.dryrun", str(n)], cwd=REPO,
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, (proc.stdout + proc.stderr)[-4000:]
     return proc.stdout
 
 
-def test_dryrun_4_exits_0_with_both_losses_close(dryrun_log):
-    rows = re.findall(r"\[dryrun rank (\d)\] dp 2 x fsdp 1 x tp 2: eager loss (\S+), kernel path "
-                      r"loss (\S+); modules of JAX loaded: \[\]", dryrun_log)
-    assert sorted(int(r) for r, _, _ in rows) == list(range(N)), dryrun_log
+@pytest.fixture(scope="module")
+def dryrun_log():
+    return _dryrun(N)
+
+
+def _check_dryrun(log: str, n: int, axes: str) -> None:
+    rows = re.findall(r"\[dryrun rank (\d)\] " + axes + r": eager loss (\S+), kernel path "
+                      r"loss (\S+); modules of JAX loaded: \[\]", log)
+    assert sorted(int(r) for r, _, _ in rows) == list(range(n)), log
     for _, eager, kernels in rows:
         assert np.isfinite(float(eager)) and abs(float(eager) - float(kernels)) <= 1e-4
     assert len({(e, k) for _, e, k in rows}) == 1  # every rank the whole batch's loss
-    assert f"dryrun_multichip OK ({N} processes)" in dryrun_log
+    assert f"dryrun_multichip OK ({n} processes)" in log
+
+
+def test_dryrun_4_exits_0_with_both_losses_close(dryrun_log):
+    _check_dryrun(dryrun_log, N, "dp 1 x fsdp 1 x sp 2 x tp 2")
+
+
+def test_dryrun_8_takes_the_jax_factors():
+    _check_dryrun(_dryrun(8), 8, "dp 1 x fsdp 2 x sp 2 x tp 2")
 
 
 def test_entry_gives_the_b16_forward_shapes():

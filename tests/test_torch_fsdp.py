@@ -22,8 +22,8 @@ JAX package's fsdp mesh step on two of tests/conftest.py's CPU devices:
     `build_model` loads; `-r` under `--fsdp 2` restores parameters, AdamW
     state and step count bit for bit and continues as the straight run;
     `train_dist_TVTS --fsdp 2` against `--fsdp 1`.
-Plus `create_mesh`'s refusals (fsdp or tp that does not divide the world;
-sp).
+Plus `create_mesh`'s refusals (fsdp, tp or sp that does not divide the
+world).
 """
 
 import dataclasses
@@ -67,23 +67,29 @@ torch.set_num_threads(1)
 rank, world, work = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 spec = json.load(open(os.path.join(work, "spec.json")))
 
+def published(name, value=None):
+    # rank 0's value (JSON), through a file of that name in work
+    path = os.path.join(work, name)
+    if rank == 0:
+        with open(path + ".tmp", "w") as f:
+            json.dump(value, f)
+        os.replace(path + ".tmp", path)
+        return value
+    for _ in range(6000):
+        if os.path.exists(path):
+            return json.load(open(path))
+        time.sleep(0.05)
+    raise TimeoutError(path)
+
 def port(name):
     # rank 0 picks a free port just before the group starts and publishes it:
     # a port picked long before may meanwhile serve another connection
-    path = os.path.join(work, f"{name}.port")
+    free = None
     if rank == 0:
         with socket.socket() as s:
             s.bind(("localhost", 0))
             free = s.getsockname()[1]
-        with open(path + ".tmp", "w") as f:
-            f.write(str(free))
-        os.replace(path + ".tmp", path)
-        return free
-    for _ in range(6000):
-        if os.path.exists(path):
-            return int(open(path).read())
-        time.sleep(0.05)
-    raise TimeoutError(path)
+    return published(f"{name}.port", free)
 
 from tvts_torch.models import configs as pc
 
@@ -253,7 +259,10 @@ from tvts_torch.models import distilbert, tvts_v1
 cli_runs = {}
 for name, config, fsdp in (("v2_fsdp2", "fsdp2.json", "2"), ("v2_fsdp1", "fsdp1.json", "1")):
     cli_runs[name] = run(v2_cli, ["-c", os.path.join(work, config), "--fsdp", fsdp], name)
-epoch1 = os.path.join(cli_runs["v2_fsdp2"]["save_dir"], "checkpoint-epoch1.pth")
+# each rank names its run directory by its own clock, a second apart at times:
+# the epoch file is in rank 0's
+epoch1 = os.path.join(published("v2_fsdp2.save_dir", str(cli_runs["v2_fsdp2"]["save_dir"])),
+                      "checkpoint-epoch1.pth")
 cli_runs["v2_resumed"] = run(v2_cli, ["-c", os.path.join(work, "resumed.json"), "--fsdp", "2",
                                       "-r", epoch1], "v2_resumed")
 cli_runs["v2_resumed"]["resume"] = dict(resume_state)
@@ -521,5 +530,5 @@ def test_create_mesh_refuses_what_it_cannot_shard():
     with pytest.raises(ValueError, match="does not divide"):
         create_mesh(tp=2, coordinator="localhost:1", num_processes=3, process_id=0,
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="M2d-sp"):
+    with pytest.raises(ValueError, match="does not divide"):  # sp 2 needs two ranks
         create_mesh(device="cpu", sp=2)

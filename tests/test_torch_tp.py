@@ -212,7 +212,9 @@ else:  # (c), (d), (e): dp 1 x tp 2
     from tvts_torch.models import distilbert, tvts_v1
 
     cli_runs = {"v2": run(v2_cli, ["-c", os.path.join(work, "v2.json")], "v2")}
-    epoch1 = os.path.join(cli_runs["v2"]["save_dir"], "checkpoint-epoch1.pth")
+    # each rank names its run directory by its own clock: the epoch file is in rank 0's
+    epoch1 = os.path.join(published("v2.save_dir", str(cli_runs["v2"]["save_dir"])),
+                          "checkpoint-epoch1.pth")
     cli_runs["v2_resumed"] = run(v2_cli, ["-c", os.path.join(work, "resumed.json"), "-r", epoch1],
                                  "v2_resumed")
     cli_runs["v2_resumed"]["resume"] = dict(resume_state)

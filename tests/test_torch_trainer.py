@@ -398,7 +398,7 @@ def test_train_cli_refuses_what_it_cannot_run(tmp_path):
     # --tp 2 splits the heads over groups of 2 ranks: one process has none
     with pytest.raises(ValueError, match="does not divide"):
         cli.main(["-c", config, "--device", "cpu", "--tp", "2"])
-    with pytest.raises(NotImplementedError, match="M2d-sp"):
+    with pytest.raises(ValueError, match="does not divide"):  # sp 2 needs two ranks
         create_mesh(sp=2, device="cpu")
     with pytest.raises(ValueError, match="num_processes"):
         create_mesh(coordinator="localhost:1", device="cpu")

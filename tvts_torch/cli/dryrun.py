@@ -11,10 +11,12 @@
   (`train_apply`; the kernels' plain versions on CPU tensors), each from the
   same seeded weights sharded by parallel/partition.shard_params; both
   losses finite and within 1e-4 of each other. The mesh takes the JAX dry
-  run's factors (__graft_entry__.py:86-89): tp = 2 where n is even, fsdp = 2
-  only where n is a multiple of 8, and the rest to dp. The JAX run also
-  takes sp = 2 where n is a multiple of 4; sp waits for ROADMAP.md item
-  M2d-sp, so its factor goes to dp here.
+  run's factors (__graft_entry__.py:86-89): tp = 2 where n is even, sp = 2
+  where n is a multiple of 4, fsdp = 2 where n is a multiple of 8, and the
+  rest to dp (n = 4: dp 1 x sp 2 x tp 2; n = 8: fsdp 2 x sp 2 x tp 2). Under
+  sp the eager step's model carries the JAX `token_partition` (its tokens
+  split over sp, parallel/sequence_parallel.py) and the kernel path's runs
+  its tokens whole, as the JAX dry run's constraint-free fused model.
 
     python -m tvts_torch.cli.dryrun 4                # the 4-process dry run only
     python -m tvts_torch.cli.dryrun [--device cpu]   # entry's forward, then the 8-process run
@@ -95,32 +97,36 @@ def _worker(rank: int, n: int, port: int) -> None:
     from tvts_torch.ops.fused_forward import train_apply
     from tvts_torch.parallel.mesh import create_mesh
     from tvts_torch.parallel.partition import shard_batch, shard_params
+    from tvts_torch.parallel.sequence_parallel import TOKEN_PARTITION
     from tvts_torch.train.optim import OptimizerConfig, make_optimizer
     from tvts_torch.train.step import make_train_step
 
     torch.set_num_threads(1)
     cfg = tiny_config()
     tp = 2 if n % 2 == 0 else 1
+    sp = 2 if n % 4 == 0 else 1
     fsdp = 2 if n % 8 == 0 else 1
     ocfg = OptimizerConfig(text_layers=cfg.text.layers, text_tune_layers=1, schedule=(6, 8),
                            steps_per_epoch=10)
     paths = {"eager": None, "kernels": partial(train_apply, text_tune_from=ocfg.text_tune_from)}
     losses = {}
-    with create_mesh(fsdp=fsdp, tp=tp, coordinator=f"localhost:{port}", num_processes=n,
+    with create_mesh(fsdp=fsdp, tp=tp, sp=sp, coordinator=f"localhost:{port}", num_processes=n,
                      process_id=rank, device="cpu") as mesh:
-        batch = shard_batch({k: torch.from_numpy(a) for k, a in _batch(cfg, 2 * n, 0).items()},
+        B = 2 * mesh.data_size  # 2 videos a data rank, as __graft_entry__.py
+        batch = shard_batch({k: torch.from_numpy(a) for k, a in _batch(cfg, B, 0).items()},
                             mesh)
         for label, apply_fn in paths.items():
-            model = TVTSv2(cfg)
+            partition = TOKEN_PARTITION if sp > 1 and apply_fn is None else None
+            model = TVTSv2(cfg, token_partition=partition)
             model.reset_parameters(torch.Generator().manual_seed(0))
             shard_params(model, mesh)
             step = make_train_step(model, make_optimizer(model, ocfg), ocfg, apply_fn=apply_fn,
                                    mesh=mesh)
             losses[label] = step(batch)["loss"].item()
     jax = sorted(m for m in sys.modules if m.split(".")[0] in JAX_MODULES)
-    print(f"[dryrun rank {rank}] dp {mesh.dp} x fsdp {mesh.fsdp} x tp {mesh.tp}: eager loss "
-          f"{losses['eager']:.6f}, kernel path loss {losses['kernels']:.6f}; modules of JAX "
-          f"loaded: {jax}", flush=True)
+    print(f"[dryrun rank {rank}] dp {mesh.dp} x fsdp {mesh.fsdp} x sp {mesh.sp} x tp {mesh.tp}: "
+          f"eager loss {losses['eager']:.6f}, kernel path loss {losses['kernels']:.6f}; modules "
+          f"of JAX loaded: {jax}", flush=True)
     if not all(math.isfinite(v) for v in losses.values()):
         raise AssertionError(f"non-finite loss in the dry run: {losses}")
     if abs(losses["kernels"] - losses["eager"]) > LOSS_TOL:

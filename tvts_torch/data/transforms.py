@@ -13,13 +13,16 @@ are Pillow's algorithms written in numpy, and they run on every machine:
 - NEAREST (`resize_nearest`): Pillow's affine scaling
   (Geometry.c ImagingScaleAffine): source index int(x0 + (i + 0.5) * scale)
   with the position accumulated in float64 as Pillow adds it up;
-- BILINEAR (`resize_bilinear`): Pillow's two-pass convolution (Resample.c),
-  horizontal pass first, then vertical; the triangle filter's support scaled
-  by the reduction, each output's weights normalised in float64, then
-  rounded to 22-bit fixed point; each pass sums in integers from half a
-  unit, shifts down and clips to uint8.
-Both are bit for bit Pillow's (tests/test_torch_data.py holds them to Pillow
-on random uint8 frames at the datasets' and extraction's sizes).
+- BILINEAR (`resize_bilinear`), and BICUBIC and LANCZOS (`resize`):
+  Pillow's two-pass convolution (Resample.c), horizontal pass first, then
+  vertical; the filter's support (1, 2 or 3: the triangle, the cubic with
+  a = -0.5, the 3-lobed windowed sinc) scaled by the reduction, each output's
+  weights normalised in float64, then rounded to 22-bit fixed point; each
+  pass sums in integers from half a unit, shifts down and clips to uint8.
+  With a `box` (Image.resize's), the filter centres follow the box while its
+  taps may read the whole image.
+They are bit for bit Pillow's (tests/test_torch_data.py and
+tests/test_torch_frozen.py hold them to Pillow on random uint8 frames).
 
 `preprocess_on_device` (the `--fast_pipeline` path of extraction) runs on
 torch tensors on the caller's device: the JAX package's
@@ -33,6 +36,7 @@ sample positions (float32, up to ~256) one unit apart from torch.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 
@@ -47,50 +51,104 @@ _PRECISION_BITS = 32 - 8 - 2  # Pillow's fixed point for 8-bit images
 # ---------------------------------------------------------------------------
 # Pillow's resamplers in numpy
 # ---------------------------------------------------------------------------
+NEAREST, LANCZOS, BILINEAR, BICUBIC = 0, 1, 2, 3  # Pillow's resampling filter ids
+
+
 @functools.lru_cache(maxsize=64)
-def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
-    """Source index of each output pixel along one axis. Pillow accumulates
-    the sample position (xo += a[0]) in float64 rather than multiplying, and
-    truncates it."""
-    step = float(in_size) / out_size
-    pos = 0.0 + step * 0.5
+def _nearest_index(in_size: int, out_size: int, start: float, step: float) -> np.ndarray:
+    """Source index of each output pixel along one axis (-1: outside the
+    input), Geometry.c's ImagingScaleAffine: the sample position starts at
+    start + step / 2 and is accumulated (xo += a[0]) in float64 rather than
+    multiplied, then truncated."""
+    pos = start + step * 0.5
     idx = np.empty(out_size, dtype=np.intp)
     for i in range(out_size):
-        idx[i] = -1 if pos < 0.0 else int(pos)
+        idx[i] = -1 if pos < 0.0 or int(pos) >= in_size else int(pos)
         pos += step
     return idx
 
 
-def resize_nearest(frames: np.ndarray, size: tuple[int, int]) -> np.ndarray:
-    """[..., H, W, C] uint8 -> [..., h, w, C], size = (w, h) as Pillow takes it."""
+def _box(box, in_w: int, in_h: int) -> tuple[float, float, float, float]:
+    """Image.resize's box, as the float32 Pillow parses it into."""
+    box = (0, 0, in_w, in_h) if box is None else box
+    return tuple(float(np.float32(v)) for v in box)
+
+
+def resize_nearest(frames: np.ndarray, size: tuple[int, int], box=None) -> np.ndarray:
+    """[..., H, W, C] uint8 -> [..., h, w, C], size = (w, h) as Pillow takes it;
+    `box`: the source region (x0, y0, x1, y1), Image.resize's."""
     out_w, out_h = size
     in_h, in_w = frames.shape[-3:-1]
-    if (out_w, out_h) == (in_w, in_h):
+    x0, y0, x1, y1 = _box(box, in_w, in_h)
+    if (out_w, out_h, x0, y0, x1, y1) == (in_w, in_h, 0, 0, in_w, in_h):
         return frames.copy()
-    rows, cols = _nearest_index(in_h, out_h), _nearest_index(in_w, out_w)
-    return frames[..., rows[:, None], cols[None, :], :]
+    rows = _nearest_index(in_h, out_h, y0, float(np.float32(y1 - y0)) / out_h)
+    cols = _nearest_index(in_w, out_w, x0, float(np.float32(x1 - x0)) / out_w)
+    return scale_nearest(frames, rows, cols, 0)
+
+
+def scale_nearest(frames: np.ndarray, rows: np.ndarray, cols: np.ndarray, fill) -> np.ndarray:
+    """[..., H, W, C] -> [..., len(rows), len(cols), C]: each output pixel the
+    input at (rows, cols), or `fill` where either is -1."""
+    out = frames[..., rows[:, None], cols[None, :], :]
+    if (rows < 0).any() or (cols < 0).any():
+        out[..., rows < 0, :, :] = fill
+        out[..., cols < 0, :] = fill
+    return out
+
+
+def _bilinear_filter(x: float) -> float:
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
+
+
+def _bicubic_filter(x: float) -> float:
+    a = -0.5
+    x = abs(x)
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
+
+
+def _sinc(x: float) -> float:
+    if x == 0.0:
+        return 1.0
+    x = x * math.pi
+    return math.sin(x) / x
+
+
+def _lanczos_filter(x: float) -> float:
+    return _sinc(x) * _sinc(x / 3) if -3.0 <= x < 3.0 else 0.0
+
+
+# Resample.c's filters: (function, support)
+_FILTERS = {BILINEAR: (_bilinear_filter, 1.0), BICUBIC: (_bicubic_filter, 2.0),
+            LANCZOS: (_lanczos_filter, 3.0)}
 
 
 @functools.lru_cache(maxsize=64)
-def _bilinear_coeffs(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
+def _resample_coeffs(in_size: int, out_size: int, resample: int = BILINEAR, in0: float = 0.0,
+                     in1: float | None = None) -> tuple[np.ndarray, np.ndarray]:
     """(source index [k, out], fixed-point weight [k, out]) of Pillow's
-    precompute_coeffs with the bilinear filter, then normalize_coeffs_8bpc.
-    Taps past an output's own range carry weight 0 (and index 0)."""
-    scale = float(in_size) / out_size
+    precompute_coeffs over the box [in0, in1) of an axis of in_size, then
+    normalize_coeffs_8bpc. Taps past an output's own range carry weight 0
+    (and index 0)."""
+    filt, filter_support = _FILTERS[resample]
+    in1 = float(in_size) if in1 is None else in1
+    scale = float(np.float32(in1 - in0)) / out_size
     filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
+    support = filter_support * filterscale
     ss = 1.0 / filterscale
     ksize = int(np.ceil(support)) * 2 + 1
     index = np.zeros((ksize, out_size), dtype=np.intp)
     weight = np.zeros((ksize, out_size), dtype=np.int64)
     for xx in range(out_size):
-        center = 0.0 + (xx + 0.5) * scale
+        center = in0 + (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
-        w = []
-        for x in range(xmax):
-            t = abs((x + xmin - center + 0.5) * ss)
-            w.append(1.0 - t if t < 1.0 else 0.0)
+        w = [filt((x + xmin - center + 0.5) * ss) for x in range(xmax)]
         total = 0.0
         for v in w:  # in Pillow's order: the sum decides the rounding
             total += v
@@ -103,11 +161,12 @@ def _bilinear_coeffs(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarra
     return index, weight
 
 
-def _bilinear_pass(frames: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+def _resample_pass(frames: np.ndarray, axis: int, out_size: int, resample: int,
+                   in0: float = 0.0, in1: float | None = None) -> np.ndarray:
     """One of Pillow's 8-bit passes, along the rows (axis -3) or the columns
     (axis -2) of [..., H, W, C]: the fixed-point sum over the taps from half a
     unit, shifted down and clipped to uint8."""
-    index, weight = _bilinear_coeffs(frames.shape[axis], out_size)
+    index, weight = _resample_coeffs(frames.shape[axis], out_size, resample, in0, in1)
     x = np.moveaxis(frames, axis, -1)  # [..., C, in]
     acc = np.full(x.shape[:-1] + (out_size,), 1 << (_PRECISION_BITS - 1), dtype=np.int64)
     for idx, w in zip(index, weight):
@@ -116,16 +175,30 @@ def _bilinear_pass(frames: np.ndarray, axis: int, out_size: int) -> np.ndarray:
     return np.moveaxis(out, -1, axis)
 
 
-def resize_bilinear(frames: np.ndarray, size: tuple[int, int]) -> np.ndarray:
-    """[..., H, W, C] uint8 -> [..., h, w, C] by Pillow's BILINEAR, size = (w, h)."""
+def resize(frames: np.ndarray, size: tuple[int, int], resample: int = BILINEAR,
+           box=None) -> np.ndarray:
+    """Image.resize(size, resample, box) on [..., H, W, C] uint8, size = (w,
+    h): NEAREST, BILINEAR, BICUBIC or LANCZOS."""
+    if resample == NEAREST:
+        return resize_nearest(frames, size, box)
+    if resample not in _FILTERS:
+        raise ValueError(f"resample {resample}: NEAREST, LANCZOS, BILINEAR or BICUBIC")
     out_w, out_h = size
     in_h, in_w = frames.shape[-3:-1]
+    x0, y0, x1, y1 = _box(box, in_w, in_h)
+    if (out_w, out_h, x0, y0, x1, y1) == (in_w, in_h, 0, 0, in_w, in_h):
+        return frames.copy()
     out = frames
-    if out_w != in_w:
-        out = _bilinear_pass(out, -2, out_w)
-    if out_h != in_h:
-        out = _bilinear_pass(out, -3, out_h)
+    if out_w != in_w or x0 or x1 != out_w:  # Resample.c's need_horizontal
+        out = _resample_pass(out, -2, out_w, resample, x0, x1)
+    if out_h != in_h or y0 or y1 != out_h:
+        out = _resample_pass(out, -3, out_h, resample, y0, y1)
     return out.copy() if out is frames else out
+
+
+def resize_bilinear(frames: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """[..., H, W, C] uint8 -> [..., h, w, C] by Pillow's BILINEAR, size = (w, h)."""
+    return resize(frames, size, BILINEAR)
 
 
 # ---------------------------------------------------------------------------
@@ -219,11 +292,12 @@ def _resize_weights(in_size: int, out_size: int, device):
     return torch.where(inside[None, :], weights, torch.zeros_like(weights)).to(device)
 
 
-def preprocess_on_device(frames_u8, crop_size: int = 224, crop_xy=None):
+def preprocess_on_device(frames_u8, crop_size: int = 224, train: bool = False, crop_xy=None):
     """[B, T, H, W, 3] uint8 tensor -> [B, T, 3, crop, crop] float32 on its
     device. Where H == W == crop (the decoder resized the frames), no resize
     runs; otherwise the shorter side goes to int(1.2 * crop) by
     jax.image.resize's bilinear method, then the centre (or `crop_xy`) crop.
+    `train` is taken and ignored, as the JAX function takes it.
 
     As in the JAX package, this path resizes bilinearly where the host path
     takes NEAREST: hold accuracy evaluations to the host path."""

@@ -22,9 +22,13 @@ module's on PIL frames):
   fillcolor (Geometry.c's generic transform): the source point of output
   pixel (x, y) is a * (x + 0.5, y + 0.5) + c in float64; a point outside
   [0, size) takes the fill; else the filter reads from point - 0.5 with
-  edge-clamped taps, in float64, truncating (bicubic clipped first).
-  `Rotate` builds Image.rotate's matrix about the centre, rounded to 15
-  places, and keeps its fast path at 0 degrees.
+  edge-clamped taps, in float64, truncating (bicubic clipped first). With
+  NEAREST (data/clip_transforms.py's RandomRotation) Geometry.c's own
+  paths: a matrix that only scales and translates samples as
+  ImagingScaleAffine does, any other in affine_fixed's 16.16 fixed point
+  (every image of this system fits it). `Rotate` builds Image.rotate's
+  matrix about the centre, rounded to 15 places, and keeps its fast paths
+  (0 and 180 degrees, and 90 and 270 on a square frame: transposes).
 Randomness is the JAX module's: the same draws from the same
 np.random.Generator in the same order (the op choice, then per op the 0.5
 gate, the magnitude's normal, `_neg`'s draw and the interpolation index).
@@ -37,9 +41,11 @@ import re
 
 import numpy as np
 
+from tvts_torch.data.transforms import _nearest_index, scale_nearest
+
 _MAX_LEVEL = 10.0
 _FILL = (128, 128, 128)
-BILINEAR, BICUBIC = 2, 3  # Pillow's resampling filter ids
+NEAREST, BILINEAR, BICUBIC = 0, 2, 3  # Pillow's resampling filter ids
 _HPARAMS_DEFAULT = {"translate_const": 250, "img_mean": _FILL}
 _RANDOM_INTERPOLATION = (BILINEAR, BICUBIC)
 
@@ -208,11 +214,41 @@ def _interp(taps: list, d, cubic: bool) -> np.ndarray:
     return v2 + t
 
 
+def _affine_nearest(frames: np.ndarray, a: tuple, fillcolor) -> np.ndarray:
+    """Geometry.c's nearest-neighbour affine (module notes) on [..., H, W, 3]."""
+    a0, a1, a2, a3, a4, a5 = a
+    H, W = frames.shape[-3:-1]
+    if a1 == 0 and a3 == 0:  # ImagingScaleAffine
+        return scale_nearest(frames, _nearest_index(H, H, a5, a4),
+                             _nearest_index(W, W, a2, a0), fillcolor)
+
+    def fits(x, y):  # check_fixed
+        return abs(x * a0 + y * a1 + a2) < 32768.0 and abs(x * a3 + y * a4 + a5) < 32768.0
+
+    if not (fits(0, 0) and fits(W, H)):
+        raise ValueError(f"a NEAREST affine past 16.16 fixed point ({W}x{H}) is not written")
+
+    def fix(v):
+        return math.floor(v * 65536.0 + 0.5)
+
+    A0, A1, A3, A4 = fix(a0), fix(a1), fix(a3), fix(a4)
+    A2, A5 = fix(a2 + a0 * 0.5 + a1 * 0.5), fix(a5 + a3 * 0.5 + a4 * 0.5)
+    y = np.arange(H, dtype=np.int64)[:, None]
+    x = np.arange(W, dtype=np.int64)[None, :]
+    xin, yin = (A2 + y * A1 + x * A0) >> 16, (A5 + y * A4 + x * A3) >> 16
+    inside = (xin >= 0) & (xin < W) & (yin >= 0) & (yin < H)
+    out = frames[..., np.clip(yin, 0, H - 1), np.clip(xin, 0, W - 1), :]
+    out[..., ~inside, :] = fillcolor
+    return out
+
+
 def _affine(frames: np.ndarray, matrix, resample: int, fillcolor=_FILL) -> np.ndarray:
     """Image.transform(size, AFFINE, matrix, resample, fillcolor=fillcolor) on
     [..., H, W, 3] uint8, the same matrix for every frame."""
+    if resample == NEAREST:
+        return _affine_nearest(frames, tuple(float(v) for v in matrix[:6]), fillcolor)
     if resample not in (BILINEAR, BICUBIC):
-        raise ValueError(f"resample {resample}: BILINEAR or BICUBIC")
+        raise ValueError(f"resample {resample}: NEAREST, BILINEAR or BICUBIC")
     a0, a1, a2, a3, a4, a5 = (float(v) for v in matrix[:6])
     H, W = frames.shape[-3:-1]
     xin = np.arange(W, dtype=np.float64)[None, :] + 0.5
@@ -271,9 +307,13 @@ def _rotate(frames, degrees, **kw):
     """Image.rotate(degrees, resample, fillcolor): the inverse rotation about
     the centre as Image.rotate builds it (cos, sin rounded to 15 places)."""
     angle = degrees % 360.0
+    h, w = frames.shape[-3:-1]
     if angle == 0:
         return frames.copy()
-    h, w = frames.shape[-3:-1]
+    if angle == 180:
+        return frames[..., ::-1, ::-1, :].copy()
+    if angle in (90, 270) and h == w:  # Image.transpose(ROTATE_90 / ROTATE_270)
+        return np.rot90(frames, 1 if angle == 90 else 3, axes=(-3, -2)).copy()
     cx, cy = w / 2, h / 2
     angle = -math.radians(angle)
     m = [round(math.cos(angle), 15), round(math.sin(angle), 15), 0.0,

@@ -17,6 +17,10 @@ Numerics contracts, as in the JAX package:
   slices: the heads and hidden units of its weights' rows (the local head
   count is read off the qkv weight), the row product summed over the group.
   `TP_LAYOUT` names the sharded parameters of each module.
+- Under sequence parallelism (parallel/sequence_parallel.py)
+  `var_attention` takes the tower's `TokenShard`: x holds this rank's tokens,
+  and the core runs on the whole sequence for a share of the heads between
+  two all-to-alls.
 """
 
 from __future__ import annotations
@@ -93,15 +97,19 @@ def mlp(x: torch.Tensor, wfc: torch.Tensor, bfc: torch.Tensor, wproj: torch.Tens
 def var_attention(x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor,
                   wproj: torch.Tensor, bproj: torch.Tensor, num_frames: int,
                   patches_per_frame: int, mode: str, num_heads: int,
-                  use_pallas: bool = False, tp=None) -> torch.Tensor:
+                  use_pallas: bool = False, tp=None, sp=None) -> torch.Tensor:
     """proj(divided attention(qkv(x))) on x [B, S, D]; under tp (module
-    notes) on the heads of wqkv's rows."""
+    notes) on the heads of wqkv's rows; under sp (a TokenShard) on this
+    rank's tokens of the tower's S."""
     d = x.shape[-1] // num_heads
-    heads = wqkv.shape[0] // (3 * d)
-    q, k, v = linear(copy_to_tp(x, tp), wqkv, bqkv).chunk(3, dim=-1)
-    q = split_heads(q * d ** -0.5, heads)
-    k = split_heads(k, heads)
-    v = split_heads(v, heads)
+    heads = held = wqkv.shape[0] // (3 * d)
+    qkv = linear(copy_to_tp(x, tp), wqkv, bqkv)
+    if sp is not None:
+        qkv, held = sp.to_heads(qkv, heads, d)
+    q, k, v = qkv.chunk(3, dim=-1)
+    q = split_heads(q * d ** -0.5, held)
+    k = split_heads(k, held)
+    v = split_heads(v, held)
     if use_pallas and mode == "space":
         # imported here: ops/block_kernels.py imports this module
         from tvts_torch.ops.attention_cores import divided_space_time_attention_fused
@@ -109,7 +117,10 @@ def var_attention(x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor,
         out = divided_space_time_attention_fused(q, k, v, num_frames, patches_per_frame, mode)
     else:
         out = divided_space_time_attention(q, k, v, num_frames, patches_per_frame, mode)
-    return row_linear(merge_heads(out), wproj, bproj, tp)
+    out = merge_heads(out)
+    if sp is not None:
+        out = sp.to_tokens(out, heads)
+    return row_linear(out, wproj, bproj, tp)
 
 
 class Mlp(nn.Module):
@@ -158,10 +169,10 @@ class VarAttention(nn.Module):
         nn.init.zeros_(self.proj.bias)
 
     def forward(self, x: torch.Tensor, num_frames: int, patches_per_frame: int,
-                mode: str, use_pallas: bool = False) -> torch.Tensor:
+                mode: str, use_pallas: bool = False, sp=None) -> torch.Tensor:
         return var_attention(x, self.qkv.weight, self.qkv.bias, self.proj.weight,
                              self.proj.bias, num_frames, patches_per_frame, mode,
-                             self.num_heads, use_pallas, self.tp_group)
+                             self.num_heads, use_pallas, self.tp_group, sp)
 
 
 def self_attention(x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor,

@@ -25,6 +25,10 @@ ln_post over the pooled tokens and an [out, out] proj).
 records; `use_pallas=True` runs the space attention core on the H9 kernel
 (ops/attention_cores.py; forward only, as in the JAX package: on the card
 it raises under autograd rather than drop gradients).
+`token_partition=(("dp", "fsdp"), "sp", None)`, the JAX spec, splits the
+tokens between the stem and `pool` over the active mesh's sp group
+(parallel/sequence_parallel.py); `sp_parameters()` are the tensors used in
+that window, whose gradients the train step sums over sp.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from tvts_torch.models.configs import VisionConfig
 from tvts_torch.models.layers import LayerNormF32, Mlp, VarAttention, lecun_normal_, linear
 from tvts_torch.ops.attention import full_attention, merge_heads, split_heads
 from tvts_torch.ops.masking import gather_tube_tokens
+from tvts_torch.parallel.sequence_parallel import check_partition, token_shard
 
 
 class LayerScale(nn.Module):
@@ -141,11 +146,12 @@ class SpaceTimeBlock(nn.Module):
                     else LayerScale(D, cfg.ls_init))
 
     def forward(self, x: torch.Tensor, num_frames: int, patches_per_frame: int,
-                use_pallas: bool = False) -> torch.Tensor:
-        t_out = self.timeattn(self.ln_3(x), num_frames, patches_per_frame, "time", use_pallas)
+                use_pallas: bool = False, sp=None) -> torch.Tensor:
+        t_out = self.timeattn(self.ln_3(x), num_frames, patches_per_frame, "time", use_pallas,
+                              sp)
         time_residual = x + self.ls_3(t_out)
         s_out = self.attn(self.ln_1(time_residual), num_frames, patches_per_frame,
-                          "space", use_pallas)
+                          "space", use_pallas, sp)
         space_residual = x + self.ls_1(s_out)  # both residuals branch from the block input
         return space_residual + self.ls_2(self.mlp(self.ln_2(space_residual)))
 
@@ -157,13 +163,15 @@ class Transformer(nn.Module):
 
 
 class SpaceTimeViT(nn.Module):
-    def __init__(self, cfg: VisionConfig, remat: bool = False, use_pallas: bool = False):
+    def __init__(self, cfg: VisionConfig, remat: bool = False, use_pallas: bool = False,
+                 token_partition: tuple | None = None):
         super().__init__()
         if cfg.pool_style not in ("openai", "openclip"):
             raise ValueError(f"unknown pool_style {cfg.pool_style!r}")
         self.cfg = cfg
         self.remat = remat
         self.use_pallas = use_pallas  # the H9 space core (forward only)
+        self.token_partition = check_partition(token_partition)
         self.compute_dtype: torch.dtype | None = None
         D, p = cfg.width, cfg.patch_size
         self.conv1 = nn.Conv2d(3, D, kernel_size=p, stride=p, bias=False)
@@ -186,6 +194,15 @@ class SpaceTimeViT(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return self.compute_dtype or self.conv1.weight.dtype
+
+    def sp_parameters(self) -> list:
+        """The parameters used between the token split and the gather: the
+        stem and every block (none without a token partition)."""
+        if self.token_partition is None:
+            return []
+        stem = [self.conv1.weight, self.class_embedding, self.positional_embedding,
+                self.temporal_embedding, *self.ln_pre.parameters()]
+        return stem + list(self.transformer.parameters())
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -257,10 +274,15 @@ class SpaceTimeViT(nn.Module):
         x = self.embed(video, keep_ind, generator)
         T = video.shape[1] if video.ndim == 5 else 1
         n_keep = (x.shape[1] - 1) // T
+        sp = token_shard(self.token_partition, x.shape[1])
+        if sp is not None:
+            x = sp.split(x)
         remat = self.remat and torch.is_grad_enabled()
         for blk in self.transformer.resblocks:
             if remat:
-                x = checkpoint(blk, x, T, n_keep, self.use_pallas, use_reentrant=False)
+                x = checkpoint(blk, x, T, n_keep, self.use_pallas, sp, use_reentrant=False)
             else:
-                x = blk(x, T, n_keep, self.use_pallas)
+                x = blk(x, T, n_keep, self.use_pallas, sp)
+        if sp is not None:
+            x = sp.gather(x)
         return self.pool(x)

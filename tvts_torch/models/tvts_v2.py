@@ -17,7 +17,9 @@ tokens. Returns (text_emb [B, D], video_emb [B, D], predict_order
 
 `remat=True` checkpoints every block of both towers (the sort head is not
 rematerialised, as in the JAX package); `use_pallas=True` runs the video
-tower's space attention core on the H9 kernel (forward only).
+tower's space attention core on the H9 kernel (forward only);
+`token_partition` (the JAX spec (("dp", "fsdp"), "sp", None)) splits the
+video tower's tokens over sp (parallel/sequence_parallel.py).
 """
 
 from __future__ import annotations
@@ -31,10 +33,12 @@ from tvts_torch.models.text import TextTransformer
 
 
 class TVTSv2(TextTransformer):
-    def __init__(self, cfg: TVTSv2Config, remat: bool = False, use_pallas: bool = False):
+    def __init__(self, cfg: TVTSv2Config, remat: bool = False, use_pallas: bool = False,
+                 token_partition: tuple | None = None):
         super().__init__(cfg.text, remat=remat)
         self.cfg = cfg
-        self.video_model = SpaceTimeViT(cfg.vision, remat=remat, use_pallas=use_pallas)
+        self.video_model = SpaceTimeViT(cfg.vision, remat=remat, use_pallas=use_pallas,
+                                        token_partition=token_partition)
         self.pred_model = SortTransformer(cfg.sort)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -48,6 +52,10 @@ class TVTSv2(TextTransformer):
         sort head."""
         return [*self.video_model.transformer.resblocks, *self.text_model.resblocks,
                 *self.pred_model.blocks]
+
+    def sp_parameters(self) -> list:
+        """The video tower's parameters whose gradients sum over sp."""
+        return self.video_model.sp_parameters()
 
     def set_compute_dtype(self, dtype: torch.dtype | None) -> None:
         """Activation dtype of both towers (None: the weights' dtype)."""

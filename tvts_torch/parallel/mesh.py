@@ -15,9 +15,12 @@ ranks form a 4-D `DeviceMesh` named ("dp", "fsdp", "sp", "tp"), rank r at
   the sort mean and the gradient reduction run over it
   (parallel/collectives.py, train/step.py), and the loaders read its
   coordinates (`active_mesh`);
-- the tp group: the tp ranks that share this rank's data coordinates;
-  parallel/tensor_parallel.py shards the heads and the MLP's hidden width
-  over it.
+- the tp group: the tp ranks that share this rank's (dp, fsdp, sp)
+  coordinates; parallel/tensor_parallel.py shards the heads and the MLP's
+  hidden width over it;
+- the sp group: the sp ranks that share this rank's (dp, fsdp, tp)
+  coordinates; parallel/sequence_parallel.py splits the video tokens over it
+  (the JAX `token_partition`, tvts_tpu/models/space_time_vit.py:161-170).
 parallel/partition.py shards over the fsdp axis of the ("dp", "fsdp")
 sub-mesh.
 
@@ -27,11 +30,6 @@ script's flags) or from torchrun's environment (RANK, WORLD_SIZE,
 LOCAL_RANK, MASTER_ADDR, MASTER_PORT); with neither, it starts none and the
 collectives of train/step.py are not run. NCCL on the card, gloo on the CPU,
 and never one for the other.
-
-Out of scope for now: `sp > 1` (sequence parallelism over the video
-tokens), the JAX package's own extension on its plain path
-(tvts_tpu/models/space_time_vit.py:161-170); ROADMAP.md item M2d-sp queues
-it. It raises.
 """
 
 from __future__ import annotations
@@ -49,8 +47,8 @@ _active = None  # the mesh create_mesh started and has not closed
 class Mesh:
     """This process's place: rank, world size, its device, the backend of
     the process group it started (None: no group, one process), the fsdp,
-    sp and tp factors and, with a group, the 4-D DeviceMesh and the data and
-    tp groups (module notes)."""
+    sp and tp factors and, with a group, the 4-D DeviceMesh and the data, tp
+    and sp groups (module notes)."""
     rank: int = 0
     world: int = 1
     device: torch.device = dataclasses.field(default_factory=lambda: torch.device("cpu"))
@@ -61,6 +59,7 @@ class Mesh:
     device_mesh: object = None  # torch.distributed.device_mesh.DeviceMesh
     data_group: object = None  # a ProcessGroup; None: the default group
     tp_group: object = None
+    sp_group: object = None
 
     @property
     def distributed(self) -> bool:
@@ -94,7 +93,8 @@ class Mesh:
             _active = None
         if self.distributed and dist.is_initialized():
             dist.destroy_process_group()
-        self.backend, self.device_mesh, self.data_group, self.tp_group = None, None, None, None
+        self.backend, self.device_mesh = None, None
+        self.data_group, self.tp_group, self.sp_group = None, None, None
 
     def __enter__(self) -> "Mesh":
         return self
@@ -115,10 +115,6 @@ def create_mesh(fsdp: int = 1, tp: int = 1, sp: int = 1, coordinator: str | None
     where a coordinator or torchrun's environment names one; dp = world /
     (fsdp * sp * tp). `device`: "cuda" (this process's card: LOCAL_RANK under
     torchrun, else process_id modulo the cards) or "cpu"."""
-    if sp > 1:
-        raise NotImplementedError(
-            "sp > 1 (sequence parallelism) is the JAX package's own extension on its plain "
-            "path; the port has not taken it yet: ROADMAP.md item M2d-sp")
     for name, value in (("fsdp", fsdp), ("tp", tp), ("sp", sp)):
         if value < 1:
             raise ValueError(f"{name} must be >= 1, got {value}")
@@ -161,5 +157,5 @@ def create_mesh(fsdp: int = 1, tp: int = 1, sp: int = 1, coordinator: str | None
     global _active
     _active = Mesh(rank=rank, world=world, device=device, backend=backend, fsdp=fsdp, tp=tp,
                    sp=sp, device_mesh=mesh, data_group=data_group,
-                   tp_group=mesh["tp"].get_group())
+                   tp_group=mesh["tp"].get_group(), sp_group=mesh["sp"].get_group())
     return _active

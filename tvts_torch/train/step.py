@@ -39,6 +39,17 @@ reduction over the default group would sum one rank's heads into another's
 without an error; every reduction here names the data group.
 Without a process group both are the step of one process.
 
+Under sequence parallelism (parallel/sequence_parallel.py: a video tower
+with a `token_partition`, run by the eager forward) each sp rank
+back-propagates through its own tokens only, so the parameters used between
+the token split and the gather (`model.sp_parameters()`: the stem and every
+block) end the backward with a partial gradient: they are also SUM
+all-reduced over the mesh's sp group, one flat buffer a dtype, after the
+data-group reduction (under FSDP2: this rank's shards, which match on the
+ranks of one fsdp coordinate). Every other gradient is whole and the same on
+every sp rank. The kernel paths (`apply_fn`) keep the tokens whole and take
+no sp sum.
+
 A trainable parameter the loss does not reach (the sort head on a batch
 without labels: WebVid) gets a zero gradient before the update, as the JAX
 step's gradient tree holds zeros there, so AdamW still decays its moments
@@ -119,6 +130,11 @@ class TrainStep:
                              "averaged gradients do not give: use make_train_step")
         self.divisor = 1 if world_scale or not self.gather else mesh.data_size
         self.trainable = [p for group in optimizer.param_groups for p in group["params"]]
+        self.sp_group, self.sp_params = None, []
+        if self.gather and apply_fn is None and hasattr(model, "sp_parameters"):
+            chosen = {id(p) for p in model.sp_parameters()}
+            self.sp_params = [p for p in self.trainable if id(p) in chosen]
+            self.sp_group = mesh.sp_group
         self.count = 0
 
     def __call__(self, batch: dict) -> dict:
@@ -132,26 +148,35 @@ class TrainStep:
             if p.grad is None:  # under FSDP a zero of the parameter's shard
                 p.grad = torch.zeros_like(p)
         if self.gather and not self.sharded:
-            self._sum_grads()
+            _sum_grads(self.trainable, self.group, self.divisor)
+        if self.sp_params:
+            _sum_grads(self.sp_params, self.sp_group)
         self.optimizer.step()
         self.count += 1
         return aux
 
-    def _sum_grads(self) -> None:
-        """SUM all-reduce of every gradient over the data group, one flat
-        buffer a dtype, divided by `divisor`."""
-        import torch.distributed as dist
 
-        by_dtype: dict = {}
-        for p in self.trainable:
-            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
-        for grads in by_dtype.values():
-            flat = torch.cat([g.reshape(-1) for g in grads])
-            dist.all_reduce(flat, group=self.group)
-            if self.divisor != 1:
-                flat /= self.divisor
-            torch._foreach_copy_(grads, [part.view_as(g) for part, g in
-                                         zip(flat.split([g.numel() for g in grads]), grads)])
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (FSDP2's gradients), else t."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _sum_grads(params: list, group, divisor: int = 1) -> None:
+    """SUM all-reduce of the gradients of `params` over `group`, one flat
+    buffer a dtype, divided by `divisor`."""
+    import torch.distributed as dist
+
+    by_dtype: dict = {}
+    for p in params:
+        g = _local(p.grad)
+        by_dtype.setdefault(g.dtype, []).append(g)
+    for grads in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=group)
+        if divisor != 1:
+            flat /= divisor
+        torch._foreach_copy_(grads, [part.view_as(g) for part, g in
+                                     zip(flat.split([g.numel() for g in grads]), grads)])
 
 
 def make_train_step(model, optimizer: torch.optim.Optimizer, cfg: OptimizerConfig,

@@ -30,7 +30,10 @@ DistilBERT keys under `text_model.` without their `distilbert.` prefix);
 `inflate_mae_2d_to_3d` is its MAE patch-embed inflation (:173).
 `finetune_state_dict_from_jax` turns the JAX downstream FinetuneViT's tree
 into the port's (tvts_torch/downstream/model.py) state dict, the v1 video
-tower's names at the top level.
+tower's names at the top level; `frozen_state_dict_from_jax` the JAX
+Frozen-style SpaceTimeTransformer's tree into the reference timm names that
+tvts_torch/downstream/video_transformer.py carries (the inverse of the map
+tests/test_frozen_video_transformer.py builds from a reference state dict).
 numpy and torch only: no JAX and no `tvts_tpu` import.
 """
 
@@ -230,6 +233,38 @@ def finetune_state_dict_from_jax(params: Mapping) -> dict[str, np.ndarray]:
     with fc1 / fc2), `fc_norm` and `head` transposed, under no prefix."""
     sd = v1_state_dict_from_jax({"video_model": params})
     return {k[len("video_model."):]: v for k, v in sd.items()}
+
+
+_FROZEN_RENAMES = tuple((re.compile(p), r) for p, r in (
+    (r"^blocks_(\d+)\.", r"blocks.\1."),
+    (r"^patch_embed\.", "patch_embed.proj."),
+    (r"^pre_logits\.", "pre_logits.fc."),
+))
+
+
+def frozen_state_dict_from_jax(params: Mapping) -> dict[str, np.ndarray]:
+    """JAX downstream SpaceTimeTransformer tree (numpy leaves) -> the
+    reference (timm) state dict of float32 arrays: kernels transposed ([in,
+    out] -> [out, in]; the patch conv [p, p, in, out] -> [out, in, p, p]),
+    LayerNorm `scale` -> `weight`, `blocks_{i}` -> `blocks.{i}`, the conv
+    under `patch_embed.proj` and `pre_logits` under `pre_logits.fc`."""
+    out: dict[str, np.ndarray] = {}
+    for path, arr in _flatten(params):
+        arr = np.asarray(arr, dtype=np.float32)
+        leaf = path[-1]
+        if leaf == "kernel":
+            if arr.ndim not in (2, 4):
+                raise ValueError(f"unhandled kernel shape {arr.shape} at {path}")
+            arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
+            name = ".".join(path[:-1]) + ".weight"
+        elif leaf == "scale":
+            name = ".".join(path[:-1]) + ".weight"
+        else:
+            name = ".".join(path)
+        for pattern, repl in _FROZEN_RENAMES:
+            name = pattern.sub(repl, name)
+        out[name] = np.ascontiguousarray(arr)
+    return out
 
 
 def convert_v1_state_dict(sd: Mapping) -> dict:
