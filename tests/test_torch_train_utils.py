@@ -290,29 +290,19 @@ def test_monitor_equals_jax(spec):
 # ---------------------------------------------------------------------------
 # profiling
 # ---------------------------------------------------------------------------
-def test_step_timer_warmup_and_summary():
-    from tvts_torch.utils.profiling import StepTimer
-
-    t = StepTimer(warmup=2, device="cpu")
-    for _ in range(6):
-        t.mark()
-    s = t.summary()
-    # 6 marks = 5 intervals, the first 2 warm up -> 3 recorded
-    assert s["steps"] == 3 and len(t.times) == 3
-    assert s["min_s"] <= s["p50_s"] <= s["max_s"]
-    assert np.isclose(s["steps_per_s"], s["steps"] / sum(t.times))
-    assert StepTimer().summary() == {"steps": 0}
-
-
 def test_trace_writes_a_trace_with_the_annotation(tmp_path):
-    from tvts_torch.utils.profiling import annotate, trace, trace_artifacts
+    from tvts_torch.utils.profiling import SPANS_SUFFIX, annotate, trace, trace_artifacts
 
     log_dir = str(tmp_path / "prof")
     with port_logging.profile_trace(log_dir):
         with annotate("probe-step"):
             (torch.arange(1024.0) ** 2).sum().item()
     arts = trace_artifacts(log_dir)
-    assert len(arts) == 1 and "probe-step" in open(arts[0]).read()
+    # the trace turned the spans on: the annotation is the program's span,
+    # and its records are written beside the chrome trace
+    assert len(arts) == 1 and '"tvts::probe-step"' in open(arts[0]).read()
+    (records,) = trace_artifacts(log_dir, SPANS_SUFFIX)
+    assert json.load(open(records))["spans"]["probe-step"]["calls"] == 1
     with pytest.raises(RuntimeError, match="inside"):
         with trace(str(tmp_path / "p2")):
             raise RuntimeError("a failure inside the window propagates")

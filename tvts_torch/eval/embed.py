@@ -18,6 +18,7 @@ import torch
 from tvts_torch.ops.fused_forward import space_time_vit_fused_forward
 from tvts_torch.ops.text_attention import text_transformer_fused_forward
 from tvts_torch.text.tokenizer import tokenize_openclip
+from tvts_torch.utils.profiling import spanned
 
 log = logging.getLogger(__name__)
 
@@ -51,12 +52,14 @@ def make_embed_fns(model, use_fused: bool = False, **tpu_knobs):
     vcfg = model.video_model.cfg
     fused_video = use_fused and vcfg.ls_init is None and not vcfg.attentional_pool
 
+    @spanned("embed_text")
     @torch.inference_mode()
     def embed_text(ids: torch.Tensor) -> torch.Tensor:
         if use_fused:
             return text_transformer_fused_forward(model, ids)
         return model.compute_text(ids)
 
+    @spanned("embed_video")
     @torch.inference_mode()
     def embed_video(video: torch.Tensor, keep: torch.Tensor | None) -> torch.Tensor:
         if fused_video:

@@ -43,6 +43,7 @@ from tvts_torch.models.layers import LayerNormF32, Mlp, VarAttention, lecun_norm
 from tvts_torch.ops.attention import full_attention, merge_heads, split_heads
 from tvts_torch.ops.masking import gather_tube_tokens
 from tvts_torch.parallel.sequence_parallel import check_partition, token_shard
+from tvts_torch.utils.profiling import spanned
 
 
 class LayerScale(nn.Module):
@@ -228,6 +229,7 @@ class SpaceTimeViT(nn.Module):
         self.ln_post.reset_parameters()
         self.proj.normal_(0.0, scale, generator=generator)
 
+    @spanned("stem")
     def embed(self, video: torch.Tensor, keep_ind: torch.Tensor | None = None,
               generator: torch.Generator | None = None) -> torch.Tensor:
         """The stem: patchify + pos/temporal embed + tube mask + CLS
@@ -252,6 +254,7 @@ class SpaceTimeViT(nn.Module):
             x = self.patch_dropout(x, generator)
         return self.ln_pre(x)
 
+    @spanned("pool")
     def pool(self, x: torch.Tensor, need_tokens: bool = True):
         """(pooled [B, out], tokens or None) from the tower output x [B, S, D].
         With need_tokens=False only row 0 is normalised and projected (exact:

@@ -50,6 +50,7 @@ import torch
 
 from tvts_torch.ops import block_kernels as bk
 from tvts_torch.ops.attention import divided_space_time_attention
+from tvts_torch.utils.profiling import spanned
 
 DTYPES = (torch.bfloat16, torch.float32)
 
@@ -94,6 +95,7 @@ def _cls_fold(t: torch.Tensor, name: str) -> tuple[bool, int]:
                      "pass a contiguous tensor")
 
 
+@spanned("divided_space_time_attention_fused")
 def divided_space_time_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        num_frames: int, patches_per_frame: int,
                                        mode: str) -> torch.Tensor:

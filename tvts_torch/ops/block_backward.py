@@ -94,6 +94,7 @@ import functools
 import torch
 
 from tvts_torch.ops import block_kernels as bk
+from tvts_torch.utils.profiling import describe, spanned
 
 # ---------------------------------------------------------------------------
 # the shared backward chain (CUDA)
@@ -557,6 +558,12 @@ def time_subpath_backward(g, x, saves, ln_w, ln_b, wqkv, wproj, num_frames, num_
     return grads
 
 
+def _geometry(ctx, g) -> dict:
+    """The span geometry of an attention sub-path's backward (utils/profiling)."""
+    T, H = ctx.geometry
+    return describe(g, num_frames=T, num_heads=H)
+
+
 class _TimeSubpath(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_frames, num_heads):
@@ -572,6 +579,7 @@ class _TimeSubpath(torch.autograd.Function):
         return out
 
     @staticmethod
+    @spanned("_TimeSubpath.backward", _geometry)
     def backward(ctx, g):
         T, H = ctx.geometry
         x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, *saves = ctx.saved_tensors
@@ -582,6 +590,7 @@ class _TimeSubpath(torch.autograd.Function):
         return (*grads, None, None)
 
 
+@spanned("time_subpath")
 def time_subpath(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_frames: int,
                  num_heads: int) -> torch.Tensor:
     """H6 (differentiable). x: [B, S, D] -> x + Proj(TimeAttn(LN_3(x)))."""
@@ -697,6 +706,7 @@ class _SpaceSubpath(torch.autograd.Function):
         return out
 
     @staticmethod
+    @spanned("_SpaceSubpath.backward", _geometry)
     def backward(ctx, g):
         T, H = ctx.geometry
         x, base, ln_w, ln_b, wqkv, bqkv, wproj, bproj, *saves = ctx.saved_tensors
@@ -709,6 +719,7 @@ class _SpaceSubpath(torch.autograd.Function):
         return (*grads, None, None)
 
 
+@spanned("space_subpath")
 def space_subpath(x, base, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_frames: int,
                   num_heads: int) -> torch.Tensor:
     """H5 (differentiable). x (time output), base (block input): [B, S, D] ->
@@ -757,6 +768,13 @@ def mlp_subpath_backward(g, x, stats, h, ln_w, ln_b, wfc, bfc, wproj, act="quick
     return dx.view(B, S, D), dln_w, dln_b, dwfc, dbfc, dwproj, dbproj
 
 
+def _mlp_geometry(ctx, g) -> dict:
+    """The span geometry of H8's backward: the hidden width, and whether the
+    forward saved the hidden activation (else the backward recomputes it)."""
+    saved = ctx.saved_tensors
+    return describe(g, act=ctx.act, hidden=saved[3].shape[0], save_hidden=len(saved) > 8)
+
+
 class _MlpSubpath(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ln_w, ln_b, wfc, bfc, wproj, bproj, act, save_hidden):
@@ -772,6 +790,7 @@ class _MlpSubpath(torch.autograd.Function):
         return out
 
     @staticmethod
+    @spanned("_MlpSubpath.backward", _mlp_geometry)
     def backward(ctx, g):
         x, ln_w, ln_b, wfc, bfc, wproj, bproj, *saves = ctx.saved_tensors
         if saves:
@@ -783,6 +802,7 @@ class _MlpSubpath(torch.autograd.Function):
         return (*grads, None, None)
 
 
+@spanned("mlp_subpath", bk.mlp_geometry)
 def mlp_subpath(x, ln_w, ln_b, wfc, bfc, wproj, bproj, act: str = "quick_gelu",
                 save_hidden: bool = False) -> torch.Tensor:
     """H8 (differentiable). x: [B, S, D] -> x + c_proj(act(c_fc(LN_2(x)))).

@@ -78,6 +78,7 @@ import torch
 
 from tvts_torch.models.layers import layer_norm_f32, linear, mlp, var_attention
 from tvts_torch.ops.attention import full_attention, merge_heads, split_heads
+from tvts_torch.utils.profiling import describe, spanned
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -453,6 +454,7 @@ def space_core(qkv, num_frames: int, num_heads: int, with_lse: bool = False):
     return (out, lse) if with_lse else out
 
 
+@spanned("fused_time_block")
 def fused_time_block(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_frames: int,
                      num_heads: int) -> torch.Tensor:
     """H1. x: [B, S, D] -> x + Proj(TimeAttn(LN_3(x))) [B, S, D]."""
@@ -476,6 +478,7 @@ def space_block_plain(x, base, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_frames,
                                 num_frames, N, "space", num_heads)
 
 
+@spanned("fused_space_block")
 def fused_space_block(x, base, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_frames: int,
                       num_heads: int) -> torch.Tensor:
     """H2. x (time output), base (block input): [B, S, D] -> [B, S, D]."""
@@ -526,6 +529,14 @@ def _mlp_sub_path(x, ln_w, ln_b, wfc, bfc, wproj, bproj, act: str, save_hidden: 
     return out, stats, h_pre
 
 
+def mlp_geometry(x, ln_w, ln_b, wfc, bfc, wproj, bproj, act: str = "quick_gelu",
+                 save_hidden: bool = False) -> dict:
+    """The span geometry of an MLP sub-path's call (utils/profiling): its
+    hidden width and flags beside B, S and D."""
+    return describe(x, hidden=wfc.shape[0], act=act, save_hidden=save_hidden)
+
+
+@spanned("fused_mlp_block", mlp_geometry)
 def fused_mlp_block(x, ln_w, ln_b, wfc, bfc, wproj, bproj,
                     act: str = "quick_gelu") -> torch.Tensor:
     """H3. x: [B, S, D] -> x + c_proj(act(c_fc(LN_2(x))))."""
@@ -555,6 +566,7 @@ def space_cls_only_plain(x, basecls, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_f
     return basecls + linear(merge_heads(att), wproj, bproj)
 
 
+@spanned("fused_space_cls_only")
 def fused_space_cls_only(x, basecls, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
                          num_frames: int, num_heads: int) -> torch.Tensor:
     """H4. x (time output) [B, S, D], basecls (block input CLS) [B, 1, D] ->

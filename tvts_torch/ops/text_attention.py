@@ -52,6 +52,7 @@ from tvts_torch.ops import block_backward as bb
 from tvts_torch.ops import block_kernels as bk
 from tvts_torch.ops.attention import merge_heads, split_heads
 from tvts_torch.parallel.partition import whole
+from tvts_torch.utils.profiling import describe, spanned
 
 # csrc/text_attention.cuh and text_attention_bwd.cuh: the longest sequence of
 # the one-block kernels; the TMA + wgmma kernels' tiles (rows a block, rows a
@@ -279,6 +280,7 @@ def _text_sub_path(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads, causal, e
     return (out, qkv, attn, lse, stats) if save else out
 
 
+@spanned("fused_text_attention_block")
 def fused_text_attention_block(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads: int,
                                causal: bool = True, eps: float = 1e-5) -> torch.Tensor:
     """H7 forward. x: [B, S, D] -> x + Proj(Attn(LN(x))) [B, S, D]."""
@@ -321,6 +323,9 @@ class _TextSubpath(torch.autograd.Function):
         return out
 
     @staticmethod
+    @spanned("_TextSubpath.backward",
+             lambda ctx, g: describe(g, num_heads=ctx.config[0], causal=ctx.config[1],
+                                     frozen=ctx.config[3]))
     def backward(ctx, g):
         num_heads, causal, eps, frozen = ctx.config
         x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, *saves = ctx.saved_tensors
@@ -335,6 +340,7 @@ class _TextSubpath(torch.autograd.Function):
         return (*grads, None, None, None, None)
 
 
+@spanned("text_subpath")
 def text_subpath(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads: int,
                  causal: bool = True, eps: float = 1e-5, frozen: bool = False) -> torch.Tensor:
     """H7, differentiable where autograd records (else the inference kernel,
@@ -416,6 +422,7 @@ def _text_block(blk, x, num_heads: int, frozen: bool):
     return x + blk.mlp(blk.ln_2(x))
 
 
+@spanned("sort_transformer_fused_forward")
 def sort_transformer_fused_forward(sort_model, text_tokens: torch.Tensor,
                                    video_tokens: torch.Tensor) -> torch.Tensor:
     """Equivalent to sort_model(text_tokens, video_tokens) for a

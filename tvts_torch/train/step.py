@@ -67,6 +67,7 @@ from tvts_torch.ops.losses import norm_softmax_loss, sort_accuracy, sort_loss
 from tvts_torch.ops.sim import sim_matrix
 from tvts_torch.parallel.collectives import all_gather_embeddings, pmean
 from tvts_torch.train.optim import OptimizerConfig, milestone_scale_fn
+from tvts_torch.utils.profiling import annotate
 
 
 def default_apply(model, batch):
@@ -111,7 +112,9 @@ class TrainStep:
     optax). `count` is the schedule's state: a checkpoint saves it and a
     resume sets it. With `mesh` a started process group, the loss gathered
     over its data group; `world_scale`: the summed gradients are not divided
-    by dp x fsdp (the sharded step, module notes)."""
+    by dp x fsdp (the sharded step, module notes). Its phases are spans
+    (utils/profiling): `train_step` > `forward`, `loss`, `backward`,
+    `grad_sync` (where gradients are summed), `optimizer`."""
 
     def __init__(self, model, optimizer: torch.optim.Optimizer, cfg: OptimizerConfig,
                  temperature: float = 0.05, apply_fn: Callable | None = None, mesh=None,
@@ -138,21 +141,29 @@ class TrainStep:
         self.count = 0
 
     def __call__(self, batch: dict) -> dict:
-        for group in self.optimizer.param_groups:
-            group["lr"] = group["base_lr"] * self.scale(self.count)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss, aux = _losses(self.fwd(self.model, batch), batch, self.temperature, self.gather,
-                            self.group)
-        loss.backward()
-        for p in self.trainable:
-            if p.grad is None:  # under FSDP a zero of the parameter's shard
-                p.grad = torch.zeros_like(p)
-        if self.gather and not self.sharded:
-            _sum_grads(self.trainable, self.group, self.divisor)
-        if self.sp_params:
-            _sum_grads(self.sp_params, self.sp_group)
-        self.optimizer.step()
-        self.count += 1
+        like = batch.get("video")
+        with annotate("train_step", like):
+            for group in self.optimizer.param_groups:
+                group["lr"] = group["base_lr"] * self.scale(self.count)
+            self.optimizer.zero_grad(set_to_none=True)
+            with annotate("forward", like):
+                outputs = self.fwd(self.model, batch)
+            with annotate("loss", like):
+                loss, aux = _losses(outputs, batch, self.temperature, self.gather, self.group)
+            with annotate("backward", like):
+                loss.backward()
+                for p in self.trainable:
+                    if p.grad is None:  # under FSDP a zero of the parameter's shard
+                        p.grad = torch.zeros_like(p)
+            if (self.gather and not self.sharded) or self.sp_params:
+                with annotate("grad_sync", like):
+                    if self.gather and not self.sharded:
+                        _sum_grads(self.trainable, self.group, self.divisor)
+                    if self.sp_params:
+                        _sum_grads(self.sp_params, self.sp_group)
+            with annotate("optimizer", like):
+                self.optimizer.step()
+            self.count += 1
         return aux
 
 

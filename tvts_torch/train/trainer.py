@@ -32,7 +32,8 @@ loader batch -> the numeric arrays of the train step (train/step.py):
   `save_every_steps` steps, and `resume` from one: parameters, optimizer
   state, the LR schedule's step count and the monitor's best;
 - a torch.profiler trace of steps [start, stop) of the first epoch into
-  `profile_dir`.
+  `profile_dir`, with the program's spans on (utils/profiling: the train
+  step's phases and the loader's wait, `tvts::data_wait`).
 """
 
 from __future__ import annotations
@@ -245,7 +246,7 @@ class Trainer:
         return dict(zip(AUX_KEYS, rows[-1]))
 
     def _train_epoch(self, epoch: int) -> dict:
-        from tvts_torch.utils.profiling import trace
+        from tvts_torch.utils.profiling import annotate, trace
 
         for dl in self.data_loaders:
             dl.set_epoch(epoch)
@@ -262,11 +263,12 @@ class Trainer:
                     prof = trace(self.profile_dir)
                     prof.__enter__()
                 for dl_idx in range(len(self.data_loaders)):
-                    try:
-                        batch = next(iters[dl_idx])
-                    except StopIteration:
-                        iters[dl_idx] = self._pipeline(self.data_loaders[dl_idx])
-                        batch = next(iters[dl_idx])
+                    with annotate("data_wait"):
+                        try:
+                            batch = next(iters[dl_idx])
+                        except StopIteration:
+                            iters[dl_idx] = self._pipeline(self.data_loaders[dl_idx])
+                            batch = next(iters[dl_idx])
                     aux = self.train_step(batch)
                     step = self.train_step.count
                     pending.append((dl_idx, step, aux))
