@@ -99,7 +99,10 @@ H/14 gates) with their times):
    core alone at B=64 against its byte bound and one masked
    scaled_dot_product_attention; every ln_gemm product shape of the B/16 extraction
    forward and train step (ms, TFLOP/s, bound, one F.linear on the same
-   operands as library_ms), printed as {"ln_gemm": [...]}; every wgrad
+   operands as library_ms; a LayerNorm product's time includes its row
+   pass), printed as {"ln_gemm": [...]}; the LayerNorm row pass alone at the
+   B/16 (B=48, 64) and H/14 (B=24) extraction shapes against its byte
+   bound, printed as {"ln_rows": [...]}; every wgrad
    product of the B/16 step at B=20 and the H/14 step at B=8 (device ms,
    TFLOP/s, bound, one torch.matmul(a.t(), b) as library_ms, each held
    against wgrad_plain), printed as {"wgrad": [...]}; the backward time core
@@ -806,6 +809,7 @@ def reset_launch_counts(bk, bb, ta) -> None:
 
     for fn in counted(bk, bb, ta):
         fn.launches = 0
+    bk.ln_rows.launches = 0
     ta.text_subpath_backward.frozen_launches = 0
     bb.mlp_subpath.saved_launches = bb.mlp_subpath_backward.saved_launches = 0
     bb.space_core_backward.pair_launches = 0
@@ -1621,6 +1625,32 @@ def ln_gemm_table(dev, card: str, bk) -> list[dict]:
     return rows
 
 
+def ln_rows_table(dev, card: str, bk) -> list[dict]:
+    """The LayerNorm row pass alone at the extraction shapes (B/16 at B=48
+    and B=64, H/14 at B=24): ms (CUDA events), its byte bound (x read once,
+    LN(x) written once in bf16, the statistics and parameters once) and the
+    share of the HBM rate it reaches."""
+    from tvts_torch.models.configs import tvtsv2_b_16, tvtsv2_h_14
+
+    gen = torch.Generator(device=dev).manual_seed(32)
+    rows = []
+    for name, cfg, B in (("B/16", tvtsv2_b_16(), 48), ("B/16", tvtsv2_b_16(), 64),
+                         ("H/14", tvtsv2_h_14(), 24)):
+        v = cfg.vision
+        M, K = B * (1 + v.num_frames * v.patches_per_frame), v.width
+        x = torch.randn(M, K, generator=gen, device=dev, dtype=torch.bfloat16)
+        w = 1 + 0.1 * torch.randn(K, generator=gen, device=dev)
+        b = 0.1 * torch.randn(K, generator=gen, device=dev)
+        ms = cuda_ms(lambda: bk.ln_rows(x, w, b), iters=20)
+        bnd, _ = bound_ms(0, 4 * M * K + 8 * M + 8 * K)
+        rows.append(dict(name=f"{name} B={B}", M=M, K=K, ms=ms, bound_ms=bnd,
+                         hbm_share=bnd / ms))
+        print(f"[6] ln_rows {name} B={B} M={M} K={K}: {ms:.4f} ms, bound {bnd:.4f} ms "
+              f"(bytes), {100 * bnd / ms:.1f}% of the HBM rate [{card}]")
+        del x
+    return rows
+
+
 def device_ms(fn, iters: int = 10) -> float:
     """Device time of fn's CUDA kernels per call (torch.profiler), after a
     warm-up: the host's launch overhead, which CUDA events around a short
@@ -2307,11 +2337,18 @@ def extraction_phase(tag: str, arch: str, dev, bk, bb, ta, n_clips: int, batch_s
     reset_launch_counts(bk, bb, ta)
     fused = extract_embeddings(model, loader, use_fused=True)["video"]
     launches = launch_counts(bk, bb, ta)
-    per_forward = dict(zip(bk.launch_counts(), (v.layers, v.layers - 1, v.layers - 1, 1)))
+    per_forward = dict(zip([fn.__name__ for fn in bk.KERNELS],
+                           (v.layers, v.layers - 1, v.layers - 1, 1)))
     print(f"[{tag}] launches over {n_forwards} forwards: "
-          f"{ {k: n for k, n in launches.items() if n} }")
+          f"{ {k: n for k, n in launches.items() if n} }, LayerNorm row passes "
+          f"{bk.ln_rows.launches}")
     expect_launches(f"{cfg.name} extraction", launches,
                     {name: n * n_forwards for name, n in per_forward.items()})
+    # one row pass a LayerNorm product: H1, H2 and H3 each have one, H4 none
+    rows = 3 * v.layers - 2
+    if bk.ln_rows.launches != rows * n_forwards:
+        raise AssertionError(f"{cfg.name} extraction: {bk.ln_rows.launches} LayerNorm row "
+                             f"passes, expected {rows} a forward")
     eager = extract_embeddings(model, loader, use_fused=False)["video"]
     with no_tf32():
         eager32 = extract_embeddings(model32, loader, use_fused=False)["video"]
@@ -2712,6 +2749,7 @@ def profile_phase(dev, card: str, bk, bb, ta) -> None:
     extraction_rate("6", cfg, model, 64, dev, card, iters=5)
     del model
     print(json.dumps({"ln_gemm": ln_gemm_table(dev, card, bk)}))
+    print(json.dumps({"ln_rows": ln_rows_table(dev, card, bk)}))
     print(json.dumps({"wgrad": wgrad_table(dev, card, bb)[0]}))
     time_core_bwd_times(dev, card, bb)
     space_core_bwd_times(dev, card, bb)
@@ -5252,6 +5290,7 @@ def main() -> int:
           f"{resident:.2f} clips/s device-resident (phase 6, B={B}) [{card}]")
     expect_profiles(forward_profile(cfg, model, B, dev, card, bk))
     ln_gemm_rows = ln_gemm_table(dev, card, bk)
+    ln_rows_rows = ln_rows_table(dev, card, bk)
     times = block_times(bk, v, B, dev, card)
     core_ms, core_bound, core_library = space_core_times(dev, card, bk, cfg, B)
     core = {"B": B, "ms": core_ms, "bound_ms": core_bound[0], "bound_by": core_bound[1],
@@ -5340,6 +5379,7 @@ def main() -> int:
     print(f"torch.profiler: not measured or by CUDA events in this run: {UNPROFILED}")
     print(card)
     print(json.dumps({"ln_gemm": ln_gemm_rows}))
+    print(json.dumps({"ln_rows": ln_rows_rows}))
     print(json.dumps({"wgrad": wgrad_rows}))
     print(json.dumps({"space_core": core}))
     # library_ms: no single PyTorch call computes a whole sub-path (LayerNorm,

@@ -243,7 +243,10 @@ def test_wrappers_on_cpu_run_plain_and_count_no_launch():
     x, base, *w = _torch(a, "x", "base", *ATTN, linear=("wqkv", "wproj"))
     out = bk.fused_space_block(x, base, *w, num_frames=T, num_heads=H)
     torch.testing.assert_close(out, bk.space_block_plain(x, base, *w, T, H), rtol=0, atol=0)
-    assert bk.launch_counts() == {fn.__name__: 0 for fn in bk.KERNELS}
+    y, stats = bk.ln_rows(x[0], w[0], w[1])
+    assert y.dtype == x.dtype and stats.shape == (x.shape[1], 2)
+    assert bk.launch_counts() == {fn.__name__: 0 for fn in bk.COUNTED}
+    assert "ln_rows" in bk.launch_counts()
 
 
 def test_wrappers_reject_bad_geometry_and_devices():
@@ -334,3 +337,74 @@ def test_ln_gemm_wrapper_checks_the_plan_before_any_launch():
     w = torch.zeros(64, 96, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="K = 96"):
         bk._ln_gemm(None, x, 4, 96, None, w, None, torch.empty(4, 64, dtype=torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# the LayerNorm row pass: its plain version and the checks before a launch
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("K", [512, 768, 1024, 1280])
+@pytest.mark.parametrize("eps", [1e-5, 1e-6])
+def test_ln_rows_plain_matches_layer_norm(K, eps):
+    rng = np.random.default_rng(K)
+    x = torch.from_numpy((0.5 + 2.0 * rng.standard_normal((37, K))).astype(np.float32))
+    w = torch.from_numpy((1.0 + 0.1 * rng.standard_normal(K)).astype(np.float32))
+    b = torch.from_numpy((0.1 * rng.standard_normal(K)).astype(np.float32))
+    y, stats = bk.ln_rows_plain(x, w, b, eps)
+    torch.testing.assert_close(y, torch.nn.functional.layer_norm(x, (K,), w, b, eps),
+                               atol=1e-5, rtol=1e-5)
+    var, mean = torch.var_mean(x.double(), -1, unbiased=False)
+    torch.testing.assert_close(stats[:, 0].double(), mean, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(stats[:, 1].double(), torch.rsqrt(var + eps), atol=0, rtol=1e-5)
+    # the wrapper runs the plain version on a CPU tensor, bf16 rows included
+    xb = x.to(torch.bfloat16)
+    got, got_stats = bk.ln_rows(xb, w, b, eps)
+    want, want_stats = bk.ln_rows_plain(xb, w, b, eps)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want) and torch.equal(got_stats, want_stats)
+
+
+def test_ln_rows_plan_raises_naming_the_argument():
+    bk.ln_rows_plan(1, 8, 8)
+    bk.ln_rows_plan(150592, 768, 2304, {"x": 0x7F0000000000})
+    bk.ln_rows_plan(7, bk.LN_ROWS_MAX_K, bk.LN_ROWS_MAX_K)
+    with pytest.raises(ValueError, match="M = 0"):
+        bk.ln_rows_plan(0, 768, 768)
+    for K in (4, 100, bk.LN_ROWS_MAX_K + 64):
+        with pytest.raises(ValueError, match=f"K = {K}"):
+            bk.ln_rows_plan(8, K, K + 8)
+    with pytest.raises(ValueError, match="lda = 772"):  # 1544 bytes
+        bk.ln_rows_plan(8, 768, 772)
+    with pytest.raises(ValueError, match="lda = 512"):
+        bk.ln_rows_plan(8, 768, 512)
+    with pytest.raises(ValueError, match="ln_w at 0x1004"):
+        bk.ln_rows_plan(8, 768, 768, {"ln_w": 0x1004})
+
+
+@pytest.mark.parametrize("arch", ["tvtsv2_b_32", "tvtsv2_b_16", "tvtsv2_h_14"])
+def test_ln_rows_plan_accepts_every_layer_norm_product_the_port_issues(arch):
+    from tvts_torch.models import configs
+
+    cfg = getattr(configs, arch)()
+    widths = {cfg.vision.width, cfg.text.width, cfg.sort.embed_dim}
+    ln_products = [(M, K, lda) for M, N, K, lda, *_ in _port_products(cfg)
+                   if N in (3 * K, 4 * K) and K in widths]  # qkv and c_fc follow a LayerNorm
+    assert len(ln_products) > 20
+    for M, K, lda in ln_products:
+        bk.ln_rows_plan(M, K, lda, {"x": 0x7F0000000000})
+
+
+def test_ln_gemm_wrapper_checks_the_row_pass_before_any_launch():
+    # no library is loaded or called: the row pass's plan refuses first
+    bf = torch.bfloat16
+    K = bk.LN_ROWS_MAX_K + 64  # a depth the product takes and the row pass does not
+    x, w = torch.zeros(4, K, dtype=bf), torch.zeros(64, K, dtype=bf)
+    ln = (torch.ones(K), torch.zeros(K))
+    with pytest.raises(ValueError, match=f"K = {K}"):
+        bk._ln_gemm(None, x, 4, K, ln, w, None, torch.empty(4, 64, dtype=bf))
+    x, w = torch.zeros(4, 768, dtype=bf), torch.zeros(64, 768, dtype=bf)
+    ln_w = torch.ones(769)[1:]  # 4 bytes off
+    assert ln_w.data_ptr() % 16
+    with pytest.raises(ValueError, match="ln_w at .* not 16-byte aligned"):
+        bk._ln_gemm(None, x, 4, 768, (ln_w, torch.zeros(768)), w, None,
+                    torch.empty(4, 64, dtype=bf))
+    assert bk.ln_rows.launches == 0

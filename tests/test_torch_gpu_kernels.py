@@ -612,6 +612,71 @@ def test_ln_gemm_raises_before_launch_on_what_it_does_not_take(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the LayerNorm row pass on its own, against plain, and inside ln_gemm
+# ---------------------------------------------------------------------------
+def _ulp_excess(got, want, terms):
+    """The largest |got - want| over its allowance (<= 1: within it): each
+    bf16 value within one bf16 ulp (2^-7 of the larger magnitude's
+    binade) of the other, plus 2^-18 of the magnitude of the terms it sums
+    (|(x - mean) rstd w| + |b|): where those terms cancel, the two sides' f32
+    arithmetic (sums in another order, rsqrtf's approximation) moves the result
+    by more than its own ulp, though by far less than the terms' bf16 ulp."""
+    g, w = got.float(), want.float()
+    big = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    return float(((g - w).abs() / (ulp + 2 ** -18 * terms)).max())
+
+
+@pytest.mark.parametrize("K", [512, 768, 1024, 1280])
+@pytest.mark.parametrize("M, lda_extra", [(1, 0), (37, 0), (1000, 8), (4099, "3K")])
+@pytest.mark.parametrize("eps", [1e-5, 1e-6])
+def test_ln_rows_matches_plain(cuda, K, M, lda_extra, eps):
+    lda = 3 * K if lda_extra == "3K" else K + lda_extra  # strided: e.g. one third of qkv rows
+    o = _gemm_operands(M, 256, K, lda, 46, cuda, ln_eps=eps)
+    x = o["x"][:, :K]
+    before = bk.ln_rows.launches
+    y, stats = bk.ln_rows(x, *o["ln"], eps)
+    torch.cuda.synchronize()
+    assert bk.ln_rows.launches == before + 1
+    want, want_stats = bk.ln_rows_plain(x, *o["ln"], eps)
+    assert y.shape == (M, K) and y.is_contiguous() and y.dtype == torch.bfloat16
+    ln_w, ln_b = o["ln"]
+    terms = ((x.float() - want_stats[:, :1]) * want_stats[:, 1:] * ln_w).abs() + ln_b.abs()
+    excess = _ulp_excess(y, want, terms)
+    assert excess <= 1, excess
+    torch.testing.assert_close(stats, want_stats, rtol=1e-5, atol=1e-6)
+    # the row pass inside a LayerNorm product is the same pass: its statistics
+    # and the product of its rows are bit for bit those of the pass alone
+    out, out_ln = (torch.empty(M, 256, device=cuda, dtype=torch.bfloat16) for _ in range(2))
+    bk._ln_gemm(bk.library(), y, M, K, None, o["w"], o["b"], out)
+    got_stats = bk._ln_gemm(bk.library(), o["x"], M, lda, o["ln"], o["w"], o["b"], out_ln,
+                            eps=eps)
+    torch.cuda.synchronize()
+    assert bk.ln_rows.launches == before + 2
+    assert torch.equal(got_stats, stats) and torch.equal(out_ln, out)
+
+
+def test_ln_rows_counts_one_pass_a_layer_norm_product_in_a_b16_forward(cuda):
+    """One B/16 extraction forward: H1 12, H2 11, H3 11 (each one LayerNorm
+    product), H4 none: 34 row passes."""
+    from tvts_torch.eval.embed import make_embed_fns
+    from tvts_torch.models.factory import build_model
+
+    cfg, model = build_model("TVTSv2_B_16", dtype=torch.bfloat16, device=cuda, seed=0)
+    v = cfg.vision
+    _, embed_video = make_embed_fns(model, use_fused=True)
+    video = torch.randn(1, v.num_frames, 3, v.input_resolution, v.input_resolution, device=cuda)
+    keep = torch.arange(v.patches_per_frame, device=cuda)[None]
+    bk.reset_launch_counts()
+    out = embed_video(video, keep)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert bk.launch_counts() == {"fused_time_block": 12, "fused_space_block": 11,
+                                  "fused_mlp_block": 11, "fused_space_cls_only": 1,
+                                  "ln_rows": 34}
+
+
+# ---------------------------------------------------------------------------
 # the time core on its own (packed with lse; strided), against plain
 # ---------------------------------------------------------------------------
 def _time_plain(qkv, T, N, H, d):

@@ -164,19 +164,21 @@ extern "C" {
 const char* tvts_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // Y[M, N] = epilogue(LN?(X[M, K]) @ W[N, K]^T + bias), see ln_gemm.cuh.
-// ln_w == NULL: no LayerNorm. bias/res may be NULL. stats: f32 scratch [M, 2]
-// (the LayerNorm row statistics, kept by the training forward). Yf != NULL:
-// f32 output there instead of Y. epi (ln_gemm.cuh's Epilogue): 1 also writes
-// the pre-activation product to Y2 (bf16); 2 / 3 read the hidden Hin (bf16 /
-// f32) and write product * act'(Hin) to Y and act(Hin) to Y2; Y2 and Hin are
-// [M, N] at stride ldy.
+// ln_w == NULL: no LayerNorm. Else the row pass first writes LN(X) to Xn
+// (bf16 scratch [M, K]) and the LayerNorm row statistics to stats (f32 [M, 2],
+// kept by the training forward), and the product reads Xn. bias/res may be
+// NULL. Yf != NULL: f32 output there instead of Y. epi (ln_gemm.cuh's
+// Epilogue): 1 also writes the pre-activation product to Y2 (bf16); 2 / 3 read
+// the hidden Hin (bf16 / f32) and write product * act'(Hin) to Y and act(Hin)
+// to Y2; Y2 and Hin are [M, N] at stride ldy.
 int tvts_ln_gemm(const void* X, i64 lda, const void* ln_w, const void* ln_b, float eps,
-                 void* stats, const void* W, const void* bias, const void* res, i64 ldres,
-                 void* Y, void* Yf, i64 ldy, int M, int N, int K, int act, void* Y2,
+                 void* stats, void* Xn, const void* W, const void* bias, const void* res,
+                 i64 ldres, void* Y, void* Yf, i64 ldy, int M, int N, int K, int act, void* Y2,
                  const void* Hin, int epi, void* stream) {
-  // what block_kernels.py::gemm_plan checks, again: K a multiple of the k step,
-  // 16-byte aligned operands and row strides (TMA's and the epilogue's rules)
-  const void* ptrs[] = {X, W, bias, res, Y, Yf, Y2, Hin};
+  // what block_kernels.py::gemm_plan and ln_rows_plan check, again: K a
+  // multiple of the k step, 16-byte aligned operands and row strides (TMA's,
+  // the row pass's and the epilogue's rules)
+  const void* ptrs[] = {X, W, bias, res, Y, Yf, Y2, Hin, ln_w, ln_b, Xn};
   for (const void* ptr : ptrs)
     if ((uintptr_t)ptr % 16) return (int)cudaErrorInvalidValue;
   if (K % tvts::GEMM_BK != 0 || N % 8 != 0 || lda % 8 != 0 || ldy % (Yf ? 4 : 8) != 0 ||
@@ -188,9 +190,6 @@ int tvts_ln_gemm(const void* X, i64 lda, const void* ln_w, const void* ln_b, flo
   tvts::GemmArgs a;
   a.X = (const bf16*)X;
   a.lda = lda;
-  a.stats = nullptr;
-  a.ln_w = (const float*)ln_w;
-  a.ln_b = (const float*)ln_b;
   a.W = (const bf16*)W;
   a.bias = (const bf16*)bias;
   a.res = (const bf16*)res;
@@ -204,7 +203,21 @@ int tvts_ln_gemm(const void* X, i64 lda, const void* ln_w, const void* ln_b, flo
   a.act = act;
   a.Y2 = (bf16*)Y2;
   a.Hin = Hin;
-  return (int)tvts::launch_ln_gemm(a, eps, (float2*)stats, epi, (cudaStream_t)stream);
+  const tvts::LnRowsArgs ln = {(const bf16*)X, lda, M, K, (const float*)ln_w, (const float*)ln_b,
+                               eps, (float2*)stats, (bf16*)Xn};
+  return (int)tvts::launch_ln_gemm(a, ln_w ? &ln : nullptr, epi, (cudaStream_t)stream);
+}
+
+// The LayerNorm row pass alone (ln_gemm.cuh): Y [M, K] bf16 (contiguous) =
+// LN(X [M, K] at row stride lda) and its row statistics into stats [M, 2] f32.
+int tvts_ln_rows(const void* X, i64 lda, int M, int K, const void* ln_w, const void* ln_b,
+                 float eps, void* stats, void* Y, void* stream) {
+  const void* ptrs[] = {X, ln_w, ln_b, Y};
+  for (const void* ptr : ptrs)
+    if (!ptr || (uintptr_t)ptr % 16) return (int)cudaErrorInvalidValue;
+  const tvts::LnRowsArgs a = {(const bf16*)X, lda, M, K, (const float*)ln_w, (const float*)ln_b,
+                              eps, (float2*)stats, (bf16*)Y};
+  return (int)tvts::launch_ln_rows(a, (cudaStream_t)stream);
 }
 
 // Time attention of the patch rows of out [B, S, H*dh] from qkv [B, S, 3*H*dh];

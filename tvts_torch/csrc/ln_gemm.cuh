@@ -1,19 +1,18 @@
-// ln_gemm: Y = epilogue(prologue(X) @ W^T + b), the building block that carries
-// every matrix product of the sub-path kernels H1-H8 and the H7 forward (qkv,
-// proj, c_fc, c_proj, the backwards' dx products). It replaces the products
-// inside tvts_tpu/ops/pallas_block_attention.py's fused_*_block kernels
-// (MXU dots on VMEM-resident weights there).
+// ln_gemm: Y = epilogue(A @ W^T + b), the building block that carries every
+// matrix product of the sub-path kernels H1-H8 and the H7 forward (qkv, proj,
+// c_fc, c_proj, the backwards' dx products), and before a LayerNorm product
+// the row pass that writes its A = LN(x). Together they replace the products
+// inside tvts_tpu/ops/pallas_block_attention.py's fused_*_block kernels (MXU
+// dots on VMEM-resident weights there) and those kernels' LayerNorm prologues
+// (LN_3 / LN_1 / LN_2 of the VMEM-resident x, rounded to bf16 before the dot).
 //
-// X [M, K] bf16 (row stride lda), W [N, K] bf16 (the nn.Linear layout, so both
+// A [M, K] bf16 (row stride lda), W [N, K] bf16 (the nn.Linear layout, so both
 // operands are K-major, the layout wgmma reads from shared memory), f32
-// accumulation. Prologue: optional LayerNorm, its f32 row statistics from
-// row_stats_kernel, applied to the A tile in shared memory and rounded to
-// bf16 before the product (the JAX kernels also round LN(x) to bf16).
-// Epilogue: bias, activation (none / quick_gelu / exact erf gelu), residual
-// add from a separate `res` tensor, bf16 store (or an f32 store to `Yf`, which
-// the training backward uses for dL/dLN(x) = dqkv @ Wqkv ahead of the LayerNorm
-// backward; it passes the transposed weight, so the product is the
-// untransposed-weight one, dY @ W).
+// accumulation. Epilogue: bias, activation (none / quick_gelu / exact erf
+// gelu), residual add from a separate `res` tensor, bf16 store (or an f32
+// store to `Yf`, which the training backward uses for dL/dLN(x) = dqkv @ Wqkv
+// ahead of the LayerNorm backward; it passes the transposed weight, so the
+// product is the untransposed-weight one, dY @ W).
 //
 // Two more epilogues serve the differentiable MLP sub-path (H8), chosen by the
 // EPI template parameter so that the inference kernels' code does not change:
@@ -27,8 +26,25 @@
 //   arithmetic of _act_and_grad, pallas_block_attention.py:945-953, with erff
 //   for the exact gelu).
 //
-// Bound on the H100: the tensor cores for every product the port issues
-// (K = 512..5120 at M in the tens of thousands: 2MNK flops against
+// The LayerNorm row pass (ln_rows_kernel), bound by its bytes: x read once,
+// LN(x) written once in bf16 (2MK + 2MK + 8M bytes: 0.104 ms at the B/16
+// extraction's M = 112,944, K = 768). One warp a row holds the row in
+// registers (lane l the 16-byte chunks at columns 8l + 256i), so x leaves
+// device memory once; f32 two-pass statistics (mean, then mean of squared
+// deviations, rsqrtf(v + eps)) go to `stats`, which the training backward
+// reads, and bf16((x - mean) * rstd * w + b) to a contiguous [M, K] buffer.
+// The product then reads that buffer as an ordinary A operand.
+// Why the LayerNorm is not in the product: applied there, it rewrote each
+// stage's A tile in the shared-memory ring between the wgmmas (a 16-byte load
+// and store a thread, a proxy fence and a named barrier a stage) and did so
+// once for every 256-column tile, so that each row of x was normalised
+// N / 256 times (9 and 12 times for B/16's qkv and c_fc, 15 and 20 at H/14).
+// Those products ran at 328-367 TFLOP/s against 454-654 for the plain
+// mainloop (B/16 shapes at M = 150,592, chip_smoke.py phase 6) and took 49% /
+// 58% of the B/16 / H/14 extraction's device time (PERF.md).
+//
+// The product, bound on the H100 by the tensor cores for every product the
+// port issues (K = 512..5120 at M in the tens of thousands: 2MNK flops against
 // 2(MK + NK + MN) bytes is far above the card's 295 flops a byte). Design, for
 // sm_90a only: a 128 x 256 output tile per block, K in steps of 64 (one
 // 128-byte swizzle atom of bf16). One producer warp keeps TMA loads
@@ -36,18 +52,13 @@
 // edges) in flight into a ring of GEMM_STAGES stages against full / empty
 // mbarriers; two consumer warpgroups, 64 rows each, run wgmma.mma_async
 // m64n256k16 with f32 accumulators in registers, A and W both read from the
-// ring by descriptor. The LayerNorm prologue rewrites a warpgroup's A rows of
-// the next stage in place, (x - mean) * rstd * w + b in f32 rounded to bf16,
-// while the wgmmas of the current stage run (a register-A form with the
-// fragments made in registers held 144 registers across the wgmmas; ptxas
-// serialised them and spilled at the 168 registers a 9-warp block allows),
-// so that the LayerNorm's cost hides under the tensor cores'. The epilogue
-// writes the f32 accumulators (m64nN: per 8 columns, rows g and g + 8 of each
-// warp's 16, columns 2t..2t+1) into the drained ring and applies bias,
-// activation and residual there row-major, every global load and store a
-// 16-byte vector with the loads of a batch of rows ahead of its stores:
-// straight from the fragments, 4-byte accesses and each store holding back
-// the next load cost 2-3x at the B/16 shapes (PERF.md).
+// ring by descriptor. The epilogue writes the f32 accumulators (m64nN: per 8
+// columns, rows g and g + 8 of each warp's 16, columns 2t..2t+1) into the
+// drained ring and applies bias, activation and residual there row-major,
+// every global load and store a 16-byte vector with the loads of a batch of
+// rows ahead of its stores: straight from the fragments, 4-byte accesses and
+// each store holding back the next load cost 2-3x at the B/16 shapes
+// (PERF.md).
 // Not yet: a persistent tile scheduler, clusters with TMA multicast, fp8.
 #pragma once
 
@@ -78,46 +89,121 @@ static_assert(2 * 64 * EPI_LD * 4 <= GEMM_STAGES * GEMM_STAGE_BYTES, "epilogue s
 static_assert(GEMM_BK == 64, "tile_map's boxes are one 128-byte swizzle row wide");
 
 #ifndef TVTS_GEMM_PART  // the units of ln_gemm.cu hold one product kernel each
-// One warp per row, two passes in f32 (mean, then mean of squared deviations),
-// as LayerNormF32 computes them. Requires K % 8 == 0 and 16-byte aligned rows.
-__global__ void row_stats_kernel(const bf16* __restrict__ X, i64 lda, int M, int K,
-                                 float eps, float2* __restrict__ stats) {
+// The LayerNorm row pass (notes above). A lane holds LN_ROWS_CHUNKS 16-byte
+// chunks, so K <= 8 * 32 * LN_ROWS_CHUNKS; K % 8 == 0, 16-byte aligned rows,
+// ln_w and ln_b. The sums run in the order of the first two-pass statistics
+// kernel (a lane's chunks in column order, then the warp's butterfly), and
+// the products and the eps add are written as _rn intrinsics, which are never
+// fused, in the fmas and roundings that kernel and the in-ring prologue
+// compiled to; so the statistics and the bf16 rows are bit for bit theirs.
+// Left to the compiler, v / K + eps fused into one fma here (the first
+// kernel added eps after a branch) and rstd differed in its last bit on some
+// rows.
+constexpr int LN_ROWS_CHUNKS = 20;  // K <= 5120
+constexpr int LN_ROWS_THREADS = 256;  // 8 rows a block
+
+struct LnRowsArgs {
+  const bf16* X;
+  i64 lda;
+  int M, K;
+  const float* ln_w;
+  const float* ln_b;
+  float eps;
+  float2* stats;  // [M] (mean, rstd)
+  bf16* Y;        // [M, K] contiguous
+};
+
+template <int C>
+__global__ void __launch_bounds__(LN_ROWS_THREADS) ln_rows_kernel(const LnRowsArgs a) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (row >= M) return;
-  const bf16* x = X + (i64)row * lda;
-  float s = 0.f;
-  for (int k = lane * 8; k < K; k += 256) {
-    uint4 u = *reinterpret_cast<const uint4*>(x + k);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  if (row >= a.M) return;
+  const bf16* x = a.X + (i64)row * a.lda;
+  uint4 u[C];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
+  for (int i = 0; i < C; ++i) {
+    const int k = lane * 8 + 256 * i;
+    u[i] = k < a.K ? *reinterpret_cast<const uint4*>(x + k) : make_uint4(0, 0, 0, 0);
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    if (lane * 8 + 256 * i >= a.K) continue;
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u[i]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float2 f = __bfloat1622float2(h[j]);
       s += f.x + f.y;
     }
   }
-  const float mean = warp_sum(s) / K;
+  const float mean = warp_sum(s) / a.K;
   float v = 0.f;
-  for (int k = lane * 8; k < K; k += 256) {
-    uint4 u = *reinterpret_cast<const uint4*>(x + k);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      v += (f.x - mean) * (f.x - mean) + (f.y - mean) * (f.y - mean);
+  for (int i = 0; i < C; ++i) {
+    if (lane * 8 + 256 * i >= a.K) continue;
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u[i]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float2 f = __bfloat1622float2(h[j]);
+      const float dx = __fsub_rn(f.x, mean), dy = __fsub_rn(f.y, mean);
+      v = __fadd_rn(v, __fmaf_rn(dx, dx, __fmul_rn(dy, dy)));
     }
   }
-  v = warp_sum(v) / K;
-  if (lane == 0) stats[row] = make_float2(mean, rsqrtf(v + eps));
+  v = warp_sum(v) / a.K;
+  const float rstd = rsqrtf(__fadd_rn(v, a.eps));
+  if (lane == 0) a.stats[row] = make_float2(mean, rstd);
+  bf16* y = a.Y + (i64)row * a.K;
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    const int k = lane * 8 + 256 * i;
+    if (k >= a.K) continue;
+    const float4 w0 = __ldg(reinterpret_cast<const float4*>(a.ln_w + k));
+    const float4 w1 = __ldg(reinterpret_cast<const float4*>(a.ln_w + k + 4));
+    const float4 b0 = __ldg(reinterpret_cast<const float4*>(a.ln_b + k));
+    const float4 b1 = __ldg(reinterpret_cast<const float4*>(a.ln_b + k + 4));
+    const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    float f[8];
+    unpack_bf16x8(u[i], f);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      f[e] = __fmaf_rn(__fmul_rn(__fsub_rn(f[e], mean), rstd), w[e], b[e]);
+    *reinterpret_cast<uint4*>(y + k) = pack_bf16x8(f);
+  }
+}
+
+template <int C>
+cudaError_t launch_ln_rows_at(const LnRowsArgs& a, cudaStream_t stream) {
+  const int rows_a_block = LN_ROWS_THREADS / 32;
+  ln_rows_kernel<C><<<(a.M + rows_a_block - 1) / rows_a_block, LN_ROWS_THREADS, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The row pass with the fewest registers that hold a row: a lane's chunks
+// exactly up to K = 2048, then in steps.
+inline cudaError_t launch_ln_rows(const LnRowsArgs& a, cudaStream_t stream) {
+  if (a.M < 1 || a.K < 8 || a.K % 8 || a.K > 256 * LN_ROWS_CHUNKS || a.lda < a.K ||
+      a.lda % 8 || !a.ln_w || !a.ln_b || !a.stats || !a.Y)
+    return cudaErrorInvalidValue;
+  switch ((a.K + 255) / 256) {
+    case 1: return launch_ln_rows_at<1>(a, stream);
+    case 2: return launch_ln_rows_at<2>(a, stream);
+    case 3: return launch_ln_rows_at<3>(a, stream);
+    case 4: return launch_ln_rows_at<4>(a, stream);
+    case 5: return launch_ln_rows_at<5>(a, stream);
+    case 6: return launch_ln_rows_at<6>(a, stream);
+    case 7: return launch_ln_rows_at<7>(a, stream);
+    case 8: return launch_ln_rows_at<8>(a, stream);
+    case 9: case 10: case 11: case 12: return launch_ln_rows_at<12>(a, stream);
+    case 13: case 14: case 15: case 16: return launch_ln_rows_at<16>(a, stream);
+    default: return launch_ln_rows_at<LN_ROWS_CHUNKS>(a, stream);
+  }
 }
 #endif
 
 struct GemmArgs {
   const bf16* X;
   i64 lda;
-  const float2* stats;  // null: no LayerNorm prologue
-  const float* ln_w;
-  const float* ln_b;
   const bf16* W;     // [N, K]
   const bf16* bias;  // [N] or null
   const bf16* res;   // residual rows (stride ldres) or null
@@ -154,10 +240,10 @@ __device__ __forceinline__ void act_and_grad(float h, int act, float& a, float& 
   }
 }
 
-// LN, F32_OUT and EPI are template parameters, not runtime branches: a runtime
+// F32_OUT and EPI are template parameters, not runtime branches: a runtime
 // test in the epilogue cost the bf16 kernel 4-6% (one A/B call on the H100,
-// PERF.md), and the prologue decides between two mainloops.
-template <bool LN, bool F32_OUT, int EPI>
+// PERF.md).
+template <bool F32_OUT, int EPI>
 __global__ void __launch_bounds__(GEMM_THREADS, 1)
     ln_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
                    const __grid_constant__ CUtensorMap tmW, const GemmArgs a) {
@@ -201,44 +287,9 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
 #pragma unroll
   for (int i = 0; i < 128; ++i) acc[i] = 0.f;
 
-  // The LayerNorm prologue rewrites this warpgroup's 64 A rows of a stage in
-  // place, x -> bf16((x - mean) * rstd * w + b), before its wgmmas read them;
-  // thread wt owns the 16-byte chunk wt % 8 of rows wt / 8 + 16 j (j < 4). The
-  // 128-byte swizzle keeps logical chunk c of row r at chunk c ^ (r % 8), and
-  // r % 8 is the same for all four rows, so each thread needs the LayerNorm
-  // weights of one 8-column chunk a stage.
-  auto normalize = [&](int kt) {
-    const int s = kt % GEMM_STAGES;
-    mbar_wait(full + 8 * s, (kt / GEMM_STAGES) & 1);
-    uint8_t* rows = ring_ptr + s * GEMM_STAGE_BYTES + wg * 64 * 128;
-    const int r0 = wt >> 3, chunk = wt & 7;
-    const int k = kt * GEMM_BK + 8 * (chunk ^ (r0 & 7));
-    const float4 w0 = __ldg(reinterpret_cast<const float4*>(a.ln_w + k));
-    const float4 w1 = __ldg(reinterpret_cast<const float4*>(a.ln_w + k + 4));
-    const float4 b0 = __ldg(reinterpret_cast<const float4*>(a.ln_b + k));
-    const float4 b1 = __ldg(reinterpret_cast<const float4*>(a.ln_b + k + 4));
-    const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = m0 + 64 * wg + r0 + 16 * j;
-      const float2 st = row < a.M ? __ldg(a.stats + row) : make_float2(0.f, 1.f);
-      uint4* p = reinterpret_cast<uint4*>(rows + (r0 + 16 * j) * 128 + chunk * 16);
-      float x[8];
-      unpack_bf16x8(*p, x);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) x[e] = (x[e] - st.x) * st.y * w[e] + b[e];
-      *p = pack_bf16x8(x);
-    }
-    // the rewritten rows, written by the generic proxy, are read by wgmma
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    named_sync(2 + wg, 128);
-  };
-
-  if constexpr (LN) normalize(0);
   for (int kt = 0; kt < KT; ++kt) {
     const int s = kt % GEMM_STAGES;
-    if constexpr (!LN) mbar_wait(full + 8 * s, (kt / GEMM_STAGES) & 1);
+    mbar_wait(full + 8 * s, (kt / GEMM_STAGES) & 1);
     const uint32_t tile = ring + s * GEMM_STAGE_BYTES;
     const uint64_t dA = sw128_desc(tile + wg * 64 * 128);
     const uint64_t dW = sw128_desc(tile + GEMM_A_BYTES);
@@ -246,9 +297,6 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
 #pragma unroll
     for (int j = 0; j < 4; ++j) wgmma_ss(acc, dA + 2 * j, dW + 2 * j, 1);
     wgmma_commit();
-    // the next stage's LayerNorm runs while these wgmmas do
-    if constexpr (LN)
-      if (kt + 1 < KT) normalize(kt + 1);
     // the previous stage's wgmmas are done: hand it back to the producer
     wgmma_wait<1>();
     if (kt > 0 && wt == 0) mbar_arrive(empty + 8 * ((kt - 1) % GEMM_STAGES));
@@ -361,10 +409,10 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
 
 // Each instantiation is compiled in a translation unit of its own
 // (ln_gemm.cu, the units built in parallel): they take most of the build.
-template <bool LN, bool F32_OUT, int EPI>
+template <bool F32_OUT, int EPI>
 cudaError_t launch_gemm(const CUtensorMap& tmA, const CUtensorMap& tmW, const GemmArgs& a,
                         cudaStream_t stream) {
-  auto kernel = ln_gemm_kernel<LN, F32_OUT, EPI>;
+  auto kernel = ln_gemm_kernel<F32_OUT, EPI>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
   if (err != cudaSuccess) return err;
@@ -373,15 +421,13 @@ cudaError_t launch_gemm(const CUtensorMap& tmA, const CUtensorMap& tmW, const Ge
   return cudaGetLastError();
 }
 
-// The seven kernels (prologue, f32 store, epilogue). ln_gemm.cu instantiates
-// variant TVTS_GEMM_PART; every other unit only declares them.
-#define TVTS_GEMM_VARIANT_0 true, false, EPI_PLAIN
-#define TVTS_GEMM_VARIANT_1 true, true, EPI_PLAIN
-#define TVTS_GEMM_VARIANT_2 true, false, EPI_SAVE_PRE
-#define TVTS_GEMM_VARIANT_3 false, false, EPI_PLAIN
-#define TVTS_GEMM_VARIANT_4 false, true, EPI_PLAIN
-#define TVTS_GEMM_VARIANT_5 false, false, EPI_ACT_GRAD_BF16
-#define TVTS_GEMM_VARIANT_6 false, false, EPI_ACT_GRAD_F32
+// The five kernels (f32 store, epilogue). ln_gemm.cu instantiates variant
+// TVTS_GEMM_PART; every other unit only declares them.
+#define TVTS_GEMM_VARIANT_0 false, EPI_PLAIN
+#define TVTS_GEMM_VARIANT_1 true, EPI_PLAIN
+#define TVTS_GEMM_VARIANT_2 false, EPI_SAVE_PRE
+#define TVTS_GEMM_VARIANT_3 false, EPI_ACT_GRAD_BF16
+#define TVTS_GEMM_VARIANT_4 false, EPI_ACT_GRAD_F32
 #define TVTS_GEMM_LAUNCHER(...)                                                             \
   template cudaError_t launch_gemm<__VA_ARGS__>(const CUtensorMap&, const CUtensorMap&, \
                                                 const GemmArgs&, cudaStream_t)
@@ -391,40 +437,37 @@ extern TVTS_GEMM_LAUNCHER(TVTS_GEMM_VARIANT_1);
 extern TVTS_GEMM_LAUNCHER(TVTS_GEMM_VARIANT_2);
 extern TVTS_GEMM_LAUNCHER(TVTS_GEMM_VARIANT_3);
 extern TVTS_GEMM_LAUNCHER(TVTS_GEMM_VARIANT_4);
-extern TVTS_GEMM_LAUNCHER(TVTS_GEMM_VARIANT_5);
-extern TVTS_GEMM_LAUNCHER(TVTS_GEMM_VARIANT_6);
 
-// The LayerNorm row statistics (when ln_w is set), then the product. The
-// caller has checked K % GEMM_BK == 0, 16-byte aligned pointers and row
-// strides (ops/block_kernels.py::gemm_plan); a tensor map that cannot be made
-// returns cudaErrorInvalidValue before any launch.
-inline cudaError_t launch_ln_gemm(const GemmArgs& a, float eps, float2* stats, int epi,
+// With `ln` (its X, lda, M and K those of `a`): the LayerNorm row pass writes
+// LN(X) to ln->Y, which the product then reads as A at row stride K; else the
+// product of X. The caller has checked K % GEMM_BK == 0, 16-byte aligned
+// pointers and row strides (ops/block_kernels.py::gemm_plan, ln_rows_plan); a
+// tensor map that cannot be made returns cudaErrorInvalidValue before any
+// launch.
+inline cudaError_t launch_ln_gemm(const GemmArgs& a, const LnRowsArgs* ln, int epi,
                                   cudaStream_t stream) {
+  GemmArgs args = a;
+  if (ln) {
+    args.X = ln->Y;
+    args.lda = a.K;
+  }
   CUtensorMap tmA, tmW;
-  if (!tile_map(&tmA, a.X, a.M, a.K, a.lda, GEMM_BM) ||
+  if (!tile_map(&tmA, args.X, a.M, a.K, args.lda, GEMM_BM) ||
       !tile_map(&tmW, a.W, a.N, a.K, a.K, GEMM_BN))
     return cudaErrorInvalidValue;
-  GemmArgs args = a;
-  const bool ln = a.ln_w != nullptr, f32 = a.Yf != nullptr;
   if (ln) {
-    row_stats_kernel<<<(a.M + 7) / 8, 256, 0, stream>>>(a.X, a.lda, a.M, a.K, eps, stats);
-    cudaError_t err = cudaGetLastError();
+    cudaError_t err = launch_ln_rows(*ln, stream);
     if (err != cudaSuccess) return err;
   }
-  args.stats = ln ? stats : nullptr;
-  if (epi == EPI_PLAIN && ln)
-    return f32 ? launch_gemm<true, true, EPI_PLAIN>(tmA, tmW, args, stream)
-               : launch_gemm<true, false, EPI_PLAIN>(tmA, tmW, args, stream);
+  const bool f32 = a.Yf != nullptr;
   if (epi == EPI_PLAIN)
-    return f32 ? launch_gemm<false, true, EPI_PLAIN>(tmA, tmW, args, stream)
-               : launch_gemm<false, false, EPI_PLAIN>(tmA, tmW, args, stream);
-  if (epi == EPI_SAVE_PRE && ln)
-    return launch_gemm<true, false, EPI_SAVE_PRE>(tmA, tmW, args, stream);
-  if (epi == EPI_ACT_GRAD_BF16 && !ln)
-    return launch_gemm<false, false, EPI_ACT_GRAD_BF16>(tmA, tmW, args, stream);
-  if (epi == EPI_ACT_GRAD_F32 && !ln)
-    return launch_gemm<false, false, EPI_ACT_GRAD_F32>(tmA, tmW, args, stream);
-  return cudaErrorInvalidValue;  // no caller asks for another combination: no kernel
+    return f32 ? launch_gemm<true, EPI_PLAIN>(tmA, tmW, args, stream)
+               : launch_gemm<false, EPI_PLAIN>(tmA, tmW, args, stream);
+  if (epi == EPI_SAVE_PRE) return launch_gemm<false, EPI_SAVE_PRE>(tmA, tmW, args, stream);
+  if (epi == EPI_ACT_GRAD_BF16)
+    return launch_gemm<false, EPI_ACT_GRAD_BF16>(tmA, tmW, args, stream);
+  if (epi == EPI_ACT_GRAD_F32) return launch_gemm<false, EPI_ACT_GRAD_F32>(tmA, tmW, args, stream);
+  return cudaErrorInvalidValue;
 }
 #endif
 

@@ -13,40 +13,50 @@ Dispatch: on a CPU tensor a wrapper runs the plain version; on a CUDA tensor
 it launches the kernel (bf16 only; d in {64, 80}, T <= 32; N up to what the
 space core's shared memory holds: 783 at d = 64, 639 at d = 80) or raises.
 There is no fallback. `<wrapper>.launches` counts wrapper calls that ran the
-kernel on the card: one per sub-path, however many CUDA launches it takes.
+kernel on the card: one per sub-path, however many CUDA launches it takes;
+`ln_rows.launches` one per LayerNorm row pass, the one inside each LayerNorm
+product included.
 
 Kernel notes (replaces / bound on the card / design):
 - ln_gemm (csrc/ln_gemm.cuh) carries every product below: bound by the
   tensor cores. A 128 x 256 tile a block, TMA loads into a 4-stage mbarrier
   ring fed by one producer warp, two consumer warpgroups on wgmma m64n256k16
-  with both operands in shared memory (the LayerNorm prologue rewrites the
-  A rows of the next stage in place while the current stage's wgmmas run),
-  the epilogue staged through the drained ring in 16-byte vectors.
-  `gemm_plan` checks what it takes (K a multiple of 64, 16-byte strides and
-  addresses) before every launch.
+  with both operands in shared memory, the epilogue staged through the
+  drained ring in 16-byte vectors. `gemm_plan` checks what it takes (K a
+  multiple of 64, 16-byte strides and addresses) before every launch.
+- ln_rows, the LayerNorm row pass before every LayerNorm product (the TPU
+  kernels' LN_3 / LN_1 / LN_2 prologues on VMEM-resident x): bound by its
+  bytes (x read once, LN(x) written once in bf16). One warp a row, held in
+  registers; f32 two-pass statistics kept for the training backward, and
+  LN(x) in bf16 into a scratch that the product reads as its A operand, so
+  each row is normalised once and not once for every 256-column tile of the
+  product (as the first design's in-ring prologue did; ln_gemm.cuh's notes).
+  `ln_rows_plan` checks what it takes (K a multiple of 8 up to
+  LN_ROWS_MAX_K, 16-byte strides and addresses).
 - fused_time_block replaces tvts_tpu/ops/pallas_block_attention.py::
   fused_time_attention_block_v7 (:2456). Bound by the qkv and proj products
   (2*S*D*4D flops per clip); the core (T+1 = 13 keys per query) is bound by
-  its bytes. Design: ln_gemm (LN_3 prologue) -> qkv rows; the time core, one
+  its bytes. Design: ln_rows (LN_3) -> ln_gemm qkv rows; the time core, one
   block per (b, n, group of at most 128 / T heads), the group's q, k and v
   read once into shared memory in 16-byte cp.async copies, one thread per
   query row (the first version's order of operations); split-KV CLS row;
   ln_gemm proj with the residual x in its epilogue.
 - fused_space_block replaces fused_space_attention_block_v9 (:2964). Bound
   by the same two products; the core (N queries over 1 + N keys per frame)
-  is bound by its bytes. Design: ln_gemm qkv rows; the space core, one block
-  per (b, t, h) staging the frame's 1 + N key and value rows in shared
-  memory once (cp.async, a group per 64-key tile), every 16-row query slab
-  walking them on mma.sync with an online f32 softmax over 64-key tiles (the
-  CLS key being key 0; only the 16-key chunks holding a live key run). The
+  is bound by its bytes. Design: ln_rows (LN_1) -> ln_gemm qkv rows; the
+  space core, one block per (b, t, h) staging the frame's 1 + N key and
+  value rows in shared memory once (cp.async, a group per 64-key tile),
+  every 16-row query slab walking them on mma.sync with an online f32
+  softmax over 64-key tiles (the CLS key being key 0; only the 16-key
+  chunks holding a live key run). The
   CLS query rides along as one more query row of each frame's block, which
   writes an f32 partial (m, l, acc) of its frame, its P V summed in f32 as
   the TPU kernel does (by a warp with a slab fewer); a combine kernel merges
   the T partials in a fixed order (`space_core`). The proj epilogue adds `base`,
   the block input (not the time output).
 - fused_mlp_block replaces fused_mlp_block_v7 (:2604). Bound by the two
-  products (16*S*D^2 flops per clip). Design: ln_gemm with the LN_2
-  prologue and the activation epilogue, then ln_gemm with the residual.
+  products (16*S*D^2 flops per clip). Design: ln_rows (LN_2) -> ln_gemm
+  with the activation epilogue, then ln_gemm with the residual.
 - fused_space_cls_only replaces fused_space_cls_only_v7 (:3339). The
   per-frame queries are dead and k, v are linear in y = LN(x), so the CLS
   row is computed from x alone: u_h = Wk_h^T q_h / sqrt(d), logits y_j . u_h,
@@ -157,7 +167,8 @@ def library() -> ctypes.CDLL:
     lib.tvts_error_string.argtypes = [i]
     lib.tvts_error_string.restype = ctypes.c_char_p
     argtypes = {
-        "tvts_ln_gemm": [p, i64, p, p, f, p, p, p, p, i64, p, p, i64, i, i, i, i, p, p, i, p],
+        "tvts_ln_gemm": [p, i64, p, p, f, p, p, p, p, p, i64, p, p, i64, i, i, i, i, p, p, i, p],
+        "tvts_ln_rows": [p, i64, i, i, p, p, f, p, p, p],
         "tvts_time_core": [p, p, p, i, i, i, i, i, f, p],
         "tvts_space_core": [p, p, p, p, i, i, i, i, i, f, p],
         "tvts_cls_only": [p, i, i, i, i, p, p, f, p, p, p, p, p, p, p, p, p, p, p, i, i,
@@ -232,12 +243,71 @@ def gemm_plan(M: int, N: int, K: int, lda: int, ldy: int, ldres: int = 0,
                 k_steps=K // BK, smem=GEMM_STAGES * (BM + BN) * BK * 2 + 1024 + 16 * GEMM_STAGES)
 
 
+LN_ROWS_MAX_K = 5120  # the widest row the LayerNorm row pass holds in registers (ln_gemm.cuh)
+
+
+def ln_rows_plan(M: int, K: int, lda: int, pointers: dict[str, int] | None = None) -> None:
+    """Raise ValueError, naming the argument, on what the LayerNorm row pass
+    (csrc/ln_gemm.cuh::ln_rows_kernel) does not take: no rows, K not a
+    multiple of 8 or above LN_ROWS_MAX_K, a row stride shorter than K or not a
+    multiple of 16 bytes, a base address (`pointers`: name -> address) that is
+    not 16-byte aligned."""
+    if M < 1:
+        raise ValueError(f"M = {M}: the LayerNorm row pass takes at least one row")
+    if K < 8 or K % 8 or K > LN_ROWS_MAX_K:
+        raise ValueError(f"K = {K}: the LayerNorm row pass takes a multiple of 8 up to "
+                         f"{LN_ROWS_MAX_K}")
+    if lda < K or lda % 8:
+        raise ValueError(f"lda = {lda}: the LayerNorm row pass takes a row stride of at least "
+                         f"K = {K} and a multiple of 16 bytes")
+    for name, ptr in (pointers or {}).items():
+        if ptr is not None and ptr % 16:
+            raise ValueError(f"{name} at {ptr:#x} is not 16-byte aligned")
+
+
+def ln_rows_plain(x, ln_w, ln_b, eps=LN_EPS):
+    """The LayerNorm row pass in plain PyTorch: (LN(x) in x's dtype, the row
+    statistics [rows, 2] f32: mean, rstd), in f32 with the kernel's two passes
+    (mean, then the mean of squared deviations)."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((xf - mean).square().mean(-1, keepdim=True) + eps)
+    y = (xf - mean) * rstd * ln_w.float() + ln_b.float()
+    return y.to(x.dtype), torch.cat([mean, rstd], -1)
+
+
+def ln_rows(x, ln_w, ln_b, eps: float = LN_EPS):
+    """The LayerNorm row pass that precedes every LayerNorm product: x [M, K]
+    (rows at any 16-byte stride, columns contiguous) -> (LN(x) [M, K]
+    contiguous, the row statistics [M, 2] f32: mean, rstd). On a CPU tensor,
+    ln_rows_plain."""
+    if not _dispatch(x):
+        return ln_rows_plain(x, ln_w, ln_b, eps)
+    if x.dtype != torch.bfloat16 or x.dim() != 2 or x.stride(1) != 1:
+        raise ValueError(f"x {x.dtype} of shape {tuple(x.shape)}, strides {x.stride()}: the "
+                         f"row pass takes bf16 rows with contiguous columns")
+    M, K = x.shape
+    _expect("ln_w", ln_w, x, torch.float32, (K,))
+    _expect("ln_b", ln_b, x, torch.float32, (K,))
+    ln_rows_plan(M, K, x.stride(0), {"x": _ptr(x)})
+    lib = library()
+    with torch.cuda.device(x.device):
+        y = torch.empty(M, K, dtype=x.dtype, device=x.device)
+        stats = torch.empty(M, 2, dtype=torch.float32, device=x.device)
+        _check(lib, lib.tvts_ln_rows(_ptr(x), x.stride(0), M, K, _ptr(ln_w), _ptr(ln_b), eps,
+                                     _ptr(stats), _ptr(y), _stream(x)))
+    ln_rows.launches += 1
+    return y, stats
+
+
 def _ln_gemm(lib, x, rows, lda, ln, w, b, out, act="none", res=None, ldres=0,
              eps=LN_EPS, pre=None, hidden=None, act_out=None):
     """out = act(LN?(x rows at stride lda) @ w.T + b) (+ res), on the card;
     `eps` is the LayerNorm's (1e-5 in the towers, 1e-6 in the sort head). An
-    f32 `out` takes the f32 store. Returns the LayerNorm row statistics
-    ([rows, 2] f32: mean, rstd) or None.
+    f32 `out` takes the f32 store. With `ln` = (ln_w, ln_b) the row pass
+    (`ln_rows`) first writes LN(x) into a scratch [rows, K] bf16, which the
+    product reads. Returns the LayerNorm row statistics ([rows, 2] f32: mean,
+    rstd) or None.
 
     The H8 epilogues (csrc/ln_gemm.cuh): with `pre` (bf16, out's shape) the
     pre-activation product goes there and `out` gets the activation of the
@@ -249,15 +319,22 @@ def _ln_gemm(lib, x, rows, lda, ln, w, b, out, act="none", res=None, ldres=0,
         epi, second = (3 if hidden.dtype == torch.float32 else 2), act_out
     else:
         epi, second = (1 if pre is not None else 0), pre
-    gemm_plan(rows, w.shape[0], w.shape[1], lda, out.shape[-1], ldres, out.element_size(),
+    K = w.shape[1]
+    gemm_plan(rows, w.shape[0], K, lda, out.shape[-1], ldres, out.element_size(),
               {"x": _ptr(x), "w": _ptr(w), "bias": _ptr(b), "res": _ptr(res), "out": _ptr(out),
                "second output": _ptr(second), "hidden": _ptr(hidden)})
-    stats = torch.empty(rows, 2, dtype=torch.float32, device=x.device) if ln else None
+    stats = xn = None
+    if ln:
+        ln_rows_plan(rows, K, lda, {"ln_w": _ptr(ln_w), "ln_b": _ptr(ln_b)})
+        stats = torch.empty(rows, 2, dtype=torch.float32, device=x.device)
+        xn = torch.empty(rows, K, dtype=torch.bfloat16, device=x.device)
     _check(lib, lib.tvts_ln_gemm(
-        _ptr(x), lda, _ptr(ln_w), _ptr(ln_b), eps, _ptr(stats), _ptr(w), _ptr(b),
+        _ptr(x), lda, _ptr(ln_w), _ptr(ln_b), eps, _ptr(stats), _ptr(xn), _ptr(w), _ptr(b),
         _ptr(res), ldres, None if f32 else _ptr(out), _ptr(out) if f32 else None,
-        out.shape[-1], rows, w.shape[0], w.shape[1], ACTS[act], _ptr(second), _ptr(hidden),
+        out.shape[-1], rows, w.shape[0], K, ACTS[act], _ptr(second), _ptr(hidden),
         epi, _stream(x)))
+    if ln:
+        ln_rows.launches += 1
     return stats
 
 
@@ -500,8 +577,8 @@ def mlp_block_plain(x, ln_w, ln_b, wfc, bfc, wproj, bproj, act):
 
 
 def _mlp_sub_path(x, ln_w, ln_b, wfc, bfc, wproj, bproj, act: str, save_hidden: bool = False):
-    """x + c_proj(act(c_fc(LN_2(x)))) on the card: ln_gemm with the LN prologue
-    and the activation epilogue, then ln_gemm with the residual. Returns (out,
+    """x + c_proj(act(c_fc(LN_2(x)))) on the card: the LayerNorm row pass and
+    ln_gemm with the activation epilogue, then ln_gemm with the residual. Returns (out,
     LN row stats [B*S, 2] f32, h): h is the pre-activation hidden [B, S, 4D]
     in bf16 with save_hidden (the activation is then taken from the rounded
     h), else None."""
@@ -612,14 +689,17 @@ def cls_chunks(B: int, S: int, slots: int) -> tuple[int, int]:
 
 
 KERNELS = (fused_time_block, fused_space_block, fused_mlp_block, fused_space_cls_only)
-for _fn in KERNELS:
+# the sub-paths, then the LayerNorm row pass (one count per row pass: one per
+# LayerNorm product, whichever sub-path or wrapper launched it)
+COUNTED = (*KERNELS, ln_rows)
+for _fn in COUNTED:
     _fn.launches = 0
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS:
+    for fn in COUNTED:
         fn.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    return {fn.__name__: fn.launches for fn in COUNTED}

@@ -7,12 +7,12 @@ forwards through it (counterpart of tvts_tpu/ops/pallas_text_attention.py).
 :43-99): x + Proj(Attn(LN(x))), causal with LN eps 1e-5 in the text tower
 (S = 77), or non-causal with eps 1e-6 in the sort head (S ~ 1181). Weights in
 the nn.Linear layout [out, in], biases in the activation dtype, LN parameters
-float32. Design (three launches; the kernels are built into the one library
-of ops/block_kernels.py): ln_gemm with the LN prologue writes the qkv rows,
-the attention core (`text_core`, csrc/text_attention.cuh) attends, ln_gemm
-proj adds the residual x in its epilogue. Dispatch as in block_kernels:
-plain version on a CPU tensor, the kernel (bf16, head dim 64) on a CUDA
-tensor, or raise; `.launches` counts calls that ran the kernel.
+float32. Design (four launches; the kernels are built into the one library
+of ops/block_kernels.py): the LayerNorm row pass writes LN(x), ln_gemm the
+qkv rows from it, the attention core (`text_core`, csrc/text_attention.cuh)
+attends, ln_gemm proj adds the residual x in its epilogue. Dispatch as in
+block_kernels: plain version on a CPU tensor, the kernel (bf16, head dim 64)
+on a CUDA tensor, or raise; `.launches` counts calls that ran the kernel.
 
 `text_subpath` is the differentiable form (replaces make_text_subpath, :313,
 with the backward fused_text_attention_block_bwd, :264, kernel :134). Its
