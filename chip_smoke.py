@@ -100,7 +100,8 @@ H/14 gates) with their times):
    scaled_dot_product_attention; every ln_gemm product shape of the B/16 extraction
    forward and train step (ms, TFLOP/s, bound, one F.linear on the same
    operands as library_ms; a LayerNorm product's time includes its row
-   pass), printed as {"ln_gemm": [...]}; the LayerNorm row pass alone at the
+   pass), then the four of a VideoMAE V2 ViT-g/14 joint block at B=15
+   (joint_gemm_products, each held to plain), printed as {"ln_gemm": [...]}; the LayerNorm row pass alone at the
    B/16 (B=48, 64) and H/14 (B=24) extraction shapes against its byte
    bound, printed as {"ln_rows": [...]}; every wgrad
    product of the B/16 step at B=20 and the H/14 step at B=8 (device ms,
@@ -120,7 +121,8 @@ H/14 gates) with their times):
    shapes, each held against its plain version (out, lse, dq, dk, dv) and
    bit-equal over two runs, with the sha256 of out, lse and dqkv, against
    their bound and one scaled_dot_product_attention forward or backward
-   (`library_ms`); the train
+   (`library_ms`), and the forward alone at head dim 88 at the ViT-g joint
+   shape (TEXT_CORE_FWD_SHAPES), printed as {"text_core_forward": ...}; the train
    step at B=20 (ms, clips/s, peak memory; kernels, kernels with
    mlp_mode="pallas", eager), each backward kernel, the saving forwards, H8
    and H9 against their plain versions at the B=20 shapes (H9 also against
@@ -189,17 +191,19 @@ H/14 gates) with their times):
    epoch of 4 steps; v1-dist-cc-web-pt.json's CC3M loader over 96
    cv2-written PNG and JPEG images (shapes, items/s), and the CLI twin's
    refusal of that config by name;
-14. the v1 SSV2 downstream stack at scripts/sh/ft_ssv2.sh's width, eager as in
-   the JAX package (no hand-written kernel may launch in the phase): a seeded
+14. the v1 SSV2 downstream stack at scripts/sh/ft_ssv2.sh's width, training
+   eager as in the JAX package, the CLI's evaluation on the kernels (the H7
+   core and H3 once a block an eval call, no other kernel): a seeded
    v1 .pth (TVTSv1Config() with noise on every leaf, save_reference_checkpoint)
    -> FinetuneViT (174 classes, 16 frames of 224², ViT-B/16, S = 1568, 86.37 M
    parameters, remat) through load_pretrain_video_tower (the transferred
    tensors bit for bit, fc_norm and head at init); at step 0, with noise on
    the head, bf16 against f32 at B=12 (cosine of the pooled fc_norm features
    and of the logits >= FT_COS = 0.995, |dloss| < FT_DLOSS = 2e-2; the worst
-   relative gradient error printed); the eval forward, the finetune and the
-   linear-probe steps on a device-resident B=12 batch (ms, clips/s, peak
-   memory) and one profiled finetune step (busy ms, idle share, top
+   relative gradient error printed); the CLI's fused eval forward (its
+   logits within FT_EVAL_TOL of eager model(video)'s, both timed), the
+   finetune and the linear-probe steps on a device-resident B=12 batch (ms,
+   clips/s, peak memory) and one profiled finetune step (busy ms, idle share, top
    kernels); then, on an SSV2-shaped tree of cv2-written 427x240 clips (48
    frames at 12 fps, 96 train / 24 val / 12 test videos, 174-class labels),
    tvts_torch.cli.run_class_finetuning --mode finetune --model_ema with
@@ -1546,6 +1550,24 @@ def ln_gemm_products(cfg) -> list[dict]:
     ]
 
 
+def joint_gemm_products(B: int = 15) -> list[dict]:
+    """The four ln_gemm products of a VideoMAE V2 ViT-g/14 joint block
+    (downstream/model.vit_giant_patch14_224: 1408 wide, an MLP of 6144, 2,048
+    tokens a clip, LayerNorm eps 1e-6, exact GELU) at B clips, as the
+    g14.classify cell runs them: K = 1408 in 22 k-steps, and qkv's N = 4224
+    ends in half a 256-column tile. Keys as ln_gemm_products'."""
+    M, D, hidden, eps = B * 2048, 1408, 6144, 1e-6
+
+    def p(name, N, K, ln=None, epi="bias"):
+        return dict(name=name, M=M, N=N, K=K, lda=K, ln=ln, epi=epi,
+                    act="gelu" if "gelu" in epi else "none")
+
+    return [p(f"ViT-g qkv (joint attention) B={B}", 3 * D, D, eps),
+            p(f"ViT-g proj (joint attention) B={B}", D, D, epi="bias+residual"),
+            p(f"ViT-g fc1 (H3) B={B}", hidden, D, eps, epi="bias+gelu"),
+            p(f"ViT-g fc2 (H3) B={B}", D, hidden, epi="bias+residual")]
+
+
 def wgrad_products(cfg, B: int) -> list[dict]:
     """Every weight-gradient product (wgrad) of one train step at B clips of
     the training config `cfg` (its n_keep patches a frame): C [N1, N2] = A^T
@@ -1574,17 +1596,23 @@ def wgrad_products(cfg, B: int) -> list[dict]:
 
 
 def ln_gemm_table(dev, card: str, bk) -> list[dict]:
-    """Each B/16 product of ln_gemm_products through ln_gemm on seeded operands:
-    ms (CUDA events), TFLOP/s, its bound (operands read once, outputs written
-    once), and as library_ms one torch.nn.functional.linear on the same A, W
-    and bias (the product alone; timed here only, never called by the port)."""
+    """Each B/16 product of ln_gemm_products, then the ViT-g joint block's
+    (joint_gemm_products), through ln_gemm on seeded operands: ms (CUDA
+    events), TFLOP/s, its bound (operands read once, outputs written once),
+    and as library_ms one torch.nn.functional.linear on the same A, W and
+    bias (the product alone; timed here only, never called by the port). The
+    joint block's outputs are also held to plain torch (LN(x) by
+    ln_rows_plain, the product, bias, GELU and residual in f32) within the
+    H1-H3 band (band_check), every column of the partial last tile
+    included."""
     from tvts_torch.models.configs import tvtsv2_b_16
 
     lib = bk.library()
     gen = torch.Generator(device=dev).manual_seed(31)
     bf = torch.bfloat16
     rows = []
-    for p in ln_gemm_products(tvtsv2_b_16()):
+    joint = joint_gemm_products()
+    for p in ln_gemm_products(tvtsv2_b_16()) + joint:
         M, N, K, epi = p["M"], p["N"], p["K"], p["epi"]
         x = torch.randn(M, p["lda"], generator=gen, device=dev, dtype=bf)
         w = torch.randn(N, K, generator=gen, device=dev, dtype=bf) * K ** -0.5
@@ -1611,6 +1639,19 @@ def ln_gemm_table(dev, card: str, bk) -> list[dict]:
                      iters=5)
         a2 = x[:, :K]
         lib_ms = cuda_ms(lambda: torch.nn.functional.linear(a2, w, bias), iters=5)
+        if p in joint:
+            a = bk.ln_rows_plain(a2, *ln, p["ln"])[0] if ln else a2
+            want = torch.nn.functional.linear(a.float(), w.float(), bias.float())
+            if p["act"] == "gelu":
+                want = torch.nn.functional.gelu(want)
+            if "residual" in epi:
+                want += kw["res"].float()
+            diff, mean, tol = band_check(out, want)
+            print(f"[6] ln_gemm {p['name']}: max|diff| {diff:.5f} mean|ref| {mean:.4f} "
+                  f"(tol {tol:.4f}) against plain")
+            if diff > tol:
+                raise AssertionError(f"ln_gemm {p['name']}: {diff} > {tol}")
+            del a, want
         flops = 2 * M * N * K
         nbytes = 2 * M * K + 2 * N * K + out.element_size() * M * N + extra
         bnd = bound_ms(flops, nbytes)
@@ -2034,26 +2075,30 @@ def ln_bwd_digests(dev, bb) -> None:
 # the H7 cores alone at the train steps' shapes: (B, S, H, causal), head dim 64
 TEXT_CORE_SHAPES = {"B/16 sort": (20, 1181, 8, False), "B/16 text": (80, 77, 8, True),
                     "H/14 sort": (8, 917, 16, False), "H/14 text": (32, 77, 16, True)}
+# the forward-only core (head dim 88) at VideoMAE V2 ViT-g/14's joint attention
+# in the g14.classify cell: (B, S, H, d, causal)
+TEXT_CORE_FWD_SHAPES = {"ViT-g joint": (15, 2048, 16, 88, False)}
 TEXT_LSE_TOL = 1e-3  # the H7 core's lse against plain (f32 sums in another order)
 
 
-def text_core_inputs(B: int, S: int, H: int, seed: int, dev) -> tuple:
-    """Seeded qkv [B, S, 3 * H * 64] and dO [B, S, H * 64] (bf16): logits of
+def text_core_inputs(B: int, S: int, H: int, seed: int, dev, d: int = 64) -> tuple:
+    """Seeded qkv [B, S, 3 * H * d] and dO [B, S, H * d] (bf16): logits of
     unit variance at d = 64."""
     rng = np.random.default_rng(seed)
-    qkv = torch.tensor(rng.standard_normal((B, S, 3 * H * 64)), dtype=torch.bfloat16,
+    qkv = torch.tensor(rng.standard_normal((B, S, 3 * H * d)), dtype=torch.bfloat16,
                        device=dev)
-    dO = torch.tensor(rng.standard_normal((B, S, H * 64)), dtype=torch.bfloat16, device=dev)
+    dO = torch.tensor(rng.standard_normal((B, S, H * d)), dtype=torch.bfloat16, device=dev)
     return qkv, dO
 
 
-def text_core_work(B: int, S: int, H: int, causal: bool, backward: bool) -> tuple:
+def text_core_work(B: int, S: int, H: int, causal: bool, backward: bool, d: int = 64) -> tuple:
     """(flops, bytes) of the H7 core: 4 d (forward: logits, P V) or 10 d
     (backward: logits, dP, dq, dk, dv) flops a (query, key) pair of every
-    head; forward qkv read and out and lse written, backward qkv, out, lse
+    head, at the head dim d (the zero columns d = 88 is padded with are not
+    work); forward qkv read and out and lse written, backward qkv, out, lse
     and dO read and dqkv written, each once. The backward kernels recompute
     the logits and dP in both passes: 14 d a pair."""
-    d, D = 64, H * 64
+    D = H * d
     pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
     if backward:
         return 10 * d * pairs, 2 * B * S * (3 * D + D + D + 3 * D) + 4 * B * H * S
@@ -2065,15 +2110,20 @@ def text_core_check(tag: str, ta, qkv, dO, H: int, causal: bool) -> tuple:
     within BAND * max(1, mean|ref| / 0.8) (band_check), lse within
     TEXT_LSE_TOL, each of dq, dk and dv within GRAD_BAND * max|ref| of the
     plain backward from the kernel's own out and lse (what the training
-    backward gets); two runs of each kernel bit-equal. -> (out, lse, dqkv,
-    max|diff| of out, the largest max|diff| of dq, dk, dv)."""
+    backward gets); two runs of each kernel bit-equal. dO None: the forward
+    alone (the d = 88 core has no backward). -> (out, lse, dqkv, max|diff| of
+    out, the largest max|diff| of dq, dk, dv; the last two None without
+    dO)."""
     out, lse = ta.text_core(qkv, H, causal, with_lse=True)
     again = ta.text_core(qkv, H, causal, with_lse=True)
-    dqkv = ta.text_core_backward(qkv, out, lse, dO, H, causal)
-    dqkv2 = ta.text_core_backward(qkv, out, lse, dO, H, causal)
+    if dO is None:
+        dqkv = dqkv2 = None
+    else:
+        dqkv = ta.text_core_backward(qkv, out, lse, dO, H, causal)
+        dqkv2 = ta.text_core_backward(qkv, out, lse, dO, H, causal)
     torch.cuda.synchronize()
     if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])
-            and torch.equal(dqkv, dqkv2)):
+            and (dO is None or torch.equal(dqkv, dqkv2))):
         raise AssertionError(f"H7 cores {tag}: two runs are not bit-equal")
     ref, ref_lse = ta.text_core_plain(qkv, H, causal)
     diff, mean, tol = band_check(out, ref)
@@ -2085,6 +2135,8 @@ def text_core_check(tag: str, ta, qkv, dO, H: int, causal: bool) -> tuple:
     if diff > tol or lse_err > TEXT_LSE_TOL:
         raise AssertionError(f"H7 core {tag}: out {diff} > {tol} or lse {lse_err}")
     del ref, ref_lse
+    if dO is None:
+        return out, lse, None, diff, None
     want = ta.text_core_backward_plain(qkv, out, lse, dO, H, causal)
     D = H * 64
     worst = grad_band_check(f"text_core_backward {tag}", ("dq", "dk", "dv"),
@@ -2095,43 +2147,54 @@ def text_core_check(tag: str, ta, qkv, dO, H: int, causal: bool) -> tuple:
 def text_core_times(dev, card: str, ta) -> dict:
     """The H7 cores alone at the B/16 and H/14 train shapes (sort head, text
     tower: TEXT_CORE_SHAPES), forward (with the lse, as training runs it) and
-    backward, held to text_core_check, with the sha256 of out, lse and dqkv
-    (equal digests in two trees: bit-identical outputs); device time
-    (device_ms) against their bound, the plain versions and one
+    backward, and the forward alone at head dim 88 (TEXT_CORE_FWD_SHAPES),
+    held to text_core_check, with the sha256 of out, lse and dqkv (equal
+    digests in two trees: bit-identical outputs); device time (device_ms)
+    against their bound, the plain versions and one
     scaled_dot_product_attention forward / backward over the same q, k, v
     (causal for the text: `library_ms`). Returns label -> {"text_core":
-    numbers, "text_core_backward": numbers} for the kernel line."""
+    numbers, "text_core_backward": numbers (not at d = 88)} for the kernel
+    line."""
     import hashlib
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    shapes = [(label, (B, S, H, 64, causal)) for label, (B, S, H, causal)
+              in TEXT_CORE_SHAPES.items()] + list(TEXT_CORE_FWD_SHAPES.items())
     out_lines = {}
-    for label, (B, S, H, causal) in TEXT_CORE_SHAPES.items():
-        qkv, dO = text_core_inputs(B, S, H, 61, dev)
-        out, lse, dqkv, f_err, b_err = text_core_check(label, ta, qkv, dO, H, causal)
+    for label, (B, S, H, d, causal) in shapes:
+        backward = d == 64
+        qkv, dO = text_core_inputs(B, S, H, 61, dev, d)
+        out, lse, dqkv, f_err, b_err = text_core_check(label, ta, qkv, dO if backward else None,
+                                                       H, causal)
         for name, t in (("out", out.view(torch.int16)), ("lse", lse),
-                        ("dqkv", dqkv.view(torch.int16))):
+                        ("dqkv", None if dqkv is None else dqkv.view(torch.int16))):
+            if t is None:
+                continue
             digest = hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
             print(f"[6] text core {label} B={B} S={S} H={H}: {name} sha256 {digest}")
         f_ms = device_ms(lambda: ta.text_core(qkv, H, causal, with_lse=True))
-        b_ms = device_ms(lambda: ta.text_core_backward(qkv, out, lse, dO, H, causal))
         fp_ms = device_ms(lambda: ta.text_core_plain(qkv, H, causal), iters=3)
-        bp_ms = device_ms(lambda: ta.text_core_backward_plain(qkv, out, lse, dO, H, causal),
-                          iters=3)
-        q, k, v = (t.reshape(B, S, H, 64).transpose(1, 2).contiguous().requires_grad_()
+        q, k, v = (t.reshape(B, S, H, d).transpose(1, 2).contiguous().requires_grad_()
                    for t in qkv.chunk(3, dim=-1))
         with torch.no_grad():
             lf_ms = device_ms(lambda: sdpa(q, k, v, is_causal=causal))
-        with torch.enable_grad():
-            o = sdpa(q, k, v, is_causal=causal)
-        go = dO.reshape(B, S, H, 64).transpose(1, 2).contiguous()
-        lb_ms = device_ms(lambda: torch.autograd.grad(o, (q, k, v), go, retain_graph=True))
+        rows = [("text_core", f_ms, fp_ms, lf_ms, f_err, False)]
+        o = go = None
+        if backward:
+            b_ms = device_ms(lambda: ta.text_core_backward(qkv, out, lse, dO, H, causal))
+            bp_ms = device_ms(lambda: ta.text_core_backward_plain(qkv, out, lse, dO, H, causal),
+                              iters=3)
+            with torch.enable_grad():
+                o = sdpa(q, k, v, is_causal=causal)
+            go = dO.reshape(B, S, H, 64).transpose(1, 2).contiguous()
+            lb_ms = device_ms(lambda: torch.autograd.grad(o, (q, k, v), go, retain_graph=True))
+            rows.append(("text_core_backward", b_ms, bp_ms, lb_ms, b_err, True))
         lines = {}
-        for name, ms, p_ms, l_ms, err, bwd in (("text_core", f_ms, fp_ms, lf_ms, f_err, False),
-                                               ("text_core_backward", b_ms, bp_ms, lb_ms, b_err,
-                                                True)):
-            bnd = bound_ms(*text_core_work(B, S, H, causal, bwd))
+        for name, ms, p_ms, l_ms, err, bwd in rows:
+            bnd = bound_ms(*text_core_work(B, S, H, causal, bwd, d))
             extra = "; the kernels do 14 d flops a pair" if bwd else ""
-            print(f"[6] {name} alone {label} B={B} S={S} H={H}{' causal' if causal else ''}: "
+            print(f"[6] {name} alone {label} B={B} S={S} H={H} d={d}"
+                  f"{' causal' if causal else ''}: "
                   f"{ms:.4f} ms, plain {p_ms:.3f} ms, scaled_dot_product_attention "
                   f"{'backward ' if bwd else ''}{l_ms:.4f} ms, bound {bnd[0]:.4f} ms "
                   f"({bnd[1]}{extra}), {ms / bnd[0]:.2f}x the bound, {ms / l_ms:.2f}x the "
@@ -4754,6 +4817,7 @@ SSV2_CLIP = (48, 12, (240, 427))  # frames, fps, (h, w): SSV2's 240-pixel-high c
 
 
 FT_B = 12  # ft_ssv2.sh's batch
+FT_EVAL_TOL = 0.02  # fused eval logits against eager, both bf16: relative row error
 FT_ARCH = {"num_classes": SSV2_CLASSES, "num_frames": 16, "img_size": 224}  # ViT-B/16 widths
 FT_COS = 0.995  # bf16 pooled features and logits against f32 at step 0 (PERF.md §2's f32 band)
 FT_DLOSS = 2e-2  # |loss_bf16 - loss_f32| at step 0
@@ -4890,7 +4954,11 @@ def ft_step0(dev, card: str, model) -> tuple:
 def ft_resident(dev, card: str, model, video, targets) -> dict:
     """The finetune and linear-probe steps and the eval forward at B=12 on the
     device-resident batch (remat, as the script builds the model): ms,
-    clips/s, peak memory; one profiled finetune step."""
+    clips/s, peak memory; one profiled finetune step. The eval forward is the
+    CLI's (make_cls_eval_step's `use_fused`: the blocks on the kernels), its
+    logits held to the eager model(video)'s on the same batch within
+    FT_EVAL_TOL (the widest relative row error), and timed beside it;
+    `fused_calls` in the result counts its calls."""
     import copy
 
     from tvts_torch.downstream.engine import (
@@ -4899,10 +4967,19 @@ def ft_resident(dev, card: str, model, video, targets) -> dict:
         make_finetune_optimizer,
     )
 
-    eval_ms = cuda_ms(lambda: make_cls_eval_step(model)(video), iters=5)
-    print(f"[14] FinetuneViT eval forward B={FT_B}: {eval_ms:.2f} ms, "
-          f"{FT_B / eval_ms * 1e3:.2f} clips/s [{card}]")
-    out = {"eval_ms": eval_ms}
+    fused, eager = make_cls_eval_step(model, use_fused=True), make_cls_eval_step(model)
+    got, want = fused(video).float(), eager(video).float()
+    err = ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+    print(f"[14] FinetuneViT eval B={FT_B}: the fused step's logits against eager "
+          f"model(video): relative row error {err:.5f} (<= {FT_EVAL_TOL})")
+    if not err <= FT_EVAL_TOL:
+        raise AssertionError(f"the fused eval step's logits are {err} from eager model(video)")
+    eval_ms = cuda_ms(lambda: fused(video), iters=5)
+    eager_ms = cuda_ms(lambda: eager(video), iters=5)
+    print(f"[14] FinetuneViT eval forward B={FT_B}: fused (the CLI's) {eval_ms:.2f} ms, "
+          f"{FT_B / eval_ms * 1e3:.2f} clips/s; eager model(video) {eager_ms:.2f} ms, "
+          f"{FT_B / eager_ms * 1e3:.2f} clips/s [{card}]")
+    out = {"eval_ms": eval_ms, "eager_eval_ms": eager_ms, "fused_calls": 1 + 2 + 5}
     probe = copy.deepcopy(model)
     for mode, m in (("finetune", model), ("linear", probe)):
         opt, _ = make_finetune_optimizer(m, 1e-3, 0.05, epochs=50, steps_per_epoch=8,
@@ -5127,6 +5204,7 @@ def downstream_phase(dev, card: str, bk, bb, ta, root: str, backend: str | None)
     import contextlib
 
     from tvts_torch.data import video_reader
+    from tvts_torch.downstream.model import MODEL_SIZES
 
     t_phase = time.perf_counter()
     reset_launch_counts(bk, bb, ta)
@@ -5147,9 +5225,19 @@ def downstream_phase(dev, card: str, bk, bb, ta, root: str, backend: str | None)
               else injected_decode(video_reader, specs))
     with decode:
         ft_cli(dev, card, tree, pth, os.path.join(root, "results_ft"), resident)
-    expect_launches("the downstream phase", launch_counts(bk, bb, ta), {})
-    print(f"[14] no hand-written kernel launched; downstream phase "
-          f"{time.perf_counter() - t_phase:.1f} s")
+    # the CLI's evaluation runs the blocks on the kernels (make_cls_eval_step's
+    # use_fused, on the card in bf16): the finetune run's validation and
+    # multi-view test and the linear probe's validation, each call the H7 core
+    # and H3 once a block, as do ft_resident's fused calls; training and the
+    # zero-shot run stay eager
+    calls = (-(-SSV2_SPLITS["val"] // FT_B) + -(-SSV2_SPLITS["test"] * 6 // FT_B) + 1)
+    per_block = (calls + resident["fused_calls"]) * MODEL_SIZES["vit_base_patch16_224"]["depth"]
+    expect_launches("the downstream phase", launch_counts(bk, bb, ta),
+                    {"fused_mlp_block": per_block, "fused_text_attention_block": per_block,
+                     "text_core": per_block})
+    print(f"[14] the CLI's {calls} eval calls and ft_resident's {resident['fused_calls']} "
+          f"launched the attention sub-path, the H7 core and H3 {per_block} times each, no other "
+          f"hand-written kernel; downstream phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -5338,9 +5426,18 @@ def main() -> int:
             print(f"[6] fused_text_attention_block {label} B={B} S={S} D={D}: kernel "
                   f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}) "
                   f"[{card}]")
-    for name, line in text_core_times(dev, card, ta)["B/16 sort"].items():
+    core_lines = text_core_times(dev, card, ta)
+    for name, line in core_lines["B/16 sort"].items():
         times[name] = (line["ms"], line["plain_ms"], line["bound"])
         library[name], max_err[name] = line["library_ms"], line["max_abs_err"]
+    joint_core = {label: dict(B=shape[0], S=shape[1], H=shape[2], d=shape[3],
+                              ms=core_lines[label]["text_core"]["ms"],
+                              plain_ms=core_lines[label]["text_core"]["plain_ms"],
+                              bound_ms=core_lines[label]["text_core"]["bound"][0],
+                              bound_by=core_lines[label]["text_core"]["bound"][1],
+                              library_ms=core_lines[label]["text_core"]["library_ms"],
+                              max_abs_err=core_lines[label]["text_core"]["max_abs_err"])
+                  for label, shape in TEXT_CORE_FWD_SHAPES.items()}
     del model
     train_times(dev, card, bk, bb, ta, ac, train, times, library)
     core_f32_times(dev, card, ac, times, library)
@@ -5382,6 +5479,10 @@ def main() -> int:
     print(json.dumps({"ln_rows": ln_rows_rows}))
     print(json.dumps({"wgrad": wgrad_rows}))
     print(json.dumps({"space_core": core}))
+    # the forward-only H7 core at head dim 88 (no TPU kernel of its own: the
+    # JAX package runs the joint towers eagerly), its library call one
+    # scaled_dot_product_attention forward
+    print(json.dumps({"text_core_forward": joint_core}))
     # library_ms: no single PyTorch call computes a whole sub-path (LayerNorm,
     # the products, divided or causal attention, activation and residual, or
     # their gradients), so those rows are null. A row of one kernel has its

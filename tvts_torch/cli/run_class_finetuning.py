@@ -21,6 +21,14 @@ instead, loads the checkpoint's `video_model` with strict=False, and prints
 R@1/5/10 of v2v retrieval over `val.csv`. Run on the CPU with
 `--device cpu --no-bf16`.
 
+`--model` names the published sizes (downstream/model.MODEL_SIZES):
+`vit_base_patch16_224` (the default) or VideoMAE V2's `vit_giant_patch14_224`
+(1408 wide, 40 deep, 16 heads of 88, MLP 6144, patch 14); `--embed_dim`,
+`--depth`, `--heads` and `--patch_size` override them where given. On the
+card in bf16 the validation and the multi-view test run the blocks on the
+kernels (make_cls_eval_step's `use_fused`: the attention sub-path and H3);
+training runs the eager model.
+
 `main` returns what it ran: the model, the per-step losses, each epoch's
 validation top-1 and the test merge (finetune and linear), or the v2v
 metrics, features and labels (zero).
@@ -44,7 +52,7 @@ from tvts_torch.downstream.engine import (
     make_finetune_optimizer,
 )
 from tvts_torch.downstream.mixup import Mixup, one_hot
-from tvts_torch.downstream.model import FinetuneViT, load_pretrain_video_tower
+from tvts_torch.downstream.model import MODEL_SIZES, FinetuneViT, load_pretrain_video_tower
 from tvts_torch.utils.checkpoint import CheckpointManager
 from tvts_torch.utils.convert import convert_v1_state_dict, load_reference_state_dict, merge_params
 
@@ -55,11 +63,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description="video classification fine-tuning / linear "
                                              "probe / zero-shot v2v retrieval")
     ap.add_argument("--mode", default="finetune", choices=["finetune", "linear", "zero"])
-    ap.add_argument("--model", default="vit_base_patch16_224")
-    ap.add_argument("--embed_dim", type=int, default=768)
-    ap.add_argument("--depth", type=int, default=12)
-    ap.add_argument("--heads", type=int, default=12)
-    ap.add_argument("--patch_size", type=int, default=16)
+    ap.add_argument("--model", default="vit_base_patch16_224", choices=sorted(MODEL_SIZES))
+    ap.add_argument("--embed_dim", type=int, default=None, help="default: the model's")
+    ap.add_argument("--depth", type=int, default=None, help="default: the model's")
+    ap.add_argument("--heads", type=int, default=None, help="default: the model's")
+    ap.add_argument("--patch_size", type=int, default=None, help="default: the model's")
     ap.add_argument("--data_path", required=True,
                     help="dir containing train.csv/val.csv/test.csv")
     ap.add_argument("--data_root", default="")
@@ -88,7 +96,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=True,
                     help="bf16 compute over f32 parameters; --no-bf16 runs f32")
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    for key, value in MODEL_SIZES[args.model].items():
+        if getattr(args, key, None) is None:
+            setattr(args, key, value)
+    return args
 
 
 def _device(name: str) -> torch.device:
@@ -137,7 +149,7 @@ def build_finetune_model(args, device, compute_dtype) -> FinetuneViT:
     model = FinetuneViT(num_classes=args.nb_classes, num_frames=args.num_frames,
                         img_size=args.input_size, patch_size=args.patch_size,
                         embed_dim=args.embed_dim, depth=args.depth, heads=args.heads,
-                        remat=True)
+                        mlp_ratio=args.mlp_ratio, remat=True)
     model.reset_parameters(torch.Generator().manual_seed(0))
     if args.finetune:
         load_pretrain_video_tower(model, load_reference_state_dict(args.finetune))
@@ -195,7 +207,7 @@ def main(argv=None) -> dict:
         warmup_epochs=args.warmup_epochs, min_lr=args.min_lr, layer_decay=args.layer_decay,
         num_layers=model.depth, clip_grad=args.clip_grad, linear_probe=args.mode == "linear")
     train_step = make_cls_train_step(model, optimizer)
-    eval_step = make_cls_eval_step(model)
+    eval_step = make_cls_eval_step(model, use_fused=device.type == "cuda" and args.bf16)
     mixup = Mixup(args.mixup, args.cutmix, label_smoothing=args.smoothing,
                   num_classes=args.nb_classes) if args.mixup > 0 else None
     ema = EmaParams(model) if args.model_ema else None

@@ -298,12 +298,13 @@ int tvts_cls_attention(const void* q, i64 q_bstride, const void* k, const void* 
 // Self-attention of out [B, S, H*dh] from qkv [B, S, 3*H*dh] (H7 core), causal
 // or not; the logits scaled by `scale`. lse != NULL: also each row's
 // log-sum-exp into lse [B, H, S] (training save). small: the one-block kernel
-// (S <= 128), else the TMA + wgmma one (ops/text_attention.py::text_core_plan).
+// (S <= 128, dh = 64), else the TMA + wgmma one (dh 64 or 88;
+// ops/text_attention.py::text_core_plan).
 int tvts_text_core(const void* qkv, void* out, void* lse, int B, int S, int H, int dh,
                    float scale, int causal, int small, void* stream) {
-  if (dh != 64 || S < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if ((dh != 64 && dh != 88) || S < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
   tvts::TextFwdArgs a{(bf16*)out, (float*)lse, S, H, scale, causal};
-  return (int)tvts::launch_text_fwd((const bf16*)qkv, a, B, small, (cudaStream_t)stream);
+  return (int)tvts::launch_text_fwd((const bf16*)qkv, a, B, dh, small, (cudaStream_t)stream);
 }
 
 // dqkv [B, S, 3*H*dh] of the H7 core from its saves (qkv, the attention output

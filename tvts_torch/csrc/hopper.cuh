@@ -3,8 +3,9 @@
 // tensor maps, bulk copies, named barriers, and wgmma under the 128-byte
 // swizzle with both operands in shared memory (m64n256k16, m64n64k16),
 // K-major (ln_gemm's X and W) or MN-major (wgrad's token-row tiles, whose
-// contraction runs over the rows), or with A from registers (m64n64k16: the
-// attention cores' fixed operand and their probabilities).
+// contraction runs over the rows), or with A from registers (m64n64k16 and,
+// for P V at head dim 88, m64n88k16: the attention cores' fixed operand and
+// their probabilities).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: the driver is reached at run time)
@@ -52,6 +53,16 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// One box of a 3-D tensor map (head_map) into shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -188,6 +199,28 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
 }
 
+// D[64 x 88] (+)= A[64 x 16] B[16 x 88], A from registers as wgmma_rs_n64 and B
+// from shared memory by descriptor: the attention cores' P V at head dim 88
+// (eleven 8-column chunks of the accumulator a thread, 44 registers).
+template <int TB = 0>
+__device__ __forceinline__ void wgmma_rs_n88(float (&d)[44], const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %49, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n88k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43"
+      "}, {%44, %45, %46, %47}, %48, p, 1, 1, %50;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
 // The A fragments (four k16 steps) of the 16 rows of warp `warp` in a [rows x
 // 64] bf16 tile that TMA wrote under the 128-byte swizzle at `tile` (1 KB
 // aligned): row r's 16-byte chunk c sits at chunk c ^ (r % 8).
@@ -251,6 +284,26 @@ inline bool tile_map(CUtensorMap* map, const bf16* base, i64 rows, i64 cols, i64
   const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, (void*)base, dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The packed rows of `slots` head slices of `dh` bf16 each ([rows, slots * dh],
+// as qkv [B * S, 3 * H * dh]) as a 3-D map (column, slice, row), read in boxes
+// of 64 columns of one slice (one 128-byte swizzle row) by box_rows rows under
+// the 128-byte swizzle. Zeros past a slice's last column and past the last
+// row: at dh = 88 the box at column 64 holds columns 64..87 and 40 zeros, so
+// a head's rows arrive padded without reading the next head's columns.
+inline bool head_map(CUtensorMap* map, const bf16* base, i64 rows, int slots, int dh,
+                     int box_rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)dh, (cuuint64_t)slots, (cuuint64_t)rows};
+  const cuuint64_t strides[2] = {(cuuint64_t)dh * 2, (cuuint64_t)slots * dh * 2};
+  const cuuint32_t box[3] = {64, 1, (cuuint32_t)box_rows};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, (void*)base, dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

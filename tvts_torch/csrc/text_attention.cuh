@@ -1,12 +1,14 @@
 // Attention core of the fused text-attention sub-path (H7), forward: plain
 // multi-head self-attention over the [B, S, 3D] qkv rows that ln_gemm writes,
-// causal (text tower, S = 77) or not (sort head, S = 917 .. 1181). Head dim 64
-// only: every text and sort config of the repo has d = 64, and
+// causal (text tower, S = 77) or not (sort head, S = 917 .. 1181; the joint
+// space-time blocks of VideoMAE V2's ViT-g/14, S = 2048). Head dim 64 (every
+// text and sort config of the repo) or 88 (ViT-g, the TMA kernel only);
 // ops/text_attention.py::text_core_plan refuses anything else before a launch.
 //
 // Replaces the core of tvts_tpu/ops/pallas_text_attention.py::
 // fused_text_attention_block (:102, kernel :43-99), which keeps a whole [S, S]
-// score matrix per head in VMEM.
+// score matrix per head in VMEM; at head dim 88 it replaces no TPU kernel (the
+// JAX package runs the joint towers as plain XLA attention).
 //
 // Numerics as the TPU kernel: the logits are scale * (q . k) in f32 (for d =
 // 64 the scale is 2^-3, so this is the TPU's q scaled and rounded to bf16
@@ -26,15 +28,21 @@
 // - text_attn_fwd_kernel (S > TX_SMALL_MAX): a block per (192-query tile,
 //   head, sequence). One producer warp loads the block's Q tile once and
 //   keeps TMA loads of 64-key K and V tiles in flight into a TXF_STAGES ring
-//   (2-D tensor maps over qkv as [B * S, 3D], boxes at columns D + 64h and 2D
-//   + 64h, 128-byte swizzle). Three consumer warpgroups own 64 query rows
+//   (3-D tensor maps over qkv as [B * S, 3H, d], boxes of 64 columns of one
+//   head slice, 128-byte swizzle; at d = 88 two boxes a tile, the second
+//   holding columns 64..87 and the zeros the map fills in past the slice, so
+//   Q K^T runs over 96 columns with no padded copy of qkv and no read of the
+//   next head's columns). Three consumer warpgroups own 64 query rows
 //   each (three, not two: each K and V tile is read for more queries, and
 //   one more warpgroup hides latency; 0.171 against 0.176 ms at the sort
 //   shape, 0.087 against 0.097 at H/14's, PERF.md): S = Q K^T on wgmma
 //   m64n64k16 from shared memory, the online softmax in registers (the
 //   accumulator's rows g and g + 8 of each warp reduce over a quad), O += P V
-//   on wgmma m64n64k16 with P from registers (the accumulator layout packs
-//   into wgmma's A-fragment layout) and V as the MN-major B. Pipelined within
+//   on wgmma m64n64k16 (d = 88: m64n88k16, V's two atoms one LBO apart) with
+//   P from registers (the accumulator layout packs into wgmma's A-fragment
+//   layout) and V as the MN-major B. At d = 88 a row is 176 bytes, two swizzle
+//   atoms, so a stage of the ring is 32 KB and a block 177 KB of shared
+//   memory; the tensor cores do 96 / 88 of the logits' work. Pipelined within
 //   each warpgroup: tile j's logits and tile j - 1's P V are issued together
 //   and tile j's softmax runs while P V does; across warpgroups in no fixed
 //   order.
@@ -73,8 +81,24 @@ constexpr int TXF_BK = 64;      // keys a tile (txf_issue_logits: m64n64k16)
 constexpr int TXF_STAGES = 4;
 constexpr int TXF_BQ = 64 * TXF_WG;               // query rows a block
 constexpr int TXF_THREADS = 128 * TXF_WG + 32;    // and one producer warp
-constexpr int TXF_TILE = TXF_BK * 128;            // one K or V tile: rows of 64 bf16
-constexpr int TXF_SMEM = 1024 + TXF_BQ * 128 + TXF_STAGES * 2 * TXF_TILE + (1 + 2 * TXF_STAGES) * 8;
+constexpr int TXF_ATOM_Q = TXF_BQ * 128;          // a Q tile's 64 columns: rows of 128 bytes
+constexpr int TXF_ATOM_T = TXF_BK * 128;          // a K or V tile's 64 columns
+
+// The shapes of a head dim DH (64, or 88 for ViT-g): a row of a head spans
+// ATOMS 64-column swizzle atoms (88: columns 0..63, then 64..87 and the zeros
+// head_map fills in up to 127); Q K^T reduces over KSTEPS k16 steps (88 -> 96:
+// columns 88..95 are those zeros in both operands); P V has N = DH, an
+// accumulator of DH / 2 floats a thread, CHUNKS 8-column chunks of it.
+template <int DH>
+struct TxfHead {
+  static_assert(DH == 64 || DH == 88, "the TMA forward takes head dim 64 or 88");
+  static constexpr int ATOMS = (DH + 63) / 64;
+  static constexpr int KSTEPS = (DH + 15) / 16;
+  static constexpr int CHUNKS = DH / 8;
+  static constexpr int TILE = TXF_ATOM_T * ATOMS;  // one K or V tile in the ring
+  static constexpr int SMEM =
+      1024 + TXF_ATOM_Q * ATOMS + TXF_STAGES * 2 * TILE + (1 + 2 * TXF_STAGES) * 8;
+};
 
 struct TextFwdArgs {
   bf16* out;   // [B, S, D]
@@ -91,20 +115,32 @@ __device__ __forceinline__ int text_fwd_key_tiles(int S, int q0, int causal) {
 }
 
 // issues the logits of a warpgroup's 64 rows against a tile of TXF_BK = 64
-// keys: S = Q K^T over d = 64 in four k16 steps, both from shared memory (the
-// caller fences, commits and waits)
-__device__ __forceinline__ void txf_issue_logits(float (&d)[32], uint64_t dq, uint64_t dk) {
+// keys: S = Q K^T over the head's KSTEPS k16 steps, both from shared memory
+// (q: the warpgroup's rows in the first atom, atoms TXF_ATOM_Q apart; k: the
+// tile, atoms TXF_ATOM_T apart; the caller fences, commits and waits)
+template <int DH>
+__device__ __forceinline__ void txf_issue_logits(float (&d)[32], uint32_t q, uint32_t k) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_ss_n64(d, dq + 2 * kk, dk + 2 * kk, kk);
+  for (int kk = 0; kk < TxfHead<DH>::KSTEPS; ++kk) {
+    const int atom = kk / 4, step = 2 * (kk % 4);
+    wgmma_ss_n64(d, sw128_desc(q + atom * TXF_ATOM_Q) + step,
+                 sw128_desc(k + atom * TXF_ATOM_T) + step, kk);
+  }
 }
 
-// issues O += P V over a tile of N keys (P from registers, V MN-major)
-template <int N>
-__device__ __forceinline__ void txf_issue_pv(float (&o)[32], const uint32_t (&p)[N / 16][4],
+// issues O += P V over a tile of 64 keys (P from registers, V MN-major: a
+// 64-column atom after another, TXF_ATOM_T apart)
+template <int DH>
+__device__ __forceinline__ void txf_issue_pv(float (&o)[DH / 2], const uint32_t (&p)[4][4],
                                              uint32_t v_tile) {
-  const uint64_t dv = sw128_mn_desc(v_tile, N * 128);
+  const uint64_t dv = sw128_mn_desc(v_tile, TXF_ATOM_T);
 #pragma unroll
-  for (int kc = 0; kc < N / 16; ++kc) wgmma_rs_n64<1>(o, p[kc], dv + kc * (2048 >> 4), 1);
+  for (int kc = 0; kc < 4; ++kc) {
+    if constexpr (DH == 64)
+      wgmma_rs_n64<1>(o, p[kc], dv + kc * (2048 >> 4), 1);
+    else
+      wgmma_rs_n88<1>(o, p[kc], dv + kc * (2048 >> 4), 1);
+  }
 }
 
 // The online softmax of one tile of N keys from k0 on, for this thread's rows
@@ -164,19 +200,23 @@ __device__ __forceinline__ void txf_pack(const float (&p)[N / 2], uint32_t (&pa)
   }
 }
 
+// tm_q, tm_kv: head_map over qkv [B * S, 3 * H * DH] with boxes of TXF_BQ and
+// TXF_BK rows (slices 0..H-1 q, H..2H-1 k, 2H..3H-1 v)
+template <int DH>
 __global__ void __launch_bounds__(TXF_THREADS, 1)
     text_attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_kv, const TextFwdArgs a) {
+  using Head = TxfHead<DH>;
   extern __shared__ uint8_t txf_smem[];
   const uint32_t raw = smem_addr(txf_smem);
   const uint32_t sq = (raw + 1023) & ~1023u;  // the swizzle pattern repeats every 1 KB
-  const uint32_t ring = sq + TXF_BQ * 128;
-  const uint32_t qbar = ring + TXF_STAGES * 2 * TXF_TILE;
+  const uint32_t ring = sq + Head::ATOMS * TXF_ATOM_Q;
+  const uint32_t qbar = ring + TXF_STAGES * 2 * Head::TILE;
   const uint32_t full = qbar + 8, empty = full + 8 * TXF_STAGES;
 
   const int tid = threadIdx.x, wg = tid >> 7;
   const int q0 = blockIdx.x * TXF_BQ, h = blockIdx.y, b = blockIdx.z;
-  const int S = a.S, D = a.H * 64;
+  const int S = a.S, D = a.H * DH;
   const int nkt = text_fwd_key_tiles(S, q0, a.causal);
   // warpgroups with a live query row (the last tile may leave some idle)
   const int live = min(TXF_WG, (S - q0 + 63) / 64);
@@ -190,19 +230,24 @@ __global__ void __launch_bounds__(TXF_THREADS, 1)
   }
   __syncthreads();
 
-  const int row0 = b * S;  // the sequence's first row in the [B * S, 3D] maps
+  const int row0 = b * S;  // the sequence's first row in the maps
   if (wg == TXF_WG) {
     // ---- producer: Q once, then K and V tiles through the ring -------------
     if (tid == TXF_WG * 128) {
-      mbar_expect_tx(qbar, TXF_BQ * 128);
-      tma_load_2d(sq, &tm_q, qbar, h * 64, row0 + q0);
+      mbar_expect_tx(qbar, Head::ATOMS * TXF_ATOM_Q);
+      for (int c = 0; c < Head::ATOMS; ++c)
+        tma_load_3d(sq + c * TXF_ATOM_Q, &tm_q, qbar, 64 * c, h, row0 + q0);
       for (int j = 0; j < nkt; ++j) {
         const int s = j % TXF_STAGES;
         if (j >= TXF_STAGES) mbar_wait(empty + 8 * s, ((j / TXF_STAGES) & 1) ^ 1);
-        const uint32_t dst = ring + s * 2 * TXF_TILE;
-        mbar_expect_tx(full + 8 * s, 2 * TXF_TILE);
-        tma_load_2d(dst, &tm_kv, full + 8 * s, D + h * 64, row0 + j * TXF_BK);
-        tma_load_2d(dst + TXF_TILE, &tm_kv, full + 8 * s, 2 * D + h * 64, row0 + j * TXF_BK);
+        const uint32_t dst = ring + s * 2 * Head::TILE;
+        mbar_expect_tx(full + 8 * s, 2 * Head::TILE);
+        for (int c = 0; c < Head::ATOMS; ++c) {
+          tma_load_3d(dst + c * TXF_ATOM_T, &tm_kv, full + 8 * s, 64 * c, a.H + h,
+                      row0 + j * TXF_BK);
+          tma_load_3d(dst + Head::TILE + c * TXF_ATOM_T, &tm_kv, full + 8 * s, 64 * c,
+                      2 * a.H + h, row0 + j * TXF_BK);
+        }
       }
     }
     return;
@@ -214,11 +259,11 @@ __global__ void __launch_bounds__(TXF_THREADS, 1)
   const int g = lane >> 2, t4 = lane & 3;
   const int qrow[2] = {q0 + 64 * wg + 16 * warp + g, q0 + 64 * wg + 16 * warp + g + 8};
   const float scale_log2 = a.scale * TX_LOG2E;
-  float o[32];
+  float o[DH / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // m: log2 domain
-  const uint64_t dq = sw128_desc(sq + wg * 64 * 128);
+  const uint32_t q_rows = sq + wg * 64 * 128;
   mbar_wait(qbar, 0);
 
   // Pipelined within the warpgroup: tile j's logits and tile j - 1's P V are
@@ -236,7 +281,7 @@ __global__ void __launch_bounds__(TXF_THREADS, 1)
   {
     float sc[NB / 2];
     wgmma_fence();
-    txf_issue_logits(sc, dq, sw128_desc(ring));
+    txf_issue_logits<DH>(sc, q_rows, ring);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -249,9 +294,9 @@ __global__ void __launch_bounds__(TXF_THREADS, 1)
     mbar_wait(full + 8 * s, (j / TXF_STAGES) & 1);
     float sc[NB / 2];
     wgmma_fence();
-    txf_issue_logits(sc, dq, sw128_desc(ring + s * 2 * TXF_TILE));
+    txf_issue_logits<DH>(sc, q_rows, ring + s * 2 * Head::TILE);
     wgmma_commit();
-    txf_issue_pv<NB>(o, pa, ring + sp * 2 * TXF_TILE + TXF_TILE);
+    txf_issue_pv<DH>(o, pa, ring + sp * 2 * Head::TILE + Head::TILE);
     wgmma_commit();
     wgmma_wait<1>();  // the logits
     fence_regs(sc);
@@ -261,7 +306,7 @@ __global__ void __launch_bounds__(TXF_THREADS, 1)
     fence_frags(pa);
     if (wt == 0) mbar_arrive(empty + 8 * sp);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {  // the output so far to tile j's max
+    for (int i = 0; i < Head::CHUNKS; ++i) {  // the output so far to tile j's max
       o[4 * i] *= corr[0];
       o[4 * i + 1] *= corr[0];
       o[4 * i + 2] *= corr[1];
@@ -274,7 +319,7 @@ __global__ void __launch_bounds__(TXF_THREADS, 1)
   {
     const int sl = (nkt - 1) % TXF_STAGES;
     wgmma_fence();
-    txf_issue_pv<NB>(o, pa, ring + sl * 2 * TXF_TILE + TXF_TILE);
+    txf_issue_pv<DH>(o, pa, ring + sl * 2 * Head::TILE + Head::TILE);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -282,7 +327,7 @@ __global__ void __launch_bounds__(TXF_THREADS, 1)
     if (wt == 0) mbar_arrive(empty + 8 * sl);
   }
 
-  bf16* out = a.out + ((i64)b * S) * D + h * 64;
+  bf16* out = a.out + ((i64)b * S) * D + h * DH;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -293,7 +338,7 @@ __global__ void __launch_bounds__(TXF_THREADS, 1)
     const float inv = 1.f / l[r];
     bf16* dst = out + (i64)qrow[r] * D;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < Head::CHUNKS; ++i)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i + 2 * t4) =
           __floats2bfloat162_rn(o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
   }
@@ -454,14 +499,32 @@ inline size_t text_small_smem(int S, int arrays, int floats) {
   return (size_t)arrays * rows * TX_LD * 2 + (size_t)floats * rows * 4;
 }
 
-// out [B, S, H * 64] (and lse [B, H, S] when non-null) from qkv [B, S, 3 * H *
-// 64]. small: the one-block kernel (S <= TX_SMALL_MAX), else the TMA + wgmma
-// kernel; ops/text_attention.py::text_core_plan chooses and checks alignment.
-inline cudaError_t launch_text_fwd(const bf16* qkv, const TextFwdArgs& a, int B, int small,
-                                   cudaStream_t stream) {
+template <int DH>
+inline cudaError_t launch_text_fwd_tma(const bf16* qkv, const TextFwdArgs& a, int B,
+                                       cudaStream_t stream) {
+  CUtensorMap tm_q, tm_kv;
+  const i64 rows = (i64)B * a.S;
+  if (!head_map(&tm_q, qkv, rows, 3 * a.H, DH, TXF_BQ) ||
+      !head_map(&tm_kv, qkv, rows, 3 * a.H, DH, TXF_BK))
+    return cudaErrorInvalidValue;
+  constexpr int smem = TxfHead<DH>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(text_attn_fwd_kernel<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  text_attn_fwd_kernel<DH><<<dim3((a.S + TXF_BQ - 1) / TXF_BQ, a.H, B), TXF_THREADS, smem,
+                             stream>>>(tm_q, tm_kv, a);
+  return cudaGetLastError();
+}
+
+// out [B, S, H * dh] (and lse [B, H, S] when non-null) from qkv [B, S, 3 * H *
+// dh]. small: the one-block kernel (S <= TX_SMALL_MAX, dh = 64), else the TMA +
+// wgmma kernel (dh 64 or 88); ops/text_attention.py::text_core_plan chooses and
+// checks alignment.
+inline cudaError_t launch_text_fwd(const bf16* qkv, const TextFwdArgs& a, int B, int dh,
+                                   int small, cudaStream_t stream) {
   const int S = a.S;
   if (small) {
-    if (S > TX_SMALL_MAX) return cudaErrorInvalidValue;
+    if (S > TX_SMALL_MAX || dh != 64) return cudaErrorInvalidValue;
     const size_t smem = text_small_smem(S, 3, 0);
     cudaError_t err = cudaFuncSetAttribute(
         text_attn_fwd_small_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -470,17 +533,9 @@ inline cudaError_t launch_text_fwd(const bf16* qkv, const TextFwdArgs& a, int B,
                                                                                         a);
     return cudaGetLastError();
   }
-  CUtensorMap tm_q, tm_kv;
-  const i64 rows = (i64)B * S, cols = 3 * a.H * 64;
-  if (!tile_map(&tm_q, qkv, rows, cols, cols, TXF_BQ) ||
-      !tile_map(&tm_kv, qkv, rows, cols, cols, TXF_BK))
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(text_attn_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, TXF_SMEM);
-  if (err != cudaSuccess) return err;
-  text_attn_fwd_kernel<<<dim3((S + TXF_BQ - 1) / TXF_BQ, a.H, B), TXF_THREADS, TXF_SMEM,
-                         stream>>>(tm_q, tm_kv, a);
-  return cudaGetLastError();
+  if (dh == 64) return launch_text_fwd_tma<64>(qkv, a, B, stream);
+  if (dh == 88) return launch_text_fwd_tma<88>(qkv, a, B, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace tvts

@@ -29,6 +29,7 @@ train and eval steps, the model EMA and the multi-view test merge.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable
 
@@ -37,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from tvts_torch.train.optim import StateDtypeAdamW
+from tvts_torch.utils.profiling import spanned
 
 NO_WD_PARAMS = {"pos_embed", "cls_token", "temporal_embed"}
 
@@ -162,10 +164,23 @@ def make_cls_train_step(model: torch.nn.Module, optimizer: LayerDecayAdamW) -> C
     return ClsTrainStep(model, optimizer)
 
 
-def make_cls_eval_step(model: torch.nn.Module) -> Callable[[torch.Tensor], torch.Tensor]:
+def make_cls_eval_step(model: torch.nn.Module,
+                       use_fused: bool = False) -> Callable[[torch.Tensor], torch.Tensor]:
+    """step(video) -> logits, without autograd, in the span `cls_eval`.
+    use_fused: FinetuneViT's blocks on the kernels
+    (ops/fused_forward.finetune_vit_fused_forward: bf16 on the card, the plain
+    sub-paths on the CPU), else model(video)."""
+    if use_fused:
+        from tvts_torch.ops.fused_forward import finetune_vit_fused_forward
+
+        forward = functools.partial(finetune_vit_fused_forward, model)
+    else:
+        forward = model
+
     @torch.no_grad()
+    @spanned("cls_eval")
     def step(video: torch.Tensor) -> torch.Tensor:
-        return model(video)
+        return forward(video)
 
     return step
 

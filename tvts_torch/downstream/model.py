@@ -1,5 +1,11 @@
 """The fine-tuning video classifier (counterpart of tvts_tpu/downstream/model.py;
-reference v1/downstream/modeling_finetune.py `vit_base_patch16_224`).
+reference v1/downstream/modeling_finetune.py `vit_base_patch16_224`), and its
+VideoMAE V2 sizes (`vit_giant_patch14_224`, VideoMAEv2 models/
+modeling_finetune.py: 1408 wide, 40 deep, 16 heads of 88, an MLP of 6144 =
+int(1408 * 48 / 11), patch 14, tubelet 2, 16 frames of 224², mean pooling;
+k has no bias, as in every VideoMAE block: the q/v biases fold into
+`qkv.bias` with a zero k slot, so the port's block counts 1408 more
+parameters a block than the published 1,012.17 M).
 
 - patchify: the tubelet Conv3d, kernel = stride = (tubelet, p, p), tokens in
   (tube, h, w) order; no CLS token;
@@ -7,11 +13,15 @@ reference v1/downstream/modeling_finetune.py `vit_base_patch16_224`).
   the compute dtype before it is added (the JAX module's order; JointViT
   sums its learned positions in float32);
 - the port's JointBlock (pre-norm, LayerNorm eps 1e-6 in float32, exact
-  gelu), then the token mean, `fc_norm` (float32, eps 1e-6) and `head`,
-  initialised truncated normal with std 0.02 * head_init_scale
-  (use_mean_pooling=False: `norm` on every token, then token 0);
+  gelu; hidden int(embed_dim * mlp_ratio)), then the token mean, `fc_norm`
+  (float32, eps 1e-6) and `head`, initialised truncated normal with std
+  0.02 * head_init_scale (use_mean_pooling=False: `norm` on every token, then
+  token 0);
 - `remat=True` checkpoints each block (torch.utils.checkpoint) where autograd
   records, as run_class_finetuning.py builds it.
+`embed` (the span `tubelet_stem`: conv and positions) and `pool` (token mean
+and `fc_norm`, or `norm` and token 0) are the parts around the blocks, which
+ops/fused_forward.finetune_vit_fused_forward runs on the kernels.
 Parameter names are the reference's: `patch_embed.proj`, `blocks.{i}.*`,
 `fc_norm`, `head`, so a v1 checkpoint's `video_model.*` tower loads by name.
 The compute dtype is `compute_dtype` when set (bf16 over float32 weights),
@@ -37,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 from tvts_torch.models.joint_vit import LN_EPS, JointBlock, PatchEmbed
 from tvts_torch.models.layers import LayerNormF32, lecun_normal_, linear
 from tvts_torch.utils.convert import convert_v1_state_dict, merge_params
+from tvts_torch.utils.profiling import annotate
 
 
 @functools.lru_cache(maxsize=8)
@@ -56,13 +67,14 @@ class FinetuneViT(nn.Module):
     def __init__(self, num_classes: int = 174, img_size: int = 224, patch_size: int = 16,
                  embed_dim: int = 768, depth: int = 12, heads: int = 12, num_frames: int = 16,
                  tubelet_size: int = 2, use_mean_pooling: bool = True,
-                 head_init_scale: float = 0.001, remat: bool = False):
+                 head_init_scale: float = 0.001, remat: bool = False, mlp_ratio: float = 4.0):
         super().__init__()
         self.depth, self.embed_dim, self.tubelet_size = depth, embed_dim, tubelet_size
         self.head_init_scale, self.remat = head_init_scale, remat
         self.compute_dtype: torch.dtype | None = None  # None: the weights' dtype
         self.patch_embed = PatchEmbed(embed_dim, patch_size, tubelet_size)
-        self.blocks = nn.ModuleList(JointBlock(embed_dim, heads) for _ in range(depth))
+        self.blocks = nn.ModuleList(JointBlock(embed_dim, heads, mlp_ratio)
+                                    for _ in range(depth))
         norm = LayerNormF32(embed_dim, eps=LN_EPS)
         if use_mean_pooling:
             self.fc_norm, self.norm = norm, None
@@ -90,28 +102,62 @@ class FinetuneViT(nn.Module):
                               generator=generator)
         nn.init.zeros_(self.head.bias)
 
-    def forward_features(self, video: torch.Tensor) -> torch.Tensor:
-        """video [B, T, C, H, W] normalised -> the pooled features [B, D]
-        (after `fc_norm`), in the compute dtype."""
-        conv = self.patch_embed.proj
-        dtype = self.compute_dtype or conv.weight.dtype
-        x = F.conv3d(video.transpose(1, 2).to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
-                     stride=conv.stride)                    # [B, D, n_tubes, h, w]
-        x = x.flatten(2).transpose(1, 2)                    # [B, S, D], (tube, h, w) order
-        pos = self.pos_table
-        if pos.shape[0] != x.shape[1]:
-            pos = torch.from_numpy(sinusoid_table(x.shape[1], self.embed_dim).copy()).to(x.device)
-        x = x + pos.to(dtype)
-        remat = self.remat and torch.is_grad_enabled()
-        for blk in self.blocks:
-            x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
+    def embed(self, video: torch.Tensor) -> torch.Tensor:
+        """video [B, T, C, H, W] normalised -> the tokens [B, S, D] in the
+        compute dtype, (tube, h, w) order, positions added."""
+        with annotate("tubelet_stem", video):
+            conv = self.patch_embed.proj
+            dtype = self.compute_dtype or conv.weight.dtype
+            x = F.conv3d(video.transpose(1, 2).to(dtype), conv.weight.to(dtype),
+                         conv.bias.to(dtype), stride=conv.stride)  # [B, D, n_tubes, h, w]
+            x = x.flatten(2).transpose(1, 2)
+            pos = self.pos_table
+            if pos.shape[0] != x.shape[1]:
+                pos = torch.from_numpy(sinusoid_table(x.shape[1], self.embed_dim).copy()).to(
+                    x.device)
+            return x + pos.to(dtype)
+
+    def pool(self, x: torch.Tensor) -> torch.Tensor:
+        """The last block's tokens [B, S, D] -> the pooled features [B, D]."""
         if self.fc_norm is not None:
             return self.fc_norm(x.mean(1))
         return self.norm(x)[:, 0]
 
+    def forward_features(self, video: torch.Tensor) -> torch.Tensor:
+        """video [B, T, C, H, W] normalised -> the pooled features [B, D]
+        (after `fc_norm`), in the compute dtype."""
+        x = self.embed(video)
+        remat = self.remat and torch.is_grad_enabled()
+        for blk in self.blocks:
+            x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
+        return self.pool(x)
+
     def forward(self, video: torch.Tensor) -> torch.Tensor:
         """video [B, T, C, H, W] normalised -> logits [B, num_classes]."""
         return linear(self.forward_features(video), self.head.weight, self.head.bias)
+
+
+# the published sizes by model name (modeling_finetune.py's constructors)
+MODEL_SIZES = {
+    "vit_base_patch16_224": dict(patch_size=16, embed_dim=768, depth=12, heads=12,
+                                 mlp_ratio=4.0),
+    "vit_giant_patch14_224": dict(patch_size=14, embed_dim=1408, depth=40, heads=16,
+                                  mlp_ratio=48 / 11),
+}
+
+
+def vit_base_patch16_224(num_classes: int = 174, **kwargs) -> FinetuneViT:
+    """FinetuneViT at ViT-B/16's sizes (the v1 SSV2 recipe); `kwargs` as
+    FinetuneViT's (frames, input size, pooling, head scale, remat)."""
+    return FinetuneViT(num_classes=num_classes, **{**MODEL_SIZES["vit_base_patch16_224"],
+                                                   **kwargs})
+
+
+def vit_giant_patch14_224(num_classes: int = 400, **kwargs) -> FinetuneViT:
+    """FinetuneViT at VideoMAE V2's ViT-g/14 sizes (module notes): 16 frames
+    of 224², tubelet 2, 2,048 tokens; 400 classes (Kinetics-400)."""
+    return FinetuneViT(num_classes=num_classes, **{**MODEL_SIZES["vit_giant_patch14_224"],
+                                                   **kwargs})
 
 
 # the tower parameters a v1 checkpoint carries over (run_class_finetuning.py:316-341)

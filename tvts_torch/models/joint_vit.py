@@ -27,6 +27,7 @@ from torch import nn
 from tvts_torch.models.configs import SortConfig
 from tvts_torch.models.layers import LayerNormF32, lecun_normal_, linear
 from tvts_torch.models.sort import SortBlock
+from tvts_torch.utils.profiling import annotate
 
 LN_EPS = 1e-6
 
@@ -74,26 +75,36 @@ class JointViT(nn.Module):
             lecun_normal_(self.head.weight, self.head.in_features, generator)
             nn.init.zeros_(self.head.bias)
 
-    def forward(self, video: torch.Tensor, keep_ind: torch.Tensor | None = None) -> torch.Tensor:
+    def embed(self, video: torch.Tensor, keep_ind: torch.Tensor | None = None) -> torch.Tensor:
         """video [B, T, C, H, W]; keep_ind [B, n_tubes, n_keep] or None ->
-        [B, 1 + n_tubes * n_keep, D] after the final norm (and the head)."""
-        B, T = video.shape[:2]
-        n_tubes, D = T // self.tubelet_size, self.embed_dim
-        conv = self.patch_embed.proj
-        dtype = self.compute_dtype or conv.weight.dtype
-        x = F.conv3d(video.transpose(1, 2).to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
-                     stride=conv.stride)                    # [B, D, n_tubes, h, w]
-        x = x.flatten(3).permute(0, 2, 3, 1)                # [B, n_tubes, N, D]
-        x = x + (self.pos_embed[:, None, 1:]
-                 + self.temporal_embed[0, None, :n_tubes, None]).to(dtype)
-        if keep_ind is not None:
-            keep = keep_ind[:, :n_tubes].long()
-            x = torch.gather(x, 2, keep[..., None].expand(-1, -1, -1, D))
-        cls = (self.cls_token[0, 0] + self.pos_embed[0, 0]).to(dtype)
-        x = torch.cat([cls.expand(B, 1, D), x.reshape(B, -1, D)], 1)
-        for blk in self.blocks:
-            x = blk(x)
+        the tokens [B, 1 + n_tubes * n_keep, D] in the compute dtype."""
+        with annotate("tubelet_stem", video):
+            B, T = video.shape[:2]
+            n_tubes, D = T // self.tubelet_size, self.embed_dim
+            conv = self.patch_embed.proj
+            dtype = self.compute_dtype or conv.weight.dtype
+            x = F.conv3d(video.transpose(1, 2).to(dtype), conv.weight.to(dtype),
+                         conv.bias.to(dtype), stride=conv.stride)  # [B, D, n_tubes, h, w]
+            x = x.flatten(3).permute(0, 2, 3, 1)                   # [B, n_tubes, N, D]
+            x = x + (self.pos_embed[:, None, 1:]
+                     + self.temporal_embed[0, None, :n_tubes, None]).to(dtype)
+            if keep_ind is not None:
+                keep = keep_ind[:, :n_tubes].long()
+                x = torch.gather(x, 2, keep[..., None].expand(-1, -1, -1, D))
+            cls = (self.cls_token[0, 0] + self.pos_embed[0, 0]).to(dtype)
+            return torch.cat([cls.expand(B, 1, D), x.reshape(B, -1, D)], 1)
+
+    def finish(self, x: torch.Tensor) -> torch.Tensor:
+        """The last block's tokens -> the final norm (and the head)."""
         x = self.norm(x)
         if self.head is not None:
             x = linear(x, self.head.weight, self.head.bias)
         return x
+
+    def forward(self, video: torch.Tensor, keep_ind: torch.Tensor | None = None) -> torch.Tensor:
+        """video [B, T, C, H, W]; keep_ind [B, n_tubes, n_keep] or None ->
+        [B, 1 + n_tubes * n_keep, D] after the final norm (and the head)."""
+        x = self.embed(video, keep_ind)
+        for blk in self.blocks:
+            x = blk(x)
+        return self.finish(x)

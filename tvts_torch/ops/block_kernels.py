@@ -571,17 +571,19 @@ def fused_space_block(x, base, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_frames:
 # ---------------------------------------------------------------------------
 # H3: MLP sub-path
 # ---------------------------------------------------------------------------
-def mlp_block_plain(x, ln_w, ln_b, wfc, bfc, wproj, bproj, act):
+def mlp_block_plain(x, ln_w, ln_b, wfc, bfc, wproj, bproj, act, eps=LN_EPS):
     """x + c_proj(act(c_fc(LN_2(x))))."""
-    return x + mlp(layer_norm_f32(x, ln_w, ln_b), wfc, bfc, wproj, bproj, act)
+    return x + mlp(layer_norm_f32(x, ln_w, ln_b, eps), wfc, bfc, wproj, bproj, act)
 
 
-def _mlp_sub_path(x, ln_w, ln_b, wfc, bfc, wproj, bproj, act: str, save_hidden: bool = False):
-    """x + c_proj(act(c_fc(LN_2(x)))) on the card: the LayerNorm row pass and
-    ln_gemm with the activation epilogue, then ln_gemm with the residual. Returns (out,
-    LN row stats [B*S, 2] f32, h): h is the pre-activation hidden [B, S, 4D]
-    in bf16 with save_hidden (the activation is then taken from the rounded
-    h), else None."""
+def _mlp_sub_path(x, ln_w, ln_b, wfc, bfc, wproj, bproj, act: str, save_hidden: bool = False,
+                  eps: float = LN_EPS):
+    """x + c_proj(act(c_fc(LN_2(x)))) on the card: the LayerNorm row pass (eps
+    1e-5 in the towers, 1e-6 in the joint blocks) and ln_gemm with the
+    activation epilogue, then ln_gemm with the residual. Returns (out, LN row
+    stats [B*S, 2] f32, h): h is the pre-activation hidden [B, S, 4D] in bf16
+    with save_hidden (the activation is then taken from the rounded h), else
+    None."""
     if act not in ("quick_gelu", "gelu"):
         raise ValueError(f"unknown activation {act!r}")
     B, S, D = x.shape
@@ -600,28 +602,30 @@ def _mlp_sub_path(x, ln_w, ln_b, wfc, bfc, wproj, bproj, act: str, save_hidden: 
     with torch.cuda.device(x.device):
         h_act = torch.empty(B, S, hidden, dtype=x.dtype, device=x.device)
         h_pre = torch.empty_like(h_act) if save_hidden else None
-        stats = _ln_gemm(lib, x, B * S, D, (ln_w, ln_b), wfc, bfc, h_act, act=act, pre=h_pre)
+        stats = _ln_gemm(lib, x, B * S, D, (ln_w, ln_b), wfc, bfc, h_act, act=act, pre=h_pre,
+                         eps=eps)
         out = torch.empty_like(x)
         _ln_gemm(lib, h_act, B * S, hidden, None, wproj, bproj, out, res=x, ldres=D)
     return out, stats, h_pre
 
 
 def mlp_geometry(x, ln_w, ln_b, wfc, bfc, wproj, bproj, act: str = "quick_gelu",
-                 save_hidden: bool = False) -> dict:
+                 save_hidden: bool = False, **_) -> dict:
     """The span geometry of an MLP sub-path's call (utils/profiling): its
     hidden width and flags beside B, S and D."""
     return describe(x, hidden=wfc.shape[0], act=act, save_hidden=save_hidden)
 
 
 @spanned("fused_mlp_block", mlp_geometry)
-def fused_mlp_block(x, ln_w, ln_b, wfc, bfc, wproj, bproj,
-                    act: str = "quick_gelu") -> torch.Tensor:
-    """H3. x: [B, S, D] -> x + c_proj(act(c_fc(LN_2(x))))."""
+def fused_mlp_block(x, ln_w, ln_b, wfc, bfc, wproj, bproj, act: str = "quick_gelu", *,
+                    eps: float = LN_EPS) -> torch.Tensor:
+    """H3. x: [B, S, D] -> x + c_proj(act(c_fc(LN_2(x)))), the LayerNorm's
+    eps 1e-5 (the towers) unless given (1e-6: the joint blocks)."""
     if act not in ("quick_gelu", "gelu"):
         raise ValueError(f"unknown activation {act!r}")
     if not _dispatch(x):
-        return mlp_block_plain(x, ln_w, ln_b, wfc, bfc, wproj, bproj, act)
-    out, _, _ = _mlp_sub_path(x, ln_w, ln_b, wfc, bfc, wproj, bproj, act)
+        return mlp_block_plain(x, ln_w, ln_b, wfc, bfc, wproj, bproj, act, eps)
+    out, _, _ = _mlp_sub_path(x, ln_w, ln_b, wfc, bfc, wproj, bproj, act, eps=eps)
     fused_mlp_block.launches += 1
     return out
 

@@ -10,6 +10,16 @@ H4 (the CLS row of the space sub-path) and the MLP on that one row. The stem
 MLP and the pooling stay plain PyTorch, as they were XLA outside any kernel on
 the TPU. Reads the parameters of a SpaceTimeViT, so it is checkpoint-compatible
 with the eager module.
+
+The joint space-time towers (models/joint_vit.py's `JointBlock`: the VideoMAE
+classifier downstream/model.FinetuneViT, ViT-B/16 to VideoMAE V2's ViT-g/14,
+and TVTS v1's JointViT), inference: per block the attention sub-path
+(ops/text_attention.fused_text_attention_block, non-causal: the LayerNorm
+row pass, ln_gemm qkv, the H7 core at head dim 64 or 88, ln_gemm proj with
+the residual), then H3 with exact GELU; both LayerNorms at the block's eps
+(1e-6). The stem (the cuDNN Conv3d and positions), the pooling, `fc_norm` /
+`norm` and the head stay plain PyTorch. Dispatch as the sub-paths': plain
+versions on a CPU tensor, kernels on a CUDA bf16 tensor, else an error.
 """
 
 from __future__ import annotations
@@ -17,6 +27,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from tvts_torch.models.layers import linear
 from tvts_torch.models.space_time_vit import SpaceTimeViT
 from tvts_torch.ops.block_backward import mlp_subpath, space_subpath, time_subpath
 from tvts_torch.ops.block_kernels import (
@@ -29,6 +40,7 @@ from tvts_torch.ops.block_kernels import (
     time_block_plain,
 )
 from tvts_torch.ops.text_attention import (
+    fused_text_attention_block,
     sort_transformer_fused_forward,
     text_transformer_fused_forward,
 )
@@ -66,6 +78,37 @@ def space_time_vit_fused_forward(model: SpaceTimeViT, video: torch.Tensor,
                             blk.mlp.c_fc.bias, blk.mlp.c_proj.weight,
                             blk.mlp.c_proj.bias, act=cfg.act)
     return model.pool(x, need_tokens)
+
+
+def joint_blocks_fused_forward(blocks, x: torch.Tensor) -> torch.Tensor:
+    """The JointBlocks `blocks` on x [B, S, D] through the kernels (module
+    notes); the weights cast to x's dtype (a no-op for bf16 weights)."""
+    x = x.contiguous()  # the stem's tokens are a transposed view
+    dt = x.dtype
+    for blk in blocks:
+        attn, mlp = blk.attn, blk.mlp
+        x = fused_text_attention_block(x, blk.norm1.weight, blk.norm1.bias,
+                                       attn.qkv.weight.to(dt), attn.qkv.bias.to(dt),
+                                       attn.proj.weight.to(dt), attn.proj.bias.to(dt),
+                                       attn.num_heads, causal=False, eps=blk.norm1.eps)
+        x = fused_mlp_block(x, blk.norm2.weight, blk.norm2.bias, mlp.fc1.weight.to(dt),
+                            mlp.fc1.bias.to(dt), mlp.fc2.weight.to(dt), mlp.fc2.bias.to(dt),
+                            act="gelu", eps=blk.norm2.eps)
+    return x
+
+
+def finetune_vit_fused_forward(model, video: torch.Tensor) -> torch.Tensor:
+    """Equivalent to model(video) for a downstream FinetuneViT, inference:
+    the stem, the blocks on the kernels, the pooling and the head. video [B,
+    T, C, H, W] -> logits [B, num_classes] in the compute dtype."""
+    x = joint_blocks_fused_forward(model.blocks, model.embed(video))
+    return linear(model.pool(x), model.head.weight, model.head.bias)
+
+
+def joint_vit_fused_forward(model, video: torch.Tensor,
+                            keep_ind: torch.Tensor | None = None) -> torch.Tensor:
+    """Equivalent to model(video, keep_ind) for TVTS v1's JointViT, inference."""
+    return model.finish(joint_blocks_fused_forward(model.blocks, model.embed(video, keep_ind)))
 
 
 def space_time_vit_fused_train_forward(model: SpaceTimeViT, video: torch.Tensor,

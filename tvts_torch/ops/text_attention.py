@@ -11,8 +11,12 @@ float32. Design (four launches; the kernels are built into the one library
 of ops/block_kernels.py): the LayerNorm row pass writes LN(x), ln_gemm the
 qkv rows from it, the attention core (`text_core`, csrc/text_attention.cuh)
 attends, ln_gemm proj adds the residual x in its epilogue. Dispatch as in
-block_kernels: plain version on a CPU tensor, the kernel (bf16, head dim 64)
-on a CUDA tensor, or raise; `.launches` counts calls that ran the kernel.
+block_kernels: plain version on a CPU tensor, the kernel (bf16, head dim 64;
+88 forward only) on a CUDA tensor, or raise; `.launches` counts calls that ran the kernel.
+The joint space-time blocks of the VideoMAE towers (models/joint_vit.py
+`JointBlock`) call `fused_text_attention_block` non-causal at LN eps 1e-6 and
+head dim 64 or 88 (VideoMAE V2's ViT-g/14 at S = 2,048), forward only; its
+span's geometry (heads, head dim, causal, eps) tells those calls apart.
 
 `text_subpath` is the differentiable form (replaces make_text_subpath, :313,
 with the backward fused_text_attention_block_bwd, :264, kernel :134). Its
@@ -29,8 +33,9 @@ The attention core alone: `text_core` (forward, the core of :43-99) and
 `text_core_backward` (the core of :134-262), each beside its plain version
 (`text_core_plain`, `text_core_backward_plain`: the kernels' rounding points,
 for the tests and chip_smoke.py) and with its own `.launches` (one a sub-path
-forward or backward on the card). `text_core_plan` sizes both and refuses
-what they do not take. Two designs, chosen by S (the notes of
+forward or backward on the card); the forward core runs in the span
+`text_core`. `text_core_plan` sizes both and refuses what they do not take:
+the backward takes head dim 64, the forward 64 or 88. Two designs, chosen by S (the notes of
 csrc/text_attention.cuh and text_attention_bwd.cuh): at S <= TEXT_SMALL_MAX
 (the text tower's 77) a block per (head, sequence) stages the sequence's rows
 once and computes on mma.sync, the backward in one launch; longer sequences
@@ -61,8 +66,11 @@ TEXT_SMALL_MAX = 128
 TEXT_FWD_TILES, TEXT_FWD_STAGES = (192, 64), 4
 TEXT_BWD_TILES, TEXT_BWD_STAGES = (128, 64), 8
 TEXT_FWD_THREADS, TEXT_BWD_THREADS = 3 * 128 + 32, 256  # forward: and a producer warp
-TEXT_FWD_SMEM = (1024 + TEXT_FWD_TILES[0] * 128 + TEXT_FWD_STAGES * 2 * TEXT_FWD_TILES[1] * 128
-                 + (1 + 2 * TEXT_FWD_STAGES) * 8)
+TEXT_HEAD_DIMS = (64, 88)  # the forward's; the backward takes 64
+TEXT_FWD_SMEM = {d: 1024 + (-(-d // 64)) * (TEXT_FWD_TILES[0] * 128
+                                            + TEXT_FWD_STAGES * 2 * TEXT_FWD_TILES[1] * 128)
+                 + (1 + 2 * TEXT_FWD_STAGES) * 8
+                 for d in TEXT_HEAD_DIMS}  # a head's row: 128-byte swizzle atoms
 TEXT_DKV_SMEM = (1024 + 2 * 128 * 128 + TEXT_BWD_STAGES * (2 * 64 * 128 + 2 * 64 * 4)
                  + (1 + 2 * TEXT_BWD_STAGES) * 8)
 TEXT_DQ_SMEM = (1024 + 3 * 128 * 128 + TEXT_BWD_STAGES * 2 * 64 * 128 + 2 * 2 * 64 * 4
@@ -79,36 +87,43 @@ def _tiles(n_rows: int, rows: int, step: int, first, last) -> list:
             for r0 in range(0, n_rows, rows)]
 
 
-def text_core_plan(B: int, S: int, H: int, d: int, causal: bool, pointers=None) -> dict:
+def text_core_plan(B: int, S: int, H: int, d: int, causal: bool, pointers=None,
+                   backward: bool = False) -> dict:
     """The launch plan of the H7 attention core, forward and backward, for B
     sequences of S rows, H heads of d. Raises ValueError, before any launch,
     on what the kernels do not take: d other than 64 (every text and sort
-    config of the repo), no sequence, row or head, or a base address
+    config of the repo) or 88 (VideoMAE V2's ViT-g; forward only, so d = 88
+    with `backward` is refused), no sequence, row or head, or a base address
     (`pointers`: name -> address) that is not 16-byte aligned (the TMA boxes
     and the 16-byte copies read from it).
 
-    kernel "small" (S <= TEXT_SMALL_MAX): a block per (head, sequence), a warp
-    per 16-row slab; "tma" otherwise. The tiles are what each block computes:
+    kernel "small" (S <= TEXT_SMALL_MAX, d = 64): a block per (head,
+    sequence), a warp per 16-row slab; "tma" otherwise (every S at d = 88: a
+    row of 88 is two swizzle atoms, so `fwd_smem` grows; no backward entries).
+    The tiles are what each block computes:
     `fwd` and `dq` list (query rows, [key columns walked]) and `dkv` (key rows,
     [query columns walked]), the tiles wholly above the diagonal skipped when
     causal; `scratch_rows` is the backward's padded lse and delta rows (0: the
     one-block backward needs none). The dict is shared between calls with the
     same shapes: do not change it."""
-    if d != 64:
-        raise ValueError(f"head dim {d}: the text attention core takes head dim 64")
+    if d not in TEXT_HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the text attention core takes head dim 64 or 88")
+    if backward and d != 64:
+        raise ValueError(f"head dim {d}: the text attention core's backward takes head dim 64 "
+                         f"(the d = 88 core is forward only)")
     if B < 1 or S < 1 or H < 1:
         raise ValueError(f"B = {B}, S = {S}, H = {H}: the text attention core takes at least "
                          f"one of each")
     for name, ptr in (pointers or {}).items():
         if ptr is not None and ptr % 16:
             raise ValueError(f"{name} at {ptr:#x} is not 16-byte aligned")
-    return _text_core_geometry(B, S, H, causal)
+    return _text_core_geometry(B, S, H, d, causal)
 
 
 @functools.cache
-def _text_core_geometry(B: int, S: int, H: int, causal: bool) -> dict:
+def _text_core_geometry(B: int, S: int, H: int, d: int, causal: bool) -> dict:
     every = lambda r0: S  # noqa: E731
-    if S <= TEXT_SMALL_MAX:
+    if S <= TEXT_SMALL_MAX and d == 64:
         slabs = -(-S // 16)
         rows = 16 * slabs
         upto = (lambda r0: r0 + 16) if causal else every
@@ -120,12 +135,14 @@ def _text_core_geometry(B: int, S: int, H: int, causal: bool) -> dict:
                     dkv=_tiles(S, 16, 16, (lambda r0: r0) if causal else (lambda r0: 0), every))
     (fq, fk), (brows, bstep) = TEXT_FWD_TILES, TEXT_BWD_TILES
     grid = lambda rows: (-(-S // rows), H, B)  # noqa: E731
+    fwd = _tiles(S, fq, fk, lambda r0: 0, (lambda r0: min(S, r0 + fq)) if causal else every)
+    if d != 64:
+        return dict(kernel="tma", fwd_grid=grid(fq), threads=TEXT_FWD_THREADS,
+                    fwd_smem=TEXT_FWD_SMEM[d], fwd=fwd)
     return dict(kernel="tma", fwd_grid=grid(fq), bwd_grid=grid(brows),
                 threads=(TEXT_FWD_THREADS, TEXT_BWD_THREADS),
-                fwd_smem=TEXT_FWD_SMEM, bwd_smem=(TEXT_DQ_SMEM, TEXT_DKV_SMEM),
-                scratch_rows=-(-S // bstep) * bstep,
-                fwd=_tiles(S, fq, fk, lambda r0: 0,
-                           (lambda r0: min(S, r0 + fq)) if causal else every),
+                fwd_smem=TEXT_FWD_SMEM[d], bwd_smem=(TEXT_DQ_SMEM, TEXT_DKV_SMEM),
+                scratch_rows=-(-S // bstep) * bstep, fwd=fwd,
                 dq=_tiles(S, brows, bstep, lambda r0: 0,
                           (lambda r0: min(S, r0 + brows)) if causal else every),
                 dkv=_tiles(S, brows, bstep, (lambda r0: r0) if causal else (lambda r0: 0),
@@ -145,10 +162,11 @@ def _core_mask(S, causal, device):
 
 
 def text_core_plain(qkv, num_heads: int, causal: bool):
-    """The H7 core in plain torch with the kernels' rounding points: logits
-    scale * q.k in f32 (for d = 64 the TPU's bf16-rounded q / 8, exactly),
-    P rounded to qkv's dtype for P V, the row sum of the f32 probabilities,
-    the output divided by it. qkv [B, S, 3D] -> (out [B, S, D] in qkv's
+    """The H7 core in plain torch with the kernels' rounding points at either
+    head dim: logits scale * q.k in f32 with scale = d^-1/2 (for d = 64 the
+    TPU's bf16-rounded q / 8, exactly; at d = 88 the kernel's zero columns
+    88..95 add nothing), P rounded to qkv's dtype for P V, the row sum of the
+    f32 probabilities, the output divided by it. qkv [B, S, 3D] -> (out [B, S, D] in qkv's
     dtype, lse [B, H, S] f32, natural log of the scaled logits)."""
     B, S, D3 = qkv.shape
     q, k, v = _core_heads(qkv, num_heads)
@@ -181,13 +199,21 @@ def text_core_backward_plain(qkv, out, lse, dO, num_heads: int, causal: bool):
                      -1).to(qkv.dtype)
 
 
+def _core_geometry(lib, qkv, out, lse, num_heads: int, causal: bool) -> dict:
+    """The span geometry of a core call: B, S, H, d and causal."""
+    B, S, D3 = qkv.shape
+    return dict(B=B, S=S, H=num_heads, d=D3 // 3 // num_heads, causal=causal)
+
+
+@spanned("text_core", _core_geometry)
 def _text_core(lib, qkv, out, lse, num_heads: int, causal: bool) -> None:
     """The H7 forward core on the card into out (and lse unless None)."""
     B, S, D3 = qkv.shape
-    plan = text_core_plan(B, S, num_heads, D3 // 3 // num_heads, causal,
+    d = D3 // 3 // num_heads
+    plan = text_core_plan(B, S, num_heads, d, causal,
                           {"qkv": bk._ptr(qkv), "out": bk._ptr(out), "lse": bk._ptr(lse)})
     bk._check(lib, lib.tvts_text_core(bk._ptr(qkv), bk._ptr(out), bk._ptr(lse), B, S, num_heads,
-                                      64, 64 ** -0.5, int(causal), int(plan["kernel"] == "small"),
+                                      d, d ** -0.5, int(causal), int(plan["kernel"] == "small"),
                                       bk._stream(qkv)))
     text_core.launches += 1
 
@@ -195,7 +221,8 @@ def _text_core(lib, qkv, out, lse, num_heads: int, causal: bool) -> None:
 def text_core(qkv, num_heads: int, causal: bool = True, with_lse: bool = False):
     """The H7 attention core alone: qkv [B, S, 3D] -> out [B, S, D] (and the
     lse [B, H, S] f32 with `with_lse`). On a CPU tensor text_core_plain; on a
-    CUDA tensor the kernel (bf16, head dim 64)."""
+    CUDA tensor the kernel (bf16, head dim 64 or 88), in the span
+    `text_core`."""
     if not bk._dispatch(qkv):
         out, lse = text_core_plain(qkv, num_heads, causal)
         return (out, lse) if with_lse else out
@@ -214,7 +241,7 @@ def _text_core_backward(lib, qkv, out, lse, dO, num_heads: int, causal: bool):
     B, S, D3 = qkv.shape
     plan = text_core_plan(B, S, num_heads, D3 // 3 // num_heads, causal,
                           {"qkv": bk._ptr(qkv), "out": bk._ptr(out), "lse": bk._ptr(lse),
-                           "dO": bk._ptr(dO)})
+                           "dO": bk._ptr(dO)}, backward=True)
     Sp = plan["scratch_rows"]
     scratch = (torch.empty(2, B, num_heads, Sp, dtype=torch.float32, device=qkv.device)
                if Sp else None)
@@ -256,8 +283,12 @@ def _text_sub_path(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads, causal, e
     """The H7 launch chain on the card; save=True also returns (qkv, attn,
     lse, LN stats) for the backward."""
     B, S, D = x.shape
-    if D % num_heads or D // num_heads != 64:
-        raise ValueError(f"width {D} / {num_heads} heads: the text kernel takes head dim 64")
+    if D % num_heads or D // num_heads not in TEXT_HEAD_DIMS:
+        raise ValueError(f"width {D} / {num_heads} heads: the text kernel takes head dim 64 "
+                         f"or 88")
+    if save and D // num_heads != 64:
+        raise ValueError(f"width {D} / {num_heads} heads: the text kernel's backward takes "
+                         f"head dim 64 (the d = 88 core is forward only)")
     bf = torch.bfloat16
     bk._expect("x", x, x, bf, (B, S, D))
     bk._expect("ln_w", ln_w, x, torch.float32, (D,))
@@ -280,7 +311,15 @@ def _text_sub_path(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads, causal, e
     return (out, qkv, attn, lse, stats) if save else out
 
 
-@spanned("fused_text_attention_block")
+def attention_geometry(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads: int,
+                       causal: bool = True, eps: float = 1e-5) -> dict:
+    """The span geometry of an attention sub-path's call (utils/profiling):
+    B, S, D, its heads and head dim, causal and the LayerNorm's eps."""
+    return describe(x, num_heads=num_heads, head_dim=x.shape[-1] // num_heads, causal=causal,
+                    eps=eps)
+
+
+@spanned("fused_text_attention_block", attention_geometry)
 def fused_text_attention_block(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads: int,
                                causal: bool = True, eps: float = 1e-5) -> torch.Tensor:
     """H7 forward. x: [B, S, D] -> x + Proj(Attn(LN(x))) [B, S, D]."""
