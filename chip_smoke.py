@@ -101,7 +101,10 @@ H/14 gates) with their times):
    forward and train step (ms, TFLOP/s, bound, one F.linear on the same
    operands as library_ms; a LayerNorm product's time includes its row
    pass), then the four of a VideoMAE V2 ViT-g/14 joint block at B=15
-   (joint_gemm_products, each held to plain), printed as {"ln_gemm": [...]}; the LayerNorm row pass alone at the
+   (joint_gemm_products), then five of fewer tiles than SMs, each with its
+   tiles and blocks and the sha256 of its outputs, every output held to
+   plain, printed as {"ln_gemm": [...]}, and the per-tile and per-k-step costs
+   fitted to proj and c_proj as {"ln_gemm_fit": ...}; the LayerNorm row pass alone at the
    B/16 (B=48, 64) and H/14 (B=24) extraction shapes against its byte
    bound, printed as {"ln_rows": [...]}; every wgrad
    product of the B/16 step at B=20 and the H/14 step at B=8 (device ms,
@@ -310,6 +313,11 @@ H7 backwards split by kernel, the
 step at B=20 (also with mlp_mode="pallas") with its profile, the saving
 forwards, the B/16, B/32 and H/14 extraction rates and the H/14 step with
 every kernel at B=8 with its profile.
+`python3 chip_smoke.py --ln-gemm OUT.json [AGAINST.json ...]` runs phases 1
+and 2 and then only the ln_gemm table (`ln_gemm_phase`), writes its rows to
+OUT.json and sets each row's rate beside those of the AGAINST tables (this
+script run from a copy of another tree of the port), failing when a digest
+differs.
 The line before the last is {"kernels": [...]}, each with its bound (the
 larger of its bytes over 3.35 TB/s and its flops over 989 TFLOP/s, from the
 shapes timed); the last is {"ok": true, "device": {...}}.
@@ -814,6 +822,7 @@ def reset_launch_counts(bk, bb, ta) -> None:
     for fn in counted(bk, bb, ta):
         fn.launches = 0
     bk.ln_rows.launches = 0
+    bk._ln_gemm.tiles = bk._ln_gemm.blocks = 0
     ta.text_subpath_backward.frozen_launches = 0
     bb.mlp_subpath.saved_launches = bb.mlp_subpath_backward.saved_launches = 0
     bb.space_core_backward.pair_launches = 0
@@ -1568,6 +1577,62 @@ def joint_gemm_products(B: int = 15) -> list[dict]:
             p(f"ViT-g fc2 (H3) B={B}", D, hidden, epi="bias+residual")]
 
 
+def small_gemm_products() -> list[dict]:
+    """ln_gemm products of fewer tiles than the H100's 132 SMs, where the
+    persistent grid runs one tile a block: the B/16 text tower's qkv and proj
+    at one caption (77 rows), one block of 64 CLS rows through qkv, and c_fc /
+    c_proj at 1,280 and 5,504 rows (120 and 129 tiles). Keys as
+    ln_gemm_products'."""
+    def p(name, M, N, K, ln=None, epi="bias", act="none"):
+        return dict(name=name, M=M, N=N, K=K, lda=K, ln=ln, epi=epi, act=act)
+
+    return [p("small: text qkv, one caption (H7)", 77, 1536, 512, 1e-5),
+            p("small: text proj, one caption (H7)", 77, 512, 512, epi="bias+residual"),
+            p("small: qkv of 64 CLS rows", 64, 2304, 768, 1e-5),
+            p("small: c_fc M=1280 (H3)", 1280, 3072, 768, 1e-5, "bias+quick_gelu",
+              "quick_gelu"),
+            p("small: c_proj M=5504 (H3)", 5504, 768, 3072, epi="bias+residual")]
+
+
+def gemm_plain(a, w, bias, act: str, kw: dict) -> list[torch.Tensor]:
+    """ln_gemm's outputs (out, then pre or act_out) in plain f32 torch from
+    the same bf16 operands, A = LN(x) already rounded as the row pass rounds
+    it: bias, activation (from the bf16-rounded pre-activation when it is
+    saved), residual; under an act' epilogue (a `hidden` in kw) the product
+    times act'(hidden) and act(hidden)."""
+    from tvts_torch.models.layers import get_activation
+
+    y = torch.nn.functional.linear(a.float(), w.float())
+    fn = (lambda t: t) if act == "none" else get_activation(act)
+    if "hidden" in kw:
+        h = kw["hidden"].float().requires_grad_()
+        ah = fn(h)
+        (dh,) = torch.autograd.grad(ah, h, y) if act != "none" else (y,)
+        return [dh, ah.detach()]
+    if bias is not None:
+        y += bias.float()
+    if "pre" in kw:
+        return [fn(y.bfloat16().float()), y]
+    y = fn(y)
+    if "res" in kw:
+        y += kw["res"].float()
+    return [y]
+
+
+def gemm_fit(rows: list[dict], sms: int) -> dict:
+    """The per-tile fixed cost and the per-k-step cost of ln_gemm, fitted to
+    the B/16 extraction's proj (K = 768) and c_proj (K = 3072), which share M
+    = 150,592, N = 768 and the residual epilogue: a block's walk of
+    ceil(tiles / SMs) tiles takes fixed + K / 64 * step microseconds a tile."""
+    by = {r["name"]: r for r in rows}
+    a, b = by["extraction proj (H1, H2)"], by["extraction c_proj (H3)"]
+    waves = -(-(-(-a["N"] // 256) * -(-a["M"] // 128)) // sms)
+    ta, tb = (1000 * r["ms"] / waves for r in (a, b))
+    step = (tb - ta) / ((b["K"] - a["K"]) // 64)
+    return dict(waves=waves, tile_us=(ta, tb), step_us=step,
+                fixed_us=ta - a["K"] // 64 * step)
+
+
 def wgrad_products(cfg, B: int) -> list[dict]:
     """Every weight-gradient product (wgrad) of one train step at B clips of
     the training config `cfg` (its n_keep patches a frame): C [N1, N2] = A^T
@@ -1597,22 +1662,27 @@ def wgrad_products(cfg, B: int) -> list[dict]:
 
 def ln_gemm_table(dev, card: str, bk) -> list[dict]:
     """Each B/16 product of ln_gemm_products, then the ViT-g joint block's
-    (joint_gemm_products), through ln_gemm on seeded operands: ms (CUDA
-    events), TFLOP/s, its bound (operands read once, outputs written once),
-    and as library_ms one torch.nn.functional.linear on the same A, W and
-    bias (the product alone; timed here only, never called by the port). The
-    joint block's outputs are also held to plain torch (LN(x) by
-    ln_rows_plain, the product, bias, GELU and residual in f32) within the
-    H1-H3 band (band_check), every column of the partial last tile
-    included."""
+    (joint_gemm_products), then the small ones (small_gemm_products), through
+    ln_gemm on seeded operands: ms (CUDA events over 5 launches, 100 below
+    0.1 TFLOP a launch, where a launch takes microseconds), TFLOP/s, its bound
+    (operands read once, outputs written once), as library_ms one
+    torch.nn.functional.linear on the same A, W and bias (the product alone;
+    timed here only, never called by the port), the output tiles and
+    persistent blocks of one launch (`gemm_counts`) with the share of tiles
+    that followed another tile in their block (1 - blocks / tiles: the tiles
+    whose start can overlap an epilogue; whether it does shows in the fit),
+    and the sha256 of each output (equal digests: bit-identical outputs; a
+    run over another tree's tvts_torch gives that tree's, see PERF.md). Every
+    output is held to plain torch (gemm_plain) within the H1-H3 band
+    (band_check), every column of a partial last tile included. Prints the
+    fit of gemm_fit as {"ln_gemm_fit": ...}."""
     from tvts_torch.models.configs import tvtsv2_b_16
 
     lib = bk.library()
     gen = torch.Generator(device=dev).manual_seed(31)
     bf = torch.bfloat16
     rows = []
-    joint = joint_gemm_products()
-    for p in ln_gemm_products(tvtsv2_b_16()) + joint:
+    for p in ln_gemm_products(tvtsv2_b_16()) + joint_gemm_products() + small_gemm_products():
         M, N, K, epi = p["M"], p["N"], p["K"], p["epi"]
         x = torch.randn(M, p["lda"], generator=gen, device=dev, dtype=bf)
         w = torch.randn(N, K, generator=gen, device=dev, dtype=bf) * K ** -0.5
@@ -1635,35 +1705,63 @@ def ln_gemm_table(dev, card: str, bk) -> list[dict]:
                       act_out=torch.empty_like(out))
             extra += (4 if hdt == torch.float32 else 2) * M * N + 2 * M * N
         bias = None if epi in ("none", "f32") or "act_grad" in epi else b
+        flops = 2 * M * N * K
         ms = cuda_ms(lambda: bk._ln_gemm(lib, x, M, p["lda"], ln, w, bias, out, **kw),
-                     iters=5)
+                     iters=5 if flops > 1e11 else 100)
+        counts = getattr(bk, "gemm_counts", lambda: {"tiles": None, "blocks": None})
+        before = counts()
+        bk._ln_gemm(lib, x, M, p["lda"], ln, w, bias, out, **kw)
+        tiles, blocks = (None if n is None else n - before[k] for k, n in counts().items())
+        digests = [sha256_of(t) for t in (out, kw.get("pre"), kw.get("act_out"))
+                   if t is not None]
         a2 = x[:, :K]
         lib_ms = cuda_ms(lambda: torch.nn.functional.linear(a2, w, bias), iters=5)
-        if p in joint:
-            a = bk.ln_rows_plain(a2, *ln, p["ln"])[0] if ln else a2
-            want = torch.nn.functional.linear(a.float(), w.float(), bias.float())
-            if p["act"] == "gelu":
-                want = torch.nn.functional.gelu(want)
-            if "residual" in epi:
-                want += kw["res"].float()
-            diff, mean, tol = band_check(out, want)
+        a = bk.ln_rows_plain(a2, *ln, p["ln"])[0] if ln else a2
+        outs = [t for t in (out, kw.get("pre"), kw.get("act_out")) if t is not None]
+        for got, want in zip(outs, gemm_plain(a, w, bias, p["act"], kw)):
+            diff, mean, tol = band_check(got, want)
             print(f"[6] ln_gemm {p['name']}: max|diff| {diff:.5f} mean|ref| {mean:.4f} "
                   f"(tol {tol:.4f}) against plain")
             if diff > tol:
                 raise AssertionError(f"ln_gemm {p['name']}: {diff} > {tol}")
-            del a, want
-        flops = 2 * M * N * K
+            del want
+        del a
         nbytes = 2 * M * K + 2 * N * K + out.element_size() * M * N + extra
         bnd = bound_ms(flops, nbytes)
         rows.append(dict(name=p["name"], M=M, N=N, K=K,
                          prologue=f"layernorm eps {p['ln']:g}" if p["ln"] else "none",
                          epilogue=epi, ms=ms, tflops=flops / ms / 1e9, bound_ms=bnd[0],
-                         bound_by=bnd[1], library_ms=lib_ms))
-        print(f"[6] ln_gemm {p['name']:40s} M={M} N={N} K={K}: {ms:.3f} ms, "
+                         bound_by=bnd[1], library_ms=lib_ms, tiles=tiles, blocks=blocks,
+                         overlap_share=1 - blocks / tiles if tiles else None,
+                         sha256=digests))
+        print(f"[6] ln_gemm {p['name']:40s} M={M} N={N} K={K}: {ms:.4f} ms, "
               f"{flops / ms / 1e9:.1f} TFLOP/s, bound {bnd[0]:.3f} ms ({bnd[1]}), "
-              f"F.linear {lib_ms:.3f} ms [{card}]")
+              f"F.linear {lib_ms:.3f} ms, {tiles} tiles over {blocks} blocks, sha256 "
+              f"{' '.join(d[:16] for d in digests)} [{card}]")
         del x, out, kw
+    fit = gemm_fit(rows, torch.cuda.get_device_properties(dev).multi_processor_count)
+    print(json.dumps({"ln_gemm_fit": fit}))
     return rows
+
+
+def ln_gemm_phase(dev, card: str, bk, args: list[str]) -> int:
+    """`--ln-gemm OUT.json [AGAINST.json ...]`: the ln_gemm table alone,
+    written to OUT.json, and each row's rate beside those of the tables
+    AGAINST (the same script run over another tree of the port: copy it
+    there and run it from there). Returns 1 when a digest differs."""
+    rows = ln_gemm_table(dev, card, bk)
+    with open(args[0], "w") as f:
+        json.dump(rows, f)
+    others = [json.load(open(path)) for path in args[1:]]
+    bad = 0
+    for i, r in enumerate(rows):
+        same = all(o[i]["name"] == r["name"] and o[i]["sha256"] == r["sha256"] for o in others)
+        bad += not same
+        print(f"[6] ln_gemm {r['name']:40s} {r['tflops']:.1f} TFLOP/s against "
+              + ", ".join(f"{o[i]['tflops']:.1f}" for o in others)
+              + f"; digests {'equal' if same else 'DIFFER'} [{card}]")
+    print(f"[6] ln_gemm: {bad} of {len(rows)} rows with another digest")
+    return 1 if bad else 0
 
 
 def ln_rows_table(dev, card: str, bk) -> list[dict]:
@@ -5280,6 +5378,8 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         profile_phase(dev, card, bk, bb, ta)
         return 0
+    if "--ln-gemm" in sys.argv[1:]:
+        return ln_gemm_phase(dev, card, bk, sys.argv[sys.argv.index("--ln-gemm") + 1:])
 
     # ---- phase 3: kernel parity ---------------------------------------------
     max_err = parity_phase(dev, bk, bb, ta, ac)

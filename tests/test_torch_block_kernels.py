@@ -247,6 +247,7 @@ def test_wrappers_on_cpu_run_plain_and_count_no_launch():
     assert y.dtype == x.dtype and stats.shape == (x.shape[1], 2)
     assert bk.launch_counts() == {fn.__name__: 0 for fn in bk.COUNTED}
     assert "ln_rows" in bk.launch_counts()
+    assert bk.gemm_counts() == {"ln_gemm.tiles": 0, "ln_gemm.blocks": 0}
 
 
 def test_wrappers_reject_bad_geometry_and_devices():
@@ -297,20 +298,53 @@ def _port_products(cfg):
     return out
 
 
-@pytest.mark.parametrize("arch", ["tvtsv2_b_32", "tvtsv2_b_16", "tvtsv2_h_14"])
+def _joint_products():
+    """The ViT-g/14 joint block's products (downstream/model.vit_giant_patch14_224:
+    K = 1408 at N = 4224 (a partial last 256-column tile), 1408 and 6144, and
+    K = 6144 at N = 1408) at B in (1, 15, 16) clips of 2,048 tokens."""
+    D, hidden = 1408, 6144
+    out = []
+    for B in (1, 15, 16):
+        M = B * 2048
+        out += [(M, 3 * D, D, D, 3 * D, 0, 2), (M, D, D, D, D, D, 2),
+                (M, hidden, D, D, hidden, 0, 2), (M, D, hidden, hidden, D, D, 2)]
+    return out
+
+
+@pytest.mark.parametrize("arch", ["tvtsv2_b_32", "tvtsv2_b_16", "tvtsv2_h_14", "videomaev2_g14"])
 def test_gemm_plan_accepts_every_product_the_port_issues(arch):
     from tvts_torch.models import configs
 
     BM, BN, BK = bk.GEMM_TILE
-    products = _port_products(getattr(configs, arch)())
-    assert len(products) > 50
+    if arch == "videomaev2_g14":
+        products = _joint_products()
+        assert len(products) == 12
+    else:
+        products = _port_products(getattr(configs, arch)())
+        assert len(products) > 50
     for M, N, K, lda, ldy, ldres, out_bytes in products:
         plan = bk.gemm_plan(M, N, K, lda, ldy, ldres, out_bytes,
                             {"x": 0x7F0000000000, "w": 0x7F0000100000})
-        assert plan["grid"] == (-(-N // BN), -(-M // BM))
+        tiles = -(-N // BN) * -(-M // BM)
+        assert plan["tiles"] == tiles and plan["blocks"] == min(tiles, bk.H100_SMS)
         assert plan["box_a"] == (BK, BM) and plan["box_w"] == (BK, BN)
         assert plan["k_steps"] * BK == K
-        assert plan["smem"] <= 232448  # what a Hopper block may take
+        # the ring and the epilogue buffer: what a Hopper block may take
+        assert plan["smem"] >= bk.GEMM_STAGES * (BM + BN) * BK * 2 + bk.GEMM_EPI_BYTES
+        assert plan["smem"] <= 232448
+
+
+@pytest.mark.parametrize("tiles", [1, 131, 132, 133, 265])
+def test_gemm_plan_persistent_grid(tiles):
+    """One block an SM at most: a product of fewer tiles than SMs runs one
+    tile a block; past that each of the SMs' blocks walks every 132nd tile
+    (a ragged last wave: 133 and 265 tiles leave 1 block two or three)."""
+    M = 128 * tiles  # N = 256: one column tile
+    plan = bk.gemm_plan(M - 5, 256, 768, 768, 256)
+    assert plan["tiles"] == tiles and plan["blocks"] == min(tiles, 132)
+    walks = [len(range(b, tiles, plan["blocks"])) for b in range(plan["blocks"])]
+    assert sum(walks) == tiles and max(walks) == -(-tiles // plan["blocks"])
+    assert bk.gemm_plan(M, 256, 768, 768, 256, sms=66)["blocks"] == min(tiles, 66)
 
 
 def test_gemm_plan_raises_naming_the_argument():
@@ -332,11 +366,21 @@ def test_gemm_plan_raises_naming_the_argument():
 
 
 def test_ln_gemm_wrapper_checks_the_plan_before_any_launch():
-    # no library is loaded or called: the plan refuses first
+    # no library is loaded or called: the plan refuses first, and counts nothing
+    bk.reset_launch_counts()
     x = torch.zeros(4, 96, dtype=torch.bfloat16)
     w = torch.zeros(64, 96, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="K = 96"):
         bk._ln_gemm(None, x, 4, 96, None, w, None, torch.empty(4, 64, dtype=torch.bfloat16))
+    # the residual comes in through the bf16 output's slot of the epilogue only
+    x, w = torch.zeros(4, 128, dtype=torch.bfloat16), torch.zeros(64, 128, dtype=torch.bfloat16)
+    res = torch.zeros(4, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="residual"):
+        bk._ln_gemm(None, x, 4, 128, None, w, None, torch.empty(4, 64), res=res, ldres=64)
+    with pytest.raises(ValueError, match="residual"):
+        bk._ln_gemm(None, x, 4, 128, None, w, None, torch.empty_like(res), res=res, ldres=64,
+                    pre=torch.empty_like(res))
+    assert bk.gemm_counts() == {"ln_gemm.tiles": 0, "ln_gemm.blocks": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -408,3 +452,27 @@ def test_ln_gemm_wrapper_checks_the_row_pass_before_any_launch():
         bk._ln_gemm(None, x, 4, 768, (ln_w, torch.zeros(768)), w, None,
                     torch.empty(4, 64, dtype=bf))
     assert bk.ln_rows.launches == 0
+
+
+def test_chip_smoke_gemm_fit_recovers_the_tile_model():
+    """chip_smoke's fit of ln_gemm's per-tile fixed cost and per-k-step cost
+    from proj (K = 768) and c_proj (K = 3072) at M = 150,592: 3,531 tiles,
+    27 tiles a block over 132 SMs."""
+    from chip_smoke import gemm_fit
+
+    tiles = bk.gemm_plan(150592, 768, 768, 768, 768)["tiles"]
+    assert tiles == 3531
+    fixed, step = 5.8, 0.73
+    rows = [dict(name=name, M=150592, N=768, K=K, ms=27 * (fixed + K // 64 * step) / 1000)
+            for name, K in (("extraction proj (H1, H2)", 768), ("extraction c_proj (H3)", 3072))]
+    fit = gemm_fit(rows, 132)
+    assert fit["waves"] == 27
+    assert fit["fixed_us"] == pytest.approx(fixed) and fit["step_us"] == pytest.approx(step)
+
+
+def test_chip_smoke_small_gemm_products_run_one_tile_a_block():
+    from chip_smoke import small_gemm_products
+
+    for p in small_gemm_products():
+        plan = bk.gemm_plan(p["M"], p["N"], p["K"], p["lda"], p["N"])
+        assert plan["tiles"] < bk.H100_SMS and plan["blocks"] == plan["tiles"]

@@ -591,10 +591,56 @@ def test_ln_gemm_ragged_rows_and_strided_a(cuda, M, strided):
         _gemm_check(got, _gemm_plain(o, K, "none", "plain", ln_eps)[0])
 
 
-@pytest.mark.parametrize("K", [512, 768, 1280, 3072, 5120])
+@pytest.mark.parametrize("K", [64, 128, 768])
+@pytest.mark.parametrize("tiles", [1, 131, 132, 133, 265])
+@pytest.mark.parametrize("case", GEMM_CASES, ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}")
+def test_ln_gemm_persistent_walk(cuda, tiles, case, K):
+    """Tile counts around the SM count (132 on the H100): one tile a block, a
+    block walking two or three tiles with a ragged last wave (rows ragged
+    too), at every epilogue; one k step (the next tile's loads overlap the
+    whole epilogue), fewer k steps than ring stages, and more (the ring wraps
+    inside a tile); two launches bit for bit; the tile and block counters as
+    the plan has them."""
+    epi, ln_eps, act = case
+    N = 256
+    M = 128 * tiles - 37
+    hdt = {"act_grad_bf16": torch.bfloat16, "act_grad_f32": torch.float32}.get(epi)
+    o = _gemm_operands(M, N, K, K, 47, cuda, ln_eps, hdt)
+    bk.reset_launch_counts()
+    got, second = _run_gemm(o, M, N, K, K, epi, ln_eps, act)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert bk.gemm_counts() == {"ln_gemm.tiles": tiles, "ln_gemm.blocks": min(tiles, sms)}
+    want, want2 = _gemm_plain(o, K, act, epi, ln_eps)
+    _gemm_check(got, want)
+    if want2 is not None:
+        _gemm_check(second, want2)
+    again, second_again = _run_gemm(o, M, N, K, K, epi, ln_eps, act)
+    assert torch.equal(again, got)
+    if second is not None:
+        assert torch.equal(second_again, second)
+
+
+@pytest.mark.parametrize("N", [1408, 4224])
+@pytest.mark.parametrize("M", [2047, 30717])
+def test_ln_gemm_vit_g_partial_last_tile(cuda, N, M):
+    """ViT-g/14's widths: N = 1408 and 4224 end in half a 256-column tile;
+    ragged rows; K = 1408 in 22 k steps; the joint block's epilogues."""
+    K = 1408
+    for epi, ln_eps, act in (("plain", 1e-6, "none"), ("plain", 1e-6, "gelu"),
+                             ("residual", None, "none")):
+        o = _gemm_operands(M, N, K, K, 48, cuda, ln_eps)
+        got, _ = _run_gemm(o, M, N, K, K, epi, ln_eps, act)
+        _gemm_check(got, _gemm_plain(o, K, act, epi, ln_eps)[0])
+        again, _ = _run_gemm(o, M, N, K, K, epi, ln_eps, act)
+        assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("K", [64, 512, 768, 1280, 1408, 3072, 5120, 6144])
 def test_ln_gemm_every_depth(cuda, K):
     M, N = 257, 512
     for ln_eps, epi in ((None, "residual"), (1e-5, "plain"), (None, "f32")):
+        if ln_eps and K > bk.LN_ROWS_MAX_K:  # no LayerNorm row that wide in the port
+            continue
         o = _gemm_operands(M, N, K, K, 42, cuda, ln_eps)
         got, _ = _run_gemm(o, M, N, K, K, epi, ln_eps, "none")
         _gemm_check(got, _gemm_plain(o, K, "none", epi, ln_eps)[0])

@@ -167,14 +167,16 @@ const char* tvts_error_string(int err) { return cudaGetErrorString((cudaError_t)
 // ln_w == NULL: no LayerNorm. Else the row pass first writes LN(X) to Xn
 // (bf16 scratch [M, K]) and the LayerNorm row statistics to stats (f32 [M, 2],
 // kept by the training forward), and the product reads Xn. bias/res may be
-// NULL. Yf != NULL: f32 output there instead of Y. epi (ln_gemm.cuh's
-// Epilogue): 1 also writes the pre-activation product to Y2 (bf16); 2 / 3 read
-// the hidden Hin (bf16 / f32) and write product * act'(Hin) to Y and act(Hin)
-// to Y2; Y2 and Hin are [M, N] at stride ldy.
+// NULL; res only with a bf16 Y and epi 0. Yf != NULL: f32 output there
+// instead of Y. epi (ln_gemm.cuh's Epilogue): 1 also writes the
+// pre-activation product to Y2 (bf16); 2 / 3 read the hidden Hin (bf16 / f32)
+// and write product * act'(Hin) to Y and act(Hin) to Y2; Y2 and Hin are
+// [M, N] at stride ldy. blocks: the persistent grid, 1..tiles (the caller's
+// plan: one block an SM).
 int tvts_ln_gemm(const void* X, i64 lda, const void* ln_w, const void* ln_b, float eps,
                  void* stats, void* Xn, const void* W, const void* bias, const void* res,
                  i64 ldres, void* Y, void* Yf, i64 ldy, int M, int N, int K, int act, void* Y2,
-                 const void* Hin, int epi, void* stream) {
+                 const void* Hin, int epi, int blocks, void* stream) {
   // what block_kernels.py::gemm_plan and ln_rows_plan check, again: K a
   // multiple of the k step, 16-byte aligned operands and row strides (TMA's,
   // the row pass's and the epilogue's rules)
@@ -185,6 +187,9 @@ int tvts_ln_gemm(const void* X, i64 lda, const void* ln_w, const void* ln_b, flo
       ldres % 8 != 0 || M < 1 || act < 0 || act > 2 || epi < 0 || epi > 3)
     return (int)cudaErrorInvalidValue;
   if (epi != tvts::EPI_PLAIN && (Yf || !Y || !Y2)) return (int)cudaErrorInvalidValue;
+  if (!Yf && !Y) return (int)cudaErrorInvalidValue;
+  // the residual comes in through the bf16 output's slot of the epilogue
+  if (res && (Yf || epi != tvts::EPI_PLAIN)) return (int)cudaErrorInvalidValue;
   if (epi >= tvts::EPI_ACT_GRAD_BF16 && (!Hin || bias || res || ln_w))
     return (int)cudaErrorInvalidValue;
   tvts::GemmArgs a;
@@ -205,7 +210,7 @@ int tvts_ln_gemm(const void* X, i64 lda, const void* ln_w, const void* ln_b, flo
   a.Hin = Hin;
   const tvts::LnRowsArgs ln = {(const bf16*)X, lda, M, K, (const float*)ln_w, (const float*)ln_b,
                                eps, (float2*)stats, (bf16*)Xn};
-  return (int)tvts::launch_ln_gemm(a, ln_w ? &ln : nullptr, epi, (cudaStream_t)stream);
+  return (int)tvts::launch_ln_gemm(a, ln_w ? &ln : nullptr, epi, blocks, (cudaStream_t)stream);
 }
 
 // The LayerNorm row pass alone (ln_gemm.cuh): Y [M, K] bf16 (contiguous) =

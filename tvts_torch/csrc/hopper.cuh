@@ -1,7 +1,7 @@
 // Hopper (sm_90a) primitives shared by the TMA + wgmma kernels (ln_gemm.cuh,
-// weight_grad.cuh, the H7 attention cores): mbarriers, TMA box loads and their
-// tensor maps, bulk copies, named barriers, and wgmma under the 128-byte
-// swizzle with both operands in shared memory (m64n256k16, m64n64k16),
+// weight_grad.cuh, the H7 attention cores): mbarriers, TMA box loads and
+// stores and their tensor maps, bulk copies, named barriers, and wgmma under
+// the 128-byte swizzle with both operands in shared memory (m64n256k16, m64n64k16),
 // K-major (ln_gemm's X and W) or MN-major (wgrad's token-row tiles, whose
 // contraction runs over the rows), or with A from registers (m64n64k16 and,
 // for P V at head dim 88, m64n88k16: the attention cores' fixed operand and
@@ -66,9 +66,66 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One box of shared memory to a 2-D tensor map (TMA store; the map clips what
+// lies past its last row and column), in the issuing thread's current bulk
+// group. The box's writes by other threads must be fenced
+// (fence_proxy_async) and synchronised before it is issued.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+// Closes the issuing thread's bulk group (its TMA stores so far).
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Returns once at most N of the issuing thread's bulk groups are still
+// reading shared memory (their source may then be overwritten).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Returns once every bulk group of the issuing thread has completed.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Orders this thread's generic-proxy shared-memory writes before later
+// async-proxy (TMA) accesses to them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Four 8 x 8 bf16 matrices from registers to shared memory (stmatrix x4):
+// lanes 8k .. 8k + 7 give the 16-byte rows of matrix k, and register k of
+// lane l holds elements 2 (l % 4), 2 (l % 4) + 1 of row l / 4 of matrix k (the
+// accumulator fragment's layout). ldmatrix_x4 is the load the other way.
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+               ::"r"(addr), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
 // Barrier `id` (1..15) over `count` threads: the consumers only.
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Arrives at barrier `id` over `count` threads without waiting: the
+// producer's half of a producer / consumer hand-off (the consumer waits in
+// named_sync; the arriving thread's earlier writes are ordered before it).
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -272,21 +329,33 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// A [rows, cols] matrix of `elem_bytes`-byte elements (bf16 or f32) at row
+// stride `ld` elements, read or written in boxes one 128-byte swizzle row wide
+// (64 bf16 or 32 f32 columns) by box_rows rows under the 128-byte swizzle;
+// zeros past the last row and column on a load, nothing written there by a
+// store.
+inline bool rows_map(CUtensorMap* map, const void* base, int elem_bytes, i64 rows, i64 cols,
+                     i64 ld, int box_rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (!encode || (elem_bytes != 2 && elem_bytes != 4)) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map,
+                elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                2, const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // A [rows, cols] bf16 at row stride `ld` elements, read in boxes of 64
 // columns (one 128-byte swizzle row) by box_rows rows under the 128-byte
 // swizzle; zeros past the last row and column.
 inline bool tile_map(CUtensorMap* map, const bf16* base, i64 rows, i64 cols, i64 ld,
                      int box_rows) {
-  EncodeTiledFn encode = encode_tiled();
-  if (!encode) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, (void*)base, dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return rows_map(map, base, 2, rows, cols, ld, box_rows);
 }
 
 // The packed rows of `slots` head slices of `dh` bf16 each ([rows, slots * dh],

@@ -19,11 +19,14 @@ product included.
 
 Kernel notes (replaces / bound on the card / design):
 - ln_gemm (csrc/ln_gemm.cuh) carries every product below: bound by the
-  tensor cores. A 128 x 256 tile a block, TMA loads into a 4-stage mbarrier
-  ring fed by one producer warp, two consumer warpgroups on wgmma m64n256k16
-  with both operands in shared memory, the epilogue staged through the
-  drained ring in 16-byte vectors. `gemm_plan` checks what it takes (K a
-  multiple of 64, 16-byte strides and addresses) before every launch.
+  tensor cores. Persistent: min(tiles, SMs) blocks, each walking 128 x 256
+  output tiles; TMA loads into a 3-stage mbarrier ring fed by one producer
+  warp across tile boundaries, two consumer warpgroups on wgmma m64n256k16
+  with both operands in shared memory, the epilogue written from the
+  accumulators into a buffer of its own, from which a storer warp stores it
+  by TMA (and into which it brings the residual by TMA) while the next
+  tile's mainloop runs. `gemm_plan` checks what it takes (K a multiple of
+  64, 16-byte strides and addresses) before every launch.
 - ln_rows, the LayerNorm row pass before every LayerNorm product (the TPU
   kernels' LN_3 / LN_1 / LN_2 prologues on VMEM-resident x): bound by its
   bytes (x read once, LN(x) written once in bf16). One warp a row, held in
@@ -167,7 +170,8 @@ def library() -> ctypes.CDLL:
     lib.tvts_error_string.argtypes = [i]
     lib.tvts_error_string.restype = ctypes.c_char_p
     argtypes = {
-        "tvts_ln_gemm": [p, i64, p, p, f, p, p, p, p, p, i64, p, p, i64, i, i, i, i, p, p, i, p],
+        "tvts_ln_gemm": [p, i64, p, p, f, p, p, p, p, p, i64, p, p, i64, i, i, i, i, p, p, i, i,
+                         p],
         "tvts_ln_rows": [p, i64, i, i, p, p, f, p, p, p],
         "tvts_time_core": [p, p, p, i, i, i, i, i, f, p],
         "tvts_space_core": [p, p, p, p, i, i, i, i, i, f, p],
@@ -212,17 +216,22 @@ def _stream(x: torch.Tensor) -> int:
 
 
 GEMM_TILE = (128, 256, 64)  # output rows, output columns, k step of a block (csrc/ln_gemm.cuh)
-GEMM_STAGES = 4
+GEMM_STAGES = 3
+GEMM_EPI_BYTES = 64 * 1024  # the epilogue buffer of a block (csrc/ln_gemm.cuh)
+H100_SMS = 132
 
 
 def gemm_plan(M: int, N: int, K: int, lda: int, ldy: int, ldres: int = 0,
-              out_bytes: int = 2, pointers: dict[str, int] | None = None) -> dict:
+              out_bytes: int = 2, pointers: dict[str, int] | None = None,
+              sms: int = H100_SMS) -> dict:
     """The launch of ln_gemm for Y [M, N] = A [M, K at row stride lda] @ W [N, K]^T:
-    the tile grid, the TMA boxes of A and W, the k steps and the shared memory
-    of a block. Raises ValueError, naming the argument, on what the kernel
-    does not take: K not a multiple of the k step (64), a row stride that is
-    not a multiple of 16 bytes, a base address (`pointers`: name -> address)
-    that is not 16-byte aligned, N not a multiple of 8."""
+    the output tiles, the persistent grid (`blocks` = min(tiles, sms), one
+    block an SM walking every blocks-th tile), the TMA boxes of A and W, the k
+    steps and the shared memory of a block (the ring and the epilogue
+    buffer). Raises ValueError, naming the argument, on what the kernel does
+    not take: K not a multiple of the k step (64), a row stride that is not a
+    multiple of 16 bytes, a base address (`pointers`: name -> address) that is
+    not 16-byte aligned, N not a multiple of 8."""
     BM, BN, BK = GEMM_TILE
     if M < 1 or N < 1:
         raise ValueError(f"M = {M}, N = {N}: ln_gemm takes a non-empty product")
@@ -239,8 +248,16 @@ def gemm_plan(M: int, N: int, K: int, lda: int, ldy: int, ldres: int = 0,
     for name, ptr in (pointers or {}).items():
         if ptr is not None and ptr % 16:
             raise ValueError(f"{name} at {ptr:#x} is not 16-byte aligned")
-    return dict(grid=(-(-N // BN), -(-M // BM)), box_a=(BK, BM), box_w=(BK, BN),
-                k_steps=K // BK, smem=GEMM_STAGES * (BM + BN) * BK * 2 + 1024 + 16 * GEMM_STAGES)
+    tiles = -(-N // BN) * -(-M // BM)
+    return dict(tiles=tiles, blocks=min(tiles, sms), box_a=(BK, BM), box_w=(BK, BN),
+                k_steps=K // BK,
+                smem=GEMM_STAGES * (BM + BN) * BK * 2 + GEMM_EPI_BYTES + 1024
+                + 8 * (2 * GEMM_STAGES + 2))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 LN_ROWS_MAX_K = 5120  # the widest row the LayerNorm row pass holds in registers (ln_gemm.cuh)
@@ -312,17 +329,23 @@ def _ln_gemm(lib, x, rows, lda, ln, w, b, out, act="none", res=None, ldres=0,
     The H8 epilogues (csrc/ln_gemm.cuh): with `pre` (bf16, out's shape) the
     pre-activation product goes there and `out` gets the activation of the
     rounded value; with `hidden` (bf16 or f32) and `act_out` (bf16), both of
-    out's shape, out = (x @ w.T) * act'(hidden) and act_out = act(hidden)."""
+    out's shape, out = (x @ w.T) * act'(hidden) and act_out = act(hidden).
+    `res` only with a bf16 `out` and neither. The plan's `blocks` (the card's
+    SM count read once) is the grid the kernel launches; each launch adds its
+    tiles and blocks to `_ln_gemm.tiles` / `.blocks` (`gemm_counts`)."""
     ln_w, ln_b = ln if ln else (None, None)
     f32 = out.dtype == torch.float32
     if hidden is not None:
         epi, second = (3 if hidden.dtype == torch.float32 else 2), act_out
     else:
         epi, second = (1 if pre is not None else 0), pre
+    if res is not None and (f32 or epi):
+        raise ValueError("ln_gemm adds a residual only to a bf16 product with no second output")
     K = w.shape[1]
-    gemm_plan(rows, w.shape[0], K, lda, out.shape[-1], ldres, out.element_size(),
-              {"x": _ptr(x), "w": _ptr(w), "bias": _ptr(b), "res": _ptr(res), "out": _ptr(out),
-               "second output": _ptr(second), "hidden": _ptr(hidden)})
+    plan = gemm_plan(rows, w.shape[0], K, lda, out.shape[-1], ldres, out.element_size(),
+                     {"x": _ptr(x), "w": _ptr(w), "bias": _ptr(b), "res": _ptr(res),
+                      "out": _ptr(out), "second output": _ptr(second), "hidden": _ptr(hidden)},
+                     sms=_sm_count(x.device.index) if x.is_cuda else H100_SMS)
     stats = xn = None
     if ln:
         ln_rows_plan(rows, K, lda, {"ln_w": _ptr(ln_w), "ln_b": _ptr(ln_b)})
@@ -332,7 +355,9 @@ def _ln_gemm(lib, x, rows, lda, ln, w, b, out, act="none", res=None, ldres=0,
         _ptr(x), lda, _ptr(ln_w), _ptr(ln_b), eps, _ptr(stats), _ptr(xn), _ptr(w), _ptr(b),
         _ptr(res), ldres, None if f32 else _ptr(out), _ptr(out) if f32 else None,
         out.shape[-1], rows, w.shape[0], K, ACTS[act], _ptr(second), _ptr(hidden),
-        epi, _stream(x)))
+        epi, plan["blocks"], _stream(x)))
+    _ln_gemm.tiles += plan["tiles"]
+    _ln_gemm.blocks += plan["blocks"]
     if ln:
         ln_rows.launches += 1
     return stats
@@ -698,11 +723,19 @@ KERNELS = (fused_time_block, fused_space_block, fused_mlp_block, fused_space_cls
 COUNTED = (*KERNELS, ln_rows)
 for _fn in COUNTED:
     _fn.launches = 0
+# ln_gemm's output tiles and the persistent blocks it launched: 1 - blocks /
+# tiles is the share of tiles that followed another tile in their block
+_ln_gemm.tiles = _ln_gemm.blocks = 0
 
 
 def reset_launch_counts() -> None:
     for fn in COUNTED:
         fn.launches = 0
+    _ln_gemm.tiles = _ln_gemm.blocks = 0
+
+
+def gemm_counts() -> dict[str, int]:
+    return {"ln_gemm.tiles": _ln_gemm.tiles, "ln_gemm.blocks": _ln_gemm.blocks}
 
 
 def launch_counts() -> dict[str, int]:
